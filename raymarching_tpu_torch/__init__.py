@@ -3,12 +3,15 @@
 A second package beside the JAX reference ``raymarching_tpu``.  Scene
 parsing, compilation, configuration and image IO are the reference's own
 numpy-only modules, imported here (they never load JAX); rendering runs in
-PyTorch, with the fused forward pass as a hand-written CUDA kernel for
-Hopper (``csrc/render_kernel.cu``).
+PyTorch, with the fused forward pass (``csrc/render_kernel.cu``) and the
+backward's surface evaluation (``csrc/surface_kernel.cu``) as hand-written
+CUDA kernels for Hopper.
 
     import raymarching_tpu_torch as rt
     img = rt.render(rt.load_scene("scenes/demo.txt"), rt.RenderConfig(),
                     device="cuda")
+    res = rt.fit(plan, tables, target, cfg, device="cuda",
+                 trainable=("prim_pos",))     # (plan, tables) = compile_scene
 """
 
 from raymarching_tpu.config import RenderConfig
@@ -18,6 +21,7 @@ from raymarching_tpu.scene.compile import compile_scene
 from raymarching_tpu.scene.parser import load_scene
 
 from .api import render, render_ref, render_tables
+from .optimize import fit
 
 __all__ = ["RenderConfig", "compile_scene", "load_scene", "render",
-           "render_ref", "render_tables", "to_uint8", "decode_png"]
+           "render_ref", "render_tables", "fit", "to_uint8", "decode_png"]

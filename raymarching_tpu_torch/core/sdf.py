@@ -8,9 +8,10 @@ plan.  Two folds:
     over ``ScenePlan.lists`` (the JAX oracle's ``_fold_values``), with the
     reference's first-wins colour winner (body.cpp:12-14).
   * :func:`kernel_fold` — the two-level kernel normal form the render
-    kernel walks (``pallas_march._scene_sd_tile`` and
-    ``_scene_sd_idx_tile``): per group gsign * min(scale * leaf), then a
-    strict-< root fold, so ties keep the earliest leaf.
+    and surface kernels walk (``pallas_march._scene_sd_tile``,
+    ``_scene_sd_idx_tile`` and ``_scene_sd_idx_grad_tile``): per group
+    gsign * min(scale * leaf), then a strict-< root fold, so ties keep the
+    earliest leaf; optionally the winner's gradient (:func:`prim_sd_grad`).
 
 The leaf matrix is built in blocks of at most ``_LEAF_BUDGET`` elements so
 the plain path's working set stays bounded at any ray count.
@@ -18,7 +19,8 @@ the plain path's working set stays bounded at any ray count.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -120,7 +122,36 @@ def scene_surface(plan: ScenePlan, tables: SceneTables, p: torch.Tensor):
     return sd, color
 
 
-def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx):
+def prim_sd_grad(ptype: torch.Tensor, pos: torch.Tensor, aux: torch.Tensor,
+                 p: torch.Tensor) -> torch.Tensor:
+    """d leaf sd / dp of one leaf per point (pallas_march._prim_sd_grad):
+    ``ptype`` [N] PrimType codes, ``pos``/``aux`` [N, 3] the leaf's rows,
+    p [N, 3] -> [N, 3].  Hand-derived a.e. gradients: sphere
+    (p - c) / max(|p - c|, 1e-30); box one-hot sign(p - c) on the first
+    argmax axis of |p - c| - size/2 (ties to x, then y); cross the same on
+    the median axis."""
+    d = p - pos
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    sphere = d * (1.0 / torch.clamp_min(r, 1e-30))[:, None]
+    b = d.abs() - aux * 0.5
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    max_x = bx >= torch.maximum(by, bz)
+    max_y = ~max_x & (by >= bz)
+    min_x = bx <= torch.minimum(by, bz)
+    min_y = ~min_x & (by <= bz)
+    med_x = ~(max_x | min_x)
+    med_y = ~(max_y | min_y | med_x)
+    box = torch.stack([max_x, max_y, ~(max_x | max_y)], dim=-1)
+    cross = torch.stack([med_x, med_y, ~(med_x | med_y)], dim=-1)
+    t = ptype[:, None]
+    axis = torch.where(t == int(PrimType.BOX), box, cross)
+    flat = torch.where(axis, torch.sign(d), torch.zeros((), device=p.device))
+    return torch.where(t == int(PrimType.SPHERE), sphere, flat)
+
+
+def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
+                       with_grad):
     kp: KernelPlan = plan.kernel
     leaf = leaf_sd(plan, tables, p)
     n = leaf.shape[0]
@@ -136,15 +167,42 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx):
         v = rsign * (float(g.gsign) * gmin)
         better = v < running
         running = torch.where(better, v, running)
-        if with_idx:
+        if with_idx or with_grad:
             ridx = torch.where(better, (k + g.start).to(torch.int32), ridx)
-    return rsign * running, ridx
+    if not with_grad:
+        return rsign * running, ridx
+    # Only the winner's gradient survives the fold's selects, and sign
+    # flips are exact: the winning leaf's gradient times its path sign
+    # gsign * scale (the root's rsign cancels) is the fold's, bitwise.
+    sign_eff = torch.as_tensor(leaf_signs(plan), device=p.device)
+    ptype = torch.zeros(sign_eff.shape, dtype=torch.int64, device=p.device)
+    ptype[:plan.num_primitives] = torch.as_tensor(plan.prim_type)
+    w = ridx.clamp_min(0).long()
+    g = sign_eff[w][:, None] * prim_sd_grad(ptype[w], tables.prim_pos[w],
+                                            tables.prim_aux[w], p)
+    g = torch.where((ridx >= 0)[:, None], g, torch.zeros((), device=p.device))
+    return rsign * running, ridx, g
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_signs(plan: ScenePlan) -> np.ndarray:
+    """[P] float32 path sign gsign * scale of every leaf of a two-level
+    plan: min/max folds select but never scale, so for the winning leaf
+    scene = sign * leaf sd (the root's rsign cancels in the chain rule).
+    A leafless plan gets one zero row, as its tables have one pad row."""
+    sign = np.zeros(max(plan.num_primitives, 1), np.float32)
+    for g in plan.kernel.groups:
+        for (_, start, count, scale) in g.runs:
+            sign[start:start + count] = float(g.gsign * scale)
+    return sign
 
 
 def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
-                with_idx: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                with_idx: bool = False, *, with_grad: bool = False) -> tuple:
     """The two-level kernel-form fold at p [..., 3] -> (sd [...], winner
-    leaf id [...] int32, -1 where nothing won; None unless ``with_idx``).
+    leaf id [...] int32, -1 where nothing won; None unless ``with_idx``),
+    or with ``with_grad`` (sd, winner, d scene / dp [..., 3], zero where
+    nothing won): the combined mode of the JAX surface kernel.
 
     The DIFFERENCE base-bound cull and the JAX kernel's lattice and chunk
     collapses leave every value and winner unchanged, so the plain fold
@@ -152,6 +210,10 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     if plan.kernel is None:
         raise NotImplementedError(
             "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
-    sd, idx = _blocked(lambda q: _kernel_fold_block(plan, tables, q, with_idx),
-                       plan.num_primitives, p)
+    out = _blocked(lambda q: _kernel_fold_block(plan, tables, q, with_idx,
+                                                with_grad),
+                   plan.num_primitives, p)
+    if with_grad:
+        return out
+    sd, idx = out
     return sd, (idx if with_idx else None)

@@ -69,3 +69,23 @@ def lighting(scene_sd: Callable, light_positions: torch.Tensor,
             lambert = torch.where(mask, 0.0, lambert)
         total = total + lambert
     return torch.clamp(total, saturation, 1.0)
+
+
+def lambert_replay(light_pos: torch.Tensor, p: torch.Tensor, n: torch.Tensor,
+                   smask: torch.Tensor, saturation: float) -> torch.Tensor:
+    """Differentiable Lambert term [R] of white lights ``light_pos`` [L, 3]
+    at hit points p [R, 3] with normals n [R, 3], the hard-shadow booleans
+    replayed from the forward's saved ``smask`` bits (pallas_render
+    ._lambert_replay).
+
+    The clamp is max then min against tensors, as jnp.clip is built: at a
+    bound both PyTorch and JAX give half the gradient to each side of the
+    tie, where ``torch.clamp`` would pass all of it."""
+    total = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
+    for li in range(light_pos.shape[0]):
+        lambert = dot3(n, normalize(light_pos[li] - p))
+        shadowed = ((smask >> li) & 1) == 1
+        total = total + torch.where(shadowed, 0.0, lambert)
+    lo = torch.tensor(saturation, dtype=p.dtype, device=p.device)
+    hi = torch.tensor(1.0, dtype=p.dtype, device=p.device)
+    return torch.minimum(torch.maximum(total, lo), hi)

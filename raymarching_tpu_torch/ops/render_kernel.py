@@ -39,7 +39,7 @@ class RayOutputs(NamedTuple):
     smask: torch.Tensor  # [R] int32, bit l set = light l shadowed
 
 
-def check_supported(plan: ScenePlan, cfg: RenderConfig, tables=None) -> None:
+def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for anything outside the ported slice."""
     todo = None
     if plan.kernel is None:
@@ -64,9 +64,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig, tables=None) -> None:
         todo = "in-kernel serve raygen (ROADMAP Queue 1 item 9)"
     elif plan.num_lights > MAX_LIGHTS:
         todo = f"more than {MAX_LIGHTS} lights"
-    elif tables is not None and any(torch.is_tensor(v) and v.requires_grad
-                                    for v in tables):
-        todo = "gradients (ROADMAP Queue 1 item 5)"
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
 
@@ -90,7 +87,7 @@ def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     kernel-form fold, the shadow march measured by projection and stopped
     at the light, both shadow skips, the unscaled FD stencil normalised
     with a tiny floor.  origin [3] or [R, 3], dirs [R, 3]."""
-    check_supported(plan, cfg, tables)
+    check_supported(plan, cfg)
     eps = cfg.surface_precision
     sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
 
@@ -155,17 +152,20 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@torch.no_grad()
 def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                 origin: torch.Tensor, dirs: torch.Tensor) -> RayOutputs:
     """Fused forward for rays ``dirs`` [R, 3] from ``origin`` [3] or
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
-    CPU tensors take the plain twin; CUDA tensors launch K1."""
+    CPU tensors take the plain twin; CUDA tensors launch K1.  Forward
+    only: it records no autograd graph (``ops.render_op.FusedRender``
+    differentiates it)."""
     dev = dirs.device
     if dev.type == "cpu":
         return render_rays_plain(plan, cfg, tables, origin, dirs)
     if dev.type != "cuda":
         raise ValueError(f"render_rays: unsupported device {dev}")
-    check_supported(plan, cfg, tables)
+    check_supported(plan, cfg)
     tensors = [origin, dirs, *tables]
     if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
         raise ValueError("render_rays: every tensor must be float32 on "
@@ -215,11 +215,17 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
 render_rays.launches = 0
 
 
-def blend(cidx: torch.Tensor, light: torch.Tensor,
-          prim_color: torch.Tensor) -> torch.Tensor:
-    """Ray colours [R, 3] = light * winner colour, misses black: a row
-    gather from the colour table with one zero row appended."""
+def winner_colors(cidx: torch.Tensor, prim_color: torch.Tensor
+                  ) -> torch.Tensor:
+    """Colours [R, 3] of the winner leaves, misses black: a row gather
+    from the colour table with one zero row appended."""
     P = prim_color.shape[0]
     table = torch.cat([prim_color, prim_color.new_zeros(1, 3)])
     idx = torch.where(cidx < 0, P, cidx).long()
-    return light[:, None] * table.index_select(0, idx)
+    return table.index_select(0, idx)
+
+
+def blend(cidx: torch.Tensor, light: torch.Tensor,
+          prim_color: torch.Tensor) -> torch.Tensor:
+    """Ray colours [R, 3] = light * winner colour, misses black."""
+    return light[:, None] * winner_colors(cidx, prim_color)

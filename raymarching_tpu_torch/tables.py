@@ -17,7 +17,7 @@ leaf runs (bitwise equal by construction) and does not build them.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -41,13 +41,31 @@ class PackedPlan(NamedTuple):
     runs: torch.Tensor
 
 
-def tables_to_torch(tables: SceneTables, device) -> SceneTables:
+def tables_to_torch(tables: SceneTables, device,
+                    requires_grad: Sequence[str] = ()) -> SceneTables:
     """The same ``SceneTables`` with every field a float32 tensor on
     ``device`` (numpy arrays or tensors in, no copy where they already
-    match)."""
-    return SceneTables(*(torch.as_tensor(v, dtype=torch.float32,
-                                         device=torch.device(device))
-                         for v in tables))
+    match).  The fields named in ``requires_grad`` become fresh leaf
+    tensors that require grad: copies, so an optimizer's in-place update
+    never writes into the caller's arrays."""
+    unknown = set(requires_grad) - set(SceneTables._fields)
+    if unknown:
+        raise ValueError(f"unknown SceneTables fields {sorted(unknown)}")
+    out = []
+    device = torch.device(device)
+    for name, v in zip(SceneTables._fields, tables):
+        t = torch.as_tensor(v, dtype=torch.float32, device=device)
+        if name in requires_grad:
+            t = t.detach().clone().requires_grad_()
+        out.append(t)
+    return SceneTables(*out)
+
+
+def tables_to_numpy(tables: SceneTables) -> SceneTables:
+    """The JAX package's numpy ``SceneTables`` (float32 host arrays) of
+    the port's tables, so either package can render or resume a fit."""
+    return SceneTables(*(np.asarray(torch.as_tensor(v).detach().cpu(),
+                                    np.float32) for v in tables))
 
 
 def build_table(tables: SceneTables) -> torch.Tensor:
