@@ -4,10 +4,17 @@
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
-  2. build       — nvcc builds both kernels from csrc/, in parallel;
-  3. compare     — K1 (ops.render_kernel.render_rays) against its plain
-                   PyTorch twin on demo, config1-4 and menger4, and the
-                   demo image against the port's ref oracle;
+  2. build       — nvcc builds the four kernels from csrc/, in parallel;
+                   each one's ptxas registers and spills;
+  3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
+                   .render_rays) against its plain PyTorch twin; K3
+                   (ops.march_kernel.march_rays) against its twin on the
+                   primary rays, with the step counter, and on shadow rays
+                   with tmax from K1's hit points; K4 (ops.shade_kernel
+                   .shade_rays) against its twin on K1's hit points; K2's
+                   sd, winner and FD-gradient modes against their twins:
+                   all bitwise.  Then the demo image against the port's
+                   ref oracle;
   4. compare-bwd — K2 (ops.surface_kernel.surface_eval) against its plain
                    twin on the 7-point stencils of K1's hits on the same
                    scenes, bitwise; the card's gradients of a 32x24 demo
@@ -16,8 +23,9 @@ Phases, one line each, every failure an uncaught exception:
                    512x512 SSAA 2 and at the reference's 1024x768 SSAA 3,
                    1000 iterations (median of three warm frames), counting
                    kernel launches; then K1 (median of five launches)
-                   against its plain twin at those shapes, timed with CUDA
-                   events;
+                   against its plain twin at 512x512 SSAA 2, timed with
+                   CUDA events, and K1 at 1024x768 SSAA 3 against its
+                   plain twin on every eighth ray, bitwise;
   6. train       — ``raymarching_tpu_torch.fit`` of the perturbed demo at
                    512x512 SSAA 2, 1000 iterations, 5 Adam steps, counting
                    launches (one K1 and one K2 a step); then one step split
@@ -25,14 +33,37 @@ Phases, one line each, every failure an uncaught exception:
                    optimizer, the parameter scatter alone, and K2 (median
                    of five launches) against its plain twin on that
                    step's 7,340,032 stencil points;
-  7. serve       — the port's HTTP server answers /healthz and three
+  7. multi       — the demo at 512x512 SSAA 2 through
+                   ``backend="multi"`` (K3 for primary and shadow rays, K2
+                   for colours and normals): image against the fused
+                   backend's, frame time, launches a frame, K3's primary
+                   and shadow launches alone against their twins, and
+                   K2's winner, FD-gradient and combined modes against
+                   theirs at the shapes the multi frame and step give
+                   them (the hit points and their six-point stencils);
+  8. two-phase   — the same frame with ``two_phase_k1=48`` (K3, K3, K4):
+                   image equal to the one-kernel frame, the unconverged
+                   share after phase 1, both frame times; ``two_phase_k1=1``
+                   on a small frame, which overflows the second phase's
+                   capacity and marches again in full; K4 alone against
+                   its twin;
+  9. train-multi — three ``fit`` steps through ``backend="multi"``; its
+                   gradients against the fused backend's on the same rays;
+ 10. profile     — ``utils.timing.profile_march``: K3's step counts;
+ 11. serve       — the port's HTTP server answers /healthz and three
                    /render requests with PNGs equal to direct renders.
-Then the kernel table as JSON and, last, the device line.
+Then each kernel's launches in one call of each path, and the kernel table
+as JSON (each kernel's largest difference from its plain twin over every
+output of every comparison above, its time beside its plain twin's and its
+bound: the larger of its bytes over 3.35 TB/s and its operations,
+12 for each leaf evaluation the fold's cull keeps on this run's data, over
+67 TFLOP/s, the H100's published float32 rate) and, last, the device line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,7 +86,22 @@ AGREE, P_ATOL, IMG_ATOL = 0.999, 1e-4, 5e-4
 # atomics reorder the float64 parameter sums, and its elementwise maths
 # rounds a few values apart from the CPU's)
 GRAD_RTOL, GRAD_ATOL_SCALE = 0.02, 0.005
-KERNELS = ("render_kernel", "surface_kernel")
+# multi-kernel against fused image: tests/test_mega.py:38 holds the JAX
+# backends to 1e-6 on a small frame; at a million rays an ulp in a normal
+# may flip a shadow bit, so the card's frame is held to that tolerance on
+# a share AGREE of its pixels and in the mean
+MULTI_ATOL = 1e-6
+KERNELS = ("render_kernel", "surface_kernel", "march_kernel", "shade_kernel")
+# the largest |kernel - plain twin| over every output of every comparison
+# of this run, per kernel (``compare`` and ``same`` fill it)
+ERRS = dict.fromkeys(KERNELS, 0.0)
+# the H100's published peaks (SXM data sheet): device memory bytes/s and
+# float32 operations/s outside the tensor cores; a leaf evaluation of the
+# fold is at least 12 of those (the sphere: 3 sub, 3 mul, 2 add, sqrt, sub,
+# scale, min)
+HBM_BYTES_S, FP32_OPS_S, OPS_PER_LEAF = 3.35e12, 67e12, 12
+# the 1024x768 SSAA 3 frame's plain twin runs on one ray in BIG_STRIDE
+BIG_STRIDE = 8
 TRAINABLE = ("prim_pos", "prim_aux", "prim_color", "light_pos")
 # Adam rates: colours enter the image linearly; the geometry and light
 # gradients leave out coverage (the implicit-function route moves hit
@@ -91,6 +137,20 @@ def timed(fn, runs: int = 1):
     return out, sorted(times)[len(times) // 2]
 
 
+def max_err(got, want) -> float:
+    """The largest absolute difference, element by element, between two
+    tuples of tensors (None entries skipped; booleans as 0 and 1; equal
+    elements, infinities included, as 0; a NaN on one side as inf)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is None or b is None or a.shape != b.shape or not a.numel():
+            continue
+        a, b = a.double(), b.double()
+        d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+        worst = max(worst, torch.nan_to_num(d, nan=float("inf")).max().item())
+    return worst
+
+
 def compare(plan, cfg, tables, origin, dirs):
     """Launch K1 (five times) and its plain twin (once) on the same rays;
     check and return the worst differences and both times."""
@@ -116,7 +176,129 @@ def compare(plan, cfg, tables, origin, dirs):
         H, W, S, 3).mean(dim=2)
     worst["image"] = (img(k) - img(p)).abs().max().item()
     check(worst["image"] <= IMG_ATOL, f"images differ by {worst['image']}")
+    # every ray output (p, sd, done, cidx, light, smask), all rays
+    worst["outputs"] = max_err(k, p)
+    ERRS["render_kernel"] = max(ERRS["render_kernel"], worst["image"],
+                                worst["outputs"])
     return worst, ms, plain_ms
+
+
+def ptxas_summary(log: str) -> str:
+    """The -Xptxas -v report of one library in a line: the most registers
+    of its entry kernels, and the largest stack frame and spill traffic
+    of any of its functions (the non-inlined fold functions included)."""
+    def most(pattern):
+        return max((int(v) for v in re.findall(pattern, log)), default=0)
+    return (f"{most(r'Used (\d+) registers')} registers, "
+            f"{most(r'(\d+) bytes stack frame')} B stack frame, "
+            f"{most(r'(\d+) bytes spill stores')} B spill stores, "
+            f"{most(r'(\d+) bytes spill loads')} B spill loads "
+            f"(ptxas, largest of {len(re.findall('Function properties', log))}"
+            " functions)")
+
+
+def same(what: str, got, want, kernel: str | None = None) -> None:
+    """Bitwise equality of two tuples of tensors (None entries skipped).
+    With ``kernel``, ``want`` is that kernel's plain twin and the largest
+    difference found goes into the kernel's row of the table."""
+    if kernel is not None:
+        ERRS[kernel] = max(ERRS[kernel], max_err(got, want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None and b is None:
+            continue
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b),
+              f"{what}: output {i} differs from its twin on "
+              f"{int((a != b).sum()) if a.shape == b.shape else 'shape'}")
+
+
+def shadow_rays(tables, cfg, p, n, li):
+    """The shadow rays of light ``li`` from hit points p with unit normals
+    n, as core.shading.shadowed builds them: (start, direction, tmax)."""
+    from raymarching_tpu_torch.core.march import dot3
+    from raymarching_tpu_torch.core.shading import normalize
+    lp = tables.light_pos[li]
+    start = p + n * (cfg.surface_precision + cfg.offset_precision)
+    r = lp - start
+    return start, normalize(lp - p), torch.sqrt(dot3(r, r))
+
+
+def compare_new(plan, cfg, tables, origin, dirs):
+    """K3, K4 and K2's sd, winner and FD-gradient modes against their plain
+    twins, all bitwise (every kernel is built with -fmad=false), and K3 and
+    K4 against K1's own outputs.  Returns the number of comparisons."""
+    from raymarching_tpu_torch.core.shading import normalize
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    k1 = render_rays(plan, cfg, tables, origin, dirs)
+    res, steps = mk.march_rays(plan, cfg, tables, origin, dirs,
+                               with_steps=True)
+    res_p, steps_p = mk.march_rays_plain(plan, cfg, tables, origin, dirs,
+                                         with_steps=True)
+    same("K3 primary", (*res, steps), (*res_p, steps_p), "march_kernel")
+    same("K3 against K1's march", res, (k1.p, k1.sd, k1.done))
+    n_cmp = 2
+    _, _, g = sk.surface_eval(plan, tables, k1.p, mode=sk.FD_GRAD,
+                              fd_h=cfg.fd_h)
+    for li in range(plan.num_lights):
+        s, d, tmax = shadow_rays(tables, cfg, k1.p, normalize(g), li)
+        same(f"K3 shadow rays of light {li}",
+             mk.march_rays(plan, cfg, tables, s, d, tmax=tmax),
+             mk.march_rays_plain(plan, cfg, tables, s, d, tmax=tmax),
+             "march_kernel")
+        n_cmp += 1
+    k4 = shk.shade_rays(plan, cfg, tables, k1.p, k1.sd, dirs)
+    same("K4", k4, shk.shade_rays_plain(plan, cfg, tables, k1.p, k1.sd,
+                                        dirs), "shade_kernel")
+    same("K4 against K1's shading", k4, (k1.cidx, k1.light, k1.smask))
+    n_cmp += 2
+    for mode in (sk.SD, sk.WINNER, sk.FD_GRAD):
+        same(f"K2 mode {mode}",
+             sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h),
+             sk.surface_eval_plain(plan, tables, k1.p, mode=mode,
+                                   fd_h=cfg.fd_h), "surface_kernel")
+        n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def bound_ms(plain_fn, n_bytes: int):
+    """The least time the card could take for the work of one kernel
+    launch: (ms, "bytes" or "operations", leaf evaluations, the
+    operations' ms, the bytes' ms).  The
+    operations are counted on this run's data by running the kernel's
+    plain twin under core.sdf.LeafCount, which applies the fold's cull
+    rule per point."""
+    from raymarching_tpu_torch.core.sdf import LeafCount
+    with LeafCount() as count:
+        plain_fn()
+    t_ops = count.leaves * OPS_PER_LEAF / FP32_OPS_S
+    t_bytes = n_bytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", count.leaves,
+            t_ops * 1e3, t_bytes * 1e3)
+
+
+def launch_counts():
+    from raymarching_tpu_torch.ops.march_kernel import march_rays
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.shade_kernel import shade_rays
+    from raymarching_tpu_torch.ops.surface_kernel import surface_eval
+    return {"render_kernel": render_rays.launches,
+            "surface_kernel": surface_eval.launches,
+            "march_kernel": march_rays.launches,
+            "shade_kernel": shade_rays.launches}
+
+
+def zero_counts():
+    from raymarching_tpu_torch.ops.march_kernel import march_rays
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.shade_kernel import shade_rays
+    from raymarching_tpu_torch.ops.surface_kernel import surface_eval
+    for fn in (render_rays, surface_eval, march_rays, shade_rays):
+        fn.launches = 0
 
 
 def compare_bwd(plan, cfg, tables, origin, dirs):
@@ -132,6 +314,8 @@ def compare_bwd(plan, cfg, tables, origin, dirs):
     plain = surface_eval_plain(plan, tables, q.reshape(-1, 3))
     for name, a, b in zip(("sd", "widx", "g"), k, plain):
         b = b.reshape(a.shape)
+        ERRS["surface_kernel"] = max(ERRS["surface_kernel"],
+                                     max_err((a,), (b,)))
         check(a.dtype == b.dtype and torch.equal(a, b),
               f"K2 {name} differs from its twin on "
               f"{int((a != b).reshape(7 * p.shape[0], -1).any(1).sum())} "
@@ -140,9 +324,9 @@ def compare_bwd(plan, cfg, tables, origin, dirs):
 
 
 def grads_of(plan, tables, cfg, device, origin, dirs):
-    """Gradients of the MSE against grey of the differentiable render of
-    rays (origin, dirs) made once on the CPU, for every SceneTables field
-    and the rays, and the (K1, K2) launches it took."""
+    """Gradients of the MSE against grey of the fused differentiable
+    render of rays (origin, dirs) made once on the CPU, for every
+    SceneTables field and the rays, and the (K1, K2) launches it took."""
     from raymarching_tpu_torch.ops.render_kernel import render_rays
     from raymarching_tpu_torch.ops.render_op import FusedRender
     from raymarching_tpu_torch.ops.surface_kernel import surface_eval
@@ -156,6 +340,21 @@ def grads_of(plan, tables, cfg, device, origin, dirs):
                             allow_unused=True, materialize_grads=True)
     return ([v.cpu() for v in g],
             (render_rays.launches - k1, surface_eval.launches - k2))
+
+
+def grad_check(fields, got, want, what: str):
+    """Hold gradients ``got`` to ``want`` field by field at tests/test_mega
+    .py:62's tolerance; returns (worst |diff| / field scale, its field)."""
+    worst = (0.0, "")
+    for field, a, b in zip(fields, got, want):
+        check(bool(torch.isfinite(a).all()), f"{field} gradient not finite")
+        scale = max(b.abs().max().item(), 1e-8)
+        excess = ((a - b).abs() - GRAD_RTOL * b.abs()
+                  - GRAD_ATOL_SCALE * scale).max().item()
+        check(excess <= 0, f"{field} gradient: {what} over tolerance by "
+              f"{excess}")
+        worst = max(worst, ((a - b).abs().max().item() / scale, field))
+    return worst
 
 
 def perturbed_demo(tables):
@@ -199,12 +398,19 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.api import render_tables
+    from raymarching_tpu_torch.core.shading import normalize
     from raymarching_tpu_torch.ops import build, scene_vjp
-    from raymarching_tpu_torch.ops.render_kernel import render_rays
-    from raymarching_tpu_torch.ops.surface_kernel import (surface_eval,
-                                                          surface_eval_plain)
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (phase2_capacity,
+                                                         render_rays,
+                                                         render_rays_plain,
+                                                         two_phase_march)
     from raymarching_tpu_torch.serve import make_server
     from raymarching_tpu_torch.tables import tables_to_torch
+    from raymarching_tpu_torch.utils.timing import profile_march
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -222,25 +428,30 @@ def main() -> int:
         libs = list(pool.map(build.build, KERNELS))
     for kname, lib_path in zip(KERNELS, libs):
         build.load_library(kname)
-        regs = [ln.strip() for ln in lib_path.with_suffix(".log").read_text()
-                .splitlines() if "registers" in ln]
-        print(f"[build] {lib_path.name}; {'; '.join(regs)}")
-    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+        print(f"[build] {lib_path.name}; "
+              + ptxas_summary(lib_path.with_suffix(".log").read_text()))
+    print(f"[build] {len(KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel vs plain twin at small sizes, and the ref oracle
+    # 3. kernels vs plain twins at small sizes, and the ref oracle
     small = rt.RenderConfig(width=64, height=48, ssaa=2, iterations=1000)
     cases = [(s, small) for s in ("demo", "config1", "config2", "config3",
                                   "config4")]
     cases.append(("menger4", small.replace(width=32, height=24, ssaa=1)))
-    image_errs = []
     for scene, cfg in cases:
         plan, tables = rt.compile_scene(
             rt.load_scene(str(ROOT / "scenes" / f"{scene}.txt")))
         tt = tables_to_torch(tables, dev)
-        worst, _, _ = compare(plan, cfg, tt, *rays_for(plan, tt, cfg))
-        image_errs.append(worst["image"])
+        rays = rays_for(plan, tt, cfg)
+        worst, _, _ = compare(plan, cfg, tt, *rays)
         print(f"[compare] {scene} {cfg.width}x{cfg.height} ssaa{cfg.ssaa}: "
               + ", ".join(f"{k} {v:.6g}" for k, v in worst.items()))
+        n_cmp = compare_new(plan, cfg, tt, *rays)
+        print(f"[compare] {scene}: K3 (primary rays with steps, shadow "
+              f"rays with tmax of {plan.num_lights} lights), K4, and K2's "
+              f"sd, winner and FD-gradient modes = plain twins bitwise, and "
+              f"K3, K4 = K1's march and shading bitwise ({n_cmp} "
+              "comparisons)")
     demo = rt.load_scene(str(DEMO))
     ref = rt.render_ref(demo, small, device=dev)
     fused = rt.render(demo, small, device=dev)
@@ -266,17 +477,8 @@ def main() -> int:
     g_card, launched = grads_of(plan, tables, gcfg, dev, *rays)
     check(launched == (1, 1), f"a differentiable render launched {launched}")
     g_cpu, _ = grads_of(plan, tables, gcfg, torch.device("cpu"), *rays)
-    worst_grad = (0.0, "")
-    for field, a, b in zip(tables._fields + ("origin", "dirs"), g_card,
-                           g_cpu):
-        check(bool(torch.isfinite(a).all()), f"{field} gradient not finite")
-        scale = max(b.abs().max().item(), 1e-8)
-        excess = ((a - b).abs() - GRAD_RTOL * b.abs()
-                  - GRAD_ATOL_SCALE * scale).max().item()
-        check(excess <= 0, f"{field} gradient: card vs CPU over tolerance "
-              f"by {excess}")
-        worst_grad = max(worst_grad,
-                         ((a - b).abs().max().item() / scale, field))
+    worst_grad = grad_check(tables._fields + ("origin", "dirs"), g_card,
+                            g_cpu, "card vs CPU")
     print(f"[compare-bwd] demo 32x24 gradients, card vs CPU on the same "
           f"rays, every table field and the rays: max |diff| / field scale "
           f"{worst_grad[0]:.3g} ({worst_grad[1]}; tolerance rtol "
@@ -285,17 +487,28 @@ def main() -> int:
     # 5. the main path: render() at the bench footprint and the reference's
     main_cfgs = [rt.RenderConfig(width=512, height=512, ssaa=2,
                                  iterations=1000), rt.RenderConfig()]
-    render_rays.launches = surface_eval.launches = 0
+    # per path: (calls of its entry point between zero_counts() and the
+    # reading, each kernel's launches in them)
+    paths = {}
+
+    def add_counts(path: str, calls: int):
+        counts = launch_counts()
+        paths[path] = (calls, counts)
+        return counts
+
+    zero_counts()
     images, secs = [], []
     for cfg in main_cfgs:
         rt.render(demo, cfg, device=dev)             # warm-up at this shape
         img, ms = timed(lambda: rt.render(demo, cfg, device=dev), runs=3)
         images.append(img)
         secs.append(ms / 1e3)
-    launches = render_rays.launches
+    counts = add_counts("main", 4 * len(main_cfgs))
     # one launch per render(): a warm-up and three timed frames per shape
-    check(launches == 4 * len(main_cfgs), f"K1 launched {launches} times")
-    check(surface_eval.launches == 0, "a forward render launched K2")
+    check(counts == {"render_kernel": 4 * len(main_cfgs),
+                     "surface_kernel": 0, "march_kernel": 0,
+                     "shade_kernel": 0},
+          f"forward renders launched {counts}")
     for cfg, img, s in zip(main_cfgs, images, secs):
         check(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
         check(bool(torch.isfinite(img).all()), "image not finite")
@@ -304,19 +517,36 @@ def main() -> int:
         print(f"[main] demo {cfg.width}x{cfg.height} ssaa{cfg.ssaa} "
               f"{cfg.iterations} it: {s:.4f} s, "
               f"{cfg.rays_per_image / s / 1e6:.3f} Mrays/s; {card}")
+    fused_img, fused_s = images[0], secs[0]
+    tcfg = main_cfgs[0]
+    R = tcfg.rays_per_image
     tt = tables_to_torch(tables, dev)
-    rows = []
-    for cfg in main_cfgs:
-        worst, ms, plain_ms = compare(plan, cfg, tt, *rays_for(plan, tt, cfg))
-        image_errs.append(worst["image"])
-        rows.append((ms, plain_ms))
-        print(f"[kernel] render_kernel demo {cfg.width}x{cfg.height} "
-              f"ssaa{cfg.ssaa}: K1 {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-              + ", ".join(f"{k} {v:.6g}" for k, v in worst.items())
-              + f"; {card}")
+    origin, dirs = rays_for(plan, tt, tcfg)
+    worst, k1_ms, k1_plain_ms = compare(plan, tcfg, tt, origin, dirs)
+    print(f"[kernel] render_kernel demo {tcfg.width}x{tcfg.height} "
+          f"ssaa{tcfg.ssaa}: K1 {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms; "
+          + ", ".join(f"{k} {v:.6g}" for k, v in worst.items()) + f"; {card}")
+    big = main_cfgs[1]
+    big_org, big_dirs = rays_for(plan, tt, big)
+    k1_big, k1_big_ms = timed(lambda: render_rays(plan, big, tt, big_org,
+                                                  big_dirs), runs=5)
+    # rays are independent: the plain twin on every BIG_STRIDE-th ray must
+    # give those rays' outputs of the full launch, bitwise
+    sub_org = big_org if big_org.dim() == 1 else big_org[::BIG_STRIDE]
+    k1_big_p = render_rays_plain(plan, big, tt, sub_org,
+                                 big_dirs[::BIG_STRIDE])
+    same(f"K1 at {big.width}x{big.height} ssaa{big.ssaa}",
+         tuple(v[::BIG_STRIDE] for v in k1_big), k1_big_p, "render_kernel")
+    print(f"[kernel] render_kernel demo {big.width}x{big.height} "
+          f"ssaa{big.ssaa}: K1 {k1_big_ms:.3f} ms; every output of every "
+          f"{BIG_STRIDE}th ray ({k1_big_p.p.shape[0]} of "
+          f"{big_dirs.shape[0]}) bitwise equal to the plain twin's; {card}")
+    del k1_big, k1_big_p, big_dirs
+    # K1 reads a direction and writes 5 floats and 2 ints a ray
+    k1_bound = bound_ms(lambda: render_rays_plain(plan, tcfg, tt, origin,
+                                                  dirs), R * (12 + 32))
 
     # 6. training: fit the perturbed demo back to the true one
-    tcfg = main_cfgs[0]
     rays = tcfg.rays_per_image
     target = rt.render_tables(plan, tables, tcfg, device=dev)
     start, red, green = perturbed_demo(tables)
@@ -329,19 +559,24 @@ def main() -> int:
         step_grads.append({f: getattr(tt_, f).grad.clone()
                            for f in TRAINABLE})
 
-    render_rays.launches = surface_eval.launches = 0
+    def check_step_grads():
+        for grads in step_grads:
+            for f, g in grads.items():
+                check(bool(torch.isfinite(g).all()),
+                      f"{f} gradient not finite")
+                rows_ = perturbed[f]
+                check(bool((g[rows_].abs().sum(dim=-1) > 0).all()),
+                      f"{f} gradient is zero on perturbed rows {rows_}")
+
+    zero_counts()
     t0 = time.perf_counter()
     res = rt.fit(plan, start, target, tcfg, device=dev, steps=5,
                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
-    train_launches = (render_rays.launches, surface_eval.launches)
-    check(train_launches == (5, 5),
-          f"5 fit steps launched (K1, K2) = {train_launches}")
-    for grads in step_grads:
-        for f, g in grads.items():
-            check(bool(torch.isfinite(g).all()), f"{f} gradient not finite")
-            rows_ = perturbed[f]
-            check(bool((g[rows_].abs().sum(dim=-1) > 0).all()),
-                  f"{f} gradient is zero on perturbed rows {rows_}")
+    counts = add_counts("train", 5)
+    check(counts == {"render_kernel": 5, "surface_kernel": 5,
+                     "march_kernel": 0, "shade_kernel": 0},
+          f"5 fit steps launched {counts}")
+    check_step_grads()
     check(res.losses[-1] < res.losses[0], f"loss did not fall: {res.losses}")
     step_s = sorted(np.diff([t0] + stamps))
     med = statistics.median(step_s)
@@ -349,10 +584,11 @@ def main() -> int:
           f"{tcfg.iterations} it, Adam (colour lr {COLOR_LR}, geometry "
           f"and light lr {GEOMETRY_LR}) on {', '.join(TRAINABLE)}: "
           f"loss {' '.join(f'{v:.6g}' for v in res.losses)}; launches "
-          f"K1 {train_launches[0]}, K2 {train_launches[1]}")
+          f"K1 {counts['render_kernel']}, K2 {counts['surface_kernel']}")
     print(f"[train] step median {med * 1e3:.1f} ms (min "
           f"{step_s[0] * 1e3:.1f}, max {step_s[-1] * 1e3:.1f}), fwd+bwd "
           f"{rays / med / 1e6:.3f} Mrays/s; {card}")
+    fused_step_s = med
 
     # one more step, split with CUDA events (median of three)
     tt = tables_to_torch(res.tables, dev, requires_grad=TRAINABLE)
@@ -375,19 +611,21 @@ def main() -> int:
     fwd_ms, bwd_ms, opt_ms = (statistics.median(c) for c in zip(*splits))
 
     # K2 against its twin on this step's stencil, and the scatter alone
+    tt = tables_to_torch(res.tables, dev)
     p = render_rays(plan, tcfg.replace(shade_skip_black=False), tt,
                     *rays_for(plan, tt, tcfg)).p
     q = scene_vjp.stencil_points(p, tcfg.fd_h, center=True).reshape(-1, 3)
-    render_rays.launches = surface_eval.launches = 0
     (sd7, widx7, g7), k2_ms = timed(
         lambda: scene_vjp.stencil_eval(plan, tcfg, tt, p, center=True),
         runs=5)
-    k2_plain, k2_plain_ms = timed(lambda: surface_eval_plain(plan, tt, q))
-    k2_err = 0.0
-    for kn, a, b in zip(("sd", "widx", "g"), (sd7, widx7, g7), k2_plain):
-        b = b.reshape(a.shape)
-        check(torch.equal(a, b), f"K2 {kn} differs from its twin at 512^2")
-        k2_err = max(k2_err, (a - b).abs().max().item())
+    k2_plain, k2_plain_ms = timed(lambda: sk.surface_eval_plain(plan, tt, q))
+    same("K2 combined on the 7-point stencils at 512^2", (sd7, widx7, g7),
+         tuple(b.reshape(a.shape) for a, b in zip((sd7, widx7, g7),
+                                                  k2_plain)),
+         "surface_kernel")
+    # K2 reads a point and writes 4 floats and an int
+    k2_bound = bound_ms(lambda: sk.surface_eval_plain(plan, tt, q),
+                        q.shape[0] * (12 + 20))
     u = torch.randn(sd7.shape, device=dev)
     _, scatter_ms = timed(lambda: scene_vjp.theta_cotangents(
         plan, tt, widx7, g7, u), runs=5)
@@ -401,8 +639,196 @@ def main() -> int:
     print(f"[kernel] surface_kernel demo stencil {q.shape[0]} points: K2 "
           f"{k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; sd, widx, g "
           f"bitwise equal; {card}")
+    del sd7, widx7, g7, k2_plain, q, u
 
-    # 7. the server
+    # 7. the multi-kernel backend at the same frame
+    tt = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, tt, tcfg)
+    zero_counts()
+    rt.render(demo, tcfg, backend="multi", device=dev)
+    multi_img, multi_ms = timed(
+        lambda: rt.render(demo, tcfg, backend="multi", device=dev), runs=3)
+    counts = add_counts("multi", 4)
+    L = plan.num_lights
+    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
+                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+          f"4 multi-kernel frames launched {counts}")
+    check(has_demo_objects(multi_img), "demo objects missing (multi)")
+    diff = (multi_img - fused_img).abs()
+    multi_err = diff.max().item()
+    close = (diff.amax(dim=-1) <= MULTI_ATOL).double().mean().item()
+    check(close >= AGREE, f"multi vs fused image: {close:.6f} of pixels "
+          f"within {MULTI_ATOL}")
+    check(diff.mean().item() <= MULTI_ATOL, "multi vs fused image: mean "
+          f"difference {diff.mean().item()}")
+    print(f"[multi] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, backend=multi: {multi_ms / 1e3:.4f} s "
+          f"(fused backend {fused_s:.4f} s in this run), "
+          f"{R / multi_ms / 1e3:.3f} Mrays/s; launches a frame: K3 {1 + L} "
+          f"(1 primary + {L} shadow), K2 2 (winner, FD gradient), K1 0, "
+          f"K4 0; {card}")
+    print(f"[multi] image vs backend=cuda: max |diff| {multi_err:.3g}, "
+          f"{close:.6f} of pixels within {MULTI_ATOL} (the JAX suite's "
+          f"tolerance for pallas vs mega), mean |diff| "
+          f"{diff.mean().item():.3g}")
+    (hit, steps), k3_ms = timed(lambda: mk.march_rays(
+        plan, tcfg, tt, origin, dirs, with_steps=True), runs=5)
+    (hit_p, steps_p), k3_plain_ms = timed(lambda: mk.march_rays_plain(
+        plan, tcfg, tt, origin, dirs, with_steps=True))
+    same("K3 primary at 512^2", (*hit, steps), (*hit_p, steps_p),
+         "march_kernel")
+    # K3 reads a direction and writes 5 floats (and here the step count)
+    k3_bound = bound_ms(lambda: mk.march_rays_plain(plan, tcfg, tt, origin,
+                                                    dirs), R * (12 + 24))
+    check(k3_bound[2] > 0 and int(steps.sum()) > 0, "no march work counted")
+    print(f"[kernel] march_kernel demo primary rays {R}: K3 {k3_ms:.3f} ms, "
+          f"plain {k3_plain_ms:.3f} ms; position, sd, converged, steps "
+          f"bitwise equal; {int(steps.sum())} evaluations, "
+          f"{k3_bound[2] / int(steps.sum()):.1f} of "
+          f"{plan.num_primitives} leaves an evaluation after the cull; "
+          f"{card}")
+    # K2 as the multi frame and step launch it: winner and FD gradient at
+    # the hit points (forward), the combined mode at the hit points
+    # (MarchOp's backward) and on their six-point stencils (NormalOp's)
+    q6 = scene_vjp.stencil_points(hit.position, tcfg.fd_h,
+                                  center=False).reshape(-1, 3)
+    for label, q, mode in (("winner", hit.position, sk.WINNER),
+                           ("FD gradient", hit.position, sk.FD_GRAD),
+                           ("combined", hit.position, sk.COMBINED),
+                           ("combined, six-point stencils", q6,
+                            sk.COMBINED)):
+        k2m, k2m_ms = timed(lambda: sk.surface_eval(
+            plan, tt, q, mode=mode, fd_h=tcfg.fd_h), runs=5)
+        k2m_p, k2m_plain_ms = timed(lambda: sk.surface_eval_plain(
+            plan, tt, q, mode=mode, fd_h=tcfg.fd_h))
+        same(f"K2 {label} at 512^2", k2m, k2m_p, "surface_kernel")
+        print(f"[kernel] surface_kernel demo {label}, {q.shape[0]} points: "
+              f"K2 {k2m_ms:.3f} ms, plain {k2m_plain_ms:.3f} ms; bitwise "
+              f"equal; {card}")
+        if mode == sk.FD_GRAD:
+            g = k2m[2]
+    del q6, k2m, k2m_p
+    for li in range(L):
+        s, d, tmax = shadow_rays(tt, tcfg, hit.position, normalize(g), li)
+        sh, sh_ms = timed(lambda: mk.march_rays(plan, tcfg, tt, s, d,
+                                                tmax=tmax), runs=5)
+        sh_p, sh_plain_ms = timed(lambda: mk.march_rays_plain(
+            plan, tcfg, tt, s, d, tmax=tmax))
+        same(f"K3 shadow rays of light {li} at 512^2", sh, sh_p,
+             "march_kernel")
+        print(f"[kernel] march_kernel demo shadow rays of light {li} with "
+              f"tmax {R}: K3 {sh_ms:.3f} ms, plain {sh_plain_ms:.3f} ms; "
+              f"bitwise equal; {card}")
+
+    # 8. the two-phase march of the fused backend
+    cfg2 = tcfg.replace(two_phase_k1=48)
+    zero_counts()
+    rt.render(demo, cfg2, device=dev)
+    tp_img, tp_ms = timed(lambda: rt.render(demo, cfg2, device=dev), runs=3)
+    counts = add_counts("two_phase", 4)
+    check(counts == {"render_kernel": 0, "surface_kernel": 0,
+                     "march_kernel": 4 * 2, "shade_kernel": 4},
+          f"4 two-phase frames launched {counts}")
+    check(torch.equal(tp_img, fused_img),
+          "the two-phase image differs from the one-kernel image")
+    _, one_ms = timed(lambda: rt.render(demo, tcfg, device=dev), runs=3)
+    left = (~mk.march_rays(plan, tcfg, tt, origin, dirs,
+                           iterations=48).converged).sum().item()
+    print(f"[two-phase] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"two_phase_k1=48: image equal to the one-kernel frame; "
+          f"{left} of {R} rays ({left / R:.5f}) unconverged after phase 1 "
+          f"(capacity {phase2_capacity(cfg2, R)}); frame "
+          f"{tp_ms / 1e3:.4f} s against {one_ms / 1e3:.4f} s one-kernel in "
+          f"this run; launches a frame: K3 2, K4 1; {card}")
+    ocfg = small.replace(two_phase_k1=1)
+    o_org, o_dirs = rays_for(plan, tt, ocfg)
+    left1 = (~mk.march_rays(plan, ocfg, tt, o_org, o_dirs,
+                            iterations=1).converged).sum().item()
+    check(left1 > phase2_capacity(ocfg, o_dirs.shape[0]),
+          "two_phase_k1=1 did not overflow the second phase")
+    zero_counts()
+    over = rt.render(demo, ocfg, device=dev)
+    counts = add_counts("two_phase_overflow", 1)
+    check(counts["march_kernel"] == 2 and counts["shade_kernel"] == 1,
+          f"the overflow frame launched {counts}")
+    check(torch.equal(over, rt.render(demo, small, device=dev)),
+          "the overflow branch's image differs from the one-kernel image")
+    print(f"[two-phase] demo {small.width}x{small.height} ssaa{small.ssaa} "
+          f"two_phase_k1=1: {left1} of {o_dirs.shape[0]} rays unconverged "
+          f"> capacity {phase2_capacity(ocfg, o_dirs.shape[0])}: the full "
+          "march ran again, image equal to the one-kernel frame")
+    hit2 = two_phase_march(plan, cfg2, tt, origin, dirs)
+    same("two-phase march against one march", hit2, hit)
+    k4, k4_ms = timed(lambda: shk.shade_rays(plan, tcfg, tt, hit2.position,
+                                             hit2.sd, dirs), runs=5)
+    k4_p, k4_plain_ms = timed(lambda: shk.shade_rays_plain(
+        plan, tcfg, tt, hit2.position, hit2.sd, dirs))
+    same("K4 at 512^2", k4, k4_p, "shade_kernel")
+    # K4 reads 7 floats and writes a float and 2 ints a ray
+    k4_bound = bound_ms(lambda: shk.shade_rays_plain(
+        plan, tcfg, tt, hit2.position, hit2.sd, dirs), R * (28 + 12))
+    print(f"[kernel] shade_kernel demo hit points {R}: K4 {k4_ms:.3f} ms, "
+          f"plain {k4_plain_ms:.3f} ms; cidx, light, smask bitwise equal; "
+          f"{card}")
+
+    # 9. training through the multi-kernel backend
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    mres = rt.fit(plan, start, target, tcfg, device=dev, backend="multi",
+                  steps=3, trainable=TRAINABLE, optimizer=adam,
+                  callback=on_step)
+    counts = add_counts("train_multi", 3)
+    # a step: K3 primary + L shadow; K2 winner, FD gradient, and the
+    # combined mode for MarchOp's and NormalOp's backward
+    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 4,
+                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+          f"3 multi-kernel fit steps launched {counts}")
+    check_step_grads()
+    check(all(np.isfinite(mres.losses)), f"losses {mres.losses}")
+    # both backends start from the same tables: the same first loss, to
+    # the image tolerance
+    check(abs(mres.losses[0] - res.losses[0]) <= 1e-5,
+          f"first loss {mres.losses[0]} against fused {res.losses[0]}")
+    mstep_s = sorted(np.diff([t0] + stamps))
+    mmed = statistics.median(mstep_s)
+    print(f"[train-multi] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"backend=multi, 3 Adam steps: loss "
+          f"{' '.join(f'{v:.6g}' for v in mres.losses)}; step median "
+          f"{mmed * 1e3:.1f} ms (min {mstep_s[0] * 1e3:.1f}) against the "
+          f"fused backend's {fused_step_s * 1e3:.1f} ms in this run, "
+          f"fwd+bwd {rays / mmed / 1e6:.3f} Mrays/s; launches a step: K3 "
+          f"{1 + L}, K2 4; {card}")
+    fields = tables._fields
+    grads = {}
+    for backend in ("cuda", "multi"):
+        gt = tables_to_torch(start, dev, requires_grad=fields)
+        img = render_tables(plan, gt, tcfg.replace(shade_skip_black=False),
+                            backend=backend, differentiable=True, device=dev)
+        grads[backend] = torch.autograd.grad(
+            torch.mean((img - target) ** 2), list(gt), allow_unused=True,
+            materialize_grads=True)
+    worst_mg = grad_check(fields, grads["multi"], grads["cuda"],
+                          "multi vs fused")
+    print(f"[train-multi] gradients of the first step's loss, "
+          f"backend=multi against backend=cuda on the same rays, every "
+          f"table field: max |diff| / field scale {worst_mg[0]:.3g} "
+          f"({worst_mg[1]}; tolerance rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL_SCALE} x scale)")
+
+    # 10. K3's step counter through profile_march
+    prof = profile_march(plan, tables, tcfg, device=dev)
+    st = prof["steps"]
+    check(prof["rays"] == R and st["max"] <= tcfg.iterations
+          and abs(st["mean"] - steps.double().mean().item()) < 1e-6,
+          f"profile_march {prof}")
+    print(f"[profile] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"primary rays: {prof['converged']} of {prof['rays']} converged; "
+          f"steps mean {st['mean']:.3f}, p50 {st['p50']}, p90 {st['p90']}, "
+          f"p99 {st['p99']}, max {st['max']}")
+
+    # 11. the server
     srv = make_server("127.0.0.1", 0, dev)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -429,19 +855,56 @@ def main() -> int:
         srv.server_close()
         thread.join(timeout=60)
 
-    check("jax" not in sys.modules, "JAX was imported")
-    ms, plain_ms = rows[-1]
-    print(json.dumps({"kernels": [{
-        "name": "render_kernel", "route": "cuda",
-        "source": "raymarching_tpu_torch/csrc/render_kernel.cu",
-        "replaces": "raymarching_tpu/ops/pallas_render.py:211",
-        "launches": launches + train_launches[0],
-        "max_abs_err": max(image_errs), "ms": ms, "plain_ms": plain_ms}, {
-        "name": "surface_kernel", "route": "cuda",
-        "source": "raymarching_tpu_torch/csrc/surface_kernel.cu",
-        "replaces": "raymarching_tpu/ops/pallas_march.py:2656",
-        "launches": train_launches[1], "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
+    totals = {k: sum(c[k] for _, c in paths.values()) for k in KERNELS}
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel was never launched on a main path: {totals}")
+    per_call = {}
+    for kname in KERNELS:
+        per_call[kname] = {}
+        for path, (calls, c) in paths.items():
+            check(c[kname] % calls == 0, f"{path}: {c[kname]} {kname} "
+                  f"launches in {calls} calls")
+            per_call[kname][path] = c[kname] // calls
+    print("[launches] a call of each path's entry point (render or a fit "
+          "step; the counts zeroed before the path, read after it): "
+          + "; ".join(f"{k} {json.dumps(v)}" for k, v in per_call.items()))
+    csrc = "raymarching_tpu_torch/csrc/"
+
+    def row(kname, replaces, ms, plain_ms, bound):
+        # launches: the sum over the paths' runs (warm-up frames included);
+        # launches_per_call: one render or fit step of each path;
+        # max_abs_err: over every output of every comparison with the
+        # plain twin in this run
+        return {"name": kname, "route": "cuda",
+                "source": f"{csrc}{kname}.cu", "replaces": replaces,
+                "launches": totals[kname],
+                "launches_per_call": per_call[kname],
+                "max_abs_err": ERRS[kname], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
+    for kname, bound in (("render_kernel", k1_bound),
+                         ("surface_kernel", k2_bound),
+                         ("march_kernel", k3_bound),
+                         ("shade_kernel", k4_bound)):
+        print(f"[bound] {kname}: {bound[2]} leaf evaluations x "
+              f"{OPS_PER_LEAF} operations at {FP32_OPS_S / 1e12:.0f} "
+              f"TFLOP/s = {bound[3]:.4f} ms; its bytes at "
+              f"{HBM_BYTES_S / 1e12:.2f} TB/s = {bound[4]:.4f} ms; bound "
+              f"{bound[0]:.4f} ms, by {bound[1]}; {card}")
+    print(json.dumps({"kernels": [
+        row("render_kernel", "raymarching_tpu/ops/pallas_render.py:211",
+            k1_ms, k1_plain_ms, k1_bound),
+        row("surface_kernel", "raymarching_tpu/ops/pallas_march.py:2656",
+            k2_ms, k2_plain_ms, k2_bound),
+        row("march_kernel", "raymarching_tpu/ops/pallas_march.py:1716",
+            k3_ms, k3_plain_ms, k3_bound),
+        row("shade_kernel", "raymarching_tpu/ops/pallas_render.py:558",
+            k4_ms, k4_plain_ms, k4_bound)]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,11 +1,15 @@
 """raymarching_tpu_torch: the renderer ported to PyTorch and CUDA.
 
-A second package beside the JAX reference ``raymarching_tpu``.  Scene
-parsing, compilation, configuration and image IO are the reference's own
-numpy-only modules, imported here (they never load JAX); rendering runs in
-PyTorch, with the fused forward pass (``csrc/render_kernel.cu``) and the
-backward's surface evaluation (``csrc/surface_kernel.cu``) as hand-written
-CUDA kernels for Hopper.
+A second package beside the JAX reference ``raymarching_tpu``, and
+independent of it: scene parsing, compilation, configuration, image IO,
+checkpoints and logging are the port's own copies of the reference's
+numpy-only modules (``config``, ``scene``, ``io``, ``utils``), so neither
+JAX nor the JAX package is ever imported.  Rendering runs in PyTorch, with
+four hand-written CUDA kernels for Hopper under ``csrc/``: the fused
+forward (``render_kernel.cu``), the point evaluation of the backward
+passes and the multi-kernel backend (``surface_kernel.cu``), the
+standalone march (``march_kernel.cu``) and the shade kernel of the
+two-phase path (``shade_kernel.cu``).
 
     import raymarching_tpu_torch as rt
     img = rt.render(rt.load_scene("scenes/demo.txt"), rt.RenderConfig(),
@@ -14,11 +18,11 @@ CUDA kernels for Hopper.
                  trainable=("prim_pos",))     # (plan, tables) = compile_scene
 """
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.io.image import to_uint8
-from raymarching_tpu.io.png import decode_png
-from raymarching_tpu.scene.compile import compile_scene
-from raymarching_tpu.scene.parser import load_scene
+from .config import RenderConfig
+from .io.image import to_uint8
+from .io.png import decode_png
+from .scene.compile import compile_scene
+from .scene.parser import load_scene
 
 from .api import render, render_ref, render_tables
 from .optimize import fit

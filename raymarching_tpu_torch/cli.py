@@ -1,8 +1,8 @@
 """Command-line entry point of the port.
 
     python -m raymarching_tpu_torch --scene scenes/demo.txt --out out.png
-    python -m raymarching_tpu_torch --scene scenes/demo.txt --backend ref,cuda \
-        --width 128 --height 96 --ssaa 1 --compare
+    python -m raymarching_tpu_torch --scene scenes/demo.txt \
+        --backend ref,multi,cuda --width 128 --height 96 --ssaa 1 --compare
 
 Defaults are the reference configuration (1024x768, SSAA 3x3, 1000
 iterations) on the CUDA device; ``--device cpu`` runs the plain PyTorch
@@ -18,10 +18,10 @@ import time
 
 import numpy as np
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.io.image import save_image
-from raymarching_tpu.scene.compile import compile_scene
-from raymarching_tpu.scene.parser import load_scene
+from .config import RenderConfig
+from .io.image import save_image
+from .scene.compile import compile_scene
+from .scene.parser import load_scene
 
 from .api import render_tables, resolve_backend, resolve_device
 
@@ -42,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shadows", action=argparse.BooleanOptionalAction,
                    default=True, help="hard shadow rays (default on)")
     p.add_argument("--backend", default="cuda",
-                   help="comma list of cuda|ref; the last one is saved")
+                   help="comma list of cuda|multi|ref (fused kernel, "
+                        "multi-kernel, plain oracle); the last one is saved")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:N, cpu)")
     p.add_argument("--compare", action="store_true",

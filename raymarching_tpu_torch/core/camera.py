@@ -14,8 +14,8 @@ from typing import Tuple
 
 import torch
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.scene.compile import SceneTables
+from ..config import RenderConfig
+from ..scene.compile import SceneTables
 
 DEG_TO_RAD = math.pi / 180.0
 

@@ -35,7 +35,7 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
           iterations: int, eps: float, *, tmax: Optional[torch.Tensor] = None,
           init_done: Optional[torch.Tensor] = None,
-          project_t: bool = False) -> MarchResult:
+          project_t: bool = False, with_steps: bool = False):
     """March rays ``ray`` [N, 3] from ``origin`` [3] or [N, 3].
 
     ``tmax`` [N]: also stop once the ray has passed this distance (shadow
@@ -43,7 +43,9 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
     only moves forward).  The distance is the sum of steps, as in the JAX
     oracle, or with ``project_t`` the projection (p - origin) . ray, as in
     the render kernel.  ``init_done`` [N] bool: rays that start done and
-    take no step (position = origin, sd = +inf)."""
+    take no step (position = origin, sd = +inf).  ``with_steps``: return
+    (MarchResult, steps [N] int32), the scene evaluations each ray took
+    (core.march.march_profile)."""
     o = origin.expand(ray.shape)
     p = o.clone()
     n = ray.shape[0]
@@ -51,6 +53,7 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
     done = (torch.zeros(n, dtype=torch.bool, device=ray.device)
             if init_done is None else init_done.clone())
     t = torch.zeros(n, dtype=ray.dtype, device=ray.device)
+    steps = torch.zeros(n, dtype=torch.int32, device=ray.device)
     for _ in range(iterations):
         act = (~done).nonzero().squeeze(1)
         if act.numel() == 0:
@@ -70,5 +73,8 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
         p[act] = pa
         sd_last[act] = sd
         done[act] = dn
-    return MarchResult(position=p, sd=sd_last,
-                       converged=done & (sd_last < eps))
+        if with_steps:
+            steps[act] += 1
+    res = MarchResult(position=p, sd=sd_last,
+                      converged=done & (sd_last < eps))
+    return (res, steps) if with_steps else res

@@ -25,8 +25,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from raymarching_tpu.scene.compile import KIND_LEAF, MIN, KernelPlan, ScenePlan, SceneTables
-from raymarching_tpu.scene.csg import PrimType
+from ..scene.compile import KIND_LEAF, MIN, KernelPlan, ScenePlan, SceneTables
+from ..scene.csg import PrimType
 
 # Elements of one [points, P] leaf block (x3 for the per-axis offsets).
 _LEAF_BUDGET = 1 << 25
@@ -150,17 +150,69 @@ def prim_sd_grad(ptype: torch.Tensor, pos: torch.Tensor, aux: torch.Tensor,
     return torch.where(t == int(PrimType.SPHERE), sphere, flat)
 
 
+class LeafCount:
+    """Counts the leaf evaluations the CUDA kernels' fold (csrc/fold.cuh)
+    does for the points that pass through ``kernel_fold`` while the
+    context is open: every leaf of a group, less the carve leaves of a
+    cullable DIFFERENCE group at points where its base bound already
+    reaches the running minimum.  The plain fold itself evaluates every
+    leaf; this is the count of the work the kernels' data needs, for a
+    roofline bound.
+
+        with LeafCount() as c:
+            render_rays_plain(...)
+        c.leaves, c.points
+    """
+
+    _open: list = []
+
+    def __init__(self):
+        self._leaves = []
+        self.points = 0
+
+    def __enter__(self):
+        LeafCount._open.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        LeafCount._open.remove(self)
+        return False
+
+    @property
+    def leaves(self) -> int:
+        return int(sum(int(t.item()) for t in self._leaves))
+
+
+def _base_leaves(g) -> int:
+    """Leaves in the leading base (scale -1) runs of group ``g``."""
+    n = 0
+    for (_, _, count, scale) in g.runs:
+        if scale != -1:
+            break
+        n += count
+    return n
+
+
 def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
                        with_grad):
+    from ..tables import is_cullable
+
     kp: KernelPlan = plan.kernel
     leaf = leaf_sd(plan, tables, p)
     n = leaf.shape[0]
     rsign = 1.0 if kp.root_op == MIN else -1.0
     running = torch.full((n,), float("inf"), device=p.device)
     ridx = torch.full((n,), -1, dtype=torch.int32, device=p.device)
+    counted = torch.zeros((), dtype=torch.int64, device=p.device)
     for g in kp.groups:
         scales = torch.as_tensor(np.asarray(g.scales, np.float32), device=p.device)
         seg = leaf[:, g.start:g.start + g.count] * scales
+        if LeafCount._open:
+            nb = _base_leaves(g) if is_cullable(kp, g) else g.count
+            counted += n * nb
+            if nb < g.count:
+                kept = -seg[:, :nb].min(dim=-1).values < running
+                counted += kept.sum() * (g.count - nb)
         # torch.min over a dim returns the first minimal index: the
         # strict-< leaf fold's winner
         gmin, k = seg.min(dim=-1)
@@ -169,6 +221,9 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
         running = torch.where(better, v, running)
         if with_idx or with_grad:
             ridx = torch.where(better, (k + g.start).to(torch.int32), ridx)
+    for c in LeafCount._open:
+        c._leaves.append(counted)
+        c.points += n
     if not with_grad:
         return rsign * running, ridx
     # Only the winner's gradient survives the fold's selects, and sign

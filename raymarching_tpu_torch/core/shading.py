@@ -5,12 +5,13 @@ Port of ``raymarching_tpu.core.shading`` for the reference's shading model
 of the SDF; a light counts only if a march from the hit point, lifted off
 the surface by ``surface_eps + offset_eps`` along the normal, passes the
 light; the Lambert sum over lights is clamped to ``[saturation, 1]``.
-Soft shadows and ambient occlusion are not ported yet.
+Soft shadows and ambient occlusion are not ported yet.  ``shadow_fn``
+routes the shadow marches through a kernel (``api.make_render_hooks``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -44,28 +45,39 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
 
 def shadowed(scene_sd: Callable, light_pos: torch.Tensor, p: torch.Tensor,
              n: torch.Tensor, iterations: int, surface_eps: float,
-             offset_eps: float) -> torch.Tensor:
+             offset_eps: float, *, march_fn: Optional[Callable] = None
+             ) -> torch.Tensor:
     """Boolean shadow test by re-marching toward the light, p, n [N, 3]:
-    shadowed iff the march stops before passing the light."""
+    shadowed iff the march stops before passing the light.  ``march_fn``
+    ((origin, dirs, tmax) -> MarchResult) replaces the plain march."""
     ray = normalize(light_pos - p)
     start = p + n * (surface_eps + offset_eps)
     r = light_pos - start
     tmax = torch.sqrt(dot3(r, r))
-    res = march(scene_sd, start, ray, iterations, surface_eps, tmax=tmax)
+    if march_fn is None:
+        res = march(scene_sd, start, ray, iterations, surface_eps, tmax=tmax)
+    else:
+        res = march_fn(start, ray, tmax)
     return dot3(light_pos - res.position, ray) > 0
 
 
 def lighting(scene_sd: Callable, light_positions: torch.Tensor,
              p: torch.Tensor, n: torch.Tensor, *, iterations: int,
              surface_eps: float, offset_eps: float, saturation: float,
-             shadows: bool = True) -> torch.Tensor:
-    """Total Lambertian lighting in [saturation, 1]: p, n [N, 3] -> [N]."""
+             shadows: bool = True, shadow_fn: Optional[Callable] = None
+             ) -> torch.Tensor:
+    """Total Lambertian lighting in [saturation, 1]: p, n [N, 3] -> [N].
+    The shadow booleans are constants under autograd (detached inputs, no
+    graph), as the JAX code stops their gradients; ``shadow_fn`` is
+    ``shadowed``'s ``march_fn``."""
     total = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
     for lp in light_positions:
         lambert = dot3(n, normalize(lp - p))
         if shadows:
-            mask = shadowed(scene_sd, lp, p, n, iterations, surface_eps,
-                            offset_eps)
+            with torch.no_grad():
+                mask = shadowed(scene_sd, lp.detach(), p.detach(),
+                                n.detach(), iterations, surface_eps,
+                                offset_eps, march_fn=shadow_fn)
             lambert = torch.where(mask, 0.0, lambert)
         total = total + lambert
     return torch.clamp(total, saturation, 1.0)

@@ -1,12 +1,14 @@
-// The scene fold shared by K1 (render_kernel.cu) and K2 (surface_kernel.cu).
+// The scene fold shared by all four kernels: K1 (render_kernel.cu), K2
+// (surface_kernel.cu), K3 (march_kernel.cu) and K4 (shade_kernel.cu).
 //
 // Leaf distances and the two-level kernel-form fold of
 // pallas_march._scene_sd_tile / _scene_sd_idx_tile over the int32 group and
-// run descriptors of tables.pack_plan.  Both kernels include this one
-// definition, so the SDs K2 evaluates at the backward's FD stencil are the
-// very min-fold K1 evaluated in the forward, bitwise, when both are built
-// without FMA contraction.  Each kernel is its own library of one
-// translation unit, so the definitions sit in an anonymous namespace.
+// run descriptors of tables.pack_plan.  Every kernel includes this one
+// definition, so the SDs K2 evaluates at the backward's FD stencil, and the
+// ones K3 marches on, are the very min-fold K1 evaluated in the forward,
+// bitwise, when all are built without FMA contraction.  Each kernel is its
+// own library of one translation unit, so the definitions sit in an
+// anonymous namespace.
 
 #pragma once
 

@@ -1,0 +1,119 @@
+// Steps 2-4 of the per-ray pipeline, shared by K1 (render_kernel.cu) and K4
+// (shade_kernel.cu): pallas_render._shade_body for the reference shading
+// model.  Given a marched hit point: the first-wins colour winner at the
+// pre-step point; the 6-eval central-difference normal; one shadow march
+// per light that stops at the light, with the black-lane and
+// saturation-floor skips; the Lambert sum clamped to [saturation, 1].
+
+#pragma once
+
+#include <cfloat>
+
+#include "march.cuh"
+
+namespace {
+
+struct ShadeParams {
+  const float4* lights;   // [L][2]: (x, y, z, 0), (r, g, b, 0)
+  const int* black;       // [n_black] leaf ids of compile-time black prims
+  int n_lights;
+  int n_black;            // < 0: black-lane skip off
+  int shadows;
+  int sat_skip;
+  int iterations;
+  float eps;
+  float off;              // surface_eps + offset_eps: the shadow-ray lift
+  float saturation;
+  float fd_h;
+};
+
+struct Shade {
+  int cidx;      // colour winner leaf, -1 = none
+  float light;   // clamped Lambert term
+  int smask;     // bit l set = light l shadowed
+};
+
+// Unit direction from p to light li (xyz) and the Lambert term n . dir (w).
+// Not inlined: the saturation-floor bound and the shade loop must round it
+// identically for the skip to stay exact.
+__device__ __noinline__ float4 light_dir(const float4* lights, int li,
+                                         float px, float py, float pz,
+                                         float nx, float ny, float nz) {
+  const float4 l = __ldg(lights + 2 * li);
+  float rx = l.x - px, ry = l.y - py, rz = l.z - pz;
+  const float rd = sqrtf(rx * rx + ry * ry + rz * rz);
+  const float rinv = 1.0f / fmaxf(rd, FLT_MIN);
+  rx = rx * rinv;
+  ry = ry * rinv;
+  rz = rz * rinv;
+  return make_float4(rx, ry, rz, nx * rx + ny * ry + nz * rz);
+}
+
+// Shade the hit point (px, py, pz) of a ray of direction (dx, dy, dz) whose
+// march last evaluated the SD `sd` one step back.
+__device__ __forceinline__ Shade shade(Scene s, const ShadeParams P,
+                                       float px, float py, float pz,
+                                       float sd, float dx, float dy,
+                                       float dz) {
+  // 2. colour winner at the pre-step point (scene.cpp:34-42)
+  const float back = fminf(sd, kMaxStep);
+  const int cidx =
+      scene_sd_idx(s, px - back * dx, py - back * dy, pz - back * dz).idx;
+
+  // black-lane skip: a miss or a black winner shades to black whatever the
+  // light, so its shadow marches start done
+  bool skip = false;
+  if (P.shadows && P.n_black >= 0) {
+    bool isb = cidx < 0;
+    for (int k = 0; k < P.n_black; ++k) isb = isb || cidx == __ldg(P.black + k);
+    skip = isb;
+  }
+
+  // 3. normal: unscaled central differences, normalised with a tiny floor
+  const float h = P.fd_h;
+  const float gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
+  const float gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
+  const float gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
+  const float gn = sqrtf(gx * gx + gy * gy + gz * gz);
+  const float inv = 1.0f / fmaxf(gn, FLT_MIN);
+  const float nx = gx * inv, ny = gy * inv, nz = gz * inv;
+
+  // saturation-floor skip: if even the all-lit sum of max(n . l, 0) stays
+  // below the clamp floor, every shadow outcome shades to `saturation`
+  if (P.shadows && P.sat_skip && P.n_lights > 0) {
+    float upper = 0.0f;
+    for (int li = 0; li < P.n_lights; ++li)
+      upper = upper +
+              fmaxf(light_dir(P.lights, li, px, py, pz, nx, ny, nz).w, 0.0f);
+    skip = skip || upper < P.saturation;
+  }
+
+  // 4. Lambert over lights with hard shadows (scene.cpp:45-62); a skipped
+  // lane's march stays at its origin and so reads as shadowed
+  float total = 0.0f;
+  unsigned smask = 0u;
+  for (int li = 0; li < P.n_lights; ++li) {
+    const float4 r = light_dir(P.lights, li, px, py, pz, nx, ny, nz);
+    float lamb = r.w;
+    if (P.shadows) {
+      const float4 l = __ldg(P.lights + 2 * li);
+      const float sx = px + nx * P.off, sy = py + ny * P.off,
+                  sz = pz + nz * P.off;
+      const float tx = l.x - sx, ty = l.y - sy, tz = l.z - sz;
+      const float tmax = sqrtf(tx * tx + ty * ty + tz * tz);
+      const Hit q = march(s, P.iterations, P.eps, sx, sy, sz, r.x, r.y, r.z,
+                          true, tmax, skip);
+      const bool passed =
+          (l.x - q.x) * r.x + (l.y - q.y) * r.y + (l.z - q.z) * r.z <= 0.0f;
+      if (!passed) {
+        smask |= 1u << li;
+        lamb = 0.0f;
+      }
+    }
+    total = total + lamb;
+  }
+  return Shade{cidx, fminf(fmaxf(total, P.saturation), 1.0f),
+               static_cast<int>(smask)};
+}
+
+}  // namespace

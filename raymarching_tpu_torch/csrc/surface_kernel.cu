@@ -1,12 +1,22 @@
-// K2: scene SD, winner leaf and winner gradient at given points.
+// K2: the scene evaluated at given points, in four modes.
 //
 // Replaces raymarching_tpu/ops/pallas_march.py::_surface_kernel (the
-// pallas_call in _compiled_surface_call; entry pallas_surface_eval) in its
-// combined mode (with_color, with_normal, analytic; not fused): per point
-// the scene SD, the first-wins winning leaf, and the winner's gradient
-// d scene / dp = gsign * scale * d leaf / dp, as _scene_sd_idx_grad_tile
-// folds it.  The exact-FD backward (ops/render_op.py) launches it once over
-// the 7-point stencil of every hit.  Its plain PyTorch twin is
+// pallas_call in _compiled_surface_call; entry pallas_surface_eval), not
+// fused:
+//   * combined (with_color, with_normal, analytic): per point the scene
+//     SD, the first-wins winning leaf, and the winner's gradient d scene /
+//     dp = gsign * scale * d leaf / dp, as _scene_sd_idx_grad_tile folds
+//     it.  The exact-FD backward (ops/render_op.py) launches it once over
+//     the 7-point stencil of every hit, MarchOp once over the hit points,
+//     NormalOp once over the 6-point stencil;
+//   * sd: the scene SD alone;
+//   * winner (with_color): the SD and the winning leaf, the multi-kernel
+//     backend's colour lookup at the pre-step points;
+//   * fd (with_normal): the SD and the central-difference gradient
+//     (f(p + h e_a) - f(p - h e_a)) * (1 / 2h) from six more folds, the
+//     multi-kernel backend's normals.
+// The gradient-only analytic mode and the fused-generator modes are not
+// ported yet.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/surface_kernel.py::surface_eval_plain.
 //
 // Layout.  One thread per point, 128 threads a block; points in and
@@ -79,56 +89,107 @@ __device__ float3 leaf_grad(const float4* tbl, int type, int i, float px,
                      med_z ? sz : 0.0f);
 }
 
+// ops/surface_kernel.py's mode codes
+constexpr int kCombined = 0;
+constexpr int kSdOnly = 1;
+constexpr int kWinner = 2;
+constexpr int kFdGrad = 3;
+
+// the winner's gradient: the run that holds it gives its prim type and
+// path sign gsign * scale (the root's rsign cancels in the chain rule)
+__device__ float3 winner_grad(Scene s, int idx, float px, float py,
+                              float pz) {
+  if (idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
+  int type = kSphere;
+  float path = 1.0f;
+  for (int gi = 0; gi < s.n_groups; ++gi) {
+    const int4 grp = __ldg(s.groups + gi);
+    for (int k = grp.y; k < grp.y + grp.z; ++k) {
+      const int4 run = __ldg(s.runs + k);
+      if (idx >= run.y && idx < run.y + run.z) {
+        type = run.x;
+        path = static_cast<float>(grp.x * run.w);
+      }
+    }
+  }
+  const float3 lg = leaf_grad(s.tbl, type, idx, px, py, pz);
+  return make_float3(path * lg.x, path * lg.y, path * lg.z);
+}
+
+// out: [4][N] (sd, gx, gy, gz) in the combined and fd modes, else [1][N];
+// widx: [N] in the combined and winner modes, else unused.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-    surface_kernel(const Scene s, const float* q, float* out, int* widx,
-                   int64_t N) {
+    surface_kernel(const Scene s, const float* q, float inv_2h, float h,
+                   float* out, int* widx, int64_t N) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= N) return;
   const float px = q[i], py = q[N + i], pz = q[2 * N + i];
-  const Winner w = scene_sd_idx(s, px, py, pz);
-
-  // the run that holds the winner: its prim type and path sign
-  // gsign * scale (the root's rsign cancels in the chain rule)
-  float3 g = make_float3(0.0f, 0.0f, 0.0f);
-  if (w.idx >= 0) {
-    int type = kSphere;
-    float path = 1.0f;
-    for (int gi = 0; gi < s.n_groups; ++gi) {
-      const int4 grp = __ldg(s.groups + gi);
-      for (int k = grp.y; k < grp.y + grp.z; ++k) {
-        const int4 run = __ldg(s.runs + k);
-        if (w.idx >= run.y && w.idx < run.y + run.z) {
-          type = run.x;
-          path = static_cast<float>(grp.x * run.w);
-        }
-      }
+  if (kMode == kCombined || kMode == kWinner) {
+    const Winner w = scene_sd_idx(s, px, py, pz);
+    out[i] = w.sd;
+    widx[i] = w.idx;
+    if (kMode == kCombined) {
+      const float3 g = winner_grad(s, w.idx, px, py, pz);
+      out[N + i] = g.x;
+      out[2 * N + i] = g.y;
+      out[3 * N + i] = g.z;
     }
-    const float3 lg = leaf_grad(s.tbl, type, w.idx, px, py, pz);
-    g = make_float3(path * lg.x, path * lg.y, path * lg.z);
+    return;
   }
-  out[i] = w.sd;
-  out[N + i] = g.x;
-  out[2 * N + i] = g.y;
-  out[3 * N + i] = g.z;
-  widx[i] = w.idx;
+  out[i] = scene_sd(s, px, py, pz);
+  if (kMode == kFdGrad) {
+    // pallas_march._surface_kernel's order of operations: the difference
+    // first, then one multiplication by 1 / 2h
+    const float gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
+    const float gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
+    const float gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
+    out[N + i] = gx * inv_2h;
+    out[2 * N + i] = gy * inv_2h;
+    out[3 * N + i] = gz * inv_2h;
+  }
 }
 
 }  // namespace
 
-// Launch K2 on `stream` over N points q [3][N]; out [4][N] (sd, gx, gy,
-// gz), widx [N].  Returns cudaGetLastError().
+// Launch K2 in `mode` on `stream` over N points q [3][N]; out and widx as
+// surface_kernel takes them; h and inv_2h (= 1 / 2h, rounded by the
+// caller) are read in the fd mode only.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown mode.
 extern "C" int rt_surface_eval(const void* tbl, const void* groups,
                                const void* runs, int n_groups, int root_min,
+                               int mode, float h, float inv_2h,
                                const void* q, void* out, void* widx,
                                int64_t N, void* stream) {
   const Scene s{static_cast<const float4*>(tbl),
                 static_cast<const int4*>(groups),
                 static_cast<const int4*>(runs), n_groups, root_min};
+  if (mode < kCombined || mode > kFdGrad)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (N > 0) {
     const unsigned blocks = static_cast<unsigned>((N + kThreads - 1) / kThreads);
-    surface_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, static_cast<const float*>(q), static_cast<float*>(out),
-        static_cast<int*>(widx), N);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* qf = static_cast<const float*>(q);
+    float* of = static_cast<float*>(out);
+    int* wi = static_cast<int*>(widx);
+    switch (mode) {
+      case kCombined:
+        surface_kernel<kCombined><<<blocks, kThreads, 0, st>>>(
+            s, qf, inv_2h, h, of, wi, N);
+        break;
+      case kSdOnly:
+        surface_kernel<kSdOnly><<<blocks, kThreads, 0, st>>>(
+            s, qf, inv_2h, h, of, wi, N);
+        break;
+      case kWinner:
+        surface_kernel<kWinner><<<blocks, kThreads, 0, st>>>(
+            s, qf, inv_2h, h, of, wi, N);
+        break;
+      default:
+        surface_kernel<kFdGrad><<<blocks, kThreads, 0, st>>>(
+            s, qf, inv_2h, h, of, wi, N);
+        break;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,27 +5,37 @@ Counterpart of ``raymarching_tpu.ops.pallas_render.pallas_render_rays``
 ``csrc/render_kernel.cu``; ``render_rays_plain`` computes the same thing
 in plain PyTorch from the ``core`` modules and is what a CPU tensor gets.
 A CUDA tensor always goes to the kernel: a build or launch failure raises.
+
+With ``0 < cfg.two_phase_k1 < cfg.iterations`` the same outputs come from
+three launches instead of one (``pallas_render._two_phase_march`` and the
+shade call): K3 (``ops.march_kernel``) for ``k1`` steps over every ray, K3
+again for the rest of the budget over the unconverged tail packed densely,
+then K4 (``ops.shade_kernel``) on the merged hit points.  The march is
+memoryless given a ray's position, so the outputs are K1's bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.scene.compile import MIN, ScenePlan, SceneTables
-
-from ..core.march import MAX_STEP, dot3, march
+from ..config import RenderConfig
+from ..core.march import MarchResult, march
 from ..core.sdf import kernel_fold
-from ..core.shading import TINY, fd_stencil
-from ..tables import build_table, light_rows, pack_plan
+from ..scene.compile import ScenePlan, SceneTables
+from ..tables import scene_operands
 from . import build
+from .march_kernel import march_rays
+from .shade_kernel import (MAX_LIGHTS, shade_operands, shade_rays,
+                           shade_rays_plain)
 
-# Shadow outcomes travel as bits of an int32 mask.
-MAX_LIGHTS = 32
+# Phase-2 capacity as a fraction of the rays (pallas_render
+# ._PHASE2_CAP_FRAC): with more rays than that still marching after phase 1,
+# everything is marched again with the full budget.
+PHASE2_CAP_FRAC = 8
 
 
 class RayOutputs(NamedTuple):
@@ -58,8 +68,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = "mirror bounces (ROADMAP Queue 1 item 9)"
     elif cfg.aperture > 0.0:
         todo = "depth of field (ROADMAP Queue 1 item 9)"
-    elif cfg.two_phase_k1 > 0:
-        todo = "the two-phase march (ROADMAP Queue 1 item 11)"
     elif cfg.serve_raygen:
         todo = "in-kernel serve raygen (ROADMAP Queue 1 item 9)"
     elif plan.num_lights > MAX_LIGHTS:
@@ -68,76 +76,53 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {todo}")
 
 
-def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
-                   tables: SceneTables) -> Tuple[int, ...]:
-    """Leaf ids of the black-lane shadow skip, or () when it is off: the
-    plan's compile-time black primitives, used only while their live
-    colour rows are still black (pallas_render.black_skip_ids plus the
-    runtime gate)."""
-    ids = tuple(plan.kernel.black_prims)
-    if not (ids and cfg.shade_skip_black and cfg.shadows):
-        return ()
-    rows = tables.prim_color[list(ids)]
-    return ids if bool((rows == 0.0).all()) else ()
-
-
 def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                       origin: torch.Tensor, dirs: torch.Tensor) -> RayOutputs:
     """K1 in plain PyTorch, the same arithmetic in the same order: the
-    kernel-form fold, the shadow march measured by projection and stopped
-    at the light, both shadow skips, the unscaled FD stencil normalised
-    with a tiny floor.  origin [3] or [R, 3], dirs [R, 3]."""
+    march over the kernel-form fold, then K4's plain twin on its hit
+    points (one march whatever ``cfg.two_phase_k1`` says: this is the
+    twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3]."""
     check_supported(plan, cfg)
-    eps = cfg.surface_precision
-    sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
+    with torch.no_grad():
+        sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
+        hit = march(sd_fn, origin, dirs, cfg.iterations,
+                    cfg.surface_precision)
+    sh = shade_rays_plain(plan, cfg, tables, hit.position, hit.sd, dirs)
+    return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
 
-    hit = march(sd_fn, origin, dirs, cfg.iterations, eps)
-    p, sd = hit.position, hit.sd
-    back = torch.clamp_max(sd, MAX_STEP)
-    _, cidx = kernel_fold(plan, tables, p - back[:, None] * dirs, with_idx=True)
 
-    skip = torch.zeros_like(hit.converged)
-    black = black_skip_ids(plan, cfg, tables)
-    if black:
-        skip = cidx < 0
-        for k in black:
-            skip = skip | (cidx == k)
+def phase2_capacity(cfg: RenderConfig, R: int) -> int:
+    """Most rays the second phase takes: an eighth of the rays, and at
+    least one tile of the JAX kernels (tile_sublanes * 128 lanes)."""
+    return max(R // PHASE2_CAP_FRAC, min(R, cfg.tile_sublanes * 128))
 
-    g = fd_stencil(sd_fn, p, cfg.fd_h)
-    inv = 1.0 / torch.clamp_min(torch.sqrt(dot3(g, g)), TINY)
-    n = g * inv[:, None]
 
-    L = plan.num_lights
-    dirs_l, lamb_l = [], []
-    for li in range(L):
-        r = tables.light_pos[li] - p
-        r = r * (1.0 / torch.clamp_min(torch.sqrt(dot3(r, r)), TINY))[:, None]
-        dirs_l.append(r)
-        lamb_l.append(dot3(n, r))
-    if cfg.shadows and cfg.shadow_sat_skip and L > 0:
-        upper = torch.zeros_like(sd)
-        for lamb in lamb_l:
-            upper = upper + torch.clamp_min(lamb, 0.0)
-        skip = skip | (upper < cfg.saturation)
+def two_phase_march(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                    origin: torch.Tensor, dirs: torch.Tensor) -> MarchResult:
+    """March all rays ``cfg.two_phase_k1`` steps, then only the rays still
+    marching, packed densely, for the rest of the budget
+    (pallas_render._two_phase_march).  Exact: each ray's trajectory and its
+    cap of ``cfg.iterations`` evaluations are those of one march.
 
-    off = cfg.surface_precision + cfg.offset_precision
-    total = torch.zeros_like(sd)
-    smask = torch.zeros(sd.shape, dtype=torch.int32, device=sd.device)
-    for li in range(L):
-        lamb = lamb_l[li]
-        if cfg.shadows:
-            lp = tables.light_pos[li]
-            s = p + n * off
-            t = lp - s
-            tmax = torch.sqrt(dot3(t, t))
-            q = march(sd_fn, s, dirs_l[li], cfg.iterations, eps, tmax=tmax,
-                      init_done=skip, project_t=True).position
-            passed = dot3(lp - q, dirs_l[li]) <= 0
-            smask = smask | torch.where(passed, 0, 1 << li).to(torch.int32)
-            lamb = torch.where(passed, lamb, 0.0)
-        total = total + lamb
-    light = torch.clamp(total, cfg.saturation, 1.0)
-    return RayOutputs(p, sd, hit.converged, cidx, light, smask)
+    The JAX code needs static shapes: it sorts the unconverged lanes to
+    the front (a stable argsort), marches a block of fixed capacity and
+    chooses the overflow branch on the device.  Shapes are dynamic here, so
+    the second phase takes exactly the unconverged lanes, in the order the
+    stable sort gives them (ascending index), and the host reads their
+    count to choose the branch, which costs one synchronisation."""
+    k1 = cfg.two_phase_k1
+    res1 = march_rays(plan, cfg, tables, origin, dirs, iterations=k1)
+    # primary marches have no tmax, so unconverged is "still marching"
+    sel = (~res1.converged).nonzero().squeeze(1)
+    if sel.numel() == 0:
+        return res1
+    if sel.numel() > phase2_capacity(cfg, dirs.shape[0]):
+        return march_rays(plan, cfg, tables, origin, dirs)
+    res2 = march_rays(plan, cfg, tables, res1.position[sel], dirs[sel],
+                      iterations=cfg.iterations - k1)
+    p, sd, conv = (v.clone() for v in res1)
+    p[sel], sd[sel], conv[sel] = res2
+    return MarchResult(p, sd, conv)
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,15 +142,20 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                 origin: torch.Tensor, dirs: torch.Tensor) -> RayOutputs:
     """Fused forward for rays ``dirs`` [R, 3] from ``origin`` [3] or
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
-    CPU tensors take the plain twin; CUDA tensors launch K1.  Forward
-    only: it records no autograd graph (``ops.render_op.FusedRender``
-    differentiates it)."""
+    CPU tensors take the plain twin; CUDA tensors launch K1, or with
+    ``cfg.two_phase_k1`` set K3, K3 and K4 (their plain twins on the
+    CPU).  Forward only: it records no autograd graph
+    (``ops.render_op.FusedRender`` differentiates it)."""
     dev = dirs.device
+    check_supported(plan, cfg)
+    if 0 < cfg.two_phase_k1 < cfg.iterations:
+        hit = two_phase_march(plan, cfg, tables, origin, dirs)
+        sh = shade_rays(plan, cfg, tables, hit.position, hit.sd, dirs)
+        return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
     if dev.type == "cpu":
         return render_rays_plain(plan, cfg, tables, origin, dirs)
     if dev.type != "cuda":
         raise ValueError(f"render_rays: unsupported device {dev}")
-    check_supported(plan, cfg)
     tensors = [origin, dirs, *tables]
     if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
         raise ValueError("render_rays: every tensor must be float32 on "
@@ -176,13 +166,8 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{tuple(origin.shape)}")
 
     lib = _library()
-    packed = pack_plan(plan.kernel)
-    groups = packed.groups.to(dev)
-    runs = packed.runs.to(dev)
-    tbl = build_table(tables)
-    lights = light_rows(tables)
-    black = black_skip_ids(plan, cfg, tables)
-    black_t = torch.tensor(black or (0,), dtype=torch.int32, device=dev)
+    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
     dirs_soa = dirs.t().contiguous()
     if origin.dim() == 2:
         org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
@@ -195,12 +180,8 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_render_rays(
             tbl.data_ptr(), lights.data_ptr(), groups.data_ptr(),
-            runs.data_ptr(), black_t.data_ptr(), groups.shape[0],
-            int(packed.root_op == MIN), plan.num_lights,
-            len(black) if black else -1, int(cfg.shadows),
-            int(cfg.shadow_sat_skip), cfg.iterations, cfg.surface_precision,
-            cfg.surface_precision + cfg.offset_precision, cfg.saturation,
-            cfg.fd_h, org_soa.data_ptr() if org_soa is not None else None,
+            runs.data_ptr(), black_t.data_ptr(), groups.shape[0], root_min,
+            *shade_args, org_soa.data_ptr() if org_soa is not None else None,
             *o3, dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(), R,
             stream)
     build.check(lib, code, "render kernel launch")

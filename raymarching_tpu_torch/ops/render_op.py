@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.scene.compile import ScenePlan, SceneTables
+from ..config import RenderConfig
+from ..scene.compile import ScenePlan, SceneTables
 
 from ..core.march import dot3
 from ..core.shading import lambert_replay, normalize

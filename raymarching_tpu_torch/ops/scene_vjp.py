@@ -28,9 +28,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.scene.compile import ScenePlan, SceneTables
-from raymarching_tpu.scene.csg import PrimType
+from ..config import RenderConfig
+from ..scene.compile import ScenePlan, SceneTables
+from ..scene.csg import PrimType
 
 from ..core.sdf import leaf_signs
 from .surface_kernel import surface_eval
@@ -138,3 +138,17 @@ def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
     sph = torch.as_tensor(is_sphere[:P], device=red.device)[:, None]
     aux_sphere = torch.cat([red[:, 3:4], torch.zeros_like(red[:, :2])], dim=1)
     return red[:, :3], se * torch.where(sph, aux_sphere, red[:, 4:7])
+
+
+def stencil_theta_cotangents(plan: ScenePlan, tables: SceneTables,
+                             widx: torch.Tensor, g: torch.Tensor,
+                             u: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``theta_cotangents`` over a leading stencil axis: widx, u [K, R],
+    g [K, R, 3] -> one (prim_pos, prim_aux) cotangent pair.  The scatter
+    is linear in its rows, so the stencil axis flattens in, and the K
+    rows of one point, whose cotangents of +-1 / 2 fd_h nearly cancel,
+    meet in ``segment_add``'s float64 sums."""
+    K = widx.shape[0]
+    return theta_cotangents(plan, tables, widx.reshape(-1),
+                            g.reshape(K * g.shape[1], 3), u.reshape(-1))

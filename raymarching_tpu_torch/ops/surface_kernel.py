@@ -1,60 +1,98 @@
-"""K2, the surface kernel's combined mode: wrapper and plain twin.
+"""K2, the surface kernel: wrapper and plain twins of its four modes.
 
-Counterpart of ``raymarching_tpu.ops.pallas_march.pallas_surface_eval``
-with ``with_color=with_normal=analytic=True, fused=False``, the mode the
-exact-FD backward's stencil evaluation uses: per point the scene SD, the
-first-wins winning leaf and the winner's gradient.  The kernel is
-``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes the same thing
-in plain PyTorch (``core.sdf.kernel_fold``) and is what a CPU tensor gets.
-A CUDA tensor always goes to the kernel: a build or launch failure raises.
+Counterpart of ``raymarching_tpu.ops.pallas_march.pallas_surface_eval``,
+not fused.  Per point of q [N, 3], by ``mode``:
+
+  * ``COMBINED`` (JAX: with_color, with_normal, analytic) — the scene SD,
+    the first-wins winning leaf and the winner's gradient: the mode of the
+    backward passes' stencil and hit-point evaluations;
+  * ``SD`` — the scene SD alone;
+  * ``WINNER`` (with_color) — the SD and the winning leaf: the multi-kernel
+    backend's colour lookup;
+  * ``FD_GRAD`` (with_normal) — the SD and the central-difference gradient
+    (f(p + h e_a) - f(p - h e_a)) * (1 / 2h): the multi-kernel backend's
+    normals.
+
+The gradient-only analytic mode and every fused-generator mode are not
+ported yet (ROADMAP Queue 1 items 7 and 8).  The kernel is
+``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes each mode in
+plain PyTorch and is what a CPU tensor gets.  A CUDA tensor always goes to
+the kernel: a build or launch failure raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from raymarching_tpu.scene.compile import MIN, ScenePlan, SceneTables
-
 from ..core.sdf import kernel_fold
-from ..tables import build_table, pack_plan
+from ..core.shading import fd_stencil
+from ..scene.compile import ScenePlan, SceneTables
+from ..tables import scene_operands
 from . import build
 
-Surface = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# mode codes, shared with csrc/surface_kernel.cu
+COMBINED, SD, WINNER, FD_GRAD = 0, 1, 2, 3
+MODES = (COMBINED, SD, WINNER, FD_GRAD)
+
+Surface = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
-def surface_eval_plain(plan: ScenePlan, tables: SceneTables,
-                       q: torch.Tensor) -> Surface:
-    """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32,
-    -1 where nothing won, d scene / dp [N, 3])."""
+def _check_mode(mode: int, fd_h: Optional[float]) -> None:
+    if mode not in MODES:
+        raise ValueError(f"surface_eval: unknown mode {mode!r}")
+    if mode == FD_GRAD and not fd_h:
+        raise ValueError("surface_eval: the FD_GRAD mode needs fd_h > 0")
+
+
+def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
+                       *, mode: int = COMBINED,
+                       fd_h: Optional[float] = None) -> Surface:
+    """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32 or
+    None, gradient [N, 3] or None), the parts ``mode`` computes; the
+    winner is -1 and the combined mode's gradient zero where nothing won."""
+    _check_mode(mode, fd_h)
     with torch.no_grad():
-        return kernel_fold(plan, tables, q, with_grad=True)
+        if mode == COMBINED:
+            return kernel_fold(plan, tables, q, with_grad=True)
+        if mode == WINNER:
+            sd, widx = kernel_fold(plan, tables, q, with_idx=True)
+            return sd, widx, None
+        sd_fn = lambda p: kernel_fold(plan, tables, p)[0]  # noqa: E731
+        sd = sd_fn(q)
+        if mode == SD:
+            return sd, None, None
+        # the difference first, then one multiplication by 1 / 2h
+        return sd, None, fd_stencil(sd_fn, q, fd_h) * (1.0 / (2.0 * fd_h))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """csrc/surface_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("surface_kernel")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rt_surface_eval.argtypes = ([ptr] * 3 + [i32] * 2 + [ptr] * 3
-                                    + [ctypes.c_int64, ptr])
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rt_surface_eval.argtypes = ([ptr] * 3 + [i32] * 3 + [f32] * 2
+                                    + [ptr] * 3 + [ctypes.c_int64, ptr])
     lib.rt_surface_eval.restype = i32
     return lib
 
 
-def surface_eval(plan: ScenePlan, tables: SceneTables,
-                 q: torch.Tensor) -> Surface:
-    """Scene SD, winner leaf and winner gradient at points q [N, 3];
-    ``tables`` is a SceneTables of tensors on q's device.  CPU tensors
-    take the plain twin; CUDA tensors launch K2."""
+def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
+                 mode: int = COMBINED, fd_h: Optional[float] = None
+                 ) -> Surface:
+    """The scene at points q [N, 3] in ``mode`` -> (sd, winner or None,
+    gradient or None), as ``surface_eval_plain``; ``tables`` is a
+    SceneTables of tensors on q's device.  CPU tensors take the plain
+    twin; CUDA tensors launch K2.  Forward only."""
     dev = q.device
     if dev.type == "cpu":
-        return surface_eval_plain(plan, tables, q)
+        return surface_eval_plain(plan, tables, q, mode=mode, fd_h=fd_h)
     if dev.type != "cuda":
         raise ValueError(f"surface_eval: unsupported device {dev}")
+    _check_mode(mode, fd_h)
     if plan.kernel is None:
         raise NotImplementedError(
             "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
@@ -65,25 +103,28 @@ def surface_eval(plan: ScenePlan, tables: SceneTables,
         raise ValueError(f"surface_eval: tables must be float32 on {dev}")
 
     lib = _library()
-    packed = pack_plan(plan.kernel)
     N = q.shape[0]
+    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    with_grad = mode in (COMBINED, FD_GRAD)
+    with_idx = mode in (COMBINED, WINNER)
     with torch.no_grad():
-        groups = packed.groups.to(dev)
-        runs = packed.runs.to(dev)
-        tbl = build_table(tables)
         q_soa = q.t().contiguous()
-        out = torch.empty((4, N), dtype=torch.float32, device=dev)
-        widx = torch.empty((N,), dtype=torch.int32, device=dev)
+        out = torch.empty((4 if with_grad else 1, N), dtype=torch.float32,
+                          device=dev)
+        widx = (torch.empty((N,), dtype=torch.int32, device=dev)
+                if with_idx else None)
+    h = float(fd_h or 0.0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_surface_eval(
             tbl.data_ptr(), groups.data_ptr(), runs.data_ptr(),
-            groups.shape[0], int(packed.root_op == MIN), q_soa.data_ptr(),
-            out.data_ptr(), widx.data_ptr(), N, stream)
+            groups.shape[0], root_min, mode, h,
+            1.0 / (2.0 * h) if mode == FD_GRAD else 0.0, q_soa.data_ptr(),
+            out.data_ptr(), widx.data_ptr() if with_idx else None, N, stream)
     build.check(lib, code, "surface kernel launch")
     if N:    # the C entry point launches nothing for zero points
         surface_eval.launches += 1
-    return out[0], widx, out[1:].t()
+    return out[0], widx, (out[1:].t() if with_grad else None)
 
 
 surface_eval.launches = 0

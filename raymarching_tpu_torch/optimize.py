@@ -2,12 +2,11 @@
 
 Counterpart of ``raymarching_tpu.optimize.fit`` on one device, with
 ``torch.optim`` in place of optax.  Each step renders through
-``render_tables(differentiable=True)`` (K1 forward, exact-FD backward over
-K2 on a CUDA device; their plain twins on the CPU), takes the mean squared
+``render_tables(differentiable=True)`` (by default K1 forward, exact-FD
+backward over K2 on a CUDA device; their plain twins on the CPU), takes the mean squared
 error against the target, and steps the optimizer on the trainable fields.
-Checkpoints are the JAX package's numpy ``.npz`` format
-(``raymarching_tpu.io.checkpoint``), so a fit can be rendered or resumed by
-either package; the optimizer state rides in ``extra`` under the port's
+Checkpoints are the JAX package's numpy ``.npz`` format (``io.checkpoint``,
+the port's copy), so a fit can be rendered or resumed by either package; the optimizer state rides in ``extra`` under the port's
 own keys.
 """
 
@@ -20,10 +19,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from raymarching_tpu.scene.compile import ScenePlan, SceneTables
-from raymarching_tpu.utils.structlog import get_logger
+from .config import RenderConfig
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .scene.compile import ScenePlan, SceneTables
+from .utils.structlog import emit
 
 from .api import render_tables, resolve_device
 from .tables import tables_to_numpy, tables_to_torch
@@ -34,20 +33,6 @@ FIELDS_KEY = "torch_opt_fields"
 OPT_KEY = "torch_opt"
 
 
-def emit(event: str, **fields) -> None:
-    """``structlog.emit`` for the port: one JSON event through the shared
-    default logger (a no-op when none is configured).  The shared logger
-    resolves its ``process`` field on first use by importing JAX; the
-    port never does, and fits in one process, so that field is set to 0
-    beforehand."""
-    log = get_logger()
-    if log is None:
-        return
-    if log._process is None:
-        log._process = 0
-    log.log(event, **fields)
-
-
 @dataclasses.dataclass
 class FitResult:
     tables: SceneTables     # detached tensors on the fit's device
@@ -56,7 +41,7 @@ class FitResult:
 
 
 def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
-        device, steps: int = 100, lr: float = 1e-2,
+        device, backend: str = "cuda", steps: int = 100, lr: float = 1e-2,
         trainable: Optional[Sequence[str]] = None,
         optimizer: Optional[Callable] = None, mesh=None,
         checkpoint_path: Optional[str] = None, checkpoint_every: int = 50,
@@ -65,7 +50,8 @@ def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
     """Minimise the mean squared error of the render against ``target``
     [H, W, 3] for ``steps`` steps in all.
 
-    ``trainable``: SceneTables field names to optimise (None: all); the
+    ``backend``: the differentiable render path, ``"cuda"`` (fused) or
+    ``"multi"`` (multi-kernel); see ``api``.  ``trainable``: SceneTables field names to optimise (None: all); the
     other fields are never updated.  ``optimizer``: a callable that takes
     the list of trainable tensors and returns a ``torch.optim.Optimizer``
     (default ``torch.optim.Adam`` at ``lr``).  ``callback(step, loss,
@@ -99,8 +85,8 @@ def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
     losses = []
     for step in range(start_step, steps):
         opt.zero_grad(set_to_none=True)
-        img = render_tables(plan, tables, cfg, differentiable=True,
-                            device=device)
+        img = render_tables(plan, tables, cfg, backend=backend,
+                            differentiable=True, device=device)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         opt.step()

@@ -1,6 +1,7 @@
 """Render server of the port: ``GET /healthz`` and ``POST /render``.
 
     python -m raymarching_tpu_torch.serve [--port 8000] [--device cuda]
+                                          [--backend cuda|multi|ref]
 
 ``POST /render`` takes the scene text as its body and the query parameters
 and limits of ``raymarching_tpu.serve``: width, height, ssaa, iterations,
@@ -20,13 +21,13 @@ import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from raymarching_tpu.config import RenderConfig
-from raymarching_tpu.io.image import to_uint8
-from raymarching_tpu.io.png import encode_png
-from raymarching_tpu.scene.compile import compile_scene
-from raymarching_tpu.scene.parser import parse_scene
+from .config import RenderConfig
+from .io.image import to_uint8
+from .io.png import encode_png
+from .scene.compile import compile_scene
+from .scene.parser import parse_scene
 
-from .api import render_tables, resolve_device
+from .api import render_tables, resolve_backend, resolve_device
 
 # Limits of raymarching_tpu.serve: no request may ask for an arbitrarily
 # large frame or march.
@@ -37,10 +38,12 @@ MAX_ITERATIONS = 10_000
 MAX_BODY_BYTES = 1 << 20
 
 
-def make_handler(device):
-    """Request handler class rendering on ``device`` through the fused
-    path (K1 on a CUDA device, its plain twin on the CPU)."""
+def make_handler(device, backend: str = "cuda"):
+    """Request handler class rendering on ``device`` through ``backend``
+    (default the fused path: K1 on a CUDA device, its plain twin on the
+    CPU)."""
     device = resolve_device(device)
+    backend = resolve_backend(backend)
     # one render at a time on the device; the HTTP threads queue here
     render_lock = threading.Lock()
 
@@ -69,7 +72,8 @@ def make_handler(device):
 
         def do_GET(self):
             if urllib.parse.urlparse(self.path).path == "/healthz":
-                self._json(200, {"status": "ok", "device": str(device)})
+                self._json(200, {"status": "ok", "device": str(device),
+                                 "backend": backend})
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -101,7 +105,8 @@ def make_handler(device):
                 aperture=min(max(0.0, float(q.get("aperture", 0.0))), 10.0))
             plan, tables = compile_scene(parse_scene(text))
             with render_lock:
-                img = render_tables(plan, tables, cfg, device=device)
+                img = render_tables(plan, tables, cfg, backend=backend,
+                                    device=device)
                 img = img.cpu().numpy()
             data = to_uint8(img, cfg.gamma)
             headers = ([("X-Serve-Raygen", "ignored")]
@@ -130,9 +135,10 @@ def make_handler(device):
     return Handler
 
 
-def make_server(host: str, port: int, device) -> ThreadingHTTPServer:
+def make_server(host: str, port: int, device,
+                backend: str = "cuda") -> ThreadingHTTPServer:
     """A server bound to (host, port); port 0 picks a free one."""
-    return ThreadingHTTPServer((host, port), make_handler(device))
+    return ThreadingHTTPServer((host, port), make_handler(device, backend))
 
 
 def main(argv=None) -> int:
@@ -140,10 +146,12 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="cuda",
+                    help="cuda (fused kernel), multi (multi-kernel) or ref")
     args = ap.parse_args(argv)
-    server = make_server(args.host, args.port, args.device)
+    server = make_server(args.host, args.port, args.device, args.backend)
     print(f"raymarching_tpu_torch serving on http://{args.host}:"
-          f"{server.server_address[1]} (device={args.device})")
+          f"{server.server_address[1]} (device={args.device}, backend={args.backend})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

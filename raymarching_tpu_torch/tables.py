@@ -2,10 +2,12 @@
 
 Counterpart of ``raymarching_tpu.ops.pallas_march._build_table`` (the
 primitive rows) and of the light rows built in
-``raymarching_tpu.ops.pallas_render.pallas_render_rays``.  The JAX
-package's ``SceneTables`` (numpy) and ``KernelPlan`` (static structure)
-are the contract between the two packages: this module only changes where
-they live and how the plan is encoded.
+``raymarching_tpu.ops.pallas_render.pallas_render_rays``.  ``SceneTables``
+(the parameters) and ``KernelPlan`` (the static structure) are the port's
+own classes (``scene.compile``), field for field the JAX package's;
+``tables_to_torch`` and ``tables_to_numpy`` read any object with those
+field names, so parameters cross between the two packages without either
+importing the other.
 
 The kernel folds the two-level plan by walking small int32 descriptor
 tables instead of code generated per scene, so one build serves every
@@ -22,7 +24,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from raymarching_tpu.scene.compile import MIN, KernelPlan, SceneTables
+from .scene.compile import MIN, KernelPlan, SceneTables
 
 # DIFFERENCE groups at least this large get the base-bound cull
 # (the rule of pallas_march._scene_sd_tile, _CULL_MIN_GROUP).
@@ -41,19 +43,23 @@ class PackedPlan(NamedTuple):
     runs: torch.Tensor
 
 
-def tables_to_torch(tables: SceneTables, device,
+def tables_to_torch(tables, device,
                     requires_grad: Sequence[str] = ()) -> SceneTables:
-    """The same ``SceneTables`` with every field a float32 tensor on
-    ``device`` (numpy arrays or tensors in, no copy where they already
-    match).  The fields named in ``requires_grad`` become fresh leaf
-    tensors that require grad: copies, so an optimizer's in-place update
-    never writes into the caller's arrays."""
+    """The port's ``SceneTables`` with every field a float32 tensor on
+    ``device``.  ``tables`` is any object with the SceneTables field names
+    (the port's class or the JAX package's; numpy arrays or tensors, no
+    copy where they already match).  The fields named in ``requires_grad``
+    become fresh leaf tensors that require grad: copies, so an optimizer's
+    in-place update never writes into the caller's arrays."""
     unknown = set(requires_grad) - set(SceneTables._fields)
     if unknown:
         raise ValueError(f"unknown SceneTables fields {sorted(unknown)}")
     out = []
     device = torch.device(device)
-    for name, v in zip(SceneTables._fields, tables):
+    for name in SceneTables._fields:
+        v = getattr(tables, name)
+        if not isinstance(v, torch.Tensor):
+            v = np.asarray(v)
         t = torch.as_tensor(v, dtype=torch.float32, device=device)
         if name in requires_grad:
             t = t.detach().clone().requires_grad_()
@@ -61,11 +67,13 @@ def tables_to_torch(tables: SceneTables, device,
     return SceneTables(*out)
 
 
-def tables_to_numpy(tables: SceneTables) -> SceneTables:
-    """The JAX package's numpy ``SceneTables`` (float32 host arrays) of
-    the port's tables, so either package can render or resume a fit."""
-    return SceneTables(*(np.asarray(torch.as_tensor(v).detach().cpu(),
-                                    np.float32) for v in tables))
+def tables_to_numpy(tables) -> SceneTables:
+    """``SceneTables`` of float32 host arrays from any object with its
+    field names: what a checkpoint stores, and what the JAX package takes
+    field by field (``JaxSceneTables(**t._asdict())``)."""
+    return SceneTables(*(np.asarray(
+        torch.as_tensor(getattr(tables, name)).detach().cpu(), np.float32)
+        for name in SceneTables._fields))
 
 
 def build_table(tables: SceneTables) -> torch.Tensor:
@@ -116,3 +124,13 @@ def pack_plan(kp: KernelPlan) -> PackedPlan:
     as_i32 = lambda rows: torch.tensor(  # noqa: E731
         np.asarray(rows, np.int32).reshape(-1, 4))
     return PackedPlan(int(kp.root_op), as_i32(groups), as_i32(runs))
+
+
+def scene_operands(plan, tables: SceneTables, device) -> tuple:
+    """What every kernel's ``Scene`` argument is built from, on ``device``:
+    (primitive rows [P, 8], groups [G, 4], runs [N, 4], root_min 0/1).
+    The caller keeps the tensors alive across its launch."""
+    packed = pack_plan(plan.kernel)
+    with torch.no_grad():
+        return (build_table(tables), packed.groups.to(device),
+                packed.runs.to(device), int(packed.root_op == MIN))

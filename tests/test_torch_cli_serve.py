@@ -15,7 +15,8 @@ from torch_util import one_torch_thread  # noqa: E402,F401
 
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu.io.png import read_png  # noqa: E402
-from raymarching_tpu.scene.compile import compile_scene  # noqa: E402
+from raymarching_tpu_torch.scene.compile import compile_scene  # noqa: E402
+from raymarching_tpu_torch.scene.parser import parse_scene  # noqa: E402
 from raymarching_tpu_torch import cli  # noqa: E402
 from raymarching_tpu_torch.serve import make_server  # noqa: E402
 
@@ -61,13 +62,28 @@ def test_render_on_missing_cuda_device_raises(scenes_dir):
 @pytest.mark.parametrize("change", [
     dict(normal_mode="analytic"), dict(fused_generators=True),
     dict(soft_shadow_k=8.0), dict(ao_strength=0.5),
-    dict(reflect_strength=0.3), dict(aperture=0.2), dict(two_phase_k1=16),
+    dict(reflect_strength=0.3), dict(aperture=0.2),
     dict(serve_raygen=True)])
 def test_unsupported_config_raises(change, scenes_dir):
     scene = rt.load_scene(str(scenes_dir / "config1.txt"))
     cfg = rt.RenderConfig(width=4, height=4, ssaa=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.render(scene, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(two_phase_k1=16), dict(two_phase_k1=16, shadows=False),
+    dict(shade_skip_black=False)])
+def test_supported_config_renders(change, scenes_dir):
+    """Settings the port accepts: the two-phase march renders the
+    one-kernel image exactly."""
+    scene = rt.load_scene(str(scenes_dir / "config1.txt"))
+    base = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=60)
+    img = rt.render(scene, base.replace(**change), device="cpu")
+    want = rt.render(scene, base.replace(**{k: v for k, v in change.items()
+                                            if k != "two_phase_k1"}),
+                     device="cpu")
+    assert torch.equal(img, want) and img.max() > 0
 
 
 def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
@@ -112,7 +128,7 @@ def _post(url, body=SCENE):
 def test_healthz(server):
     with urllib.request.urlopen(server + "/healthz") as r:
         payload = json.loads(r.read())
-    assert payload == {"status": "ok", "device": "cpu"}
+    assert payload == {"status": "ok", "device": "cpu", "backend": "cuda"}
 
 
 def test_render_png_equals_direct_render(server):
@@ -122,7 +138,6 @@ def test_render_png_equals_direct_render(server):
         assert r.headers["X-Serve-Raygen"] == "ignored"
         png = rt.decode_png(r.read())
     cfg = rt.RenderConfig(width=20, height=14, ssaa=2, iterations=80)
-    from raymarching_tpu.scene.parser import parse_scene
     want = rt.to_uint8(rt.render(parse_scene(SCENE), cfg,
                                  device="cpu").numpy())
     np.testing.assert_array_equal(png[..., :3], want)

@@ -1,8 +1,11 @@
-"""K1 and K2 on a CUDA card against their plain PyTorch twins, and the
-differentiable render's gradients on the card against the CPU's.  Skips
-without a card.
+"""The four kernels on a CUDA card against their plain PyTorch twins (K1,
+K2 in every mode, K3 with and without tmax and with steps, K4), the
+two-phase path against the one kernel, the multi-kernel backend against
+the fused one, and the differentiable render's gradients on the card
+against the CPU's.  Skips without a card.
 
-Imports no JAX, so it also runs where JAX is not installed:
+Imports nothing of JAX or the JAX package, so it also runs where neither
+is installed:
 
     python -m pytest tests/test_torch_kernel_cuda.py --noconftest -q
 """
@@ -15,11 +18,18 @@ torch = pytest.importorskip("torch")
 
 from torch_util import one_torch_thread  # noqa: E402,F401
 
-from raymarching_tpu.config import RenderConfig  # noqa: E402
-from raymarching_tpu.scene.compile import SceneTables, compile_scene  # noqa: E402
-from raymarching_tpu.scene.parser import load_scene, parse_scene  # noqa: E402
+import raymarching_tpu_torch as rt  # noqa: E402
+from raymarching_tpu_torch.config import RenderConfig  # noqa: E402
 from raymarching_tpu_torch.core import camera as cam  # noqa: E402
+from raymarching_tpu_torch.core.march import dot3  # noqa: E402
+from raymarching_tpu_torch.core.shading import normalize  # noqa: E402
+from raymarching_tpu_torch.ops import march_kernel as mk  # noqa: E402
 from raymarching_tpu_torch.ops import render_kernel as rk  # noqa: E402
+from raymarching_tpu_torch.ops import shade_kernel as shk  # noqa: E402
+from raymarching_tpu_torch.scene.compile import (SceneTables,  # noqa: E402
+                                                 compile_scene)
+from raymarching_tpu_torch.scene.parser import (load_scene,  # noqa: E402
+                                                parse_scene)
 from raymarching_tpu_torch.ops.render_op import FusedRender  # noqa: E402
 from raymarching_tpu_torch.ops import scene_vjp  # noqa: E402
 from raymarching_tpu_torch.ops import surface_kernel as sk  # noqa: E402
@@ -138,6 +148,124 @@ def test_render_gradients_on_card_match_cpu(cuda_device):
         grads.append([v.cpu() for v in g])
     for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
         assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+
+
+def _same(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None and b is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, i)
+        if a.is_floating_point():
+            # an empty scene's FD gradient is inf - inf on both sides
+            assert bool(((a == b) | (a.isnan() & b.isnan())).all()), (what, i)
+        else:
+            assert torch.equal(a, b), (what, i)
+
+
+ALL_SCENES = {**{s: None for s in ("demo", "config1", "config4", "menger4",
+                                   "scatter1k")}, **DEGENERATE}
+
+
+def _compiled(name):
+    text = ALL_SCENES[name]
+    scene = (load_scene(str(SCENES / f"{name}.txt")) if text is None
+             else parse_scene(text))
+    return compile_scene(scene)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", sorted(ALL_SCENES))
+def test_march_and_shade_kernels_match_plain_twins_on_card(cuda_device,
+                                                           scene):
+    """K3 (primary rays with steps; shadow rays with tmax) and K4 against
+    their twins, bitwise, and against K1's own march and shading."""
+    plan, tables = _compiled(scene)
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    k1 = rk.render_rays(plan, CFG, tt, origin, dirs)
+    n3, n4 = mk.march_rays.launches, shk.shade_rays.launches
+    res, steps = mk.march_rays(plan, CFG, tt, origin, dirs, with_steps=True)
+    torch.cuda.synchronize()
+    assert mk.march_rays.launches == n3 + 1
+    res_p, steps_p = mk.march_rays_plain(plan, CFG, tt, origin, dirs,
+                                         with_steps=True)
+    _same((*res, steps), (*res_p, steps_p), "K3")
+    _same(res, (k1.p, k1.sd, k1.done), "K3 vs K1")
+    _, _, g = sk.surface_eval(plan, tt, k1.p, mode=sk.FD_GRAD, fd_h=CFG.fd_h)
+    n = normalize(g)
+    for li in range(plan.num_lights):
+        lp = tt.light_pos[li]
+        start = k1.p + n * (CFG.surface_precision + CFG.offset_precision)
+        r = lp - start
+        tmax, ray = torch.sqrt(dot3(r, r)), normalize(lp - k1.p)
+        _same(mk.march_rays(plan, CFG, tt, start, ray, tmax=tmax),
+              mk.march_rays_plain(plan, CFG, tt, start, ray, tmax=tmax),
+              f"K3 shadow {li}")
+    k4 = shk.shade_rays(plan, CFG, tt, k1.p, k1.sd, dirs)
+    torch.cuda.synchronize()
+    assert shk.shade_rays.launches == n4 + 1
+    _same(k4, shk.shade_rays_plain(plan, CFG, tt, k1.p, k1.sd, dirs), "K4")
+    _same(k4, (k1.cidx, k1.light, k1.smask), "K4 vs K1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [sk.SD, sk.WINNER, sk.FD_GRAD])
+@pytest.mark.parametrize("scene", sorted(ALL_SCENES))
+def test_surface_kernel_modes_match_plain_twins_on_card(cuda_device, scene,
+                                                        mode):
+    plan, tables = _compiled(scene)
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, CFG)
+    hits = rk.render_rays(plan, CFG, tt, origin, dirs.reshape(-1, 3)).p
+    before = sk.surface_eval.launches
+    k = sk.surface_eval(plan, tt, hits, mode=mode, fd_h=CFG.fd_h)
+    torch.cuda.synchronize()
+    assert sk.surface_eval.launches == before + 1
+    _same(k, sk.surface_eval_plain(plan, tt, hits, mode=mode, fd_h=CFG.fd_h),
+          f"mode {mode}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1", [1, 8, 48])
+@pytest.mark.parametrize("scene", ["demo", "config4", "menger4"])
+def test_two_phase_equals_one_kernel_on_card(cuda_device, scene, k1):
+    plan, tables = _compiled(scene)
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    one = rk.render_rays(plan, CFG, tt, origin, dirs)
+    n1, n3, n4 = (rk.render_rays.launches, mk.march_rays.launches,
+                  shk.shade_rays.launches)
+    two = rk.render_rays(plan, CFG.replace(two_phase_k1=k1), tt, origin, dirs)
+    assert rk.render_rays.launches == n1
+    assert mk.march_rays.launches - n3 in (1, 2)
+    assert shk.shade_rays.launches == n4 + 1
+    _same(two, one, f"two-phase k1={k1}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["demo", "config4"])
+def test_multi_backend_matches_fused_on_card(cuda_device, scene):
+    plan, tables = _compiled(scene)
+    cfg = CFG.replace(shade_skip_black=False)
+    imgs, grads = {}, {}
+    for backend in ("cuda", "multi"):
+        tt = tables_to_torch(tables, cuda_device,
+                             requires_grad=SceneTables._fields)
+        img = rt.render_tables(plan, tt, cfg, backend=backend,
+                               differentiable=True, device=cuda_device)
+        grads[backend] = torch.autograd.grad(
+            torch.mean((img - 0.25) ** 2), list(tt), allow_unused=True,
+            materialize_grads=True)
+        imgs[backend] = img.detach()
+    torch.testing.assert_close(imgs["multi"], imgs["cuda"], rtol=0,
+                               atol=1e-6)
+    for name, a, b in zip(SceneTables._fields, grads["multi"],
+                          grads["cuda"]):
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)

@@ -1,7 +1,9 @@
 """K2 in the port: the plain twin ``surface_eval_plain`` (what a CPU tensor
-gets from ``surface_eval``) against the JAX surface kernel's combined mode
-(Pallas interpret mode), through ``winner_eval`` and ``stencil_eval``; the
-leaf gradients against ``pallas_march._prim_sd_grad``.  The kernel itself
+gets from ``surface_eval``) against the JAX surface kernel (Pallas
+interpret mode): its combined mode through ``winner_eval`` and
+``stencil_eval``, its sd, winner and FD-gradient modes through
+``pallas_surface_eval``; the leaf gradients against
+``pallas_march._prim_sd_grad``.  The kernel itself
 is checked on the card by tests/test_torch_kernel_cuda.py."""
 
 import jax.numpy as jnp
@@ -14,7 +16,8 @@ from torch_util import one_torch_thread  # noqa: E402,F401
 
 from raymarching_tpu import RenderConfig  # noqa: E402
 from raymarching_tpu.ops import scene_vjp as jvjp  # noqa: E402
-from raymarching_tpu.ops.pallas_march import _prim_sd_grad  # noqa: E402
+from raymarching_tpu.ops.pallas_march import (_prim_sd_grad,  # noqa: E402
+                                              pallas_surface_eval)
 from raymarching_tpu.scene.compile import compile_scene  # noqa: E402
 from raymarching_tpu.scene.csg import PrimType  # noqa: E402
 from raymarching_tpu.scene.parser import load_scene  # noqa: E402
@@ -133,3 +136,68 @@ def test_prim_sd_grad_matches_jax_leaf_gradients():
                                torch.as_tensor(p)).numpy()
         np.testing.assert_allclose(gt, gj, rtol=0, atol=G_ATOL,
                                    err_msg=str(ptype))
+
+
+# JAX flags of pallas_surface_eval for each of the port's modes
+JAX_MODE = {sk.SD: dict(with_color=False, with_normal=False),
+            sk.WINNER: dict(with_color=True, with_normal=False),
+            sk.FD_GRAD: dict(with_color=False, with_normal=True)}
+# the FD gradient divides differences of SDs by 2 fd_h = 2e-3: an ulp of
+# an SD of a few units (2.4e-7) becomes ~2.4e-4 of gradient
+FD_G_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("mode", sorted(JAX_MODE))
+def test_surface_modes_match_jax_surface_kernel(case, mode):
+    plan, tables, p, *_ = case
+    sd_j, w_j, g_j = pallas_surface_eval(
+        plan.kernel, CFG.fd_h, CFG.tile_sublanes, jnp.asarray(p), tables,
+        interpret=True, **JAX_MODE[mode])
+    tt = tables_to_torch(tables, "cpu")
+    before = sk.surface_eval.launches
+    sd, w, g = sk.surface_eval(plan, tt, torch.as_tensor(p), mode=mode,
+                               fd_h=CFG.fd_h)
+    assert sk.surface_eval.launches == before      # the plain twin
+    np.testing.assert_allclose(sd.numpy(), np.asarray(sd_j), rtol=SD_RTOL,
+                               atol=SD_ATOL)
+    assert (w is None) == (w_j is None) and (g is None) == (g_j is None)
+    clean = np.asarray(_tie_free(plan, tables, jnp.asarray(p)))
+    if w is not None:
+        assert w.dtype == torch.int32
+        np.testing.assert_array_equal(w.numpy()[clean],
+                                      np.asarray(w_j)[clean])
+    if g is not None:
+        # off the points whose stencil straddles a crease of the field
+        smooth = np.abs(np.linalg.norm(np.asarray(g_j), axis=-1) - 1) < 1e-2
+        assert smooth.mean() > 0.8
+        np.testing.assert_allclose(g.numpy()[smooth],
+                                   np.asarray(g_j)[smooth], rtol=0,
+                                   atol=FD_G_ATOL)
+    # every mode's SD is the combined mode's, bitwise, and so is the winner
+    sd_c, w_c, _ = case[5]
+    assert torch.equal(sd, sd_c)
+    if w is not None:
+        assert torch.equal(w, w_c)
+
+
+def test_fd_gradient_is_the_stencil_of_the_sd_mode(case):
+    """(f(p + h e_a) - f(p - h e_a)) * (1 / 2h), in that order."""
+    plan, tables, p, *_ = case
+    tt = tables_to_torch(tables, "cpu")
+    pt = torch.as_tensor(p)
+    _, _, g = sk.surface_eval(plan, tt, pt, mode=sk.FD_GRAD, fd_h=CFG.fd_h)
+    h, inv = CFG.fd_h, 1.0 / (2.0 * CFG.fd_h)
+    eye = torch.eye(3) * h
+    for a in range(3):
+        hi, _, _ = sk.surface_eval(plan, tt, pt + eye[a], mode=sk.SD)
+        lo, _, _ = sk.surface_eval(plan, tt, pt - eye[a], mode=sk.SD)
+        assert torch.equal(g[:, a], (hi - lo) * inv)
+
+
+def test_surface_mode_arguments_are_checked(case):
+    plan, tables, p, *_ = case
+    tt = tables_to_torch(tables, "cpu")
+    with pytest.raises(ValueError, match="mode"):
+        sk.surface_eval(plan, tt, torch.as_tensor(p), mode=7)
+    with pytest.raises(ValueError, match="fd_h"):
+        sk.surface_eval(plan, tt, torch.as_tensor(p), mode=sk.FD_GRAD)

@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 from torch_util import one_torch_thread  # noqa: E402,F401
 
 from raymarching_tpu.ops.pallas_march import _build_table  # noqa: E402
-from raymarching_tpu.scene.compile import MIN, compile_scene  # noqa: E402
-from raymarching_tpu.scene.parser import load_scene  # noqa: E402
+from raymarching_tpu_torch.scene.compile import MIN, compile_scene  # noqa: E402
+from raymarching_tpu_torch.scene.parser import load_scene  # noqa: E402
 from raymarching_tpu_torch.tables import (build_table, light_rows,  # noqa: E402
                                           pack_plan, tables_to_numpy,
                                           tables_to_torch)
@@ -126,11 +126,12 @@ def test_port_never_imports_jax():
 
 
 def test_port_fit_with_structured_logging_never_imports_jax():
-    """The shared structured logger looks up JAX's process index on its
-    first record; the port's fit_step events must not."""
+    """The JAX package's structured logger looks up JAX's process index on
+    its first record; the port's own logger and its fit_step events must
+    not."""
     code = "\n".join([
         "import io, json, sys",
-        "from raymarching_tpu.utils import structlog",
+        "from raymarching_tpu_torch.utils import structlog",
         "import raymarching_tpu_torch as rt",
         "buf = io.StringIO()",
         "structlog.configure(stream=buf)",
