@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times    # the kernels' device times alone
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
@@ -13,8 +14,11 @@ Phases, one line each, every failure an uncaught exception:
                    with tmax from K1's hit points; K4 (ops.shade_kernel
                    .shade_rays) against its twin on K1's hit points; K2's
                    sd, winner and FD-gradient modes against their twins:
-                   all bitwise.  Then the demo image against the port's
-                   ref oracle;
+                   all bitwise, with the lattice collapse on and off; K1
+                   and K3 on ray counts that are no multiple of a tile, on
+                   one ray and with per-ray origins; which scenes the
+                   kernels stage in shared memory.  Then the demo image
+                   against the port's ref oracle;
   4. compare-bwd — K2 (ops.surface_kernel.surface_eval) against its plain
                    twin on the 7-point stencils of K1's hits on the same
                    scenes, bitwise; the card's gradients of a 32x24 demo
@@ -50,14 +54,26 @@ Phases, one line each, every failure an uncaught exception:
   9. train-multi — three ``fit`` steps through ``backend="multi"``; its
                    gradients against the fused backend's on the same rays;
  10. profile     — ``utils.timing.profile_march``: K3's step counts;
- 11. serve       — the port's HTTP server answers /healthz and three
+ 11. warp        — where a thread-per-ray kernel loses its lanes, from K3's
+                   step counter and the fold's cull test on the demo frame:
+                   march lane efficiency (primary and shadow rays), cull
+                   coherence within a warp, K1's shadow skips; and
+                   ``[tail]``: K3 on the slowest ray alone, the serial
+                   chain no launch can be shorter than;
+ 12. collapse    — K1 (both resolutions) and K3 (primary, both shadow
+                   launches) timed with the lattice collapse on and off in
+                   turns, outputs bitwise equal; every kernel on a table
+                   with one cross row moved (the flag drops on the device)
+                   against the leaf fold and the plain twins;
+ 13. serve       — the port's HTTP server answers /healthz and three
                    /render requests with PNGs equal to direct renders.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
-bound: the larger of its bytes over 3.35 TB/s and its operations,
-12 for each leaf evaluation the fold's cull keeps on this run's data, over
-67 TFLOP/s, the H100's published float32 rate) and, last, the device line.
+bound: the larger of its bytes over 3.35 TB/s and its operations on this
+run's data, 12 for each leaf evaluation the fold's cull keeps and the
+collapsed carve's as core.sdf.LeafCount states them, over 67 TFLOP/s, the
+H100's published float32 rate) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -96,10 +112,9 @@ KERNELS = ("render_kernel", "surface_kernel", "march_kernel", "shade_kernel")
 # of this run, per kernel (``compare`` and ``same`` fill it)
 ERRS = dict.fromkeys(KERNELS, 0.0)
 # the H100's published peaks (SXM data sheet): device memory bytes/s and
-# float32 operations/s outside the tensor cores; a leaf evaluation of the
-# fold is at least 12 of those (the sphere: 3 sub, 3 mul, 2 add, sqrt, sub,
-# scale, min)
-HBM_BYTES_S, FP32_OPS_S, OPS_PER_LEAF = 3.35e12, 67e12, 12
+# float32 operations/s outside the tensor cores (core.sdf.LeafCount counts
+# the fold's operations)
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
 # the 1024x768 SSAA 3 frame's plain twin runs on one ray in BIG_STRIDE
 BIG_STRIDE = 8
 TRAINABLE = ("prim_pos", "prim_aux", "prim_color", "light_pos")
@@ -137,6 +152,34 @@ def timed(fn, runs: int = 1):
     return out, sorted(times)[len(times) // 2]
 
 
+def device_ms(fn, needle: str, runs: int = 5):
+    """Median device time in ms of the kernels whose name contains
+    ``needle`` over ``runs`` calls of fn(), from torch.profiler: the kernel
+    alone, without its wrapper's host work.  The profiler now and then
+    hands back fewer kernel records than launches; such a window is taken
+    again, and the third is read as it is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = []
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and needle in e.name:
+                t = getattr(e, "device_time", None)
+                times.append((e.cuda_time if t is None else t) / 1e3)
+        if len(times) >= runs:
+            break
+    check(len(times) > 0, f"the profiler saw no {needle} launch in {runs} "
+          "calls")
+    return statistics.median(times)
+
+
 def max_err(got, want) -> float:
     """The largest absolute difference, element by element, between two
     tuples of tensors (None entries skipped; booleans as 0 and 1; equal
@@ -153,13 +196,14 @@ def max_err(got, want) -> float:
 
 def compare(plan, cfg, tables, origin, dirs):
     """Launch K1 (five times) and its plain twin (once) on the same rays;
-    check and return the worst differences and both times."""
+    check and return the worst differences, both times and the twin's
+    count of the fold's work."""
     from raymarching_tpu_torch.ops.render_kernel import (blend, render_rays,
                                                          render_rays_plain)
     k, ms = timed(lambda: render_rays(plan, cfg, tables, origin, dirs),
                   runs=5)
-    p, plain_ms = timed(lambda: render_rays_plain(plan, cfg, tables, origin,
-                                                  dirs))
+    p, plain_ms, count = timed_counted(lambda: render_rays_plain(
+        plan, cfg, tables, origin, dirs))
     worst = {}
     for name in ("done", "cidx", "smask"):
         share = (getattr(k, name) == getattr(p, name)).double().mean().item()
@@ -180,7 +224,7 @@ def compare(plan, cfg, tables, origin, dirs):
     worst["outputs"] = max_err(k, p)
     ERRS["render_kernel"] = max(ERRS["render_kernel"], worst["image"],
                                 worst["outputs"])
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, count
 
 
 def ptxas_summary(log: str) -> str:
@@ -223,62 +267,100 @@ def shadow_rays(tables, cfg, p, n, li):
     return start, normalize(lp - p), torch.sqrt(dot3(r, r))
 
 
-def compare_new(plan, cfg, tables, origin, dirs):
+def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
     """K3, K4 and K2's sd, winner and FD-gradient modes against their plain
     twins, all bitwise (every kernel is built with -fmad=false), and K3 and
-    K4 against K1's own outputs.  Returns the number of comparisons."""
+    K4 against K1's own outputs, with the lattice collapse on or off in
+    kernels and twins alike.  Returns the number of comparisons."""
     from raymarching_tpu_torch.core.shading import normalize
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import shade_kernel as shk
     from raymarching_tpu_torch.ops import surface_kernel as sk
     from raymarching_tpu_torch.ops.render_kernel import render_rays
-    k1 = render_rays(plan, cfg, tables, origin, dirs)
+    c = {"collapse": collapse}
+    k1 = render_rays(plan, cfg, tables, origin, dirs, **c)
     res, steps = mk.march_rays(plan, cfg, tables, origin, dirs,
-                               with_steps=True)
+                               with_steps=True, **c)
     res_p, steps_p = mk.march_rays_plain(plan, cfg, tables, origin, dirs,
-                                         with_steps=True)
+                                         with_steps=True, **c)
     same("K3 primary", (*res, steps), (*res_p, steps_p), "march_kernel")
     same("K3 against K1's march", res, (k1.p, k1.sd, k1.done))
     n_cmp = 2
     _, _, g = sk.surface_eval(plan, tables, k1.p, mode=sk.FD_GRAD,
-                              fd_h=cfg.fd_h)
+                              fd_h=cfg.fd_h, **c)
     for li in range(plan.num_lights):
         s, d, tmax = shadow_rays(tables, cfg, k1.p, normalize(g), li)
         same(f"K3 shadow rays of light {li}",
-             mk.march_rays(plan, cfg, tables, s, d, tmax=tmax),
-             mk.march_rays_plain(plan, cfg, tables, s, d, tmax=tmax),
+             mk.march_rays(plan, cfg, tables, s, d, tmax=tmax, **c),
+             mk.march_rays_plain(plan, cfg, tables, s, d, tmax=tmax, **c),
              "march_kernel")
         n_cmp += 1
-    k4 = shk.shade_rays(plan, cfg, tables, k1.p, k1.sd, dirs)
+    k4 = shk.shade_rays(plan, cfg, tables, k1.p, k1.sd, dirs, **c)
     same("K4", k4, shk.shade_rays_plain(plan, cfg, tables, k1.p, k1.sd,
-                                        dirs), "shade_kernel")
+                                        dirs, **c), "shade_kernel")
     same("K4 against K1's shading", k4, (k1.cidx, k1.light, k1.smask))
     n_cmp += 2
     for mode in (sk.SD, sk.WINNER, sk.FD_GRAD):
         same(f"K2 mode {mode}",
-             sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h),
+             sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h,
+                             **c),
              sk.surface_eval_plain(plan, tables, k1.p, mode=mode,
-                                   fd_h=cfg.fd_h), "surface_kernel")
+                                   fd_h=cfg.fd_h, **c), "surface_kernel")
         n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
 
 
-def bound_ms(plain_fn, n_bytes: int):
-    """The least time the card could take for the work of one kernel
-    launch: (ms, "bytes" or "operations", leaf evaluations, the
-    operations' ms, the bytes' ms).  The
-    operations are counted on this run's data by running the kernel's
-    plain twin under core.sdf.LeafCount, which applies the fold's cull
-    rule per point."""
+def compare_ragged(plan, cfg, tables, origin, dirs):
+    """K1, K3 and K4 on the first n rays, with per-ray origins, for n that
+    is 1, below a warp and no multiple of a warp or a tile: rays are
+    independent, so every output must be the full launch's on those rays,
+    bitwise.  Returns the ray counts."""
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    R = dirs.shape[0]
+    full = render_rays(plan, cfg, tables, origin, dirs)
+    full3, steps3 = mk.march_rays(plan, cfg, tables, origin, dirs,
+                                  with_steps=True)
+    counts = [n for n in (1, 31, 1000, R - 37) if 0 < n <= R]
+    for n in counts:
+        org = origin.expand(R, 3)[:n].contiguous()
+        same(f"K1 on {n} rays", render_rays(plan, cfg, tables, org, dirs[:n]),
+             tuple(v[:n] for v in full))
+        part3, psteps = mk.march_rays(plan, cfg, tables, org, dirs[:n],
+                                      with_steps=True)
+        same(f"K3 on {n} rays", (*part3, psteps),
+             (*(v[:n] for v in full3), steps3[:n]))
+        same(f"K4 on {n} rays",
+             shk.shade_rays(plan, cfg, tables, full.p[:n], full.sd[:n],
+                            dirs[:n]),
+             (full.cidx[:n], full.light[:n], full.smask[:n]))
+    torch.cuda.synchronize()
+    return counts
+
+
+def timed_counted(plain_fn):
+    """(result, ms, count) of one call of a plain twin under
+    core.sdf.LeafCount, which counts the work the kernels' fold does on
+    the same points (it applies the fold's cull rule per point)."""
     from raymarching_tpu_torch.core.sdf import LeafCount
     with LeafCount() as count:
-        plain_fn()
-    t_ops = count.leaves * OPS_PER_LEAF / FP32_OPS_S
+        out, ms = timed(plain_fn)
+    return out, ms, count
+
+
+def bound_ms(count, n_bytes: int):
+    """The least time the card could take for the work of one kernel
+    launch: (ms, "bytes" or "operations", leaf evaluations, the
+    operations' ms, the bytes' ms, the operations), from a plain twin's
+    ``count`` of the operations on this run's data and the bytes the
+    kernel must move."""
+    t_ops = count.ops / FP32_OPS_S
     t_bytes = n_bytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", count.leaves,
-            t_ops * 1e3, t_bytes * 1e3)
+            t_ops * 1e3, t_bytes * 1e3, count.ops)
 
 
 def launch_counts():
@@ -390,6 +472,59 @@ def has_demo_objects(img: torch.Tensor) -> bool:
                 and (img.amax(dim=-1) == 0).any())
 
 
+def kernel_times() -> int:
+    """``--times``: one line with the device times (torch.profiler, median
+    of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
+    on the primary rays and on the slowest of them alone, of K4, and of K1
+    with the scene read from device memory, on the demo at 1,000
+    iterations.  For holding two checkouts against each other on one card:
+    run it from each in one command, in turns (parent, change, change,
+    parent)."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch import tables as scene_tables
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+
+    dev = torch.device("cuda")
+    plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
+    tt = scene_tables.tables_to_torch(tables, dev)
+    cfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    origin, dirs = rays_for(plan, tt, cfg)
+    hit, steps = mk.march_rays(plan, cfg, tt, origin, dirs, with_steps=True)
+    slow = int(steps.argmax())
+    out = {
+        "K1 512x512 ssaa2": device_ms(lambda: render_rays(
+            plan, cfg, tt, origin, dirs), "render_kernel"),
+        "K3 primary": device_ms(lambda: mk.march_rays(
+            plan, cfg, tt, origin, dirs), "march_kernel"),
+        f"K3 slowest ray alone ({int(steps[slow])} steps)": device_ms(
+            lambda: mk.march_rays(plan, cfg, tt, origin,
+                                  dirs[slow:slow + 1]), "march_kernel"),
+        "K4": device_ms(lambda: shk.shade_rays(
+            plan, cfg, tt, hit.position, hit.sd, dirs), "shade_kernel"),
+    }
+    limit = scene_tables.SHARED_SCENE_BYTES
+    scene_tables.SHARED_SCENE_BYTES = 0
+    try:
+        out["K1 512x512 ssaa2, scene in device memory"] = device_ms(
+            lambda: render_rays(plan, cfg, tt, origin, dirs), "render_kernel")
+    finally:
+        scene_tables.SHARED_SCENE_BYTES = limit
+    big = rt.RenderConfig()
+    big_org, big_dirs = rays_for(plan, tt, big)
+    out[f"K1 {big.width}x{big.height} ssaa{big.ssaa}"] = device_ms(
+        lambda: render_rays(plan, big, tt, big_org, big_dirs),
+        "render_kernel")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"[times] {ROOT}: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+          + f"; {smi.splitlines()[0]}")
+    return 0
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     # 1. device
@@ -397,6 +532,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--times"]:
+        return kernel_times()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; expected none "
+              "or --times", file=sys.stderr)
+        return 2
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.api import render_tables
     from raymarching_tpu_torch.core.shading import normalize
@@ -409,7 +550,10 @@ def main() -> int:
                                                          render_rays_plain,
                                                          two_phase_march)
     from raymarching_tpu_torch.serve import make_server
-    from raymarching_tpu_torch.tables import tables_to_torch
+    from raymarching_tpu_torch.core.sdf import carve_folded
+    from raymarching_tpu_torch.tables import (SHARED_SCENE_BYTES,
+                                              lattice_ok, scene_operands,
+                                              tables_to_torch)
     from raymarching_tpu_torch.utils.timing import profile_march
 
     dev = torch.device("cuda")
@@ -443,15 +587,35 @@ def main() -> int:
             rt.load_scene(str(ROOT / "scenes" / f"{scene}.txt")))
         tt = tables_to_torch(tables, dev)
         rays = rays_for(plan, tt, cfg)
-        worst, _, _ = compare(plan, cfg, tt, *rays)
+        worst = compare(plan, cfg, tt, *rays)[0]
         print(f"[compare] {scene} {cfg.width}x{cfg.height} ssaa{cfg.ssaa}: "
               + ", ".join(f"{k} {v:.6g}" for k, v in worst.items()))
-        n_cmp = compare_new(plan, cfg, tt, *rays)
+        n_cmp = (compare_new(plan, cfg, tt, *rays)
+                 + compare_new(plan, cfg, tt, *rays, collapse=False))
+        ops = scene_operands(plan, tt, dev)
+        nbytes = ops.nbytes(plan.num_lights)
         print(f"[compare] {scene}: K3 (primary rays with steps, shadow "
               f"rays with tmax of {plan.num_lights} lights), K4, and K2's "
               f"sd, winner and FD-gradient modes = plain twins bitwise, and "
-              f"K3, K4 = K1's march and shading bitwise ({n_cmp} "
-              "comparisons)")
+              f"K3, K4 = K1's march and shading bitwise, with the lattice "
+              f"collapse on and off ({n_cmp} comparisons; collapse flag "
+              f"{int(ops.flag.item())}); K1, K3, K4 on "
+              f"{compare_ragged(plan, cfg, tt, *rays)} rays with per-ray "
+              f"origins = the full launch's; scene {nbytes} bytes, read "
+              f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
+              " memory")
+        if scene == "demo":
+            # 16 bytes cover the staged copy's alignment padding
+            per_sm = {k: (build.load_library(k).rt_blocks_per_sm(
+                1, nbytes + 16), build.load_library(k).rt_blocks_per_sm(0, 0))
+                for k in ("render_kernel", "march_kernel", "shade_kernel")}
+            check(all(min(v) > 0 for v in per_sm.values()),
+                  f"resident blocks an SM: {per_sm}")
+            print("[occupancy] resident blocks an SM (128 threads each), "
+                  f"the demo's {nbytes} bytes staged in shared memory / the "
+                  "scene in device memory: "
+                  + "; ".join(f"{k} {a} / {b}"
+                              for k, (a, b) in per_sm.items()))
     demo = rt.load_scene(str(DEMO))
     ref = rt.render_ref(demo, small, device=dev)
     fused = rt.render(demo, small, device=dev)
@@ -522,9 +686,14 @@ def main() -> int:
     R = tcfg.rays_per_image
     tt = tables_to_torch(tables, dev)
     origin, dirs = rays_for(plan, tt, tcfg)
-    worst, k1_ms, k1_plain_ms = compare(plan, tcfg, tt, origin, dirs)
+    worst, k1_ms, k1_plain_ms, k1_count = compare(plan, tcfg, tt, origin,
+                                                  dirs)
+    dev_ms = {"render_kernel": device_ms(
+        lambda: render_rays(plan, tcfg, tt, origin, dirs), "render_kernel")}
     print(f"[kernel] render_kernel demo {tcfg.width}x{tcfg.height} "
-          f"ssaa{tcfg.ssaa}: K1 {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms; "
+          f"ssaa{tcfg.ssaa}: K1 {k1_ms:.3f} ms with its wrapper, "
+          f"{dev_ms['render_kernel']:.3f} ms on the device alone, plain "
+          f"{k1_plain_ms:.3f} ms; "
           + ", ".join(f"{k} {v:.6g}" for k, v in worst.items()) + f"; {card}")
     big = main_cfgs[1]
     big_org, big_dirs = rays_for(plan, tt, big)
@@ -537,14 +706,20 @@ def main() -> int:
                                  big_dirs[::BIG_STRIDE])
     same(f"K1 at {big.width}x{big.height} ssaa{big.ssaa}",
          tuple(v[::BIG_STRIDE] for v in k1_big), k1_big_p, "render_kernel")
+    k1_big_dev = device_ms(lambda: render_rays(plan, big, tt, big_org,
+                                               big_dirs), "render_kernel", 3)
     print(f"[kernel] render_kernel demo {big.width}x{big.height} "
-          f"ssaa{big.ssaa}: K1 {k1_big_ms:.3f} ms; every output of every "
+          f"ssaa{big.ssaa}: K1 {k1_big_ms:.3f} ms with its wrapper, "
+          f"{k1_big_dev:.3f} ms on the device alone; every output of every "
           f"{BIG_STRIDE}th ray ({k1_big_p.p.shape[0]} of "
           f"{big_dirs.shape[0]}) bitwise equal to the plain twin's; {card}")
     del k1_big, k1_big_p, big_dirs
     # K1 reads a direction and writes 5 floats and 2 ints a ray
-    k1_bound = bound_ms(lambda: render_rays_plain(plan, tcfg, tt, origin,
-                                                  dirs), R * (12 + 32))
+    k1_bound = bound_ms(k1_count, R * (12 + 32))
+    # the same with every leaf folded: the bound before the collapse
+    leaf_bounds = {"render_kernel": bound_ms(timed_counted(
+        lambda: render_rays_plain(plan, tcfg, tt, origin, dirs,
+                                  collapse=False))[2], R * (12 + 32))}
 
     # 6. training: fit the perturbed demo back to the true one
     rays = tcfg.rays_per_image
@@ -618,14 +793,15 @@ def main() -> int:
     (sd7, widx7, g7), k2_ms = timed(
         lambda: scene_vjp.stencil_eval(plan, tcfg, tt, p, center=True),
         runs=5)
-    k2_plain, k2_plain_ms = timed(lambda: sk.surface_eval_plain(plan, tt, q))
+    k2_plain, k2_plain_ms, k2_count = timed_counted(
+        lambda: sk.surface_eval_plain(plan, tt, q))
     same("K2 combined on the 7-point stencils at 512^2", (sd7, widx7, g7),
          tuple(b.reshape(a.shape) for a, b in zip((sd7, widx7, g7),
                                                   k2_plain)),
          "surface_kernel")
     # K2 reads a point and writes 4 floats and an int
-    k2_bound = bound_ms(lambda: sk.surface_eval_plain(plan, tt, q),
-                        q.shape[0] * (12 + 20))
+    k2_bound = bound_ms(k2_count, q.shape[0] * (12 + 20))
+    leaf_bounds["surface_kernel"] = k2_bound   # the combined mode's winner
     u = torch.randn(sd7.shape, device=dev)
     _, scatter_ms = timed(lambda: scene_vjp.theta_cotangents(
         plan, tt, widx7, g7, u), runs=5)
@@ -636,8 +812,12 @@ def main() -> int:
     print(f"[train] parameter scatter alone (theta_cotangents, "
           f"{q.shape[0]} rows x 7 columns onto {plan.num_primitives} leaf "
           f"rows): {scatter_ms:.2f} ms; {card}")
+    dev_ms["surface_kernel"] = device_ms(
+        lambda: scene_vjp.stencil_eval(plan, tcfg, tt, p, center=True),
+        "surface_kernel")
     print(f"[kernel] surface_kernel demo stencil {q.shape[0]} points: K2 "
-          f"{k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; sd, widx, g "
+          f"{k2_ms:.3f} ms with its wrapper, "
+          f"{dev_ms['surface_kernel']:.3f} ms on the device alone, plain {k2_plain_ms:.3f} ms; sd, widx, g "
           f"bitwise equal; {card}")
     del sd7, widx7, g7, k2_plain, q, u
 
@@ -673,20 +853,28 @@ def main() -> int:
           f"{diff.mean().item():.3g}")
     (hit, steps), k3_ms = timed(lambda: mk.march_rays(
         plan, tcfg, tt, origin, dirs, with_steps=True), runs=5)
-    (hit_p, steps_p), k3_plain_ms = timed(lambda: mk.march_rays_plain(
-        plan, tcfg, tt, origin, dirs, with_steps=True))
+    (hit_p, steps_p), k3_plain_ms, k3_count = timed_counted(
+        lambda: mk.march_rays_plain(plan, tcfg, tt, origin, dirs,
+                                    with_steps=True))
     same("K3 primary at 512^2", (*hit, steps), (*hit_p, steps_p),
          "march_kernel")
     # K3 reads a direction and writes 5 floats (and here the step count)
-    k3_bound = bound_ms(lambda: mk.march_rays_plain(plan, tcfg, tt, origin,
-                                                    dirs), R * (12 + 24))
+    k3_bound = bound_ms(k3_count, R * (12 + 24))
+    leaf_bounds["march_kernel"] = bound_ms(timed_counted(
+        lambda: mk.march_rays_plain(plan, tcfg, tt, origin, dirs,
+                                    collapse=False))[2], R * (12 + 24))
     check(k3_bound[2] > 0 and int(steps.sum()) > 0, "no march work counted")
-    print(f"[kernel] march_kernel demo primary rays {R}: K3 {k3_ms:.3f} ms, "
-          f"plain {k3_plain_ms:.3f} ms; position, sd, converged, steps "
+    dev_ms["march_kernel"] = device_ms(lambda: mk.march_rays(
+        plan, tcfg, tt, origin, dirs, with_steps=True), "march_kernel")
+    print(f"[kernel] march_kernel demo primary rays {R}: K3 {k3_ms:.3f} ms "
+          f"with its wrapper, {dev_ms['march_kernel']:.3f} ms on the device "
+          f"alone, plain {k3_plain_ms:.3f} ms; position, sd, converged, steps "
           f"bitwise equal; {int(steps.sum())} evaluations, "
-          f"{k3_bound[2] / int(steps.sum()):.1f} of "
-          f"{plan.num_primitives} leaves an evaluation after the cull; "
-          f"{card}")
+          f"{leaf_bounds['march_kernel'][2] / int(steps.sum()):.1f} of "
+          f"{plan.num_primitives} leaves an evaluation after the cull with "
+          f"every leaf folded, {k3_bound[5] / int(steps.sum()):.1f} "
+          f"operations an evaluation with the collapse against "
+          f"{leaf_bounds['march_kernel'][5] / int(steps.sum()):.1f}; {card}")
     # K2 as the multi frame and step launch it: winner and FD gradient at
     # the hit points (forward), the combined mode at the hit points
     # (MarchOp's backward) and on their six-point stencils (NormalOp's)
@@ -716,8 +904,11 @@ def main() -> int:
             plan, tcfg, tt, s, d, tmax=tmax))
         same(f"K3 shadow rays of light {li} at 512^2", sh, sh_p,
              "march_kernel")
+        sh_dev = device_ms(lambda: mk.march_rays(plan, tcfg, tt, s, d,
+                                                 tmax=tmax), "march_kernel")
         print(f"[kernel] march_kernel demo shadow rays of light {li} with "
-              f"tmax {R}: K3 {sh_ms:.3f} ms, plain {sh_plain_ms:.3f} ms; "
+              f"tmax {R}: K3 {sh_ms:.3f} ms with its wrapper, {sh_dev:.3f} "
+              f"ms on the device alone, plain {sh_plain_ms:.3f} ms; "
               f"bitwise equal; {card}")
 
     # 8. the two-phase march of the fused backend
@@ -731,7 +922,11 @@ def main() -> int:
           f"4 two-phase frames launched {counts}")
     check(torch.equal(tp_img, fused_img),
           "the two-phase image differs from the one-kernel image")
-    _, one_ms = timed(lambda: rt.render(demo, tcfg, device=dev), runs=3)
+    # both frames again in turns: at this size the host's share of a frame
+    # varies more than the kernels differ
+    turns = [timed(lambda: rt.render(demo, c, device=dev), runs=3)[1]
+             for c in (cfg2, tcfg, tcfg, cfg2)]
+    tp_ms, one_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     left = (~mk.march_rays(plan, tcfg, tt, origin, dirs,
                            iterations=48).converged).sum().item()
     print(f"[two-phase] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
@@ -739,7 +934,8 @@ def main() -> int:
           f"{left} of {R} rays ({left / R:.5f}) unconverged after phase 1 "
           f"(capacity {phase2_capacity(cfg2, R)}); frame "
           f"{tp_ms / 1e3:.4f} s against {one_ms / 1e3:.4f} s one-kernel in "
-          f"this run; launches a frame: K3 2, K4 1; {card}")
+          f"this run (in turns: two-phase, one, one, two-phase); launches a "
+          f"frame: K3 2, K4 1; {card}")
     ocfg = small.replace(two_phase_k1=1)
     o_org, o_dirs = rays_for(plan, tt, ocfg)
     left1 = (~mk.march_rays(plan, ocfg, tt, o_org, o_dirs,
@@ -761,14 +957,20 @@ def main() -> int:
     same("two-phase march against one march", hit2, hit)
     k4, k4_ms = timed(lambda: shk.shade_rays(plan, tcfg, tt, hit2.position,
                                              hit2.sd, dirs), runs=5)
-    k4_p, k4_plain_ms = timed(lambda: shk.shade_rays_plain(
-        plan, tcfg, tt, hit2.position, hit2.sd, dirs))
+    k4_p, k4_plain_ms, k4_count = timed_counted(
+        lambda: shk.shade_rays_plain(plan, tcfg, tt, hit2.position, hit2.sd,
+                                     dirs))
     same("K4 at 512^2", k4, k4_p, "shade_kernel")
     # K4 reads 7 floats and writes a float and 2 ints a ray
-    k4_bound = bound_ms(lambda: shk.shade_rays_plain(
-        plan, tcfg, tt, hit2.position, hit2.sd, dirs), R * (28 + 12))
-    print(f"[kernel] shade_kernel demo hit points {R}: K4 {k4_ms:.3f} ms, "
-          f"plain {k4_plain_ms:.3f} ms; cidx, light, smask bitwise equal; "
+    k4_bound = bound_ms(k4_count, R * (28 + 12))
+    leaf_bounds["shade_kernel"] = bound_ms(timed_counted(
+        lambda: shk.shade_rays_plain(plan, tcfg, tt, hit2.position, hit2.sd,
+                                     dirs, collapse=False))[2], R * (28 + 12))
+    dev_ms["shade_kernel"] = device_ms(lambda: shk.shade_rays(
+        plan, tcfg, tt, hit2.position, hit2.sd, dirs), "shade_kernel")
+    print(f"[kernel] shade_kernel demo hit points {R}: K4 {k4_ms:.3f} ms "
+          f"with its wrapper, {dev_ms['shade_kernel']:.3f} ms on the device "
+          f"alone, plain {k4_plain_ms:.3f} ms; cidx, light, smask bitwise equal; "
           f"{card}")
 
     # 9. training through the multi-kernel backend
@@ -828,7 +1030,171 @@ def main() -> int:
           f"steps mean {st['mean']:.3f}, p50 {st['p50']}, p90 {st['p90']}, "
           f"p99 {st['p99']}, max {st['max']}")
 
-    # 11. the server
+    # 11. where a thread-per-ray kernel loses its lanes
+    def lane_efficiency(st):
+        """Sum of steps over 32 x the sum of each warp's slowest ray; warps
+        are 32 consecutive rays."""
+        st = torch.nn.functional.pad(st.double(), (0, -st.numel() % 32))
+        w = st.reshape(-1, 32)
+        return (w.sum() / (32 * w.max(dim=1).values.sum())).item()
+
+    k1_out = render_rays(plan, tcfg, tt, origin, dirs)
+    n_hat = normalize(g)
+    black = shk.black_skip_ids(plan, tcfg, tt)
+    skip_black = k1_out.cidx < 0
+    for k in black:
+        skip_black = skip_black | (k1_out.cidx == k)
+    upper = torch.zeros_like(k1_out.sd)
+    for li in range(L):
+        upper = upper + torch.clamp_min(
+            (n_hat * normalize(tt.light_pos[li] - hit.position)).sum(-1), 0.0)
+    skip_sat = upper < tcfg.saturation
+    skipped = skip_black | skip_sat
+    # a warp whose every lane skips runs no shadow march at all
+    all_skipped = torch.nn.functional.pad(
+        skipped, (0, -R % 32), value=True).reshape(-1, 32).all(
+            dim=1).double().mean().item()
+    eff = {"primary": lane_efficiency(steps)}
+    for li in range(L):
+        s, d, tmax = shadow_rays(tt, tcfg, hit.position, n_hat, li)
+        _, sh_steps = mk.march_rays(plan, tcfg, tt, s, d, tmax=tmax,
+                                    with_steps=True)
+        eff[f"shadow {li}"] = lane_efficiency(sh_steps)
+        # inside K1 a skipped lane takes no step and waits
+        eff[f"shadow {li} with K1's skips"] = lane_efficiency(
+            torch.where(skipped, 0, sh_steps))
+    # the floor under any march launch: its slowest ray marches alone,
+    # one evaluation after the other
+    slow = int(steps.argmax())
+    slow_ms = device_ms(lambda: mk.march_rays(
+        plan, tcfg, tt, origin, dirs[slow:slow + 1]), "march_kernel")
+    cap_ms = device_ms(lambda: mk.march_rays(
+        plan, tcfg, tt, origin, dirs, iterations=48), "march_kernel")
+    print(f"[tail] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}: the "
+          f"slowest primary ray alone ({int(steps[slow])} steps) takes K3 "
+          f"{slow_ms:.3f} ms on the device, "
+          f"{slow_ms * 1e3 / int(steps[slow]):.3f} us a step; all {R} rays "
+          f"{dev_ms['march_kernel']:.3f} ms, and capped at 48 steps "
+          f"({int(torch.clamp_max(steps, 48).sum())} of {int(steps.sum())} "
+          f"evaluations) {cap_ms:.3f} ms; {card}")
+    q7 = scene_vjp.stencil_points(hit.position, tcfg.fd_h, center=True)
+    folded = carve_folded(plan, tt, q7.reshape(-1, 3)).reshape(7, -1)
+    folded = torch.nn.functional.pad(folded, (0, -folded.shape[1] % 32))
+    by_warp = folded.reshape(7, -1, 32).any(dim=-1)
+    print(f"[warp] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}, warps of "
+          f"32 consecutive rays; march lane efficiency (sum of steps / 32 x "
+          f"sum of warp maxima): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in eff.items())
+          + f"; cull coherence at the hit points and their stencils: the "
+          f"carve is folded at {folded.double().mean().item():.4f} of "
+          f"points, in {by_warp.double().mean().item():.4f} of warps; K1 "
+          f"phases: {k1_out.done.double().mean().item():.4f} of rays "
+          f"converge, shadow marches skipped for "
+          f"{skip_black.double().mean().item():.4f} (black lane) and "
+          f"{(skip_sat & ~skip_black).double().mean().item():.4f} more "
+          f"(saturation floor), {skipped.double().mean().item():.4f} in all, "
+          f"{all_skipped:.4f} of rays in warps that skip on every lane")
+    del q7, folded, by_warp, k1_out
+
+    # 12. the lattice collapse on against off, in turns, in this run
+    def on_off(fn, needle, runs=5):
+        """(median device ms on, off) of the ``needle`` kernel in
+        fn(collapse), in turns (on, off, off, on), and their outputs, which
+        must be bitwise equal."""
+        same("collapse on against off", fn(True), fn(False))
+        t = [device_ms(lambda: fn(c), needle, runs // 2 + 1)
+             for c in (True, False, False, True)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    fn = lambda c: render_rays(plan, tcfg, tt, origin, dirs, collapse=c)  # noqa: E731
+    k1_on, k1_off = on_off(fn, "render_kernel")
+    big_org, big_dirs = rays_for(plan, tt, big)
+    fn = lambda c: render_rays(plan, big, tt, big_org, big_dirs, collapse=c)  # noqa: E731
+    k1b_on, k1b_off = on_off(fn, "render_kernel")
+    del big_dirs
+    fn = lambda c: mk.march_rays(plan, tcfg, tt, origin, dirs, collapse=c)  # noqa: E731
+    k3_on, k3_off = on_off(fn, "march_kernel")
+    sh_times = []
+    for li in range(L):
+        s, d, tmax = shadow_rays(tt, tcfg, hit.position, n_hat, li)
+        fn = lambda c: mk.march_rays(plan, tcfg, tt, s, d, tmax=tmax,  # noqa: E731
+                                     collapse=c)
+        sh_times.append(on_off(fn, "march_kernel"))
+    fn = lambda c: shk.shade_rays(plan, tcfg, tt, hit.position, hit.sd, dirs,  # noqa: E731
+                                  collapse=c)
+    k4_on, k4_off = on_off(fn, "shade_kernel")
+    fn = lambda c: sk.surface_eval(plan, tt, hit.position, mode=sk.FD_GRAD,  # noqa: E731
+                                   fd_h=tcfg.fd_h, collapse=c)
+    k2_on, k2_off = on_off(lambda c: tuple(
+        v for v in fn(c) if v is not None), "surface_kernel")
+    print(f"[collapse] demo, lattice collapse on / off in turns (on, off, "
+          f"off, on; device time of the kernel alone, each the median of 3 "
+          f"launches), outputs bitwise equal: K1 {tcfg.width}x{tcfg.height} "
+          f"ssaa{tcfg.ssaa} {k1_on:.3f} / {k1_off:.3f} ms; K1 "
+          f"{big.width}x{big.height} ssaa{big.ssaa} {k1b_on:.3f} / "
+          f"{k1b_off:.3f} ms; K3 primary {k3_on:.3f} / {k3_off:.3f} ms; "
+          + "; ".join(f"K3 shadow {li} {a:.3f} / {b:.3f} ms"
+                      for li, (a, b) in enumerate(sh_times))
+          + f"; K4 {k4_on:.3f} / {k4_off:.3f} ms; K2 FD gradient "
+          f"{k2_on:.3f} / {k2_off:.3f} ms; {card}")
+    # the scene in shared against device memory, same kernels, in turns
+    def placements(fn, needle):
+        """(device ms with the demo staged in shared memory, read from
+        device memory) of fn(), in turns; outputs bitwise equal."""
+        from raymarching_tpu_torch import tables as scene_tables
+        limit = scene_tables.SHARED_SCENE_BYTES
+        t, outs = [], []
+        for nbytes in (limit, 0, 0, limit):
+            scene_tables.SHARED_SCENE_BYTES = nbytes
+            try:
+                t.append(device_ms(fn, needle, 3))
+                outs.append(fn())
+            finally:
+                scene_tables.SHARED_SCENE_BYTES = limit
+        same("shared against device memory", outs[0], outs[1])
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    k1_sh, k1_dv = placements(
+        lambda: render_rays(plan, tcfg, tt, origin, dirs), "render_kernel")
+    k3_sh, k3_dv = placements(
+        lambda: mk.march_rays(plan, tcfg, tt, origin, dirs), "march_kernel")
+    k4_sh, k4_dv = placements(
+        lambda: shk.shade_rays(plan, tcfg, tt, hit.position, hit.sd, dirs),
+        "shade_kernel")
+    print(f"[placement] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}, the "
+          f"scene staged in shared memory / read from device memory by the "
+          f"same persistent kernel, in turns (device time of the kernel "
+          f"alone), outputs bitwise equal: K1 {k1_sh:.3f} / {k1_dv:.3f} ms; "
+          f"K3 primary {k3_sh:.3f} / {k3_dv:.3f} ms; K4 {k4_sh:.3f} / "
+          f"{k4_dv:.3f} ms; {card}")
+
+    # one cross row moved: the flag drops on the device and every kernel
+    # folds leaf by leaf, as its twin does
+    lat_g = next(g_ for g_ in plan.kernel.groups if g_.lattice is not None)
+    moved_pos = np.array(tables.prim_pos)
+    moved_pos[lat_g.start + 5, 0] += 0.25
+    mt = tables_to_torch(tables._replace(prim_pos=moved_pos), dev)
+    check(int(lattice_ok(plan.kernel, tt).item()) == 1
+          and int(lattice_ok(plan.kernel, mt).item()) == 0,
+          "the collapse flag of the demo and of the moved table")
+    m_rays = rays_for(plan, mt, small)
+    worst = compare(plan, small, mt, *m_rays)[0]
+    n_cmp = compare_new(plan, small, mt, *m_rays)
+    same("K1 on the moved table, collapse asked for against off",
+         render_rays(plan, small, mt, *m_rays),
+         render_rays(plan, small, mt, *m_rays, collapse=False))
+    m_org, m_dirs = rays_for(plan, mt, tcfg)
+    same("K1 on the moved table at 512^2, collapse asked for against off",
+         render_rays(plan, tcfg, mt, m_org, m_dirs),
+         render_rays(plan, tcfg, mt, m_org, m_dirs, collapse=False))
+    print(f"[collapse] demo with cross row {lat_g.start + 5} moved by 0.25: "
+          f"flag 0 on the device; K1 = plain twin ({worst['outputs']:.6g}), "
+          f"K3, K4, K2 = plain twins ({n_cmp} comparisons), K1 with the "
+          f"collapse asked for = K1 with it off at {small.width}x"
+          f"{small.height} and {tcfg.width}x{tcfg.height}, all bitwise")
+    del m_dirs
+
+    # 13. the server
     srv = make_server("127.0.0.1", 0, dev)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -874,6 +1240,8 @@ def main() -> int:
     csrc = "raymarching_tpu_torch/csrc/"
 
     def row(kname, replaces, ms, plain_ms, bound):
+        # ms: CUDA events around the wrapper's call, as in earlier runs;
+        # device_ms: the kernel alone, from the profiler;
         # launches: the sum over the paths' runs (warm-up frames included);
         # launches_per_call: one render or fit step of each path;
         # max_abs_err: over every output of every comparison with the
@@ -883,18 +1251,24 @@ def main() -> int:
                 "launches": totals[kname],
                 "launches_per_call": per_call[kname],
                 "max_abs_err": ERRS[kname], "ms": ms,
+                "device_ms": dev_ms[kname],
                 "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "bound_by": bound[1],
+                "bound_ms_leaf_fold": leaf_bounds[kname][0],
+                "library_ms": None}
 
     for kname, bound in (("render_kernel", k1_bound),
                          ("surface_kernel", k2_bound),
                          ("march_kernel", k3_bound),
                          ("shade_kernel", k4_bound)):
-        print(f"[bound] {kname}: {bound[2]} leaf evaluations x "
-              f"{OPS_PER_LEAF} operations at {FP32_OPS_S / 1e12:.0f} "
-              f"TFLOP/s = {bound[3]:.4f} ms; its bytes at "
-              f"{HBM_BYTES_S / 1e12:.2f} TB/s = {bound[4]:.4f} ms; bound "
-              f"{bound[0]:.4f} ms, by {bound[1]}; {card}")
+        old = leaf_bounds[kname]
+        print(f"[bound] {kname}: {bound[5]} operations ({bound[2]} leaf "
+              f"evaluations, the rest collapsed levels) at "
+              f"{FP32_OPS_S / 1e12:.0f} TFLOP/s = {bound[3]:.4f} ms; its "
+              f"bytes at {HBM_BYTES_S / 1e12:.2f} TB/s = {bound[4]:.4f} ms; "
+              f"bound {bound[0]:.4f} ms, by {bound[1]}; with every leaf "
+              f"folded {old[5]} operations ({old[2]} leaf evaluations), "
+              f"bound {old[0]:.4f} ms, by {old[1]}; {card}")
     print(json.dumps({"kernels": [
         row("render_kernel", "raymarching_tpu/ops/pallas_render.py:211",
             k1_ms, k1_plain_ms, k1_bound),

@@ -24,7 +24,8 @@ struct Hit {
 // steps clamped to kMaxStep.  With has_tmax (shadow rays) the ray is also
 // done once (p - o) . d reaches tmax.  A ray that starts done takes no
 // step and keeps sd = +inf.
-__device__ __forceinline__ Hit march(Scene s, int iterations, float eps,
+template <class S>
+__device__ __forceinline__ Hit march(const S& s, int iterations, float eps,
                                      float ox, float oy, float oz, float dx,
                                      float dy, float dz, bool has_tmax,
                                      float tmax, bool done) {

@@ -12,22 +12,30 @@
 // (march_kernel.cu) and K4 (shade_kernel.cu) include too: the two-phase
 // path (K3, K3, K4) therefore gives this kernel's outputs bitwise.
 //
-// Layout.  One thread per ray, 128 threads a block.  Ray inputs and outputs
-// are structure-of-arrays rows of [R] float32, so loads and stores coalesce.
-// The scene fold (fold.cuh, shared with K2) walks the int32 group and run
-// descriptors of tables.pack_plan with warp-uniform control flow: every
-// lane reads the same descriptor and the same primitive row at the same
-// time, so the prim-type switch does not diverge and the row reads
-// broadcast from the read-only cache.  The table stays in device memory
-// (menger4's 8,424 rows are 270 KB, more than a block's shared memory), and
-// one build serves every scene.
+// Layout.  A persistent grid (persist.cuh): as many blocks of 128 threads
+// as the card holds at once; each stages the scene and the lights in its
+// shared memory when they fit (menger4's 8,424 rows, 270 KB, do not: that
+// scene runs the device-memory instantiation of the same kernel), then
+// each warp renders 32 consecutive rays at a time, one thread per ray,
+// taking the next 32 from a counter until none is left.  Ray inputs and
+// outputs are structure-of-arrays rows of [R] float32, so loads and stores
+// coalesce.  The scene fold (fold.cuh, shared with K2) walks the int32
+// group and run descriptors of tables.pack_plan with warp-uniform control
+// flow: every lane reads the same descriptor and the same primitive row at
+// the same time, so the prim-type switch does not diverge and the reads
+// broadcast.  One build serves every scene.
 //
-// What bounds it.  FP32 ALU issue and divergence, not bytes: a ray reads 24
-// bytes and writes 32, against some 10 flops per leaf for every leaf of the
-// scene at every march step.  A ray is frozen once done, so the lanes of a
-// warp idle until its slowest ray finishes each march.  Making it fast is
-// later work: warp-coherent pixel blocks (block ray order), the exact Menger
-// lattice collapse, and code generated per plan.
+// What bounds it.  Operations, not bytes: a ray reads 24 bytes and writes
+// 32, against some 50 scene evaluations (the march, six stencil points, a
+// shadow march per light), and within an evaluation the latency of a
+// dependent chain (descriptor, row, min) more than the instruction rate.
+// The design answers with the exact Menger lattice collapse in the value
+// fold (a carve costs a seventh of its leaf fold), with the scene in
+// shared memory, and with warps that draw their own work.  What is left:
+// the lanes of a warp wait for its slowest ray in each march (busy 87% of
+// the primary march and 76% of the shadow marches on the demo,
+// chip_smoke.py's [warp] phase: too little idle for a finished lane to
+// take a new ray), and the winner fold still visits every cross.
 //
 // Exactness.  Built without fast math (IEEE sqrtf and division), and, by
 // this kernel's own choice (the nvcc-flags line below; ops/build.py adds
@@ -49,71 +57,90 @@
 
 #include <cstdint>
 
+#include "persist.cuh"
 #include "shade.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
 struct Params {
-  Scene scene;
+  SceneArgs scene;
   ShadeParams shade;      // also the primary march's iterations and eps
   const float* org;       // [3][R] per-ray origins, or null
   float ox, oy, oz;       // the shared origin when org is null
   const float* dirs;      // [3][R]
   float* out;             // [6][R]: px, py, pz, sd, done, light
   int* iout;              // [2][R]: colour winner, shadow mask
-  int64_t R;
+  unsigned* counter;      // [1]: the next ray to hand out, zero at launch
+  unsigned R;
 };
 
+template <class S>
 __global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= P.R) return;
-  const int64_t R = P.R;
-  const Scene s = P.scene;
-  float ox = P.ox, oy = P.oy, oz = P.oz;
-  if (P.org != nullptr) {
-    ox = P.org[i];
-    oy = P.org[R + i];
-    oz = P.org[2 * R + i];
+  const S s = stage_scene<S>(P.scene);
+  const unsigned R = P.R;
+  for (;;) {
+    const unsigned base = next_rays(P.counter);
+    if (base >= R) break;
+    const unsigned i = base + (threadIdx.x & 31u);
+    if (i >= R) continue;
+    float ox = P.ox, oy = P.oy, oz = P.oz;
+    if (P.org != nullptr) {
+      ox = P.org[i];
+      oy = P.org[R + i];
+      oz = P.org[2 * R + i];
+    }
+    const float dx = P.dirs[i], dy = P.dirs[R + i], dz = P.dirs[2 * R + i];
+
+    // 1. primary march
+    const Hit hit = march(s, P.shade.iterations, P.shade.eps, ox, oy, oz, dx,
+                          dy, dz, false, 0.0f, false);
+
+    // 2-4. colour winner, normal, shadows, Lambert clamp
+    const Shade sh =
+        shade(s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz);
+
+    P.out[i] = hit.x;
+    P.out[R + i] = hit.y;
+    P.out[2 * R + i] = hit.z;
+    P.out[3 * R + i] = hit.sd;
+    P.out[4 * R + i] = hit.done ? 1.0f : 0.0f;
+    P.out[5 * R + i] = sh.light;
+    P.iout[i] = sh.cidx;
+    P.iout[R + i] = sh.smask;
   }
-  const float dx = P.dirs[i], dy = P.dirs[R + i], dz = P.dirs[2 * R + i];
+}
 
-  // 1. primary march
-  const Hit hit = march(s, P.shade.iterations, P.shade.eps, ox, oy, oz, dx,
-                        dy, dz, false, 0.0f, false);
-
-  // 2-4. colour winner, normal, shadows, Lambert clamp
-  const Shade sh = shade(s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz);
-
-  P.out[i] = hit.x;
-  P.out[R + i] = hit.y;
-  P.out[2 * R + i] = hit.z;
-  P.out[3 * R + i] = hit.sd;
-  P.out[4 * R + i] = hit.done ? 1.0f : 0.0f;
-  P.out[5 * R + i] = sh.light;
-  P.iout[i] = sh.cidx;
-  P.iout[R + i] = sh.smask;
+template <class S>
+int launch(const Params& P, cudaStream_t stream) {
+  const unsigned smem = staged_bytes<S>(P.scene);
+  unsigned blocks = 0;
+  const int err = persistent_blocks(render_kernel<S>, smem, P.R, &blocks);
+  if (err != 0) return err;
+  render_kernel<S><<<blocks, kThreads, smem, stream>>>(P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch K1 on `stream` over R rays; returns cudaGetLastError().
-extern "C" int rt_render_rays(const void* tbl, const void* lights,
-                              const void* groups, const void* runs,
-                              const void* black, int n_groups, int root_min,
-                              int n_lights, int n_black, int shadows,
-                              int sat_skip, int iterations, float eps,
-                              float off, float saturation, float fd_h,
-                              const void* org, float ox, float oy, float oz,
-                              const void* dirs, void* out, void* iout,
-                              int64_t R, void* stream) {
+// Launch K1 on `stream` over R rays, the scene staged in shared memory
+// (`shared` != 0) or read from device memory; `counter` is one zeroed
+// int32.  Returns a CUDA error code.
+extern "C" int rt_render_rays(const void* tbl, const void* groups,
+                              const void* runs, const void* lat,
+                              const void* lat_flag, int n_rows, int n_groups,
+                              int n_runs, int n_lat, int root_min,
+                              const void* lights, const void* black,
+                              int shared, int n_lights, int n_black,
+                              int shadows, int sat_skip, int iterations,
+                              float eps, float off, float saturation,
+                              float fd_h, const void* org, float ox, float oy,
+                              float oz, const void* dirs, void* out,
+                              void* iout, void* counter, int64_t R,
+                              void* stream) {
   Params P;
-  P.scene = Scene{static_cast<const float4*>(tbl),
-                  static_cast<const int4*>(groups),
-                  static_cast<const int4*>(runs), n_groups, root_min};
-  P.shade = ShadeParams{static_cast<const float4*>(lights),
-                        static_cast<const int*>(black),
+  P.scene = scene_args(tbl, groups, runs, lat, lat_flag, lights, n_rows,
+                       n_groups, n_runs, n_lat, n_lights, root_min);
+  P.shade = ShadeParams{static_cast<const int*>(black),
                         n_lights,
                         n_black,
                         shadows,
@@ -130,12 +157,24 @@ extern "C" int rt_render_rays(const void* tbl, const void* lights,
   P.dirs = static_cast<const float*>(dirs);
   P.out = static_cast<float*>(out);
   P.iout = static_cast<int*>(iout);
-  P.R = R;
-  if (R > 0) {
-    const unsigned blocks = static_cast<unsigned>((R + kThreads - 1) / kThreads);
-    render_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  }
-  return static_cast<int>(cudaGetLastError());
+  P.counter = static_cast<unsigned*>(counter);
+  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  P.R = static_cast<unsigned>(R);
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return shared ? launch<SharedScene>(P, st) : launch<DeviceScene>(P, st);
+}
+
+// Resident blocks an SM of this kernel with `staged` bytes of scene in
+// shared memory (`shared` != 0) or with the scene in device memory, for
+// reports; negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged) {
+  int per_sm = 0;
+  const int err =
+      shared ? blocks_per_sm(render_kernel<SharedScene>,
+                             static_cast<unsigned>(staged), &per_sm)
+             : blocks_per_sm(render_kernel<DeviceScene>, 0u, &per_sm);
+  return err != 0 ? -err : per_sm;
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -14,7 +14,6 @@
 namespace {
 
 struct ShadeParams {
-  const float4* lights;   // [L][2]: (x, y, z, 0), (r, g, b, 0)
   const int* black;       // [n_black] leaf ids of compile-time black prims
   int n_lights;
   int n_black;            // < 0: black-lane skip off
@@ -36,10 +35,11 @@ struct Shade {
 // Unit direction from p to light li (xyz) and the Lambert term n . dir (w).
 // Not inlined: the saturation-floor bound and the shade loop must round it
 // identically for the skip to stay exact.
-__device__ __noinline__ float4 light_dir(const float4* lights, int li,
-                                         float px, float py, float pz,
-                                         float nx, float ny, float nz) {
-  const float4 l = __ldg(lights + 2 * li);
+template <class S>
+__device__ __noinline__ float4 light_dir(const S s, int li, float px, float py,
+                                         float pz, float nx, float ny,
+                                         float nz) {
+  const float4 l = s.light(2 * li);
   float rx = l.x - px, ry = l.y - py, rz = l.z - pz;
   const float rd = sqrtf(rx * rx + ry * ry + rz * rz);
   const float rinv = 1.0f / fmaxf(rd, FLT_MIN);
@@ -51,7 +51,8 @@ __device__ __noinline__ float4 light_dir(const float4* lights, int li,
 
 // Shade the hit point (px, py, pz) of a ray of direction (dx, dy, dz) whose
 // march last evaluated the SD `sd` one step back.
-__device__ __forceinline__ Shade shade(Scene s, const ShadeParams P,
+template <class S>
+__device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
                                        float px, float py, float pz,
                                        float sd, float dx, float dy,
                                        float dz) {
@@ -84,7 +85,7 @@ __device__ __forceinline__ Shade shade(Scene s, const ShadeParams P,
     float upper = 0.0f;
     for (int li = 0; li < P.n_lights; ++li)
       upper = upper +
-              fmaxf(light_dir(P.lights, li, px, py, pz, nx, ny, nz).w, 0.0f);
+              fmaxf(light_dir(s, li, px, py, pz, nx, ny, nz).w, 0.0f);
     skip = skip || upper < P.saturation;
   }
 
@@ -93,10 +94,10 @@ __device__ __forceinline__ Shade shade(Scene s, const ShadeParams P,
   float total = 0.0f;
   unsigned smask = 0u;
   for (int li = 0; li < P.n_lights; ++li) {
-    const float4 r = light_dir(P.lights, li, px, py, pz, nx, ny, nz);
+    const float4 r = light_dir(s, li, px, py, pz, nx, ny, nz);
     float lamb = r.w;
     if (P.shadows) {
-      const float4 l = __ldg(P.lights + 2 * li);
+      const float4 l = s.light(2 * li);
       const float sx = px + nx * P.off, sy = py + ny * P.off,
                   sz = pz + nz * P.off;
       const float tx = l.x - sx, ty = l.y - sy, tz = l.z - sz;

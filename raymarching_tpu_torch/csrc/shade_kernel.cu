@@ -11,14 +11,18 @@
 // white lights).  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/shade_kernel.py::shade_rays_plain.
 //
-// Layout.  One thread per ray, 128 threads a block; the seven input rows
-// (p xyz, sd, direction xyz) and the outputs are structure-of-arrays rows
-// of [R], so loads and stores coalesce.  The shading is shade.cuh, the
-// very function K1 calls after its own march.
+// Layout.  K1's: a persistent grid, the scene and the lights staged in
+// each block's shared memory when they fit, each warp taking 32
+// consecutive rays at a time from a counter (persist.cuh), one thread per
+// ray; the seven input rows (p xyz, sd, direction xyz) and the outputs are
+// structure-of-arrays rows of [R], so loads and stores coalesce.  The
+// shading is shade.cuh, the very function K1 calls after its own march.
 //
-// What bounds it.  FP32 instruction rate and divergence: 28 bytes read and
-// 12 written per ray against seven folds and up to `iterations` shadow-march
-// steps per light.  The lanes of a warp wait on its slowest shadow ray.
+// What bounds it.  Operations, as K1: 28 bytes read and 12 written per ray
+// against seven folds and up to `iterations` shadow-march steps per light;
+// it shares K1's answers (the lattice collapse in the value folds, the
+// scene in shared memory).  The lanes of a warp wait on its slowest shadow
+// ray, and its one winner fold a ray visits every cross.
 //
 // Exactness.  No fast math and no FMA contraction (the nvcc-flags line
 // below), so it is bitwise equal to its twin, and K3 + K4 to K1.
@@ -29,42 +33,64 @@
 
 #include <cstdint>
 
+#include "persist.cuh"
 #include "shade.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
+template <class S>
 __global__ void __launch_bounds__(kThreads)
-    shade_kernel(const Scene s, const ShadeParams P, const float* in,
-                 float* light, int* iout, int64_t R) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= R) return;
-  const Shade sh = shade(s, P, in[i], in[R + i], in[2 * R + i], in[3 * R + i],
-                         in[4 * R + i], in[5 * R + i], in[6 * R + i]);
-  light[i] = sh.light;
-  iout[i] = sh.cidx;
-  iout[R + i] = sh.smask;
+    shade_kernel(const SceneArgs A, const ShadeParams P, const float* in,
+                 float* light, int* iout, unsigned* counter, unsigned R) {
+  const S s = stage_scene<S>(A);
+  for (;;) {
+    const unsigned base = next_rays(counter);
+    if (base >= R) break;
+    const unsigned i = base + (threadIdx.x & 31u);
+    if (i >= R) continue;
+    const Shade sh =
+        shade(s, P, in[i], in[R + i], in[2 * R + i], in[3 * R + i],
+              in[4 * R + i], in[5 * R + i], in[6 * R + i]);
+    light[i] = sh.light;
+    iout[i] = sh.cidx;
+    iout[R + i] = sh.smask;
+  }
+}
+
+template <class S>
+int launch(const SceneArgs& A, const ShadeParams& P, const float* in,
+           float* light, int* iout, unsigned* counter, unsigned R,
+           cudaStream_t stream) {
+  const unsigned smem = staged_bytes<S>(A);
+  unsigned blocks = 0;
+  const int err = persistent_blocks(shade_kernel<S>, smem, R, &blocks);
+  if (err != 0) return err;
+  shade_kernel<S><<<blocks, kThreads, smem, stream>>>(A, P, in, light, iout,
+                                                      counter, R);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch K4 on `stream` over R rays: in [7][R] (p xyz, sd, direction xyz),
-// light [R], iout [2][R] (colour winner, shadow mask).  Returns
-// cudaGetLastError().
-extern "C" int rt_shade_rays(const void* tbl, const void* lights,
-                             const void* groups, const void* runs,
-                             const void* black, int n_groups, int root_min,
-                             int n_lights, int n_black, int shadows,
-                             int sat_skip, int iterations, float eps,
-                             float off, float saturation, float fd_h,
-                             const void* in, void* light, void* iout,
-                             int64_t R, void* stream) {
-  const Scene s{static_cast<const float4*>(tbl),
-                static_cast<const int4*>(groups),
-                static_cast<const int4*>(runs), n_groups, root_min};
-  const ShadeParams P{static_cast<const float4*>(lights),
-                      static_cast<const int*>(black),
+// light [R], iout [2][R] (colour winner, shadow mask); the scene staged in
+// shared memory (`shared` != 0) or read from device memory; `counter` is
+// one zeroed int32.  Returns a CUDA error code.
+extern "C" int rt_shade_rays(const void* tbl, const void* groups,
+                             const void* runs, const void* lat,
+                             const void* lat_flag, int n_rows, int n_groups,
+                             int n_runs, int n_lat, int root_min,
+                             const void* lights, const void* black,
+                             int shared, int n_lights, int n_black,
+                             int shadows, int sat_skip, int iterations,
+                             float eps, float off, float saturation,
+                             float fd_h, const void* in, void* light,
+                             void* iout, void* counter, int64_t R,
+                             void* stream) {
+  const SceneArgs s = scene_args(tbl, groups, runs, lat, lat_flag, lights,
+                                 n_rows, n_groups, n_runs, n_lat, n_lights,
+                                 root_min);
+  const ShadeParams P{static_cast<const int*>(black),
                       n_lights,
                       n_black,
                       shadows,
@@ -74,13 +100,28 @@ extern "C" int rt_shade_rays(const void* tbl, const void* lights,
                       off,
                       saturation,
                       fd_h};
-  if (R > 0) {
-    const unsigned blocks = static_cast<unsigned>((R + kThreads - 1) / kThreads);
-    shade_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, P, static_cast<const float*>(in), static_cast<float*>(light),
-        static_cast<int*>(iout), R);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* inf = static_cast<const float*>(in);
+  float* lf = static_cast<float*>(light);
+  int* io = static_cast<int*>(iout);
+  unsigned* ctr = static_cast<unsigned*>(counter);
+  const unsigned n = static_cast<unsigned>(R);
+  return shared ? launch<SharedScene>(s, P, inf, lf, io, ctr, n, st)
+                : launch<DeviceScene>(s, P, inf, lf, io, ctr, n, st);
+}
+
+// Resident blocks an SM of this kernel with `staged` bytes of scene in
+// shared memory (`shared` != 0) or with the scene in device memory, for
+// reports; negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged) {
+  int per_sm = 0;
+  const int err =
+      shared ? blocks_per_sm(shade_kernel<SharedScene>,
+                             static_cast<unsigned>(staged), &per_sm)
+             : blocks_per_sm(shade_kernel<DeviceScene>, 0u, &per_sm);
+  return err != 0 ? -err : per_sm;
 }
 
 extern "C" const char* rt_error_string(int code) {

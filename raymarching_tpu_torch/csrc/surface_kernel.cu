@@ -31,10 +31,16 @@
 // winning leaf alone, with the path sign of the run that holds it: the same
 // bits, for one leaf gradient per point instead of one per leaf.
 //
-// What bounds it.  FP32 ALU issue, as K1: some 10 flops per leaf for every
-// leaf the cull keeps, against 12 bytes read and 20 written per point.  No
-// march, so no lane waits on a slower neighbour's iterations; lanes of one
-// warp still differ in which groups the cull skips.
+// What bounds it.  The combined mode on the backward's stencils: bytes
+// (12 read and 20 written per point against a fold the cull keeps short).
+// The other modes: operations, as K1, with the latency of the fold's
+// dependent chain (descriptor, row, min) ahead of the instruction rate.
+// The sd and fd modes fold through scene_sd and so take the exact Menger
+// lattice collapse with K1; the winner modes visit every leaf the cull
+// keeps.  No march, so no lane waits on a slower neighbour's iterations;
+// lanes of one warp still differ in which groups the cull skips.  The
+// scene is read from device memory through the read-only cache: this
+// kernel is one thread per point with no persistent blocks to stage it.
 //
 // Exactness.  No fast math and, like K1, no FMA contraction (the
 // nvcc-flags line below): the backward's FD normal divides stencil SD
@@ -61,16 +67,16 @@ __device__ __forceinline__ float sgn(float v) {
 // d leaf sd / dp of leaf i of prim type `type` (pallas_march._prim_sd_grad):
 // sphere (p - c) / max(|p - c|, 1e-30); box one-hot sign on the first
 // argmax axis (ties to x, then y); cross one-hot sign on the median axis.
-__device__ float3 leaf_grad(const float4* tbl, int type, int i, float px,
+__device__ float3 leaf_grad(const DeviceScene& s, int type, int i, float px,
                             float py, float pz) {
-  const float4 a = __ldg(tbl + 2 * i);
+  const float4 a = s.row(2 * i);
   const float dx = px - a.x, dy = py - a.y, dz = pz - a.z;
   if (type == kSphere) {
     const float r = sqrtf(dx * dx + dy * dy + dz * dz);
     const float inv = 1.0f / fmaxf(r, 1e-30f);
     return make_float3(dx * inv, dy * inv, dz * inv);
   }
-  const float4 b = __ldg(tbl + 2 * i + 1);
+  const float4 b = s.row(2 * i + 1);
   const float bx = fabsf(dx) - a.w * 0.5f;
   const float by = fabsf(dy) - b.x * 0.5f;
   const float bz = fabsf(dz) - b.y * 0.5f;
@@ -97,22 +103,22 @@ constexpr int kFdGrad = 3;
 
 // the winner's gradient: the run that holds it gives its prim type and
 // path sign gsign * scale (the root's rsign cancels in the chain rule)
-__device__ float3 winner_grad(Scene s, int idx, float px, float py,
-                              float pz) {
+__device__ float3 winner_grad(const DeviceScene& s, int idx, float px,
+                              float py, float pz) {
   if (idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
   int type = kSphere;
   float path = 1.0f;
   for (int gi = 0; gi < s.n_groups; ++gi) {
-    const int4 grp = __ldg(s.groups + gi);
+    const int4 grp = s.group(gi);
     for (int k = grp.y; k < grp.y + grp.z; ++k) {
-      const int4 run = __ldg(s.runs + k);
+      const int4 run = s.run(k);
       if (idx >= run.y && idx < run.y + run.z) {
         type = run.x;
         path = static_cast<float>(grp.x * run.w);
       }
     }
   }
-  const float3 lg = leaf_grad(s.tbl, type, idx, px, py, pz);
+  const float3 lg = leaf_grad(s, type, idx, px, py, pz);
   return make_float3(path * lg.x, path * lg.y, path * lg.z);
 }
 
@@ -120,10 +126,11 @@ __device__ float3 winner_grad(Scene s, int idx, float px, float py,
 // widx: [N] in the combined and winner modes, else unused.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-    surface_kernel(const Scene s, const float* q, float inv_2h, float h,
+    surface_kernel(const SceneArgs A, const float* q, float inv_2h, float h,
                    float* out, int* widx, int64_t N) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= N) return;
+  const DeviceScene s = device_scene(A);
   const float px = q[i], py = q[N + i], pz = q[2 * N + i];
   if (kMode == kCombined || kMode == kWinner) {
     const Winner w = scene_sd_idx(s, px, py, pz);
@@ -157,13 +164,14 @@ __global__ void __launch_bounds__(kThreads)
 // caller) are read in the fd mode only.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unknown mode.
 extern "C" int rt_surface_eval(const void* tbl, const void* groups,
-                               const void* runs, int n_groups, int root_min,
-                               int mode, float h, float inv_2h,
-                               const void* q, void* out, void* widx,
-                               int64_t N, void* stream) {
-  const Scene s{static_cast<const float4*>(tbl),
-                static_cast<const int4*>(groups),
-                static_cast<const int4*>(runs), n_groups, root_min};
+                               const void* runs, const void* lat,
+                               const void* lat_flag, int n_rows, int n_groups,
+                               int n_runs, int n_lat, int root_min, int mode,
+                               float h, float inv_2h, const void* q, void* out,
+                               void* widx, int64_t N, void* stream) {
+  const SceneArgs s = scene_args(tbl, groups, runs, lat, lat_flag, nullptr,
+                                 n_rows, n_groups, n_runs, n_lat, 0,
+                                 root_min);
   if (mode < kCombined || mode > kFdGrad)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N > 0) {

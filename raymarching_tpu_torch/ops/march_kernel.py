@@ -8,7 +8,9 @@ reaches its own limit (shadow rays stop at the light); with
 ``csrc/march_kernel.cu``; ``march_rays_plain`` computes the same thing in
 plain PyTorch (``core.march.march`` over the kernel-form fold) and is what
 a CPU tensor gets.  A CUDA tensor always goes to the kernel: a build or
-launch failure raises.
+launch failure raises.  ``collapse`` (default on) lets the scene fold take
+the exact Menger lattice collapse while the live tables allow it; off, the
+kernel and the twin fold every leaf: the same bits either way.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..config import RenderConfig
 from ..core.march import MarchResult, march
 from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
-from ..tables import scene_operands
+from .. import tables as scene_tables
 from . import build
 
 
@@ -31,13 +33,14 @@ def march_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                      origin: torch.Tensor, dirs: torch.Tensor, *,
                      iterations: Optional[int] = None,
                      tmax: Optional[torch.Tensor] = None,
-                     with_steps: bool = False):
+                     with_steps: bool = False, collapse: bool = True):
     """K3 in plain PyTorch, the same arithmetic in the same order: origin
     [3] or [R, 3], dirs [R, 3], tmax [R] or None -> MarchResult, or
     (MarchResult, steps [R] int32) with ``with_steps``."""
     its = cfg.iterations if iterations is None else iterations
     with torch.no_grad():
-        sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
+        sd_fn = lambda q: kernel_fold(  # noqa: E731
+            plan, tables, q, collapse=collapse)[0]
         return march(sd_fn, origin, dirs, its, cfg.surface_precision,
                      tmax=tmax, project_t=True, with_steps=with_steps)
 
@@ -47,8 +50,8 @@ def _library() -> ctypes.CDLL:
     """csrc/march_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("march_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_march_rays.argtypes = ([ptr] * 3 + [i32] * 3 + [f32, ptr]
-                                  + [f32] * 3 + [ptr] * 4
+    lib.rt_march_rays.argtypes = ([ptr] * 5 + [i32] * 7 + [f32, ptr]
+                                  + [f32] * 3 + [ptr] * 5
                                   + [ctypes.c_int64, ptr])
     lib.rt_march_rays.restype = i32
     return lib
@@ -58,7 +61,7 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                origin: torch.Tensor, dirs: torch.Tensor, *,
                iterations: Optional[int] = None,
                tmax: Optional[torch.Tensor] = None,
-               with_steps: bool = False):
+               with_steps: bool = False, collapse: bool = True):
     """March rays ``dirs`` [R, 3] from ``origin`` [3] or [R, 3] for up to
     ``iterations`` evaluations (default ``cfg.iterations``) ->
     MarchResult(position [R, 3], sd [R], converged [R]), or (MarchResult,
@@ -70,7 +73,7 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     if dev.type == "cpu":
         return march_rays_plain(plan, cfg, tables, origin, dirs,
                                 iterations=iterations, tmax=tmax,
-                                with_steps=with_steps)
+                                with_steps=with_steps, collapse=collapse)
     if dev.type != "cuda":
         raise ValueError(f"march_rays: unsupported device {dev}")
     if plan.kernel is None:
@@ -88,7 +91,8 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{None if tmax is None else tuple(tmax.shape)}")
 
     lib = _library()
-    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
     with torch.no_grad():
         dirs_soa = dirs.t().contiguous()
         if origin.dim() == 2:
@@ -99,16 +103,16 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         out = torch.empty((5, R), dtype=torch.float32, device=dev)
         steps = (torch.empty((R,), dtype=torch.int32, device=dev)
                  if with_steps else None)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_march_rays(
-            tbl.data_ptr(), groups.data_ptr(), runs.data_ptr(),
-            groups.shape[0], root_min, its, cfg.surface_precision,
+            *scene.args(), int(shared), its, cfg.surface_precision,
             org_soa.data_ptr() if org_soa is not None else None, *o3,
             dirs_soa.data_ptr(),
             tmax_c.data_ptr() if tmax_c is not None else None,
-            out.data_ptr(), steps.data_ptr() if with_steps else None, R,
-            stream)
+            out.data_ptr(), steps.data_ptr() if with_steps else None,
+            counter.data_ptr(), R, stream)
     build.check(lib, code, "march kernel launch")
     if R:    # the C entry point launches nothing for zero rays
         march_rays.launches += 1

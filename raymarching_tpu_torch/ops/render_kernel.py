@@ -26,7 +26,7 @@ from ..config import RenderConfig
 from ..core.march import MarchResult, march
 from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
-from ..tables import scene_operands
+from .. import tables as scene_tables
 from . import build
 from .march_kernel import march_rays
 from .shade_kernel import (MAX_LIGHTS, shade_operands, shade_rays,
@@ -77,17 +77,20 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
 
 
 def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                      origin: torch.Tensor, dirs: torch.Tensor) -> RayOutputs:
+                      origin: torch.Tensor, dirs: torch.Tensor,
+                      collapse: bool = True) -> RayOutputs:
     """K1 in plain PyTorch, the same arithmetic in the same order: the
     march over the kernel-form fold, then K4's plain twin on its hit
     points (one march whatever ``cfg.two_phase_k1`` says: this is the
     twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3]."""
     check_supported(plan, cfg)
     with torch.no_grad():
-        sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
+        sd_fn = lambda q: kernel_fold(  # noqa: E731
+            plan, tables, q, collapse=collapse)[0]
         hit = march(sd_fn, origin, dirs, cfg.iterations,
                     cfg.surface_precision)
-    sh = shade_rays_plain(plan, cfg, tables, hit.position, hit.sd, dirs)
+    sh = shade_rays_plain(plan, cfg, tables, hit.position, hit.sd, dirs,
+                          collapse)
     return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
 
 
@@ -98,7 +101,8 @@ def phase2_capacity(cfg: RenderConfig, R: int) -> int:
 
 
 def two_phase_march(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                    origin: torch.Tensor, dirs: torch.Tensor) -> MarchResult:
+                    origin: torch.Tensor, dirs: torch.Tensor,
+                    collapse: bool = True) -> MarchResult:
     """March all rays ``cfg.two_phase_k1`` steps, then only the rays still
     marching, packed densely, for the rest of the budget
     (pallas_render._two_phase_march).  Exact: each ray's trajectory and its
@@ -111,15 +115,16 @@ def two_phase_march(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     stable sort gives them (ascending index), and the host reads their
     count to choose the branch, which costs one synchronisation."""
     k1 = cfg.two_phase_k1
-    res1 = march_rays(plan, cfg, tables, origin, dirs, iterations=k1)
+    res1 = march_rays(plan, cfg, tables, origin, dirs, iterations=k1,
+                      collapse=collapse)
     # primary marches have no tmax, so unconverged is "still marching"
     sel = (~res1.converged).nonzero().squeeze(1)
     if sel.numel() == 0:
         return res1
     if sel.numel() > phase2_capacity(cfg, dirs.shape[0]):
-        return march_rays(plan, cfg, tables, origin, dirs)
+        return march_rays(plan, cfg, tables, origin, dirs, collapse=collapse)
     res2 = march_rays(plan, cfg, tables, res1.position[sel], dirs[sel],
-                      iterations=cfg.iterations - k1)
+                      iterations=cfg.iterations - k1, collapse=collapse)
     p, sd, conv = (v.clone() for v in res1)
     p[sel], sd[sel], conv[sel] = res2
     return MarchResult(p, sd, conv)
@@ -131,29 +136,33 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library("render_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_render_rays.argtypes = (
-        [ptr] * 5 + [i32] * 7 + [f32] * 4 + [ptr, f32, f32, f32]
-        + [ptr, ptr, ptr, ctypes.c_int64, ptr])
+        [ptr] * 5 + [i32] * 5 + [ptr] * 2 + [i32] * 6 + [f32] * 4
+        + [ptr, f32, f32, f32] + [ptr] * 4 + [ctypes.c_int64, ptr])
     lib.rt_render_rays.restype = i32
     return lib
 
 
 @torch.no_grad()
 def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                origin: torch.Tensor, dirs: torch.Tensor) -> RayOutputs:
+                origin: torch.Tensor, dirs: torch.Tensor,
+                collapse: bool = True) -> RayOutputs:
     """Fused forward for rays ``dirs`` [R, 3] from ``origin`` [3] or
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
     CPU tensors take the plain twin; CUDA tensors launch K1, or with
     ``cfg.two_phase_k1`` set K3, K3 and K4 (their plain twins on the
     CPU).  Forward only: it records no autograd graph
-    (``ops.render_op.FusedRender`` differentiates it)."""
+    (``ops.render_op.FusedRender`` differentiates it).  ``collapse``: the
+    scene fold may take the exact Menger lattice collapse (the same bits
+    as the leaf fold, which ``collapse=False`` keeps)."""
     dev = dirs.device
     check_supported(plan, cfg)
     if 0 < cfg.two_phase_k1 < cfg.iterations:
-        hit = two_phase_march(plan, cfg, tables, origin, dirs)
-        sh = shade_rays(plan, cfg, tables, hit.position, hit.sd, dirs)
+        hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
+        sh = shade_rays(plan, cfg, tables, hit.position, hit.sd, dirs,
+                        collapse)
         return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
     if dev.type == "cpu":
-        return render_rays_plain(plan, cfg, tables, origin, dirs)
+        return render_rays_plain(plan, cfg, tables, origin, dirs, collapse)
     if dev.type != "cuda":
         raise ValueError(f"render_rays: unsupported device {dev}")
     tensors = [origin, dirs, *tables]
@@ -166,8 +175,11 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{tuple(origin.shape)}")
 
     lib = _library()
-    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
     lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
+    shared = (scene.nbytes(plan.num_lights)
+              <= scene_tables.SHARED_SCENE_BYTES)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     dirs_soa = dirs.t().contiguous()
     if origin.dim() == 2:
         org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
@@ -179,11 +191,10 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_render_rays(
-            tbl.data_ptr(), lights.data_ptr(), groups.data_ptr(),
-            runs.data_ptr(), black_t.data_ptr(), groups.shape[0], root_min,
+            *scene.args(), lights.data_ptr(), black_t.data_ptr(), int(shared),
             *shade_args, org_soa.data_ptr() if org_soa is not None else None,
-            *o3, dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(), R,
-            stream)
+            *o3, dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(),
+            counter.data_ptr(), R, stream)
     build.check(lib, code, "render kernel launch")
     if R:    # the C entry point launches nothing for zero rays
         render_rays.launches += 1

@@ -24,7 +24,8 @@ from ..core.march import MAX_STEP, dot3, march
 from ..core.sdf import kernel_fold
 from ..core.shading import TINY, fd_stencil
 from ..scene.compile import ScenePlan, SceneTables
-from ..tables import light_rows, scene_operands
+from .. import tables as scene_tables
+from ..tables import light_rows
 from . import build
 
 # Shadow outcomes travel as bits of an int32 mask.
@@ -51,8 +52,8 @@ def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
 
 
 def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                     p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor
-                     ) -> ShadeOutputs:
+                     p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor,
+                     collapse: bool = True) -> ShadeOutputs:
     """K4 in plain PyTorch, the same arithmetic in the same order: the
     winner at the pre-step point p - min(sd, MAX_STEP) dirs, the unscaled
     FD stencil normalised with a tiny floor, the shadow march measured by
@@ -60,7 +61,8 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     [R, 3], sd [R]."""
     eps = cfg.surface_precision
     with torch.no_grad():
-        sd_fn = lambda q: kernel_fold(plan, tables, q)[0]  # noqa: E731
+        sd_fn = lambda q: kernel_fold(  # noqa: E731
+            plan, tables, q, collapse=collapse)[0]
         back = torch.clamp_max(sd, MAX_STEP)
         _, cidx = kernel_fold(plan, tables, p - back[:, None] * dirs,
                               with_idx=True)
@@ -130,16 +132,17 @@ def _library() -> ctypes.CDLL:
     """csrc/shade_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("shade_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_shade_rays.argtypes = ([ptr] * 5 + [i32] * 7 + [f32] * 4
-                                  + [ptr] * 3 + [ctypes.c_int64, ptr])
+    lib.rt_shade_rays.argtypes = ([ptr] * 5 + [i32] * 5 + [ptr] * 2
+                                  + [i32] * 6 + [f32] * 4 + [ptr] * 4
+                                  + [ctypes.c_int64, ptr])
     lib.rt_shade_rays.restype = i32
     return lib
 
 
 @torch.no_grad()
 def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-               p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor
-               ) -> ShadeOutputs:
+               p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor,
+               collapse: bool = True) -> ShadeOutputs:
     """Shade hit points p [R, 3] of rays ``dirs`` [R, 3] whose march last
     evaluated ``sd`` [R]; ``tables`` is a SceneTables of tensors on the
     rays' device, and the configuration must be one ``ops.render_kernel
@@ -147,7 +150,7 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     tensors launch K4.  Forward only."""
     dev = dirs.device
     if dev.type == "cpu":
-        return shade_rays_plain(plan, cfg, tables, p, sd, dirs)
+        return shade_rays_plain(plan, cfg, tables, p, sd, dirs, collapse)
     if dev.type != "cuda":
         raise ValueError(f"shade_rays: unsupported device {dev}")
     R = dirs.shape[0]
@@ -162,18 +165,20 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                                   "lights")
 
     lib = _library()
-    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
     lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
+    shared = (scene.nbytes(plan.num_lights)
+              <= scene_tables.SHARED_SCENE_BYTES)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     rows = torch.cat([p.t(), sd[None], dirs.t()]).contiguous()     # [7, R]
     light = torch.empty((R,), dtype=torch.float32, device=dev)
     iout = torch.empty((2, R), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_shade_rays(
-            tbl.data_ptr(), lights.data_ptr(), groups.data_ptr(),
-            runs.data_ptr(), black_t.data_ptr(), groups.shape[0], root_min,
+            *scene.args(), lights.data_ptr(), black_t.data_ptr(), int(shared),
             *shade_args, rows.data_ptr(), light.data_ptr(), iout.data_ptr(),
-            R, stream)
+            counter.data_ptr(), R, stream)
     build.check(lib, code, "shade kernel launch")
     if R:    # the C entry point launches nothing for zero rays
         shade_rays.launches += 1

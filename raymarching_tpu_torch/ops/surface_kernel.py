@@ -50,10 +50,13 @@ def _check_mode(mode: int, fd_h: Optional[float]) -> None:
 
 def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
                        *, mode: int = COMBINED,
-                       fd_h: Optional[float] = None) -> Surface:
+                       fd_h: Optional[float] = None,
+                       collapse: bool = True) -> Surface:
     """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32 or
     None, gradient [N, 3] or None), the parts ``mode`` computes; the
-    winner is -1 and the combined mode's gradient zero where nothing won."""
+    winner is -1 and the combined mode's gradient zero where nothing won.
+    ``collapse`` reaches the value modes (SD, FD_GRAD); the winner modes
+    fold leaf by leaf."""
     _check_mode(mode, fd_h)
     with torch.no_grad():
         if mode == COMBINED:
@@ -61,7 +64,8 @@ def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
         if mode == WINNER:
             sd, widx = kernel_fold(plan, tables, q, with_idx=True)
             return sd, widx, None
-        sd_fn = lambda p: kernel_fold(plan, tables, p)[0]  # noqa: E731
+        sd_fn = lambda p: kernel_fold(  # noqa: E731
+            plan, tables, p, collapse=collapse)[0]
         sd = sd_fn(q)
         if mode == SD:
             return sd, None, None
@@ -74,22 +78,23 @@ def _library() -> ctypes.CDLL:
     """csrc/surface_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("surface_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_surface_eval.argtypes = ([ptr] * 3 + [i32] * 3 + [f32] * 2
+    lib.rt_surface_eval.argtypes = ([ptr] * 5 + [i32] * 6 + [f32] * 2
                                     + [ptr] * 3 + [ctypes.c_int64, ptr])
     lib.rt_surface_eval.restype = i32
     return lib
 
 
 def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
-                 mode: int = COMBINED, fd_h: Optional[float] = None
-                 ) -> Surface:
+                 mode: int = COMBINED, fd_h: Optional[float] = None,
+                 collapse: bool = True) -> Surface:
     """The scene at points q [N, 3] in ``mode`` -> (sd, winner or None,
     gradient or None), as ``surface_eval_plain``; ``tables`` is a
     SceneTables of tensors on q's device.  CPU tensors take the plain
     twin; CUDA tensors launch K2.  Forward only."""
     dev = q.device
     if dev.type == "cpu":
-        return surface_eval_plain(plan, tables, q, mode=mode, fd_h=fd_h)
+        return surface_eval_plain(plan, tables, q, mode=mode, fd_h=fd_h,
+                                  collapse=collapse)
     if dev.type != "cuda":
         raise ValueError(f"surface_eval: unsupported device {dev}")
     _check_mode(mode, fd_h)
@@ -104,7 +109,7 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
 
     lib = _library()
     N = q.shape[0]
-    tbl, groups, runs, root_min = scene_operands(plan, tables, dev)
+    scene = scene_operands(plan, tables, dev, collapse)
     with_grad = mode in (COMBINED, FD_GRAD)
     with_idx = mode in (COMBINED, WINNER)
     with torch.no_grad():
@@ -117,8 +122,7 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_surface_eval(
-            tbl.data_ptr(), groups.data_ptr(), runs.data_ptr(),
-            groups.shape[0], root_min, mode, h,
+            *scene.args(), mode, h,
             1.0 / (2.0 * h) if mode == FD_GRAD else 0.0, q_soa.data_ptr(),
             out.data_ptr(), widx.data_ptr() if with_idx else None, N, stream)
     build.check(lib, code, "surface kernel launch")

@@ -269,3 +269,120 @@ def test_multi_backend_matches_fused_on_card(cuda_device, scene):
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)
+
+
+def _value_outputs(plan, tt, cfg, origin, dirs, collapse):
+    """K1, K3 (with steps), K4 on K1's hits and K2's value modes with the
+    lattice collapse on or off, as one flat tuple of tensors."""
+    k1 = rk.render_rays(plan, cfg, tt, origin, dirs, collapse=collapse)
+    res, steps = mk.march_rays(plan, cfg, tt, origin, dirs, with_steps=True,
+                               collapse=collapse)
+    k4 = shk.shade_rays(plan, cfg, tt, k1.p, k1.sd, dirs, collapse=collapse)
+    sd, _, _ = sk.surface_eval(plan, tt, k1.p, mode=sk.SD, collapse=collapse)
+    sd_fd, _, g = sk.surface_eval(plan, tt, k1.p, mode=sk.FD_GRAD,
+                                  fd_h=cfg.fd_h, collapse=collapse)
+    torch.cuda.synchronize()
+    return (*k1, *res, steps, *k4, sd, sd_fd, g)
+
+
+def _value_twins(plan, tt, cfg, origin, dirs, collapse):
+    k1 = rk.render_rays_plain(plan, cfg, tt, origin, dirs, collapse)
+    res, steps = mk.march_rays_plain(plan, cfg, tt, origin, dirs,
+                                     with_steps=True, collapse=collapse)
+    k4 = shk.shade_rays_plain(plan, cfg, tt, k1.p, k1.sd, dirs, collapse)
+    sd, _, _ = sk.surface_eval_plain(plan, tt, k1.p, mode=sk.SD,
+                                     collapse=collapse)
+    sd_fd, _, g = sk.surface_eval_plain(plan, tt, k1.p, mode=sk.FD_GRAD,
+                                        fd_h=cfg.fd_h, collapse=collapse)
+    return (*k1, *res, steps, *k4, sd, sd_fd, g)
+
+
+def _moved_cross_row(plan, tables):
+    """One cross row of the lattice group moved: the collapse flag drops."""
+    g = next(g for g in plan.kernel.groups if g.lattice is not None)
+    pos = tables.prim_pos.copy()
+    pos[g.start + 5, 0] += 0.25
+    return tables._replace(prim_pos=pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("scene", ["demo", "demo moved", "config4",
+                                   "scatter1k", "menger4"])
+def test_collapse_and_placement_match_twins_on_card(cuda_device, monkeypatch,
+                                                    scene, placement):
+    """K1, K3, K4 and K2's value modes with the lattice collapse on and
+    off, the scene staged in shared memory or read from device memory:
+    every output equal bitwise to the other setting's and to the plain
+    twins' (with the collapse on and off too)."""
+    from raymarching_tpu_torch import tables as scene_tables
+    plan, tables = _compiled(scene.split()[0])
+    if scene.endswith("moved"):
+        tables = _moved_cross_row(plan, tables)
+    tt = tables_to_torch(tables, cuda_device)
+    nbytes = scene_tables.scene_operands(plan, tt, cuda_device).nbytes(
+        plan.num_lights)
+    if placement == "shared":
+        if nbytes > scene_tables.SHARED_SCENE_BYTES:
+            pytest.skip(f"{scene}: {nbytes} bytes do not fit shared memory")
+    else:
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    flag = int(scene_tables.lattice_ok(plan.kernel, tt))
+    has_lattice = any(scene_tables.collapses(plan.kernel, g)
+                      for g in plan.kernel.groups)
+    assert flag == int(has_lattice and not scene.endswith("moved"))
+    assert has_lattice == (scene != "scatter1k")
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    on = _value_outputs(plan, tt, CFG, origin, dirs, True)
+    off = _value_outputs(plan, tt, CFG, origin, dirs, False)
+    _same(on, off, f"{scene} {placement}: collapse on vs off")
+    _same(on, _value_twins(plan, tt, CFG, origin, dirs, True),
+          f"{scene} {placement}: kernels vs twins, collapse on")
+    _same(off, _value_twins(plan, tt, CFG, origin, dirs, False),
+          f"{scene} {placement}: kernels vs twins, collapse off")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 700])
+def test_ragged_ray_counts_on_card(cuda_device, monkeypatch, n, placement):
+    """The persistent kernels on ray counts that are no multiple of a warp
+    or a block, with per-ray origins: rays are independent, so the first n
+    rays alone give the full launch's outputs on those rays."""
+    from raymarching_tpu_torch import tables as scene_tables
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    plan, tables = _compiled("demo")
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    R = dirs.shape[0]
+    org = origin.expand(R, 3)[:n].contiguous()
+    full = _value_outputs(plan, tt, CFG, origin, dirs, True)
+    k1 = rk.render_rays(plan, CFG, tt, org, dirs[:n])
+    res, steps = mk.march_rays(plan, CFG, tt, org, dirs[:n], with_steps=True)
+    k4 = shk.shade_rays(plan, CFG, tt, k1.p, k1.sd, dirs[:n])
+    torch.cuda.synchronize()
+    _same((*k1, *res, steps, *k4), tuple(v[:n] for v in full[:13]),
+          f"first {n} rays")
+
+
+@pytest.mark.cuda
+def test_scene_above_48_kb_is_staged_in_shared_memory_on_card(cuda_device):
+    """A union of 1,800 spheres is 57,600 bytes of rows: under the shared
+    placement's limit and above the 48 KB a kernel gets without asking for
+    more, so the launch raises its dynamic shared memory limit first."""
+    from raymarching_tpu_torch import tables as scene_tables
+    rows = "\n".join(
+        f"Sphere {(i % 45) * 0.9 - 20:.2f} {(i // 45) * 0.9 - 18:.2f} "
+        f"{-30 - (i % 7)} 0.4" for i in range(1800))
+    plan, tables = compile_scene(parse_scene("Bounds 90\n" + rows))
+    tt = tables_to_torch(tables, cuda_device)
+    nbytes = scene_tables.scene_operands(plan, tt, cuda_device).nbytes(
+        plan.num_lights)
+    assert 48 * 1024 < nbytes <= scene_tables.SHARED_SCENE_BYTES
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    _same(_value_outputs(plan, tt, CFG, origin, dirs, True),
+          _value_twins(plan, tt, CFG, origin, dirs, True), "1,800 spheres")
