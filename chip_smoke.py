@@ -13,11 +13,13 @@ Phases, one line each, every failure an uncaught exception:
                    primary rays, with the step counter, and on shadow rays
                    with tmax from K1's hit points; K4 (ops.shade_kernel
                    .shade_rays) against its twin on K1's hit points; K2's
-                   sd, winner and FD-gradient modes against their twins:
-                   all bitwise, with the lattice collapse on and off; K1
-                   and K3 on ray counts that are no multiple of a tile, on
-                   one ray and with per-ray origins; which scenes the
-                   kernels stage in shared memory.  Then the demo image
+                   four modes and its stencil entry (7 and 6 points a hit)
+                   against their twins: all bitwise, with the lattice
+                   collapse on and off (menger4 through the device-memory
+                   instantiation); K1, K3, K4 and K2 on counts that are no
+                   multiple of a tile, on one ray and with per-ray origins;
+                   which scenes the kernels stage in shared memory; each
+                   kernel's resident blocks an SM.  Then the demo image
                    against the port's ref oracle;
   4. compare-bwd — K2 (ops.surface_kernel.surface_eval) against its plain
                    twin on the 7-point stencils of K1's hits on the same
@@ -34,9 +36,11 @@ Phases, one line each, every failure an uncaught exception:
                    512x512 SSAA 2, 1000 iterations, 5 Adam steps, counting
                    launches (one K1 and one K2 a step); then one step split
                    into forward, K2, the rest of the backward and the
-                   optimizer, the parameter scatter alone, and K2 (median
-                   of five launches) against its plain twin on that
-                   step's 7,340,032 stencil points;
+                   optimizer, the parameter scatter alone, and K2's stencil
+                   entry (median of five launches) against its plain twin
+                   on a step's 7,340,032 stencil points, on the tables the
+                   fit starts from (the collapse on) and on the fitted
+                   tables (the flag 0, the leaf fold);
   7. multi       — the demo at 512x512 SSAA 2 through
                    ``backend="multi"`` (K3 for primary and shadow rays, K2
                    for colours and normals): image against the fused
@@ -50,7 +54,9 @@ Phases, one line each, every failure an uncaught exception:
                    share after phase 1, both frame times; ``two_phase_k1=1``
                    on a small frame, which overflows the second phase's
                    capacity and marches again in full; K4 alone against
-                   its twin;
+                   its twin; ``[phases]``: K4's device time with and
+                   without its shadow marches and K2's winner and
+                   FD-gradient modes on the same hit points, in turns;
   9. train-multi — three ``fit`` steps through ``backend="multi"``; its
                    gradients against the fused backend's on the same rays;
  10. profile     — ``utils.timing.profile_march``: K3's step counts;
@@ -58,13 +64,20 @@ Phases, one line each, every failure an uncaught exception:
                    step counter and the fold's cull test on the demo frame:
                    march lane efficiency (primary and shadow rays), cull
                    coherence within a warp, K1's shadow skips; and
-                   ``[tail]``: K3 on the slowest ray alone, the serial
-                   chain no launch can be shorter than;
+                   ``[tail]``: K3 on the slowest ray alone, and K4 on
+                   the hit whose shadow marches are the longest alone: the
+                   serial chains no launch can be shorter than;
  12. collapse    — K1 (both resolutions) and K3 (primary, both shadow
                    launches) timed with the lattice collapse on and off in
                    turns, outputs bitwise equal; every kernel on a table
                    with one cross row moved (the flag drops on the device)
-                   against the leaf fold and the plain twins;
+                   against the leaf fold and the plain twins; K2's combined
+                   mode on the step's stencils on / off likewise;
+                   ``[placement]``: the scene staged in shared memory
+                   against read from device memory, all four kernels;
+                   ``[multipoint]``: K2's FD-gradient mode with its seven
+                   points in one walk of the scene against seven walks, in
+                   turns, outputs bitwise equal;
  13. serve       — the port's HTTP server answers /healthz and three
                    /render requests with PNGs equal to direct renders.
 Then each kernel's launches in one call of each path, and the kernel table
@@ -268,7 +281,7 @@ def shadow_rays(tables, cfg, p, n, li):
 
 
 def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
-    """K3, K4 and K2's sd, winner and FD-gradient modes against their plain
+    """K3, K4, K2's four modes and K2's stencil entry against their plain
     twins, all bitwise (every kernel is built with -fmad=false), and K3 and
     K4 against K1's own outputs, with the lattice collapse on or off in
     kernels and twins alike.  Returns the number of comparisons."""
@@ -300,31 +313,51 @@ def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
                                         dirs, **c), "shade_kernel")
     same("K4 against K1's shading", k4, (k1.cidx, k1.light, k1.smask))
     n_cmp += 2
-    for mode in (sk.SD, sk.WINNER, sk.FD_GRAD):
+    for mode in sk.MODES:
         same(f"K2 mode {mode}",
              sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h,
                              **c),
              sk.surface_eval_plain(plan, tables, k1.p, mode=mode,
                                    fd_h=cfg.fd_h, **c), "surface_kernel")
         n_cmp += 1
+    for center in (True, False):
+        same(f"K2 stencil entry, centre {center}",
+             sk.surface_stencil(plan, tables, k1.p, cfg.fd_h, center=center,
+                                **c),
+             sk.surface_stencil_plain(plan, tables, k1.p, cfg.fd_h,
+                                      center=center, **c), "surface_kernel")
+        n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
 
 
 def compare_ragged(plan, cfg, tables, origin, dirs):
-    """K1, K3 and K4 on the first n rays, with per-ray origins, for n that
-    is 1, below a warp and no multiple of a warp or a tile: rays are
-    independent, so every output must be the full launch's on those rays,
-    bitwise.  Returns the ray counts."""
+    """K1, K3, K4 and K2 (its FD-gradient mode and its stencil entry) on
+    the first n rays, with per-ray origins, for n that is 1, below a warp
+    and no multiple of a warp or a tile: rays are independent, so every
+    output must be the full launch's on those rays, bitwise.  Returns the
+    ray counts."""
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
     from raymarching_tpu_torch.ops.render_kernel import render_rays
     R = dirs.shape[0]
     full = render_rays(plan, cfg, tables, origin, dirs)
     full3, steps3 = mk.march_rays(plan, cfg, tables, origin, dirs,
                                   with_steps=True)
+    full2 = sk.surface_eval(plan, tables, full.p, mode=sk.FD_GRAD,
+                            fd_h=cfg.fd_h)
+    full2s = sk.surface_stencil(plan, tables, full.p, cfg.fd_h, center=True)
     counts = [n for n in (1, 31, 1000, R - 37) if 0 < n <= R]
     for n in counts:
+        same(f"K2 FD gradient on {n} points",
+             sk.surface_eval(plan, tables, full.p[:n], mode=sk.FD_GRAD,
+                             fd_h=cfg.fd_h), tuple(
+                 None if v is None else v[:n] for v in full2))
+        same(f"K2 stencil entry on {n} hits",
+             sk.surface_stencil(plan, tables, full.p[:n], cfg.fd_h,
+                                center=True),
+             tuple(v[:, :n] for v in full2s))
         org = origin.expand(R, 3)[:n].contiguous()
         same(f"K1 on {n} rays", render_rays(plan, cfg, tables, org, dirs[:n]),
              tuple(v[:n] for v in full))
@@ -388,11 +421,12 @@ def compare_bwd(plan, cfg, tables, origin, dirs):
     must agree bitwise.  Returns the hit count."""
     from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops.render_kernel import render_rays
-    from raymarching_tpu_torch.ops.surface_kernel import surface_eval_plain
+    from raymarching_tpu_torch.ops.surface_kernel import (stencil_points,
+                                                          surface_eval_plain)
     p = render_rays(plan, cfg, tables, origin, dirs).p
     k = scene_vjp.stencil_eval(plan, cfg, tables, p, center=True)
     torch.cuda.synchronize()
-    q = scene_vjp.stencil_points(p, cfg.fd_h, center=True)
+    q = stencil_points(p, cfg.fd_h, center=True)
     plain = surface_eval_plain(plan, tables, q.reshape(-1, 3))
     for name, a, b in zip(("sd", "widx", "g"), k, plain):
         b = b.reshape(a.shape)
@@ -475,15 +509,18 @@ def has_demo_objects(img: torch.Tensor) -> bool:
 def kernel_times() -> int:
     """``--times``: one line with the device times (torch.profiler, median
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
-    on the primary rays and on the slowest of them alone, of K4, and of K1
-    with the scene read from device memory, on the demo at 1,000
-    iterations.  For holding two checkouts against each other on one card:
+    on the primary rays and on the slowest of them alone, of K4, of K2 on
+    the 7-point stencils of the hits (and that call with its wrapper,
+    CUDA events) and in its FD-gradient mode, and of K1 with the scene read
+    from device memory, on the demo at 1,000 iterations.  For holding two checkouts against each other on one card:
     run it from each in one command, in turns (parent, change, change,
     parent)."""
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch import tables as scene_tables
     from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
     from raymarching_tpu_torch.ops.render_kernel import render_rays
 
     dev = torch.device("cuda")
@@ -503,6 +540,15 @@ def kernel_times() -> int:
                                   dirs[slow:slow + 1]), "march_kernel"),
         "K4": device_ms(lambda: shk.shade_rays(
             plan, cfg, tt, hit.position, hit.sd, dirs), "shade_kernel"),
+        "K2 combined, 7-point stencils": device_ms(
+            lambda: scene_vjp.stencil_eval(plan, cfg, tt, hit.position,
+                                           center=True), "surface_kernel"),
+        "K2 stencil_eval with its wrapper": timed(
+            lambda: scene_vjp.stencil_eval(plan, cfg, tt, hit.position,
+                                           center=True), runs=5)[1],
+        "K2 FD gradient": device_ms(lambda: sk.surface_eval(
+            plan, tt, hit.position, mode=sk.FD_GRAD, fd_h=cfg.fd_h),
+            "surface_kernel"),
     }
     limit = scene_tables.SHARED_SCENE_BYTES
     scene_tables.SHARED_SCENE_BYTES = 0
@@ -595,11 +641,11 @@ def main() -> int:
         ops = scene_operands(plan, tt, dev)
         nbytes = ops.nbytes(plan.num_lights)
         print(f"[compare] {scene}: K3 (primary rays with steps, shadow "
-              f"rays with tmax of {plan.num_lights} lights), K4, and K2's "
-              f"sd, winner and FD-gradient modes = plain twins bitwise, and "
+              f"rays with tmax of {plan.num_lights} lights), K4, K2's four "
+              f"modes and its stencil entry = plain twins bitwise, and "
               f"K3, K4 = K1's march and shading bitwise, with the lattice "
               f"collapse on and off ({n_cmp} comparisons; collapse flag "
-              f"{int(ops.flag.item())}); K1, K3, K4 on "
+              f"{int(ops.flag.item())}); K1, K3, K4, K2 on "
               f"{compare_ragged(plan, cfg, tt, *rays)} rays with per-ray "
               f"origins = the full launch's; scene {nbytes} bytes, read "
               f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
@@ -608,7 +654,7 @@ def main() -> int:
             # 16 bytes cover the staged copy's alignment padding
             per_sm = {k: (build.load_library(k).rt_blocks_per_sm(
                 1, nbytes + 16), build.load_library(k).rt_blocks_per_sm(0, 0))
-                for k in ("render_kernel", "march_kernel", "shade_kernel")}
+                for k in KERNELS}
             check(all(min(v) > 0 for v in per_sm.values()),
                   f"resident blocks an SM: {per_sm}")
             print("[occupancy] resident blocks an SM (128 threads each), "
@@ -785,41 +831,58 @@ def main() -> int:
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     fwd_ms, bwd_ms, opt_ms = (statistics.median(c) for c in zip(*splits))
 
-    # K2 against its twin on this step's stencil, and the scatter alone
-    tt = tables_to_torch(res.tables, dev)
-    p = render_rays(plan, tcfg.replace(shade_skip_black=False), tt,
-                    *rays_for(plan, tt, tcfg)).p
-    q = scene_vjp.stencil_points(p, tcfg.fd_h, center=True).reshape(-1, 3)
-    (sd7, widx7, g7), k2_ms = timed(
-        lambda: scene_vjp.stencil_eval(plan, tcfg, tt, p, center=True),
-        runs=5)
-    k2_plain, k2_plain_ms, k2_count = timed_counted(
-        lambda: sk.surface_eval_plain(plan, tt, q))
-    same("K2 combined on the 7-point stencils at 512^2", (sd7, widx7, g7),
-         tuple(b.reshape(a.shape) for a, b in zip((sd7, widx7, g7),
-                                                  k2_plain)),
-         "surface_kernel")
-    # K2 reads a point and writes 4 floats and an int
-    k2_bound = bound_ms(k2_count, q.shape[0] * (12 + 20))
-    leaf_bounds["surface_kernel"] = k2_bound   # the combined mode's winner
+    # K2 against its twin on the stencils of a step, and the scatter alone:
+    # on the tables the fit starts from (its first step: the cross rows
+    # still share the lattice, so the combined mode takes the collapse) and
+    # on the fitted tables (Adam has moved every cross row: the flag is 0
+    # and the same kernel folds leaf by leaf)
+    def k2_on_step(step_tables, what):
+        """K2's stencil entry on a step's 7-point stencils against its
+        twin: (ms with wrapper, device ms, plain ms, bound, bound with
+        every leaf folded, the kernel's outputs)."""
+        tt_ = tables_to_torch(step_tables, dev)
+        p_ = render_rays(plan, tcfg.replace(shade_skip_black=False), tt_,
+                         *rays_for(plan, tt_, tcfg)).p
+        q_ = sk.stencil_points(p_, tcfg.fd_h,
+                                      center=True).reshape(-1, 3)
+        out, ms = timed(lambda: scene_vjp.stencil_eval(
+            plan, tcfg, tt_, p_, center=True), runs=5)
+        plain, plain_ms, count = timed_counted(
+            lambda: sk.surface_eval_plain(plan, tt_, q_))
+        same(f"K2 combined on the 7-point stencils at 512^2, {what}", out,
+             tuple(b.reshape(a.shape) for a, b in zip(out, plain)),
+             "surface_kernel")
+        # the stencil entry reads a hit (12 bytes) and writes 4 floats and
+        # an int for each of its 7 stencil points
+        n_bytes = p_.shape[0] * (12 + 7 * 20)
+        leaf = bound_ms(timed_counted(lambda: sk.surface_eval_plain(
+            plan, tt_, q_, collapse=False))[2], n_bytes)
+        dev_t = device_ms(lambda: scene_vjp.stencil_eval(
+            plan, tcfg, tt_, p_, center=True), "surface_kernel")
+        flag = int(lattice_ok(plan.kernel, tt_).item())
+        print(f"[kernel] surface_kernel demo stencil entry on {what} "
+              f"(collapse flag {flag}), {p_.shape[0]} hits = {q_.shape[0]} "
+              f"points: K2 {ms:.3f} ms with its wrapper, {dev_t:.3f} ms on "
+              f"the device alone, plain {plain_ms:.3f} ms; sd, widx, g "
+              f"bitwise equal; {card}")
+        return ms, dev_t, plain_ms, bound_ms(count, n_bytes), leaf, tt_, out
+
+    (k2_ms, dev_ms["surface_kernel"], k2_plain_ms, k2_bound,
+     leaf_bounds["surface_kernel"], _, _) = k2_on_step(
+         start, "the fit's first tables")
+    k2_fit_ms, _, _, _, _, tt, (sd7, widx7, g7) = k2_on_step(
+        res.tables, "the fitted tables")
     u = torch.randn(sd7.shape, device=dev)
     _, scatter_ms = timed(lambda: scene_vjp.theta_cotangents(
         plan, tt, widx7, g7, u), runs=5)
     print(f"[train] step split (median of 3, CUDA events): forward "
-          f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (K2 {k2_ms:.2f} ms, "
-          f"rest: replay + scatter {bwd_ms - k2_ms:.2f} ms), optimizer "
-          f"{opt_ms:.2f} ms; {card}")
+          f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (K2 {k2_fit_ms:.2f} "
+          f"ms, rest: replay + scatter {bwd_ms - k2_fit_ms:.2f} ms), "
+          f"optimizer {opt_ms:.2f} ms; {card}")
     print(f"[train] parameter scatter alone (theta_cotangents, "
-          f"{q.shape[0]} rows x 7 columns onto {plan.num_primitives} leaf "
+          f"{sd7.numel()} rows x 7 columns onto {plan.num_primitives} leaf "
           f"rows): {scatter_ms:.2f} ms; {card}")
-    dev_ms["surface_kernel"] = device_ms(
-        lambda: scene_vjp.stencil_eval(plan, tcfg, tt, p, center=True),
-        "surface_kernel")
-    print(f"[kernel] surface_kernel demo stencil {q.shape[0]} points: K2 "
-          f"{k2_ms:.3f} ms with its wrapper, "
-          f"{dev_ms['surface_kernel']:.3f} ms on the device alone, plain {k2_plain_ms:.3f} ms; sd, widx, g "
-          f"bitwise equal; {card}")
-    del sd7, widx7, g7, k2_plain, q, u
+    del sd7, widx7, g7, u
 
     # 7. the multi-kernel backend at the same frame
     tt = tables_to_torch(tables, dev)
@@ -878,7 +941,7 @@ def main() -> int:
     # K2 as the multi frame and step launch it: winner and FD gradient at
     # the hit points (forward), the combined mode at the hit points
     # (MarchOp's backward) and on their six-point stencils (NormalOp's)
-    q6 = scene_vjp.stencil_points(hit.position, tcfg.fd_h,
+    q6 = sk.stencil_points(hit.position, tcfg.fd_h,
                                   center=False).reshape(-1, 3)
     for label, q, mode in (("winner", hit.position, sk.WINNER),
                            ("FD gradient", hit.position, sk.FD_GRAD),
@@ -973,6 +1036,36 @@ def main() -> int:
           f"alone, plain {k4_plain_ms:.3f} ms; cidx, light, smask bitwise equal; "
           f"{card}")
 
+    # K4's three phases apart, on the same hit points, in turns: without
+    # its shadow marches it is the winner fold and the normal; K2's winner
+    # and FD-gradient modes are those two alone (at the hit point, where K4
+    # takes its winner a step back)
+    noshadow = tcfg.replace(shadows=False)
+    phase_fns = {
+        "K4": (lambda: shk.shade_rays(plan, tcfg, tt, hit2.position, hit2.sd,
+                                      dirs), "shade_kernel"),
+        "K4 without shadows": (lambda: shk.shade_rays(
+            plan, noshadow, tt, hit2.position, hit2.sd, dirs),
+            "shade_kernel"),
+        "K2 winner": (lambda: sk.surface_eval(
+            plan, tt, hit2.position, mode=sk.WINNER), "surface_kernel"),
+        "K2 FD gradient": (lambda: sk.surface_eval(
+            plan, tt, hit2.position, mode=sk.FD_GRAD, fd_h=tcfg.fd_h),
+            "surface_kernel"),
+    }
+    order = list(phase_fns) + list(phase_fns)[::-1]
+    phase_ms = dict.fromkeys(phase_fns, 0.0)
+    for k in order:
+        phase_ms[k] += device_ms(*phase_fns[k], 3) / 2
+    print(f"[phases] demo hit points {R}, device time of the kernel alone, "
+          f"in turns (each twice, the median of 3 launches): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in phase_ms.items())
+          + f"; so K4's shadow marches "
+          f"{phase_ms['K4'] - phase_ms['K4 without shadows']:.3f} ms, its "
+          f"winner fold and normal {phase_ms['K4 without shadows']:.3f} ms "
+          f"(K2: winner {phase_ms['K2 winner']:.3f}, FD gradient with the "
+          f"centre {phase_ms['K2 FD gradient']:.3f}); {card}")
+
     # 9. training through the multi-kernel backend
     stamps.clear()
     step_grads.clear()
@@ -1055,10 +1148,12 @@ def main() -> int:
         skipped, (0, -R % 32), value=True).reshape(-1, 32).all(
             dim=1).double().mean().item()
     eff = {"primary": lane_efficiency(steps)}
+    shadow_steps = torch.zeros_like(steps)
     for li in range(L):
         s, d, tmax = shadow_rays(tt, tcfg, hit.position, n_hat, li)
         _, sh_steps = mk.march_rays(plan, tcfg, tt, s, d, tmax=tmax,
                                     with_steps=True)
+        shadow_steps += torch.where(skipped, 0, sh_steps)
         eff[f"shadow {li}"] = lane_efficiency(sh_steps)
         # inside K1 a skipped lane takes no step and waits
         eff[f"shadow {li} with K1's skips"] = lane_efficiency(
@@ -1077,7 +1172,21 @@ def main() -> int:
           f"{dev_ms['march_kernel']:.3f} ms, and capped at 48 steps "
           f"({int(torch.clamp_max(steps, 48).sum())} of {int(steps.sum())} "
           f"evaluations) {cap_ms:.3f} ms; {card}")
-    q7 = scene_vjp.stencil_points(hit.position, tcfg.fd_h, center=True)
+    # the same floor under K4: the hit whose shadow marches, one light after
+    # the other, are the longest
+    slow4 = int(shadow_steps.argmax())
+    slow4_ms = device_ms(lambda: shk.shade_rays(
+        plan, tcfg, tt, hit.position[slow4:slow4 + 1], hit.sd[slow4:slow4 + 1],
+        dirs[slow4:slow4 + 1]), "shade_kernel")
+    live = shadow_steps[shadow_steps > 0].double()
+    print(f"[tail] K4: the hit with the longest shadow marches alone "
+          f"({int(shadow_steps[slow4])} steps over {L} lights, one after the "
+          f"other) takes K4 {slow4_ms:.3f} ms on the device; all {R} hits "
+          f"{dev_ms['shade_kernel']:.3f} ms; the {live.numel()} hits that "
+          f"march take {live.mean().item():.1f} shadow steps in the mean, "
+          f"p99 {int(live.quantile(0.99))}, p99.9 "
+          f"{int(live.quantile(0.999))}; {card}")
+    q7 = sk.stencil_points(hit.position, tcfg.fd_h, center=True)
     folded = carve_folded(plan, tt, q7.reshape(-1, 3)).reshape(7, -1)
     folded = torch.nn.functional.pad(folded, (0, -folded.shape[1] % 32))
     by_warp = folded.reshape(7, -1, 32).any(dim=-1)
@@ -1127,6 +1236,20 @@ def main() -> int:
                                    fd_h=tcfg.fd_h, collapse=c)
     k2_on, k2_off = on_off(lambda c: tuple(
         v for v in fn(c) if v is not None), "surface_kernel")
+    # K2's combined mode on the stencils of a step: values and gradients
+    # bitwise equal on and off; on a tie between crosses the collapsed fold
+    # may name another cross of the tie class
+    st_on, st_off = (scene_vjp.stencil_eval(plan, tcfg, tt, hit.position,
+                                            center=True, collapse=c)
+                     for c in (True, False))
+    same("K2 stencil entry, collapse on against off (sd, g)",
+         (st_on[0], st_on[2]), (st_off[0], st_off[2]))
+    k2_same_winner = (st_on[1] == st_off[1]).double().mean().item()
+    del st_on, st_off
+    t = [device_ms(lambda: scene_vjp.stencil_eval(
+        plan, tcfg, tt, hit.position, center=True, collapse=c),
+        "surface_kernel", 3) for c in (True, False, False, True)]
+    k2c_on, k2c_off = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     print(f"[collapse] demo, lattice collapse on / off in turns (on, off, "
           f"off, on; device time of the kernel alone, each the median of 3 "
           f"launches), outputs bitwise equal: K1 {tcfg.width}x{tcfg.height} "
@@ -1136,7 +1259,10 @@ def main() -> int:
           + "; ".join(f"K3 shadow {li} {a:.3f} / {b:.3f} ms"
                       for li, (a, b) in enumerate(sh_times))
           + f"; K4 {k4_on:.3f} / {k4_off:.3f} ms; K2 FD gradient "
-          f"{k2_on:.3f} / {k2_off:.3f} ms; {card}")
+          f"{k2_on:.3f} / {k2_off:.3f} ms; K2 combined on the "
+          f"{7 * R} stencil points of a step {k2c_on:.3f} / {k2c_off:.3f} ms "
+          f"(sd and gradient bitwise equal, the same winner on "
+          f"{k2_same_winner:.6f} of points: crosses that tie); {card}")
     # the scene in shared against device memory, same kernels, in turns
     def placements(fn, needle):
         """(device ms with the demo staged in shared memory, read from
@@ -1161,12 +1287,43 @@ def main() -> int:
     k4_sh, k4_dv = placements(
         lambda: shk.shade_rays(plan, tcfg, tt, hit.position, hit.sd, dirs),
         "shade_kernel")
+    k2_sh, k2_dv = placements(
+        lambda: scene_vjp.stencil_eval(plan, tcfg, tt, hit.position,
+                                       center=True), "surface_kernel")
+    k2f_sh, k2f_dv = placements(
+        lambda: tuple(v for v in sk.surface_eval(
+            plan, tt, hit.position, mode=sk.FD_GRAD, fd_h=tcfg.fd_h)
+            if v is not None), "surface_kernel")
     print(f"[placement] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}, the "
           f"scene staged in shared memory / read from device memory by the "
           f"same persistent kernel, in turns (device time of the kernel "
           f"alone), outputs bitwise equal: K1 {k1_sh:.3f} / {k1_dv:.3f} ms; "
           f"K3 primary {k3_sh:.3f} / {k3_dv:.3f} ms; K4 {k4_sh:.3f} / "
-          f"{k4_dv:.3f} ms; {card}")
+          f"{k4_dv:.3f} ms; K2 combined on the stencils {k2_sh:.3f} / "
+          f"{k2_dv:.3f} ms; K2 FD gradient {k2f_sh:.3f} / {k2f_dv:.3f} ms; "
+          f"{card}")
+
+    # several points a walk of the scene against one, same kernels, in turns
+    def turns(fn, needle, off):
+        """(device ms with every keyword on, with the keywords ``off``
+        off) of fn(**keywords), in turns (on, off, off, on); outputs
+        bitwise equal."""
+        same(f"{needle} with {off} off", tuple(
+            v for v in fn() if v is not None), tuple(
+            v for v in fn(**off) if v is not None))
+        t = [device_ms(lambda: fn(**kw), needle, 3)
+             for kw in ({}, off, off, {})]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    k2mp_on, k2mp_off = turns(lambda **kw: sk.surface_eval(
+        plan, tt, hit.position, mode=sk.FD_GRAD, fd_h=tcfg.fd_h, **kw),
+        "surface_kernel", {"multipoint": False})
+    print(f"[multipoint] demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}, K2's "
+          f"FD-gradient mode on the {R} hit points, its seven points in one "
+          f"walk of the scene / in seven walks, in turns (on, off, off, on; "
+          f"device time of the kernel alone, each the median of 3 "
+          f"launches), outputs bitwise equal: {k2mp_on:.3f} / "
+          f"{k2mp_off:.3f} ms; {card}")
 
     # one cross row moved: the flag drops on the device and every kernel
     # folds leaf by leaf, as its twin does

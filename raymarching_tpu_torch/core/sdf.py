@@ -12,9 +12,11 @@ plan.  Two folds:
     ``_scene_sd_idx_tile`` and ``_scene_sd_idx_grad_tile``): per group
     gsign * min(scale * leaf), then a strict-< root fold, so ties keep the
     earliest leaf; optionally the winner's gradient (:func:`prim_sd_grad`).
-    Its value fold has a second plain form, the exact Menger lattice
-    collapse (``pallas_march._menger_carve_lattice``), read from the very
-    descriptor stream the CUDA kernels walk (``tables.pack_plan``).
+    Its value fold and its winner-and-gradient fold have a second plain
+    form, the exact Menger lattice collapse (``pallas_march
+    ._menger_carve_lattice`` and ``_menger_carve_lattice_idx_grad``), read
+    from the very descriptor stream the CUDA kernels walk
+    (``tables.pack_plan``).
 
 The leaf matrix is built in blocks of at most ``_LEAF_BUDGET`` elements so
 the plain path's working set stays bounded at any ray count.
@@ -164,8 +166,11 @@ def prim_sd_grad(ptype: torch.Tensor, pos: torch.Tensor, aux: torch.Tensor,
 # least 12 (the sphere: 3 sub, 3 mul, 2 add, sqrt, sub, scale, min).  The
 # collapsed carve needs 3 for each distinct axis excess |p - c| - h (sub,
 # abs, sub), 1 min for each member of a distinct x-set, and 5 for each
-# column (the 4 min/max of the median and the running min).
+# column (the 4 min/max of the median and the running min).  The collapse
+# that also carries the winner's row adds one select to each x-set member
+# and to each column.
 OPS_PER_LEAF, OPS_PER_EXCESS, OPS_PER_XSET_MEMBER, OPS_PER_COLUMN = 12, 3, 1, 5
+OPS_PER_WINNER_SELECT = 1
 
 
 class LeafCount:
@@ -177,7 +182,9 @@ class LeafCount:
     counts its single-cross levels as leaves and every other level as
     operations: 3 for each distinct axis excess, 1 for each member of a
     distinct x-set and 5 for each column (OPS_PER_EXCESS,
-    OPS_PER_XSET_MEMBER, OPS_PER_COLUMN; a leaf is OPS_PER_LEAF = 12).
+    OPS_PER_XSET_MEMBER, OPS_PER_COLUMN; a leaf is OPS_PER_LEAF = 12), and
+    in the winner-and-gradient fold one select more for each member and
+    column (OPS_PER_WINNER_SELECT).
     The plain twin itself may evaluate more; this is the count of what
     the kernels' data needs.
 
@@ -260,33 +267,39 @@ class _Level(NamedTuple):
     col_xset: Optional[np.ndarray] = None   # per column its x-set
     col_y: Optional[np.ndarray] = None      # per column the row of its y
     col_z: Optional[np.ndarray] = None      # per column the row of its z
+    # per column the table row of its cross at each member of its x-set,
+    # padded with -1 to the widest x-set
+    col_rows: Optional[np.ndarray] = None
 
 
 class _Block(NamedTuple):
     """A group's collapse block: its levels, how many of them are a single
-    cross (counted as leaves), the operations of the others, and the most
+    cross (counted as leaves), the operations of the others in the value
+    fold and in the fold that carries the winner's row, and the most
     columns a level has."""
 
     levels: list
     singles: int
     ops: int
+    ops_idx: int
     widest: int
 
 
 def _decode_block(lat: np.ndarray, off: int) -> _Block:
     """The collapse block at ``off`` of the packed stream the kernels walk
     (``tables.PackedPlan.lattice`` has the layout)."""
-    levels, singles, ops, widest = [], 0, 0, 0
-    n_levels = int(lat[off])
-    off += 1
+    levels, singles, ops, ops_idx, widest = [], 0, 0, 0, 0
+    n_levels, roff = int(lat[off]), int(lat[off + 1])
+    off += 2
     for _ in range(n_levels):
         n_xsets, size_row = int(lat[off]), int(lat[off + 1])
         off += 2
         if n_xsets == 0:
             levels.append(_Level(size_row))
             singles += 1
+            roff += 1
             continue
-        members, col_xset, col_y, col_z = [], [], [], []
+        members, col_xset, col_y, col_z, col_rows = [], [], [], [], []
         for xs in range(n_xsets):
             n_mem, n_col = int(lat[off]), int(lat[off + 1])
             off += 2
@@ -296,16 +309,24 @@ def _decode_block(lat: np.ndarray, off: int) -> _Block:
             col_xset += [xs] * n_col
             col_y.append(cols[:, 0])
             col_z.append(cols[:, 1])
+            col_rows.append(lat[roff:roff + n_mem * n_col].reshape(n_col,
+                                                                   n_mem))
+            roff += n_mem * n_col
         col_y, col_z = np.concatenate(col_y), np.concatenate(col_z)
+        width = max(len(m) for m in members)
+        col_rows = np.concatenate([np.pad(r, ((0, 0), (0, width - r.shape[1])),
+                                          constant_values=-1)
+                                   for r in col_rows])
         distinct = sum(len(set(rows.tolist())) for rows in
                        (np.concatenate(members), col_y, col_z))
-        ops += (OPS_PER_EXCESS * distinct
-                + OPS_PER_XSET_MEMBER * sum(len(m) for m in members)
+        n_members = sum(len(m) for m in members)
+        ops += (OPS_PER_EXCESS * distinct + OPS_PER_XSET_MEMBER * n_members
                 + OPS_PER_COLUMN * len(col_y))
+        ops_idx += OPS_PER_WINNER_SELECT * (n_members + len(col_y))
         widest = max(widest, len(col_y))
         levels.append(_Level(size_row, members, np.asarray(col_xset), col_y,
-                             col_z))
-    return _Block(levels, singles, ops, widest)
+                             col_z, col_rows))
+    return _Block(levels, singles, ops, ops + ops_idx, widest)
 
 
 class _FoldLayout(NamedTuple):
@@ -366,6 +387,42 @@ def _lattice_carve(levels, tables: SceneTables, p: torch.Tensor):
     return best
 
 
+def _lattice_carve_idx(levels, tables: SceneTables, p: torch.Tensor):
+    """(min over a collapsing group's carve crosses, table row of the
+    cross that attains it) at p [N, 3] -> ([N], [N] int64): the
+    arithmetic and the winner of fold.cuh's lattice_carve_idx
+    (pallas_march._menger_carve_lattice_idx_grad).  The value is
+    ``_lattice_carve``'s.  The winner is the first minimal cross in the
+    stream's order: an x-set keeps its first minimal member, a level its
+    first minimal column (``torch.min`` over a dim returns the first
+    minimal index), and a later level wins only with strict <."""
+    pos, aux = tables.prim_pos, tables.prim_aux
+    px, py, pz = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    best = torch.full(p.shape[:1], float("inf"), device=p.device)
+    brow = torch.zeros(p.shape[:1], dtype=torch.int64, device=p.device)
+    for lv in levels:
+        if lv.members is None:      # a level of one cross
+            b = (p - pos[lv.size_row]).abs() - aux[lv.size_row] * 0.5
+            sd = med3(b[:, 0], b[:, 1], b[:, 2])
+            row = torch.full_like(brow, lv.size_row)
+        else:
+            hx, hy, hz = aux[lv.size_row] * 0.5
+            mins = [((px - pos[m, 0]).abs() - hx).min(dim=1)
+                    for m in lv.members]
+            a = torch.stack([m.values for m in mins], dim=1)  # [N, x-sets]
+            member = torch.stack([m.indices for m in mins], dim=1)
+            by = (py - pos[lv.col_y, 1]).abs() - hy           # [N, columns]
+            bz = (pz - pos[lv.col_z, 2]).abs() - hz
+            sd, col = med3(a[:, lv.col_xset], by, bz).min(dim=1)
+            xset = torch.as_tensor(lv.col_xset, device=p.device)[col]
+            rows = torch.as_tensor(lv.col_rows, device=p.device)
+            row = rows[col, member.gather(1, xset[:, None])[:, 0]]
+        take = sd < best
+        best = torch.where(take, sd, best)
+        brow = torch.where(take, row, brow)
+    return best, brow
+
+
 def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
                        with_grad, collapse):
     from ..tables import is_cullable
@@ -392,20 +449,27 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
                 kept = (-seg[:, :nb].min(dim=-1).values < running).sum()
                 if gi in blocks:
                     counted += kept * blocks[gi].singles
-                    collapsed += kept * blocks[gi].ops
+                    collapsed += kept * (blocks[gi].ops_idx if with_grad
+                                         else blocks[gi].ops)
                 else:
                     counted += kept * (g.count - nb)
         # torch.min over a dim returns the first minimal index: the
         # strict-< leaf fold's winner
         gmin, k = seg.min(dim=-1)
-        if gi in blocks:
+        k = k + g.start
+        if gi in blocks and with_grad:
+            # the base leaves are earlier in the table: they win ties
+            cm, crow = _lattice_carve_idx(blocks[gi].levels, tables, p)
+            k = torch.where(cm < gmin, crow, k)
+            gmin = torch.minimum(gmin, cm)
+        elif gi in blocks:
             gmin = torch.minimum(
                 gmin, _lattice_carve(blocks[gi].levels, tables, p))
         v = rsign * (float(g.gsign) * gmin)
         better = v < running
         running = torch.where(better, v, running)
         if with_idx or with_grad:
-            ridx = torch.where(better, (k + g.start).to(torch.int32), ridx)
+            ridx = torch.where(better, k.to(torch.int32), ridx)
     for c in LeafCount._open:
         c._leaves.append(counted)
         c._collapsed.append(collapsed)
@@ -447,18 +511,21 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     nothing won): the combined mode of the JAX surface kernel.
 
     With ``collapse`` the value fold (neither ``with_idx`` nor
-    ``with_grad``) takes a Menger group's carve through the lattice
-    collapse while ``tables.lattice_ok`` holds for the live tables, as the
-    CUDA fold does; the winner folds stay leaf by leaf, as the kernels'
-    do.  The collapse and the DIFFERENCE base-bound cull leave every value
-    unchanged, so the twin applies no cull."""
+    ``with_grad``) and the ``with_grad`` fold take a Menger group's carve
+    through the lattice collapse while ``tables.lattice_ok`` holds for the
+    live tables, as the CUDA folds do; there the ``with_grad`` winner is
+    the first minimal cross in the collapse stream's order, which on a
+    tie between crosses may be another member of the tie class than the
+    leaf fold's.  The colour winner (``with_idx``) stays leaf by leaf, as
+    the kernels' does.  The collapse and the DIFFERENCE base-bound cull
+    leave every value unchanged, so the twin applies no cull."""
     if plan.kernel is None:
         raise NotImplementedError(
             "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
     if collapse:
         from ..tables import lattice_ok
 
-        collapse = (not (with_idx or with_grad)
+        collapse = ((with_grad or not with_idx)
                     and bool(lattice_ok(plan.kernel, tables)))
     # the collapsed crosses leave the leaf matrix; a level's columns (its
     # two axis excesses) are the widest tensors then

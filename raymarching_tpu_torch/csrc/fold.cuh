@@ -2,21 +2,41 @@
 // (surface_kernel.cu), K3 (march_kernel.cu) and K4 (shade_kernel.cu).
 //
 // Leaf distances and the two-level kernel-form fold of
-// pallas_march._scene_sd_tile / _scene_sd_idx_tile over the int32 group and
-// run descriptors of tables.pack_plan.  Every kernel includes this one
-// definition, so the SDs K2 evaluates at the backward's FD stencil, and the
-// ones K3 marches on, are the very min-fold K1 evaluated in the forward,
-// bitwise, when all are built without FMA contraction.  Each kernel is its
-// own library of one translation unit, so the definitions sit in an
-// anonymous namespace.
+// pallas_march._scene_sd_tile / _scene_sd_idx_tile / _scene_sd_idx_grad_tile
+// over the int32 group and run descriptors of tables.pack_plan.  Every
+// kernel includes this one definition, so the SDs K2 evaluates at the
+// backward's FD stencil, and the ones K3 marches on, are the very min-fold
+// K1 evaluated in the forward, bitwise, when all are built without FMA
+// contraction.  Each kernel is its own library of one translation unit, so
+// the definitions sit in an anonymous namespace.
 //
-// The value fold takes a Menger group's carve through the exact lattice
-// collapse (pallas_march._menger_carve_lattice) while the wrapper's flag
-// says the live rows still share the lattice's coordinates: per level a
-// few axis excesses, one minimum per distinct x-set and one median per
-// (y, z) column instead of every cross.  Only abs, subtract, exact
-// halving, min and max: the same bits as the leaf fold.  The winner fold
-// stays leaf by leaf.
+// Layout.  Three forms of one fold:
+//   * scene_sd: the value at one point (the marches);
+//   * scene_sd_n<N>: the value at N points in ONE walk of the groups, runs
+//     and collapse stream (the six points of an FD normal, K2's seven, the
+//     two shadow rays of a hit that march in lockstep): every descriptor
+//     and row is loaded once and applied to N points, whose N min chains
+//     are independent, so their latencies overlap;
+//   * scene_sd_idx<W>: the value and the first-wins winner leaf.  W =
+//     Winner is the colour winner and folds leaf by leaf, as
+//     _scene_sd_idx_tile does; W = PathWinner also carries the winning
+//     run's prim type and path sign for K2's gradient, and takes a Menger
+//     group's carve through lattice_carve_idx, as _scene_sd_idx_grad_tile
+//     does.
+//
+// The value folds and the PathWinner fold take a Menger group's carve
+// through the exact lattice collapse (pallas_march._menger_carve_lattice,
+// _menger_carve_lattice_idx_grad) while the wrapper's flag says the live
+// rows still share the lattice's coordinates: per level a few axis
+// excesses, one minimum per distinct x-set and one median per (y, z)
+// column instead of every cross.  Only abs, subtract, exact halving, min
+// and max: the same bits as the leaf fold.
+//
+// What bounds it.  Not the instruction rate but the latency of one
+// dependent chain: descriptor, row, excess, min.  The design's answers:
+// the collapse (fewer links), the scene in shared memory (shorter links),
+// four running minima in the one-point collapse and N points a walk
+// (several chains in flight).
 //
 // The scene is read through one of two views.  DeviceScene reads the
 // wrapper's tensors through the read-only cache.  SharedScene reads a copy
@@ -183,28 +203,59 @@ __device__ __forceinline__ float fold_run(const S& s, int4 run, float px,
 }
 
 struct Winner {
+  static constexpr bool kPath = false;
   float sd;
   int idx;
 };
 
+// A winner that also says how its leaf reaches the scene value, for the
+// winner's gradient: tag = (prim type + 1) * path sign, the path sign
+// being scale inside a group and gsign * scale at the root.
+struct PathWinner {
+  static constexpr bool kPath = true;
+  float sd;
+  int idx;
+  int tag;
+};
+
+template <class W>
+__device__ __forceinline__ W make_winner(float sd, int idx, int tag);
+template <>
+__device__ __forceinline__ Winner make_winner<Winner>(float sd, int idx, int) {
+  return Winner{sd, idx};
+}
+template <>
+__device__ __forceinline__ PathWinner make_winner<PathWinner>(float sd,
+                                                              int idx,
+                                                              int tag) {
+  return PathWinner{sd, idx, tag};
+}
+
+// The group's winner `w` as the root sees it: value v, tag times gsign.
+__device__ __forceinline__ Winner at_root(Winner w, float v, int) {
+  return Winner{v, w.idx};
+}
+__device__ __forceinline__ PathWinner at_root(PathWinner w, float v,
+                                              int gsign) {
+  return PathWinner{v, w.idx, w.tag * gsign};
+}
+
 // (min, first argmin) over one run: strict < keeps the earliest leaf
 // (body.cpp:12-14 first-wins ties).
-template <int kType, class S>
-__device__ __forceinline__ Winner fold_span_idx(const S& s, int4 run, float px,
-                                                float py, float pz,
-                                                Winner acc) {
+template <int kType, class W, class S>
+__device__ __forceinline__ W fold_span_idx(const S& s, int4 run, float px,
+                                           float py, float pz, W acc) {
   const float scale = static_cast<float>(run.w);
   for (int i = run.y; i < run.y + run.z; ++i) {
     const float sd = scale * leaf_sd<kType>(s, i, px, py, pz);
-    if (sd < acc.sd) acc = Winner{sd, i};
+    if (sd < acc.sd) acc = make_winner<W>(sd, i, run.w * (kType + 1));
   }
   return acc;
 }
 
-template <class S>
-__device__ __forceinline__ Winner fold_run_idx(const S& s, int4 run, float px,
-                                               float py, float pz,
-                                               Winner acc) {
+template <class W, class S>
+__device__ __forceinline__ W fold_run_idx(const S& s, int4 run, float px,
+                                          float py, float pz, W acc) {
   switch (run.x) {
     case kSphere: return fold_span_idx<kSphere>(s, run, px, py, pz, acc);
     case kBox: return fold_span_idx<kBox>(s, run, px, py, pz, acc);
@@ -249,7 +300,8 @@ template <class S>
 __device__ __forceinline__ float lattice_carve(const S& s, int off, float px,
                                                float py, float pz) {
   float b0 = kInf, b1 = kInf, b2 = kInf, b3 = kInf;
-  const int n_levels = s.stream(off++);
+  const int n_levels = s.stream(off);
+  off += 2;   // the second entry is the winner rows' offset
   for (int lv = 0; lv < n_levels; ++lv) {
     const int n_xsets = s.stream(off), size_row = s.stream(off + 1);
     off += 2;
@@ -277,6 +329,169 @@ __device__ __forceinline__ float lattice_carve(const S& s, int off, float px,
     }
   }
   return fminf(fminf(b0, b1), fminf(b2, b3));
+}
+
+// lattice_carve with the winning cross's table row (pallas_march
+// ._menger_carve_lattice_idx_grad): (min, row of the first cross in the
+// stream's order that attains it).  The block's second entry is the offset
+// of its winner rows, a region of the stream that staging leaves as rows:
+// one row for a level of one cross, then per column, in the order the
+// columns are walked, the row of the column's cross at each member of its
+// x-set.  An x-set keeps its first minimal member (strict <), and a
+// column's cross is the one at that member.  Columns fold into four
+// running (minimum, row position) pairs; each sees its columns in stream
+// order, so strict < keeps its first, and the four merge by (minimum,
+// position): the first minimal cross of the whole stream, as one strict-<
+// chain would find it.  The row is read once, at the end.  The value is
+// lattice_carve's, bitwise; the winner may be another member of a tie
+// class than the leaf fold's (coincident arms: identical fields).
+template <class S>
+__device__ __forceinline__ Winner lattice_carve_idx(const S& s, int off,
+                                                    float px, float py,
+                                                    float pz) {
+  const int n_levels = s.stream(off);
+  int roff = s.stream(off + 1);
+  off += 2;
+  float b0 = kInf, b1 = kInf, b2 = kInf, b3 = kInf;
+  int r0 = roff, r1 = roff, r2 = roff, r3 = roff;
+  for (int lv = 0; lv < n_levels; ++lv) {
+    const int n_xsets = s.stream(off), size_row = s.stream(off + 1);
+    off += 2;
+    if (n_xsets == 0) {   // a level of one cross
+      const float sd = leaf_sd<kCross>(s, size_row, px, py, pz);
+      if (sd < b0) { b0 = sd; r0 = roff; }
+      roff += 1;
+      continue;
+    }
+    const float3 h = half_size(s, size_row);
+    for (int xs = 0; xs < n_xsets; ++xs) {
+      const int n_members = s.stream(off), n_columns = s.stream(off + 1);
+      off += 2;
+      float a = kInf;
+      int m_min = 0;
+      for (int m = 0; m < n_members; ++m) {
+        const float e = fabsf(px - stream_coord<0>(s, off + m)) - h.x;
+        if (e < a) { a = e; m_min = m; }
+      }
+      off += n_members;
+      int r = roff + m_min;          // the first column's winner position
+      roff += n_members * n_columns;
+      const int end = off + 2 * n_columns;
+      for (; off + 8 <= end; off += 8, r += 4 * n_members) {
+        const float c0 = column_sd(s, off, a, py, pz, h);
+        const float c1 = column_sd(s, off + 2, a, py, pz, h);
+        const float c2 = column_sd(s, off + 4, a, py, pz, h);
+        const float c3 = column_sd(s, off + 6, a, py, pz, h);
+        if (c0 < b0) { b0 = c0; r0 = r; }
+        if (c1 < b1) { b1 = c1; r1 = r + n_members; }
+        if (c2 < b2) { b2 = c2; r2 = r + 2 * n_members; }
+        if (c3 < b3) { b3 = c3; r3 = r + 3 * n_members; }
+      }
+      for (; off < end; off += 2, r += n_members) {
+        const float c0 = column_sd(s, off, a, py, pz, h);
+        if (c0 < b0) { b0 = c0; r0 = r; }
+      }
+    }
+  }
+  if (b1 < b0 || (b1 == b0 && r1 < r0)) { b0 = b1; r0 = r1; }
+  if (b3 < b2 || (b3 == b2 && r3 < r2)) { b2 = b3; r2 = r3; }
+  if (b2 < b0 || (b2 == b0 && r2 < r0)) { b0 = b2; r0 = r2; }
+  return Winner{b0, s.stream(r0)};
+}
+
+// N points at once.  The arrays are indexed by unrolled loops only, so
+// they live in registers.
+template <int N>
+struct Points {
+  float x[N], y[N], z[N];
+};
+
+// acc[j] = min(acc[j], scale * leaf sd at point j) over one run: each row
+// is loaded once for the N points.
+template <int kType, int N, class S>
+__device__ __forceinline__ void fold_span_n(const S& s, int4 run,
+                                            const Points<N>& p,
+                                            float (&acc)[N]) {
+  const float scale = static_cast<float>(run.w);
+  for (int i = run.y; i < run.y + run.z; ++i) {
+    const float4 a = s.row(2 * i);
+    if (kType == kSphere) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float dx = p.x[j] - a.x, dy = p.y[j] - a.y, dz = p.z[j] - a.z;
+        acc[j] = fminf(acc[j],
+                       scale * (sqrtf(dx * dx + dy * dy + dz * dz) - a.w));
+      }
+      continue;
+    }
+    const float4 b = s.row(2 * i + 1);
+    const float hx = S::kStaged ? a.w : a.w * 0.5f;
+    const float hy = S::kStaged ? b.x : b.x * 0.5f;
+    const float hz = S::kStaged ? b.y : b.y * 0.5f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float bx = fabsf(p.x[j] - a.x) - hx;
+      const float by = fabsf(p.y[j] - a.y) - hy;
+      const float bz = fabsf(p.z[j] - a.z) - hz;
+      const float sd =
+          kType == kBox ? fmaxf(fmaxf(bx, by), bz) : med3(bx, by, bz);
+      acc[j] = fminf(acc[j], scale * sd);
+    }
+  }
+}
+
+template <int N, class S>
+__device__ __forceinline__ void fold_run_n(const S& s, int4 run,
+                                           const Points<N>& p,
+                                           float (&acc)[N]) {
+  switch (run.x) {
+    case kSphere: fold_span_n<kSphere>(s, run, p, acc); break;
+    case kBox: fold_span_n<kBox>(s, run, p, acc); break;
+    default: fold_span_n<kCross>(s, run, p, acc); break;
+  }
+}
+
+// acc[j] = min(acc[j], lattice_carve at point j): one walk of the block,
+// each coordinate loaded once.  One running minimum a point (the N points
+// are the independent chains here); a min of these values gives the same
+// bits in any order.
+template <int N, class S>
+__device__ __forceinline__ void lattice_carve_n(const S& s, int off,
+                                                const Points<N>& p,
+                                                float (&acc)[N]) {
+  const int n_levels = s.stream(off);
+  off += 2;
+  for (int lv = 0; lv < n_levels; ++lv) {
+    const int n_xsets = s.stream(off), size_row = s.stream(off + 1);
+    off += 2;
+    if (n_xsets == 0) {   // a level of one cross
+      fold_span_n<kCross>(s, make_int4(kCross, size_row, 1, 1), p, acc);
+      continue;
+    }
+    const float3 h = half_size(s, size_row);
+    for (int xs = 0; xs < n_xsets; ++xs) {
+      const int n_members = s.stream(off), n_columns = s.stream(off + 1);
+      off += 2;
+      float a[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[j] = kInf;
+      for (int m = 0; m < n_members; ++m) {
+        const float cx = stream_coord<0>(s, off + m);
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          a[j] = fminf(a[j], fabsf(p.x[j] - cx) - h.x);
+      }
+      off += n_members;
+      for (const int end = off + 2 * n_columns; off < end; off += 2) {
+        const float cy = stream_coord<1>(s, off);
+        const float cz = stream_coord<2>(s, off + 1);
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          acc[j] = fminf(acc[j], med3(a[j], fabsf(p.y[j] - cy) - h.y,
+                                      fabsf(p.z[j] - cz) - h.z));
+      }
+    }
+  }
 }
 
 // Scene SDF: the two-level fold of pallas_march._scene_sd_tile.  A cullable
@@ -315,20 +530,84 @@ __device__ __noinline__ float scene_sd(const S s, float px, float py,
   return rsign * running;
 }
 
-// Scene SDF and colour winner leaf (-1: none), pallas_march
-// ._scene_sd_idx_tile: strict < at every level, the same exact cull (a
-// culled group's value is >= the running minimum, so it cannot win).
-// Leaf by leaf: a collapsed minimum does not say which cross gave it.
-template <class S>
-__device__ __noinline__ Winner scene_sd_idx(const S s, float px, float py,
-                                            float pz) {
+// scene_sd at the N points of `p` in one walk: out[j] is scene_sd's value
+// at point j, bitwise.  Each descriptor, row and stream entry is loaded
+// once for all N, and the N min chains are independent.  The DIFFERENCE
+// cull becomes: skip the carve when every one of the N points may.  When
+// some point needs it, all N fold it, and a point that could have skipped
+// keeps its running minimum by a select instead of the min (the cull's
+// proof says the min would return it; the select needs no proof, not even
+// about the sign of a zero).
+template <int N>
+struct Fold {
+  float v[N];
+};
+
+template <int N, class S>
+__device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
   const float rsign = s.root_min ? 1.0f : -1.0f;
-  Winner root{kInf, -1};
+  float running[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) running[j] = kInf;
   for (int gi = 0; gi < s.n_groups; ++gi) {
     const int4 g = s.group(gi);
     const int end = g.y + g.z;
     int k = g.y;
-    Winner w{kInf, -1};
+    float gmin[N];
+    bool keep[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      gmin[j] = kInf;
+      keep[j] = true;
+    }
+    if (g.w) {
+      for (; k < end; ++k) {
+        const int4 run = s.run(k);
+        if (run.w != -1) break;
+        fold_run_n(s, run, p, gmin);
+      }
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        keep[j] = !(-gmin[j] >= running[j]);
+        any = any || keep[j];
+      }
+      if (!any) continue;
+      const int block = s.collapse ? s.stream(gi) : 0;
+      if (block != 0) {
+        lattice_carve_n(s, block, p, gmin);
+        k = end;
+      }
+    }
+    for (; k < end; ++k) fold_run_n(s, s.run(k), p, gmin);
+    const float gs = static_cast<float>(g.x);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (keep[j]) running[j] = fminf(running[j], rsign * (gs * gmin[j]));
+  }
+  Fold<N> out;
+#pragma unroll
+  for (int j = 0; j < N; ++j) out.v[j] = rsign * running[j];
+  return out;
+}
+
+// Scene SDF and winner leaf (-1: none), pallas_march._scene_sd_idx_tile
+// (W = Winner) and the value and winner of _scene_sd_idx_grad_tile (W =
+// PathWinner): strict < at every level, the same exact cull (a culled
+// group's value is >= the running minimum, so it cannot win).  The colour
+// winner folds leaf by leaf.  The PathWinner fold takes a collapsing
+// group's carve through lattice_carve_idx while the flag holds; the base
+// leaves are earlier in the table, so they win ties with the carve.
+template <class W, class S>
+__device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
+                                       float pz) {
+  const float rsign = s.root_min ? 1.0f : -1.0f;
+  W root = make_winner<W>(kInf, -1, 0);
+  for (int gi = 0; gi < s.n_groups; ++gi) {
+    const int4 g = s.group(gi);
+    const int end = g.y + g.z;
+    int k = g.y;
+    W w = make_winner<W>(kInf, -1, 0);
     if (g.w) {
       for (; k < end; ++k) {
         const int4 run = s.run(k);
@@ -336,12 +615,19 @@ __device__ __noinline__ Winner scene_sd_idx(const S s, float px, float py,
         w = fold_run_idx(s, run, px, py, pz, w);
       }
       if (-w.sd >= root.sd) continue;
+      const int block = W::kPath && s.collapse ? s.stream(gi) : 0;
+      if (block != 0) {
+        const Winner c = lattice_carve_idx(s, block, px, py, pz);
+        if (c.sd < w.sd) w = make_winner<W>(c.sd, c.idx, kCross + 1);
+        k = end;
+      }
     }
     for (; k < end; ++k) w = fold_run_idx(s, s.run(k), px, py, pz, w);
     const float v = rsign * (static_cast<float>(g.x) * w.sd);
-    if (v < root.sd) root = Winner{v, w.idx};
+    if (v < root.sd) root = at_root(w, v, g.x);
   }
-  return Winner{rsign * root.sd, root.idx};
+  root.sd = rsign * root.sd;
+  return root;
 }
 
 }  // namespace

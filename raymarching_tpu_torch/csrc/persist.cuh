@@ -1,15 +1,16 @@
-// Persistent launches of K1 (render_kernel.cu), K3 (march_kernel.cu) and K4
-// (shade_kernel.cu): a grid sized to the card, the scene staged once per
-// block, and rays handed out a warp at a time from a counter in device
-// memory.
+// Persistent launches of all four kernels (render_kernel.cu,
+// surface_kernel.cu, march_kernel.cu, shade_kernel.cu): a grid sized to the
+// card, the scene staged once per block, and rays (K2: points or hits)
+// handed out a warp at a time from a counter in device memory.
 //
 // A block lives for the whole launch, so what it stages is paid once and
 // not once per 128 rays: the primitive rows (box and cross sizes halved
 // once they are copied: exact, and one multiplication less per leaf and
 // evaluation), the group and run descriptors, the collapse stream (its
 // row entries replaced by the coordinates they name, so the fold reads a
-// column's coordinates directly) and the light rows.  The fold then reads them with shared-memory loads
-// (fold.cuh's SharedScene).  A scene too large for that (the wrapper
+// column's coordinates directly; the winner rows at each block's end stay
+// rows) and the light rows.  The fold then reads them with shared-memory
+// loads (fold.cuh's SharedScene).  A scene too large for that (the wrapper
 // decides from its byte count) runs the same kernel's DeviceScene
 // instantiation, which stages nothing.
 //
@@ -98,7 +99,8 @@ __device__ __forceinline__ SharedScene stage_scene<SharedScene>(
   for (int gi = 0; gi < a.n_groups; ++gi) {
     int off = lat[gi];
     if (off == 0) continue;
-    const int n_levels = lat[off++];
+    const int n_levels = lat[off];
+    off += 2;
     for (int lv = 0; lv < n_levels; ++lv) {
       const int n_xsets = lat[off];
       off += 2;

@@ -4,6 +4,33 @@
 // pre-step point; the 6-eval central-difference normal; one shadow march
 // per light that stops at the light, with the black-lane and
 // saturation-floor skips; the Lambert sum clamped to [saturation, 1].
+//
+// Layout.  One thread shades one hit, one point a walk of the scene: the
+// winner fold (leaf by leaf), then the normal's six value folds, then the
+// lights' shadow marches one after the other.
+//
+// What bounds it.  The shadow marches: on the demo at 512x512 SSAA 2 they
+// are 94% of K4's device time (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py's [phases]), and a march is bound by the latency of the
+// fold's dependent chain (descriptor, row, excess, min), not by the
+// instruction rate: a launch waits on its slowest lane, whose two marches
+// are one serial chain ([tail]).  Two designs that put several points
+// into one walk of the scene (fold.cuh's scene_sd_n, which K2 uses) were
+// built here and measured slower on that card in the same run, bitwise
+// equal outputs, and were taken out: the normal's six points in one walk
+// (K4 1.655 against 1.634 ms, K1 2.246 against 2.062 ms), and the two
+// lights' shadow rays marching in lockstep, two points a walk (K4 1.819
+// against 1.634 ms, K1 3.335 against 2.062 ms).  A walk of two points has
+// two minimum chains where the one-point collapse already runs four, so a
+// lockstep step costs about two steps; it ends after max(steps) walks
+// where the serial marches take their sum, which the slowest lane's one
+// long march does not shorten; and the N-point functions raised both
+// kernels from 72 to 80 registers and from 10 to 6-7 resident blocks an
+// SM.  A third, the shadow march as a function of its own that is not
+// inlined (so the shading's live state is saved around the call, not
+// around every evaluation inside it), moved K4 from 1.68 to 1.62 ms and K1
+// at 512x512 SSAA 2 from 2.23 to 2.10 ms but K1 at 1024x768 SSAA 3 from
+// 10.0 to 11.2 ms, and was taken out too.
 
 #pragma once
 
@@ -59,7 +86,8 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
   // 2. colour winner at the pre-step point (scene.cpp:34-42)
   const float back = fminf(sd, kMaxStep);
   const int cidx =
-      scene_sd_idx(s, px - back * dx, py - back * dy, pz - back * dz).idx;
+      scene_sd_idx<Winner>(s, px - back * dx, py - back * dy, pz - back * dz)
+          .idx;
 
   // black-lane skip: a miss or a black winner shades to black whatever the
   // light, so its shadow marches start done

@@ -18,11 +18,15 @@
 // structure-of-arrays rows of [R], so loads and stores coalesce.  The
 // shading is shade.cuh, the very function K1 calls after its own march.
 //
-// What bounds it.  Operations, as K1: 28 bytes read and 12 written per ray
-// against seven folds and up to `iterations` shadow-march steps per light;
-// it shares K1's answers (the lattice collapse in the value folds, the
-// scene in shared memory).  The lanes of a warp wait on its slowest shadow
-// ray, and its one winner fold a ray visits every cross.
+// What bounds it.  Not bytes (28 read and 12 written per ray) and not the
+// instruction rate, but the latency of the fold's dependent chain, over
+// seven folds and up to `iterations` shadow-march steps per light; the
+// shadow marches are 94% of its device time on the demo (shade.cuh has
+// the reading and the two designs that were measured and taken out).  It
+// shares K1's answers: the lattice collapse in the value folds, the scene
+// in shared memory, warps that draw their own work.  The lanes of a warp
+// wait on its slowest shadow ray, and its one winner fold a ray visits
+// every cross.
 //
 // Exactness.  No fast math and no FMA contraction (the nvcc-flags line
 // below), so it is bitwise equal to its twin, and K3 + K4 to K1.

@@ -19,28 +19,37 @@
 // ported yet.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/surface_kernel.py::surface_eval_plain.
 //
-// Layout.  One thread per point, 128 threads a block; points in and
-// outputs out are structure-of-arrays rows of [N] float32 (int32 for the
-// winner), so loads and stores coalesce.  The fold is K1's own winner fold
-// (fold.cuh): the same descriptors, rows, order and per-lane DIFFERENCE
-// base-bound cull.
+// Layout.  K1's: a persistent grid (persist.cuh), the scene staged in each
+// block's shared memory when it fits (menger4 does not: it runs the
+// device-memory instantiation of the same kernel), each warp taking 32
+// consecutive work items at a time from a counter, one thread an item.
+// Two entries share the kernel.  rt_surface_eval: an item is a point of
+// q [3][N].  rt_surface_stencil (combined mode): an item is a hit of
+// p [3][R], and its thread evaluates the hit's FD stencil, K = 7 points
+// with the centre or 6 without, making each point in registers (p + h and
+// p - h: the additions the plain twin makes) and writing row k of the
+// outputs, so the stencil points never exist in device memory.  Inputs and
+// outputs are structure-of-arrays rows, so loads and stores coalesce; at
+// each of a thread's K evaluations its warp holds 32 neighbouring hits at
+// one offset, so the fold's culls stay coherent.
 //
 // Design.  The JAX kernel carries the gradient through every select of the
 // fold.  Only the winner's gradient survives, and sign flips are exact, so
-// this kernel folds (sd, winner) and then evaluates the gradient of the
-// winning leaf alone, with the path sign of the run that holds it: the same
-// bits, for one leaf gradient per point instead of one per leaf.
+// this kernel folds (sd, winner, the winning run's prim type and path
+// sign) and then evaluates the gradient of the winning leaf alone: the
+// same bits, for one leaf gradient per point instead of one per leaf.  In
+// the combined mode a Menger group's carve goes through the lattice
+// collapse with winner rows (fold.cuh's lattice_carve_idx), as the JAX
+// kernel's does; the winner mode is the colour winner and folds leaf by
+// leaf.  The fd mode evaluates its seven points in one walk of the scene
+// (scene_sd_n<7>), or with `multipoint` off in seven.
 //
 // What bounds it.  The combined mode on the backward's stencils: bytes
-// (12 read and 20 written per point against a fold the cull keeps short).
-// The other modes: operations, as K1, with the latency of the fold's
-// dependent chain (descriptor, row, min) ahead of the instruction rate.
-// The sd and fd modes fold through scene_sd and so take the exact Menger
-// lattice collapse with K1; the winner modes visit every leaf the cull
-// keeps.  No march, so no lane waits on a slower neighbour's iterations;
-// lanes of one warp still differ in which groups the cull skips.  The
-// scene is read from device memory through the read-only cache: this
-// kernel is one thread per point with no persistent blocks to stage it.
+// (12 read a hit and 20 written a stencil point, against a fold the cull
+// keeps short).  The other modes: the latency of the fold's dependent
+// chain (descriptor, row, min) ahead of the instruction rate, as K1.  No
+// march, so no lane waits on a slower neighbour's iterations; lanes of one
+// warp still differ in which groups the cull skips.
 //
 // Exactness.  No fast math and, like K1, no FMA contraction (the
 // nvcc-flags line below): the backward's FD normal divides stencil SD
@@ -54,11 +63,9 @@
 
 #include <cstdint>
 
-#include "fold.cuh"
+#include "persist.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float sgn(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
@@ -67,8 +74,9 @@ __device__ __forceinline__ float sgn(float v) {
 // d leaf sd / dp of leaf i of prim type `type` (pallas_march._prim_sd_grad):
 // sphere (p - c) / max(|p - c|, 1e-30); box one-hot sign on the first
 // argmax axis (ties to x, then y); cross one-hot sign on the median axis.
-__device__ float3 leaf_grad(const DeviceScene& s, int type, int i, float px,
-                            float py, float pz) {
+template <class S>
+__device__ float3 leaf_grad(const S& s, int type, int i, float px, float py,
+                            float pz) {
   const float4 a = s.row(2 * i);
   const float dx = px - a.x, dy = py - a.y, dz = pz - a.z;
   if (type == kSphere) {
@@ -76,10 +84,10 @@ __device__ float3 leaf_grad(const DeviceScene& s, int type, int i, float px,
     const float inv = 1.0f / fmaxf(r, 1e-30f);
     return make_float3(dx * inv, dy * inv, dz * inv);
   }
-  const float4 b = s.row(2 * i + 1);
-  const float bx = fabsf(dx) - a.w * 0.5f;
-  const float by = fabsf(dy) - b.x * 0.5f;
-  const float bz = fabsf(dz) - b.y * 0.5f;
+  const float3 h = half_size(s, i);
+  const float bx = fabsf(dx) - h.x;
+  const float by = fabsf(dy) - h.y;
+  const float bz = fabsf(dz) - h.z;
   const float sx = sgn(dx), sy = sgn(dy), sz = sgn(dz);
   const bool max_x = bx >= fmaxf(by, bz);
   const bool max_y = !max_x && by >= bz;
@@ -101,105 +109,207 @@ constexpr int kSdOnly = 1;
 constexpr int kWinner = 2;
 constexpr int kFdGrad = 3;
 
-// the winner's gradient: the run that holds it gives its prim type and
-// path sign gsign * scale (the root's rsign cancels in the chain rule)
-__device__ float3 winner_grad(const DeviceScene& s, int idx, float px,
-                              float py, float pz) {
-  if (idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
-  int type = kSphere;
-  float path = 1.0f;
-  for (int gi = 0; gi < s.n_groups; ++gi) {
-    const int4 grp = s.group(gi);
-    for (int k = grp.y; k < grp.y + grp.z; ++k) {
-      const int4 run = s.run(k);
-      if (idx >= run.y && idx < run.y + run.z) {
-        type = run.x;
-        path = static_cast<float>(grp.x * run.w);
-      }
-    }
-  }
-  const float3 lg = leaf_grad(s, type, idx, px, py, pz);
+// The winner's gradient: its tag gives the prim type and the path sign
+// gsign * scale (the root's rsign cancels in the chain rule).
+template <class S>
+__device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
+                                              float px, float py, float pz) {
+  if (w.idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
+  const float path = w.tag < 0 ? -1.0f : 1.0f;
+  const float3 lg = leaf_grad(s, abs(w.tag) - 1, w.idx, px, py, pz);
   return make_float3(path * lg.x, path * lg.y, path * lg.z);
 }
 
-// out: [4][N] (sd, gx, gy, gz) in the combined and fd modes, else [1][N];
-// widx: [N] in the combined and winner modes, else unused.
-template <int kMode>
+struct SurfaceParams {
+  SceneArgs scene;
+  const float* q;       // [3][n]: the points, or the hits of a stencil
+  float* out;           // [4][M] (sd, gx, gy, gz) in the combined and fd
+                        // modes, else [1][M]; M = n, or K n for a stencil
+  int* widx;            // [M] in the combined and winner modes
+  unsigned* counter;    // [1]: the next item to hand out, zero at launch
+  float h, inv_2h;      // the fd mode's and the stencil's offset; 1 / 2h
+  int center;           // a stencil's K: 7 with the centre, else 6
+  int multipoint;       // the fd mode's seven points in one walk
+  unsigned n;
+};
+
+// sd, winner and winner gradient at one point, written to column m of M.
+template <class S>
+__device__ __forceinline__ void combined_at(const S& s,
+                                            const SurfaceParams& P, float px,
+                                            float py, float pz, size_t m,
+                                            size_t M) {
+  const PathWinner w = scene_sd_idx<PathWinner>(s, px, py, pz);
+  const float3 g = winner_grad(s, w, px, py, pz);
+  P.out[m] = w.sd;
+  P.widx[m] = w.idx;
+  P.out[M + m] = g.x;
+  P.out[2 * M + m] = g.y;
+  P.out[3 * M + m] = g.z;
+}
+
+template <int kMode, bool kStencil, class S>
 __global__ void __launch_bounds__(kThreads)
-    surface_kernel(const SceneArgs A, const float* q, float inv_2h, float h,
-                   float* out, int* widx, int64_t N) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= N) return;
-  const DeviceScene s = device_scene(A);
-  const float px = q[i], py = q[N + i], pz = q[2 * N + i];
-  if (kMode == kCombined || kMode == kWinner) {
-    const Winner w = scene_sd_idx(s, px, py, pz);
-    out[i] = w.sd;
-    widx[i] = w.idx;
-    if (kMode == kCombined) {
-      const float3 g = winner_grad(s, w.idx, px, py, pz);
-      out[N + i] = g.x;
-      out[2 * N + i] = g.y;
-      out[3 * N + i] = g.z;
+    surface_kernel(const SurfaceParams P) {
+  const S s = stage_scene<S>(P.scene);
+  const size_t n = P.n;
+  const float h = P.h;
+  for (;;) {
+    const unsigned base = next_rays(P.counter);
+    if (base >= P.n) break;
+    const size_t i = base + (threadIdx.x & 31u);
+    if (i >= n) continue;
+    const float px = P.q[i], py = P.q[n + i], pz = P.q[2 * n + i];
+    if (kStencil) {
+      // scene_vjp.stencil_points' rows: the centre, then +x +y +z -x -y -z
+      const size_t K = P.center ? 7 : 6, M = K * n;
+      size_t m = i;
+      if (P.center) {
+        combined_at(s, P, px, py, pz, m, M);
+        m += n;
+      }
+      for (int k = 0; k < 6; ++k, m += n) {
+        const float d = k < 3 ? h : -h;
+        const int a = k % 3;
+        combined_at(s, P, a == 0 ? px + d : px, a == 1 ? py + d : py,
+                    a == 2 ? pz + d : pz, m, M);
+      }
+    } else if (kMode == kCombined) {
+      combined_at(s, P, px, py, pz, i, n);
+    } else if (kMode == kWinner) {
+      const Winner w = scene_sd_idx<Winner>(s, px, py, pz);
+      P.out[i] = w.sd;
+      P.widx[i] = w.idx;
+    } else if (kMode == kSdOnly) {
+      P.out[i] = scene_sd(s, px, py, pz);
+    } else {
+      // pallas_march._surface_kernel's order of operations: the difference
+      // first, then one multiplication by 1 / 2h
+      float sd, gx, gy, gz;
+      if (P.multipoint) {
+        const Fold<7> f = scene_sd_n<7>(
+            s, Points<7>{{px, px + h, px - h, px, px, px, px},
+                         {py, py, py, py + h, py - h, py, py},
+                         {pz, pz, pz, pz, pz, pz + h, pz - h}});
+        sd = f.v[0];
+        gx = f.v[1] - f.v[2];
+        gy = f.v[3] - f.v[4];
+        gz = f.v[5] - f.v[6];
+      } else {
+        sd = scene_sd(s, px, py, pz);
+        gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
+        gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
+        gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
+      }
+      P.out[i] = sd;
+      P.out[n + i] = gx * P.inv_2h;
+      P.out[2 * n + i] = gy * P.inv_2h;
+      P.out[3 * n + i] = gz * P.inv_2h;
     }
-    return;
   }
-  out[i] = scene_sd(s, px, py, pz);
-  if (kMode == kFdGrad) {
-    // pallas_march._surface_kernel's order of operations: the difference
-    // first, then one multiplication by 1 / 2h
-    const float gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
-    const float gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
-    const float gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
-    out[N + i] = gx * inv_2h;
-    out[2 * N + i] = gy * inv_2h;
-    out[3 * N + i] = gz * inv_2h;
-  }
+}
+
+template <int kMode, bool kStencil, class S>
+int launch(const SurfaceParams& P, cudaStream_t stream) {
+  const unsigned smem = staged_bytes<S>(P.scene);
+  unsigned blocks = 0;
+  const int err = persistent_blocks(surface_kernel<kMode, kStencil, S>, smem,
+                                    P.n, &blocks);
+  if (err != 0) return err;
+  surface_kernel<kMode, kStencil, S><<<blocks, kThreads, smem, stream>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode, bool kStencil>
+int launch_view(const SurfaceParams& P, int shared, cudaStream_t stream) {
+  return shared ? launch<kMode, kStencil, SharedScene>(P, stream)
+                : launch<kMode, kStencil, DeviceScene>(P, stream);
 }
 
 }  // namespace
 
-// Launch K2 in `mode` on `stream` over N points q [3][N]; out and widx as
-// surface_kernel takes them; h and inv_2h (= 1 / 2h, rounded by the
-// caller) are read in the fd mode only.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unknown mode.
+// Launch K2 in `mode` on `stream` over N points q [3][N]; out [4][N] (sd,
+// gx, gy, gz) in the combined and fd modes, else [1][N]; widx [N] in the
+// combined and winner modes; the scene staged in shared memory (`shared`
+// != 0) or read from device memory; `counter` is one zeroed int32; h and
+// inv_2h (= 1 / 2h, rounded by the caller) and `multipoint` are read in
+// the fd mode only.  Returns a CUDA error code, cudaErrorInvalidValue for
+// an unknown mode.
 extern "C" int rt_surface_eval(const void* tbl, const void* groups,
                                const void* runs, const void* lat,
                                const void* lat_flag, int n_rows, int n_groups,
-                               int n_runs, int n_lat, int root_min, int mode,
-                               float h, float inv_2h, const void* q, void* out,
-                               void* widx, int64_t N, void* stream) {
-  const SceneArgs s = scene_args(tbl, groups, runs, lat, lat_flag, nullptr,
-                                 n_rows, n_groups, n_runs, n_lat, 0,
-                                 root_min);
-  if (mode < kCombined || mode > kFdGrad)
+                               int n_runs, int n_lat, int root_min,
+                               int shared, int mode, int multipoint, float h,
+                               float inv_2h, const void* q, void* out,
+                               void* widx, void* counter, int64_t N,
+                               void* stream) {
+  SurfaceParams P;
+  P.scene = scene_args(tbl, groups, runs, lat, lat_flag, nullptr, n_rows,
+                       n_groups, n_runs, n_lat, 0, root_min);
+  P.q = static_cast<const float*>(q);
+  P.out = static_cast<float*>(out);
+  P.widx = static_cast<int*>(widx);
+  P.counter = static_cast<unsigned*>(counter);
+  P.h = h;
+  P.inv_2h = inv_2h;
+  P.center = 0;
+  P.multipoint = multipoint;
+  if (mode < kCombined || mode > kFdGrad || N < 0 || N > kMaxRays)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (N > 0) {
-    const unsigned blocks = static_cast<unsigned>((N + kThreads - 1) / kThreads);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* qf = static_cast<const float*>(q);
-    float* of = static_cast<float*>(out);
-    int* wi = static_cast<int*>(widx);
-    switch (mode) {
-      case kCombined:
-        surface_kernel<kCombined><<<blocks, kThreads, 0, st>>>(
-            s, qf, inv_2h, h, of, wi, N);
-        break;
-      case kSdOnly:
-        surface_kernel<kSdOnly><<<blocks, kThreads, 0, st>>>(
-            s, qf, inv_2h, h, of, wi, N);
-        break;
-      case kWinner:
-        surface_kernel<kWinner><<<blocks, kThreads, 0, st>>>(
-            s, qf, inv_2h, h, of, wi, N);
-        break;
-      default:
-        surface_kernel<kFdGrad><<<blocks, kThreads, 0, st>>>(
-            s, qf, inv_2h, h, of, wi, N);
-        break;
-    }
+  P.n = static_cast<unsigned>(N);
+  if (N == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kCombined: return launch_view<kCombined, false>(P, shared, st);
+    case kSdOnly: return launch_view<kSdOnly, false>(P, shared, st);
+    case kWinner: return launch_view<kWinner, false>(P, shared, st);
+    default: return launch_view<kFdGrad, false>(P, shared, st);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K2's combined mode on `stream` over the FD stencils of R hits
+// p [3][R]: K = 7 rows with `center` (row 0 the hit, rows 1 + a and 4 + a
+// the hit +- h on axis a), else 6 (rows a and 3 + a); out [4][K R], widx
+// [K R], row k of hit i at column k R + i.  `shared` and `counter` as
+// rt_surface_eval takes them.  Returns a CUDA error code.
+extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
+                                  const void* runs, const void* lat,
+                                  const void* lat_flag, int n_rows,
+                                  int n_groups, int n_runs, int n_lat,
+                                  int root_min, int shared, int center,
+                                  float h, const void* p, void* out,
+                                  void* widx, void* counter, int64_t R,
+                                  void* stream) {
+  SurfaceParams P;
+  P.scene = scene_args(tbl, groups, runs, lat, lat_flag, nullptr, n_rows,
+                       n_groups, n_runs, n_lat, 0, root_min);
+  P.q = static_cast<const float*>(p);
+  P.out = static_cast<float*>(out);
+  P.widx = static_cast<int*>(widx);
+  P.counter = static_cast<unsigned*>(counter);
+  P.h = h;
+  P.inv_2h = 0.0f;
+  P.center = center;
+  P.multipoint = 0;
+  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  P.n = static_cast<unsigned>(R);
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  return launch_view<kCombined, true>(P, shared,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks an SM of the stencil entry's kernel (the one a training
+// step launches) with `staged` bytes of scene in shared memory (`shared`
+// != 0) or with the scene in device memory, for reports; negative: a CUDA
+// error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged) {
+  int per_sm = 0;
+  const int err =
+      shared ? blocks_per_sm(surface_kernel<kCombined, true, SharedScene>,
+                             static_cast<unsigned>(staged), &per_sm)
+             : blocks_per_sm(surface_kernel<kCombined, true, DeviceScene>, 0u,
+                             &per_sm);
+  return err != 0 ? -err : per_sm;
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -33,7 +33,7 @@ from ..scene.compile import ScenePlan, SceneTables
 from ..scene.csg import PrimType
 
 from ..core.sdf import leaf_signs
-from .surface_kernel import surface_eval
+from .surface_kernel import surface_stencil
 
 # |grad f . d| can vanish at grazing incidence: the sign-preserving floor
 # of march_op._DENOM_EPS
@@ -54,26 +54,14 @@ def leaf_statics(plan: ScenePlan) -> Tuple[np.ndarray, np.ndarray]:
     return sign_eff, is_sphere
 
 
-def stencil_points(p: torch.Tensor, h: float, *, center: bool
-                   ) -> torch.Tensor:
-    """The FD stencil of every point p [R, 3] -> [K, R, 3]: K = 7 with
-    ``center`` (row 0 = p, rows 1+a / 4+a = p +- h e_a), else 6 (rows
-    a / 3+a = p +- h e_a).  Rows are grouped by offset, so neighbouring
-    points stay neighbours (warp coherence of the fold's culls)."""
-    eye = torch.eye(3, dtype=p.dtype, device=p.device) * h
-    offs = torch.cat(([torch.zeros((1, 3), dtype=p.dtype, device=p.device)]
-                      if center else []) + [eye, -eye])
-    return p[None, :, :] + offs[:, None, :]
-
-
 def stencil_eval(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                 p: torch.Tensor, *, center: bool) -> tuple:
-    """Winner evaluation at ``stencil_points`` of every point p [R, 3] in
-    ONE K2 launch -> (sd [K, R], widx [K, R], g [K, R, 3])."""
-    q = stencil_points(p, cfg.fd_h, center=center)
-    K, R = q.shape[:2]
-    sd, widx, g = surface_eval(plan, tables, q.reshape(-1, 3))
-    return sd.reshape(K, R), widx.reshape(K, R), g.reshape(K, R, 3)
+                 p: torch.Tensor, *, center: bool, collapse: bool = True
+                 ) -> tuple:
+    """Winner evaluation at ``surface_kernel.stencil_points`` of every
+    point p [R, 3] in ONE K2 launch -> (sd [K, R], widx [K, R], g [K, R, 3]); the kernel
+    makes the stencil points itself (``surface_stencil``)."""
+    return surface_stencil(plan, tables, p, cfg.fd_h, center=center,
+                           collapse=collapse)
 
 
 def fd_stencil_cotangents(cfg: RenderConfig, nbar: torch.Tensor

@@ -18,6 +18,18 @@ ported yet (ROADMAP Queue 1 items 7 and 8).  The kernel is
 ``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes each mode in
 plain PyTorch and is what a CPU tensor gets.  A CUDA tensor always goes to
 the kernel: a build or launch failure raises.
+
+``surface_stencil`` is the kernel's second entry: the combined mode over
+the FD stencils of hit points, each stencil point made inside the kernel,
+so the backward passes hand over 12 bytes a hit and no stencil tensor.
+
+Keywords for measurements, the same bits either way: ``collapse`` (the
+exact Menger lattice collapse in the SD, FD_GRAD and COMBINED folds, while
+``tables.lattice_ok`` holds; the WINNER mode is the colour winner and
+folds leaf by leaf) and ``multipoint`` (FD_GRAD's seven points in one walk
+of the scene instead of seven; the twins' arithmetic per point is the
+same, so they take no such keyword).  ``surface_eval.launches`` counts the
+launches of both entries.
 """
 
 from __future__ import annotations
@@ -30,8 +42,8 @@ import torch
 
 from ..core.sdf import kernel_fold
 from ..core.shading import fd_stencil
+from .. import tables as scene_tables
 from ..scene.compile import ScenePlan, SceneTables
-from ..tables import scene_operands
 from . import build
 
 # mode codes, shared with csrc/surface_kernel.cu
@@ -55,12 +67,13 @@ def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
     """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32 or
     None, gradient [N, 3] or None), the parts ``mode`` computes; the
     winner is -1 and the combined mode's gradient zero where nothing won.
-    ``collapse`` reaches the value modes (SD, FD_GRAD); the winner modes
-    fold leaf by leaf."""
+    ``collapse`` reaches the SD, FD_GRAD and COMBINED modes; the WINNER
+    mode folds leaf by leaf."""
     _check_mode(mode, fd_h)
     with torch.no_grad():
         if mode == COMBINED:
-            return kernel_fold(plan, tables, q, with_grad=True)
+            return kernel_fold(plan, tables, q, with_grad=True,
+                               collapse=collapse)
         if mode == WINNER:
             sd, widx = kernel_fold(plan, tables, q, with_idx=True)
             return sd, widx, None
@@ -73,20 +86,65 @@ def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
         return sd, None, fd_stencil(sd_fn, q, fd_h) * (1.0 / (2.0 * fd_h))
 
 
+def stencil_points(p: torch.Tensor, h: float, *, center: bool
+                   ) -> torch.Tensor:
+    """The FD stencil of every point p [R, 3] -> [K, R, 3]: K = 7 with
+    ``center`` (row 0 = p, rows 1+a / 4+a = p +- h e_a), else 6 (rows
+    a / 3+a = p +- h e_a).  Rows are grouped by offset, so neighbouring
+    points stay neighbours (warp coherence of the fold's culls)."""
+    eye = torch.eye(3, dtype=p.dtype, device=p.device) * h
+    offs = torch.cat(([torch.zeros((1, 3), dtype=p.dtype, device=p.device)]
+                      if center else []) + [eye, -eye])
+    return p[None, :, :] + offs[:, None, :]
+
+
+def surface_stencil_plain(plan: ScenePlan, tables: SceneTables,
+                          p: torch.Tensor, h: float, *, center: bool,
+                          collapse: bool = True) -> tuple:
+    """K2's stencil entry in plain PyTorch: the combined mode at
+    ``stencil_points`` of p [R, 3] -> (sd [K, R], widx [K, R],
+    g [K, R, 3])."""
+    q = stencil_points(p, h, center=center)
+    K, R = q.shape[:2]
+    sd, widx, g = surface_eval_plain(plan, tables, q.reshape(-1, 3),
+                                     collapse=collapse)
+    return sd.reshape(K, R), widx.reshape(K, R), g.reshape(K, R, 3)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """csrc/surface_kernel.cu, built on first use, its entry point bound."""
+    """csrc/surface_kernel.cu, built on first use, its entry points bound."""
     lib = build.load_library("surface_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_surface_eval.argtypes = ([ptr] * 5 + [i32] * 6 + [f32] * 2
-                                    + [ptr] * 3 + [ctypes.c_int64, ptr])
+    lib.rt_surface_eval.argtypes = ([ptr] * 5 + [i32] * 8 + [f32] * 2
+                                    + [ptr] * 4 + [ctypes.c_int64, ptr])
     lib.rt_surface_eval.restype = i32
+    lib.rt_surface_stencil.argtypes = ([ptr] * 5 + [i32] * 7 + [f32]
+                                       + [ptr] * 4 + [ctypes.c_int64, ptr])
+    lib.rt_surface_stencil.restype = i32
     return lib
+
+
+def _check_inputs(what: str, plan: ScenePlan, tables: SceneTables,
+                  q: torch.Tensor) -> None:
+    """Raise on what K2 does not take: q float32 [N, 3] on a CUDA device
+    that also holds float32 tables of a two-level plan."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if plan.kernel is None:
+        raise NotImplementedError(
+            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
+    if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3:
+        raise ValueError(f"{what}: points must be float32 [N, 3], got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    if any(t.device != dev or t.dtype != torch.float32 for t in tables):
+        raise ValueError(f"{what}: tables must be float32 on {dev}")
 
 
 def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
                  mode: int = COMBINED, fd_h: Optional[float] = None,
-                 collapse: bool = True) -> Surface:
+                 collapse: bool = True, multipoint: bool = True) -> Surface:
     """The scene at points q [N, 3] in ``mode`` -> (sd, winner or None,
     gradient or None), as ``surface_eval_plain``; ``tables`` is a
     SceneTables of tensors on q's device.  CPU tensors take the plain
@@ -95,21 +153,13 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
     if dev.type == "cpu":
         return surface_eval_plain(plan, tables, q, mode=mode, fd_h=fd_h,
                                   collapse=collapse)
-    if dev.type != "cuda":
-        raise ValueError(f"surface_eval: unsupported device {dev}")
+    _check_inputs("surface_eval", plan, tables, q)
     _check_mode(mode, fd_h)
-    if plan.kernel is None:
-        raise NotImplementedError(
-            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
-    if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3:
-        raise ValueError(f"surface_eval: q must be float32 [N, 3], got "
-                         f"{q.dtype} {tuple(q.shape)}")
-    if any(t.device != dev or t.dtype != torch.float32 for t in tables):
-        raise ValueError(f"surface_eval: tables must be float32 on {dev}")
 
     lib = _library()
     N = q.shape[0]
-    scene = scene_operands(plan, tables, dev, collapse)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
     with_grad = mode in (COMBINED, FD_GRAD)
     with_idx = mode in (COMBINED, WINNER)
     with torch.no_grad():
@@ -118,13 +168,15 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
                           device=dev)
         widx = (torch.empty((N,), dtype=torch.int32, device=dev)
                 if with_idx else None)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
     h = float(fd_h or 0.0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_surface_eval(
-            *scene.args(), mode, h,
+            *scene.args(), int(shared), mode, int(multipoint), h,
             1.0 / (2.0 * h) if mode == FD_GRAD else 0.0, q_soa.data_ptr(),
-            out.data_ptr(), widx.data_ptr() if with_idx else None, N, stream)
+            out.data_ptr(), widx.data_ptr() if with_idx else None,
+            counter.data_ptr(), N, stream)
     build.check(lib, code, "surface kernel launch")
     if N:    # the C entry point launches nothing for zero points
         surface_eval.launches += 1
@@ -132,3 +184,41 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
 
 
 surface_eval.launches = 0
+
+
+def surface_stencil(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
+                    h: float, *, center: bool, collapse: bool = True
+                    ) -> tuple:
+    """The combined mode at the FD stencil of every hit p [R, 3] in ONE
+    K2 launch -> (sd [K, R], widx [K, R], g [K, R, 3]), K = 7 with
+    ``center`` else 6, rows in ``stencil_points``' order.  CPU tensors
+    take ``surface_stencil_plain``.  On the card the kernel makes each
+    stencil point in registers from the hit: no stencil tensor is built
+    and nothing is transposed (a hit tensor that is a transposed [3, R]
+    view, as K1's and K3's hit points are, is read in place).  Forward
+    only."""
+    dev = p.device
+    if dev.type == "cpu":
+        return surface_stencil_plain(plan, tables, p, h, center=center,
+                                     collapse=collapse)
+    _check_inputs("surface_stencil", plan, tables, p)
+
+    lib = _library()
+    R, K = p.shape[0], 7 if center else 6
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
+    with torch.no_grad():
+        p_soa = p.t().contiguous()
+        out = torch.empty((4, K, R), dtype=torch.float32, device=dev)
+        widx = torch.empty((K, R), dtype=torch.int32, device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rt_surface_stencil(
+            *scene.args(), int(shared), int(center), float(h),
+            p_soa.data_ptr(), out.data_ptr(), widx.data_ptr(),
+            counter.data_ptr(), R, stream)
+    build.check(lib, code, "surface kernel stencil launch")
+    if R:    # the C entry point launches nothing for zero hits
+        surface_eval.launches += 1
+    return out[0], widx, out[1:].permute(1, 2, 0)

@@ -13,7 +13,8 @@ The kernels fold the two-level plan by walking small int32 descriptor
 tables instead of code generated per scene, so one build serves every
 scene.  ``pack_plan`` also packs ``GroupPlan.lattice`` into an int32
 stream for the exact Menger lattice collapse
-(``pallas_march._menger_carve_lattice``), and ``lattice_ok`` is the JAX
+(``pallas_march._menger_carve_lattice`` and, with the winner rows,
+``_menger_carve_lattice_idx_grad``), and ``lattice_ok`` is the JAX
 table's flag row: a one-element tensor that stays on the device and tells
 the kernels whether the live rows still share the lattice's coordinates.
 The JAX table's chunk-bound, Menger-offset and order rows feed culls the
@@ -42,12 +43,18 @@ class PackedPlan(NamedTuple):
     ``runs`` [N, 4]: prim type, first leaf, leaf count, scale (+-1).
     ``lattice`` [max(G, 1) + ...]: entry g is the offset in this stream of
     group g's collapse block, 0 where it has none.  A block is the number
-    of levels, then per level ``n_xsets, size_row``: with ``n_xsets`` 0 the
-    level is the one cross ``size_row``; else ``size_row`` is the row every
-    cross of the level shares its size with, and per distinct x-set follow
-    ``n_members, n_columns``, the members' representative rows (their x
-    coordinate is read), and per column of that x-set the representative
-    rows of its y and of its z coordinate.
+    of levels and the offset of the block's winner rows, then per level
+    ``n_xsets, size_row``: with ``n_xsets`` 0 the level is the one cross
+    ``size_row``; else ``size_row`` is the row every cross of the level
+    shares its size with, and per distinct x-set follow ``n_members,
+    n_columns``, the members' representative rows (their x coordinate is
+    read), and per column of that x-set the representative rows of its y
+    and of its z coordinate.  The winner rows follow the levels, in the
+    order the levels, x-sets and columns are walked: one row for a level
+    of one cross, and per column the table row of its cross at each member
+    of its x-set (``n_members`` rows, in the members' order).  A kernel
+    that stages the stream resolves the representative rows to their
+    coordinates and leaves the winner rows as they are.
     ``members`` [2, 6 M] int64, for ``lattice_ok``: for each of the M
     lattice crosses the element (8 row + column, an index into the
     flattened ``build_table`` rows) of its x, y, z coordinate and its
@@ -128,30 +135,38 @@ def collapses(kp: KernelPlan, g) -> bool:
 
 
 def _pack_lattice(g, stream: list, members: list) -> None:
-    """Append group ``g``'s collapse block to ``stream`` and, per cross,
-    its six (own element, representative's element) pairs to
-    ``members``."""
-    stream.append(len(g.lattice))
+    """Append group ``g``'s collapse block and its winner rows to
+    ``stream`` and, per cross, its six (own element, representative's
+    element) pairs to ``members``."""
+    stream.extend((len(g.lattice), 0))
+    rows_at = len(stream) - 1
+    winner_rows = []
     for level in g.lattice:
         if len(level) == 1:
             stream.extend((0, level[0]))
+            winner_rows.append(level[0])
             continue
         xs_reps, ys_reps, zs_reps, size_rep, columns, level_members = level
         # columns share x-sets: one minimum per distinct sorted set
         # (_menger_carve_lattice), first appearance first
         xsets = {}
-        for (iy, iz, ixs, _rows) in columns:
-            xsets.setdefault(tuple(sorted(ixs)), []).append((iy, iz))
+        for (iy, iz, ixs, rows) in columns:
+            by_ix = sorted(zip(ixs, rows))
+            xsets.setdefault(tuple(ix for ix, _ in by_ix), []).append(
+                (iy, iz, [row for _, row in by_ix]))
         stream.extend((len(xsets), size_rep))
         for key, cols in xsets.items():
             stream.extend((len(key), len(cols)))
             stream.extend(xs_reps[ix] for ix in key)
-            for (iy, iz) in cols:
+            for (iy, iz, rows) in cols:
                 stream.extend((ys_reps[iy], zs_reps[iz]))
+                winner_rows.extend(rows)
         for (row, ix, iy, iz) in level_members:
             reps = (xs_reps[ix], ys_reps[iy], zs_reps[iz]) + (size_rep,) * 3
             members.extend((8 * row + col, 8 * rep + col)
                            for col, rep in enumerate(reps))
+    stream[rows_at] = len(stream)
+    stream.extend(winner_rows)
 
 
 @functools.lru_cache(maxsize=64)
@@ -223,8 +238,8 @@ def lattice_ok(kp, tables: SceneTables) -> torch.Tensor:
 
 
 # A scene whose rows, descriptors and lights fit this many bytes is staged
-# in each block's shared memory by K1, K3 and K4; a larger one (menger4:
-# 270 KB) is read from device memory by the same kernels' other
+# in each block's shared memory by all four kernels; a larger one
+# (menger4) is read from device memory by the same kernels' other
 # instantiation.  64 KB leaves room for three blocks on an SM.
 SHARED_SCENE_BYTES = 64 * 1024
 

@@ -95,7 +95,7 @@ def _stencil_kernel_and_plain(plan, tables, cfg, device):
     torch.cuda.synchronize()
     assert sk.surface_eval.launches == before + 1
     R = hits.shape[0]
-    q = scene_vjp.stencil_points(hits, cfg.fd_h, center=True)
+    q = sk.stencil_points(hits, cfg.fd_h, center=True)
     plain = sk.surface_eval_plain(plan, tt, q.reshape(-1, 3))
     return k, [v.reshape((7, R) + v.shape[1:]) for v in plain]
 
@@ -386,3 +386,118 @@ def test_scene_above_48_kb_is_staged_in_shared_memory_on_card(cuda_device):
     dirs = dirs.reshape(-1, 3)
     _same(_value_outputs(plan, tt, CFG, origin, dirs, True),
           _value_twins(plan, tt, CFG, origin, dirs, True), "1,800 spheres")
+
+
+def _hits(plan, tt, cfg=CFG):
+    origin, dirs = cam.generate_rays(tt, cfg)
+    return rk.render_rays(plan, cfg, tt, origin, dirs.reshape(-1, 3)).p
+
+
+def _scene_tables(scene, device):
+    """(plan, tables on ``device``) of a scene name, "<name> moved" with
+    one cross row of its lattice group moved."""
+    plan, tables = _compiled(scene.split()[0])
+    if scene.endswith("moved"):
+        tables = _moved_cross_row(plan, tables)
+    return plan, tables_to_torch(tables, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collapse", [True, False])
+@pytest.mark.parametrize("scene", sorted(ALL_SCENES) + ["demo moved"])
+def test_surface_kernel_combined_mode_matches_plain_twin_on_card(
+        cuda_device, scene, collapse):
+    """K2's combined mode, whose fold takes the lattice collapse with
+    winner rows while the flag holds: sd, winner and gradient bitwise the
+    twin's, which walks the same stream."""
+    plan, tt = _scene_tables(scene, cuda_device)
+    hits = _hits(plan, tt)
+    before = sk.surface_eval.launches
+    k = sk.surface_eval(plan, tt, hits, collapse=collapse)
+    torch.cuda.synchronize()
+    assert sk.surface_eval.launches == before + 1
+    _same(k, sk.surface_eval_plain(plan, tt, hits, collapse=collapse),
+          f"{scene} combined, collapse {collapse}")
+    # the value is the value modes' own, whatever the winner fold took
+    assert torch.equal(k[0], sk.surface_eval(plan, tt, hits, mode=sk.SD)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("scene", ["demo", "demo moved", "config1", "menger4",
+                                   "empty"])
+def test_stencil_entry_matches_plain_twin_on_card(cuda_device, monkeypatch,
+                                                  scene, center, placement):
+    """K2's stencil entry makes the 7 or 6 stencil points of a hit in the
+    kernel: outputs in ``stencil_points``' row order, bitwise the twin's,
+    with the collapse on and off, the scene staged or in device memory,
+    from a transposed view of [3, R] hits and from a contiguous [R, 3]
+    tensor alike, in one launch."""
+    from raymarching_tpu_torch import tables as scene_tables
+    plan, tt = _scene_tables(scene, cuda_device)
+    nbytes = scene_tables.scene_operands(plan, tt, cuda_device).nbytes()
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    elif nbytes > scene_tables.SHARED_SCENE_BYTES:
+        pytest.skip(f"{scene}: {nbytes} bytes do not fit shared memory")
+    hits = _hits(plan, tt)
+    assert not hits.is_contiguous() and hits.t().is_contiguous()
+    for collapse in (True, False):
+        before = sk.surface_eval.launches
+        k = sk.surface_stencil(plan, tt, hits, CFG.fd_h, center=center,
+                               collapse=collapse)
+        torch.cuda.synchronize()
+        assert sk.surface_eval.launches == before + 1
+        _same(k, sk.surface_stencil_plain(plan, tt, hits, CFG.fd_h,
+                                          center=center, collapse=collapse),
+              f"{scene} stencil, centre {center}, collapse {collapse}")
+        _same(sk.surface_stencil(plan, tt, hits.contiguous(), CFG.fd_h,
+                                 center=center, collapse=collapse), k,
+              "contiguous hits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 700])
+def test_surface_kernel_ragged_counts_on_card(cuda_device, n):
+    """K2 on its persistent grid: the first n points or hits alone give
+    the full launch's outputs on them, in every mode and through the
+    stencil entry."""
+    plan, tt = _scene_tables("demo", cuda_device)
+    hits = _hits(plan, tt)
+    for mode in sk.MODES:
+        full = sk.surface_eval(plan, tt, hits, mode=mode, fd_h=CFG.fd_h)
+        part = sk.surface_eval(plan, tt, hits[:n], mode=mode, fd_h=CFG.fd_h)
+        _same(part, tuple(None if v is None else v[:n] for v in full),
+              f"mode {mode}, first {n} points")
+    full = sk.surface_stencil(plan, tt, hits, CFG.fd_h, center=True)
+    part = sk.surface_stencil(plan, tt, hits[:n], CFG.fd_h, center=True)
+    torch.cuda.synchronize()
+    _same(part, tuple(v[:, :n] for v in full), f"stencils of {n} hits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("scene", ["demo", "demo moved", "config4", "menger4",
+                                   "scatter1k", "empty"])
+def test_multipoint_walk_equals_single_walks_on_card(cuda_device, monkeypatch,
+                                                     scene, placement):
+    """K2's FD-gradient mode with its seven points in one walk of the
+    scene (fold.cuh's scene_sd_n) and in seven walks: the same bits, and
+    the twin's, with the collapse on and off."""
+    from raymarching_tpu_torch import tables as scene_tables
+    plan, tt = _scene_tables(scene, cuda_device)
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    elif (scene_tables.scene_operands(plan, tt, cuda_device).nbytes()
+          > scene_tables.SHARED_SCENE_BYTES):
+        pytest.skip(f"{scene} does not fit shared memory")
+    hits = _hits(plan, tt)
+    for collapse in (True, False):
+        kw = dict(mode=sk.FD_GRAD, fd_h=CFG.fd_h, collapse=collapse)
+        one = sk.surface_eval(plan, tt, hits, **kw)
+        seven = sk.surface_eval(plan, tt, hits, multipoint=False, **kw)
+        torch.cuda.synchronize()
+        _same(one, seven, f"{scene}: one walk against seven")
+        _same(one, sk.surface_eval_plain(plan, tt, hits, **kw),
+              f"{scene}: one walk against the twin")

@@ -204,8 +204,8 @@ def _op_case():
 def test_normal_op_matches_autograd_through_plain_scene_sd():
     plan, tables, p, clean, c = _op_case()
     # off ties at the point and at every stencil point
-    for q in tvjp.stencil_points(torch.as_tensor(p), OP_CFG.fd_h,
-                                 center=False):
+    for q in sk.stencil_points(torch.as_tensor(p), OP_CFG.fd_h,
+                               center=False):
         clean &= np.asarray(_tie_free(plan, tables, jnp.asarray(q.numpy())))
     assert clean.mean() > 0.8
     p, c = torch.as_tensor(p[clean]), torch.as_tensor(c[clean])

@@ -84,7 +84,7 @@ def test_stencil_eval_matches_jax_stencil_eval(case):
     plan, tables, p, _, jax_st, _, port_st = case
     sd, w, g = port_st
     assert sd.shape == (7, N) and w.shape == (7, N) and g.shape == (7, N, 3)
-    q = tvjp.stencil_points(torch.as_tensor(p), CFG.fd_h,
+    q = sk.stencil_points(torch.as_tensor(p), CFG.fd_h,
                             center=True).reshape(-1, 3).numpy()
     _check(plan, tables, q, [np.asarray(v).reshape((7 * N,) + v.shape[2:])
                              for v in jax_st],
@@ -102,9 +102,16 @@ def test_cpu_tensors_take_the_plain_twin(case):
     assert sk.surface_eval.launches == before
     for a, b in zip(port_one, plain):
         assert torch.equal(a, b)
-    # the value and winner are the forward fold's own, bitwise
+    # the value is the forward fold's own, bitwise, and so is the winner
+    # when both fold leaf by leaf; the collapsed combined fold may name
+    # another cross of a tie class
     sd, w = tsdf.kernel_fold(plan, tt, torch.as_tensor(p), True)
-    assert torch.equal(sd, plain[0]) and torch.equal(w, plain[1])
+    leafwise = sk.surface_eval_plain(plan, tt, torch.as_tensor(p),
+                                     collapse=False)
+    assert torch.equal(sd, plain[0]) and torch.equal(w, leafwise[1])
+    clean = torch.as_tensor(np.array(_tie_free(plan, tables,
+                                               jnp.asarray(p))))
+    assert torch.equal(w[clean], plain[1][clean])
 
 
 def test_prim_sd_grad_matches_jax_leaf_gradients():
@@ -174,10 +181,15 @@ def test_surface_modes_match_jax_surface_kernel(case, mode):
                                    np.asarray(g_j)[smooth], rtol=0,
                                    atol=FD_G_ATOL)
     # every mode's SD is the combined mode's, bitwise, and so is the winner
+    # (off the tie sets where the combined mode's collapsed fold may name
+    # another cross of the class; everywhere when it folds leaf by leaf)
     sd_c, w_c, _ = case[5]
     assert torch.equal(sd, sd_c)
     if w is not None:
-        assert torch.equal(w, w_c)
+        off_ties = torch.as_tensor(np.array(clean))
+        assert torch.equal(w[off_ties], w_c[off_ties])
+        assert torch.equal(w, sk.surface_eval(plan, tt, torch.as_tensor(p),
+                                              collapse=False)[1])
 
 
 def test_fd_gradient_is_the_stencil_of_the_sd_mode(case):
