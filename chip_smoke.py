@@ -13,8 +13,10 @@ Phases, one line each, every failure an uncaught exception:
                    primary rays, with the step counter, and on shadow rays
                    with tmax from K1's hit points; K4 (ops.shade_kernel
                    .shade_rays) against its twin on K1's hit points; K2's
-                   four modes and its stencil entry (7 and 6 points a hit)
-                   against their twins: all bitwise, with the lattice
+                   five modes and its stencil entry (7 and 6 points a hit)
+                   against their twins; K1 and K4 with analytic normals
+                   and their winner residuals against their twins and K4
+                   against K1: all bitwise, with the lattice
                    collapse on and off (menger4 through the device-memory
                    instantiation); K1, K3, K4 and K2 on counts that are no
                    multiple of a tile, on one ray and with per-ray origins;
@@ -59,6 +61,16 @@ Phases, one line each, every failure an uncaught exception:
                    FD-gradient modes on the same hit points, in turns;
   9. train-multi — three ``fit`` steps through ``backend="multi"``; its
                    gradients against the fused backend's on the same rays;
+  9b. analytic   — ``normal_mode="analytic"`` on the demo: ``render``
+                   at 512x512 SSAA 2 and 1024x768 SSAA 3 (launches; the
+                   image against the FD image by tests/test_mega.py's
+                   agreement rule); K1 with and without its winner
+                   residuals, K4, K3 + K4 and K2's analytic mode against
+                   their twins and each other, bitwise; K1, K4 and K2's
+                   device times FD / analytic in turns; card vs CPU
+                   gradients (one K1 launch, no K2); 3 fit steps (no K2
+                   launch) split into forward, backward, optimizer and the
+                   scatters; the multi-kernel frame and 3 steps;
  10. profile     — ``utils.timing.profile_march``: K3's step counts;
  11. warp        — where a thread-per-ray kernel loses its lanes, from K3's
                    step counter and the fold's cull test on the demo frame:
@@ -120,6 +132,9 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 0.02, 0.005
 # may flip a shadow bit, so the card's frame is held to that tolerance on
 # a share AGREE of its pixels and in the mean
 MULTI_ATOL = 1e-6
+# analytic against FD normals: tests/test_mega.py:176-177's rule, this share
+# of pixels under ANALYTIC_ATOL and the median under ANALYTIC_MEDIAN
+ANALYTIC_ATOL, ANALYTIC_SHARE, ANALYTIC_MEDIAN = 5e-3, 0.99, 1e-4
 KERNELS = ("render_kernel", "surface_kernel", "march_kernel", "shade_kernel")
 # the largest |kernel - plain twin| over every output of every comparison
 # of this run, per kernel (``compare`` and ``same`` fill it)
@@ -254,6 +269,53 @@ def ptxas_summary(log: str) -> str:
             " functions)")
 
 
+def entry_label(name: str) -> str:
+    """A kernel entry's mangled name in short: the kernel and its template
+    arguments (K1's and K4's normal, K2's mode, the scene view)."""
+    m = re.search(r"((?:render|surface|march|shade)_kernel)(_analytic)?I(.*)",
+                  name)
+    if not m:
+        return name
+    kern, analytic, rest = m.groups()
+    ints = re.findall(r"Li(\d+)E", rest)
+    parts = []
+    if kern in ("render_kernel", "shade_kernel"):
+        parts.append("analytic" if analytic else "FD")
+    elif kern == "surface_kernel" and ints:
+        parts.append(f"mode {ints[0]}")
+        if "Lb1E" in rest:
+            parts.append("stencil")
+    parts += [v for v, tag in (("shared", "SharedScene"),
+                               ("device", "DeviceScene")) if tag in rest]
+    return f"{kern}<{', '.join(parts)}>"
+
+
+def ptxas_entries(log: str) -> list:
+    """(entry, registers, stack frame bytes) of each kernel entry in one
+    library's -Xptxas -v report, in its order, the entry as entry_label
+    gives it."""
+    regs, stack, entry, func = [], {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and func is not None:
+            stack[func] = int(m.group(1))
+            func = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs.append((entry, int(m.group(1))))
+            entry = None
+    return [(entry_label(e), r, stack.get(e, 0)) for e, r in regs]
+
+
 def same(what: str, got, want, kernel: str | None = None) -> None:
     """Bitwise equality of two tuples of tensors (None entries skipped).
     With ``kernel``, ``want`` is that kernel's plain twin and the largest
@@ -281,15 +343,18 @@ def shadow_rays(tables, cfg, p, n, li):
 
 
 def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
-    """K3, K4, K2's four modes and K2's stencil entry against their plain
+    """K3, K4, K2's five modes and K2's stencil entry against their plain
     twins, all bitwise (every kernel is built with -fmad=false), and K3 and
-    K4 against K1's own outputs, with the lattice collapse on or off in
-    kernels and twins alike.  Returns the number of comparisons."""
+    K4 against K1's own outputs; K1 and K4 with analytic normals and their
+    winner residuals against their twins and K4 against K1; with the
+    lattice collapse on or off in kernels and twins alike.  Returns the
+    number of comparisons."""
     from raymarching_tpu_torch.core.shading import normalize
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import shade_kernel as shk
     from raymarching_tpu_torch.ops import surface_kernel as sk
-    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
     c = {"collapse": collapse}
     k1 = render_rays(plan, cfg, tables, origin, dirs, **c)
     res, steps = mk.march_rays(plan, cfg, tables, origin, dirs,
@@ -313,6 +378,23 @@ def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
                                         dirs, **c), "shade_kernel")
     same("K4 against K1's shading", k4, (k1.cidx, k1.light, k1.smask))
     n_cmp += 2
+    an = cfg.replace(normal_mode="analytic")
+    k1a, w1a = render_rays(plan, an, tables, origin, dirs, save_winner=True,
+                           **c)
+    p1a, pw1a = render_rays_plain(plan, an, tables, origin, dirs,
+                                  save_winner=True, **c)
+    same("K1 analytic", (*k1a, *w1a), (*p1a, *pw1a), "render_kernel")
+    same("K1 analytic without residuals",
+         render_rays(plan, an, tables, origin, dirs, **c), p1a,
+         "render_kernel")
+    k4a, w4a = shk.shade_rays(plan, an, tables, k1a.p, k1a.sd, dirs,
+                              save_winner=True, **c)
+    s4a, sw4a = shk.shade_rays_plain(plan, an, tables, k1a.p, k1a.sd, dirs,
+                                     save_winner=True, **c)
+    same("K4 analytic", (*k4a, *w4a), (*s4a, *sw4a), "shade_kernel")
+    same("K4 analytic against K1's", (*k4a, *w4a),
+         (k1a.cidx, k1a.light, k1a.smask, *w1a))
+    n_cmp += 4
     for mode in sk.MODES:
         same(f"K2 mode {mode}",
              sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h,
@@ -511,10 +593,11 @@ def kernel_times() -> int:
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
     on the primary rays and on the slowest of them alone, of K4, of K2 on
     the 7-point stencils of the hits (and that call with its wrapper,
-    CUDA events) and in its FD-gradient mode, and of K1 with the scene read
-    from device memory, on the demo at 1,000 iterations.  For holding two checkouts against each other on one card:
-    run it from each in one command, in turns (parent, change, change,
-    parent)."""
+    CUDA events) and in its FD-gradient mode, of K1, K4 and K2 with
+    analytic normals, and of K1 with the scene read from device memory, on
+    the demo at 1,000 iterations.  For holding two checkouts against each
+    other on one card: run it from each in one command, in turns (parent,
+    change, change, parent)."""
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch import tables as scene_tables
     from raymarching_tpu_torch.ops import march_kernel as mk
@@ -550,6 +633,13 @@ def kernel_times() -> int:
             plan, tt, hit.position, mode=sk.FD_GRAD, fd_h=cfg.fd_h),
             "surface_kernel"),
     }
+    acfg = cfg.replace(normal_mode="analytic")
+    out["K1 512x512 ssaa2 analytic"] = device_ms(lambda: render_rays(
+        plan, acfg, tt, origin, dirs), "render_kernel")
+    out["K4 analytic"] = device_ms(lambda: shk.shade_rays(
+        plan, acfg, tt, hit.position, hit.sd, dirs), "shade_kernel")
+    out["K2 analytic"] = device_ms(lambda: sk.surface_eval(
+        plan, tt, hit.position, mode=sk.ANALYTIC), "surface_kernel")
     limit = scene_tables.SHARED_SCENE_BYTES
     scene_tables.SHARED_SCENE_BYTES = 0
     try:
@@ -559,9 +649,11 @@ def kernel_times() -> int:
         scene_tables.SHARED_SCENE_BYTES = limit
     big = rt.RenderConfig()
     big_org, big_dirs = rays_for(plan, tt, big)
-    out[f"K1 {big.width}x{big.height} ssaa{big.ssaa}"] = device_ms(
-        lambda: render_rays(plan, big, tt, big_org, big_dirs),
-        "render_kernel")
+    for b in (big, big.replace(normal_mode="analytic")):
+        name = "" if b.normal_mode == "fd" else " analytic"
+        out[f"K1 {b.width}x{b.height} ssaa{b.ssaa}{name}"] = device_ms(
+            lambda: render_rays(plan, b, tt, big_org, big_dirs),
+            "render_kernel")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -618,8 +710,12 @@ def main() -> int:
         libs = list(pool.map(build.build, KERNELS))
     for kname, lib_path in zip(KERNELS, libs):
         build.load_library(kname)
-        print(f"[build] {lib_path.name}; "
-              + ptxas_summary(lib_path.with_suffix(".log").read_text()))
+        log = lib_path.with_suffix(".log").read_text()
+        print(f"[build] {lib_path.name}; " + ptxas_summary(log))
+        entries = ptxas_entries(log)
+        check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
+        print(f"[ptxas] {kname} by entry (registers, stack frame): "
+              + "; ".join(f"{e} {r} / {st} B" for e, r, st in entries))
     print(f"[build] {len(KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -641,8 +737,9 @@ def main() -> int:
         ops = scene_operands(plan, tt, dev)
         nbytes = ops.nbytes(plan.num_lights)
         print(f"[compare] {scene}: K3 (primary rays with steps, shadow "
-              f"rays with tmax of {plan.num_lights} lights), K4, K2's four "
-              f"modes and its stencil entry = plain twins bitwise, and "
+              f"rays with tmax of {plan.num_lights} lights), K4, K2's five "
+              f"modes and its stencil entry, K1 and K4 with analytic normals "
+              f"and their residuals = plain twins bitwise, and "
               f"K3, K4 = K1's march and shading bitwise, with the lattice "
               f"collapse on and off ({n_cmp} comparisons; collapse flag "
               f"{int(ops.flag.item())}); K1, K3, K4, K2 on "
@@ -651,10 +748,18 @@ def main() -> int:
               f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
               " memory")
         if scene == "demo":
-            # 16 bytes cover the staged copy's alignment padding
-            per_sm = {k: (build.load_library(k).rt_blocks_per_sm(
-                1, nbytes + 16), build.load_library(k).rt_blocks_per_sm(0, 0))
-                for k in KERNELS}
+            # 16 bytes cover the staged copy's alignment padding; K1 and K4
+            # take a third argument, the normal (0 FD, 1 analytic)
+            per_sm = {}
+            for k in KERNELS:
+                lib = build.load_library(k)
+                variants = ({f"{k} FD": (0,), f"{k} analytic": (1,)}
+                            if k in ("render_kernel", "shade_kernel")
+                            else {k: ()})
+                for label, extra in variants.items():
+                    per_sm[label] = (
+                        lib.rt_blocks_per_sm(1, nbytes + 16, *extra),
+                        lib.rt_blocks_per_sm(0, 0, *extra))
             check(all(min(v) > 0 for v in per_sm.values()),
                   f"resident blocks an SM: {per_sm}")
             print("[occupancy] resident blocks an SM (128 threads each), "
@@ -943,18 +1048,30 @@ def main() -> int:
     # (MarchOp's backward) and on their six-point stencils (NormalOp's)
     q6 = sk.stencil_points(hit.position, tcfg.fd_h,
                                   center=False).reshape(-1, 3)
-    for label, q, mode in (("winner", hit.position, sk.WINNER),
-                           ("FD gradient", hit.position, sk.FD_GRAD),
-                           ("combined", hit.position, sk.COMBINED),
-                           ("combined, six-point stencils", q6,
-                            sk.COMBINED)):
-        k2m, k2m_ms = timed(lambda: sk.surface_eval(
-            plan, tt, q, mode=mode, fd_h=tcfg.fd_h), runs=5)
-        k2m_p, k2m_plain_ms = timed(lambda: sk.surface_eval_plain(
-            plan, tt, q, mode=mode, fd_h=tcfg.fd_h))
+    # (label, points, mode, bytes written a point: 4 a float, 4 a winner);
+    # every mode reads a point's 12 bytes
+    k2_modes = {}
+    for label, q, mode, out_bytes in (
+            ("winner", hit.position, sk.WINNER, 8),
+            ("FD gradient", hit.position, sk.FD_GRAD, 16),
+            ("combined", hit.position, sk.COMBINED, 20),
+            ("combined, six-point stencils", q6, sk.COMBINED, 20),
+            ("analytic", hit.position, sk.ANALYTIC, 16)):
+        fn = lambda: sk.surface_eval(  # noqa: E731
+            plan, tt, q, mode=mode, fd_h=tcfg.fd_h)
+        k2m, k2m_ms = timed(fn, runs=5)
+        k2m_p, k2m_plain_ms, k2m_count = timed_counted(
+            lambda: sk.surface_eval_plain(plan, tt, q, mode=mode,
+                                          fd_h=tcfg.fd_h))
         same(f"K2 {label} at 512^2", k2m, k2m_p, "surface_kernel")
+        k2m_bound = bound_ms(k2m_count, q.shape[0] * (12 + out_bytes))
+        k2m_dev = device_ms(fn, "surface_kernel", 3)
+        k2_modes[label] = (k2m_ms, k2m_dev, k2m_plain_ms, k2m_bound)
         print(f"[kernel] surface_kernel demo {label}, {q.shape[0]} points: "
-              f"K2 {k2m_ms:.3f} ms, plain {k2m_plain_ms:.3f} ms; bitwise "
+              f"K2 {k2m_ms:.3f} ms with its wrapper, {k2m_dev:.3f} ms on the "
+              f"device alone, plain {k2m_plain_ms:.3f} ms; bound "
+              f"{k2m_bound[0]:.4f} ms by {k2m_bound[1]} ({k2m_bound[5]} "
+              f"operations, {k2m_bound[2]} leaf evaluations); bitwise "
               f"equal; {card}")
         if mode == sk.FD_GRAD:
             g = k2m[2]
@@ -1111,6 +1228,251 @@ def main() -> int:
           f"table field: max |diff| / field scale {worst_mg[0]:.3g} "
           f"({worst_mg[1]}; tolerance rtol {GRAD_RTOL}, atol "
           f"{GRAD_ATOL_SCALE} x scale)")
+
+    # 9b. the analytic-normal regime on the same footprint
+    acfg, abig = (c.replace(normal_mode="analytic") for c in main_cfgs)
+    zero_counts()
+    a_images, a_secs = [], []
+    for cfg in (acfg, abig):
+        rt.render(demo, cfg, device=dev)             # warm-up at this shape
+        img, ms = timed(lambda: rt.render(demo, cfg, device=dev), runs=3)
+        a_images.append(img)
+        a_secs.append(ms / 1e3)
+    counts = add_counts("analytic", 8)
+    check(counts == {"render_kernel": 8, "surface_kernel": 0,
+                     "march_kernel": 0, "shade_kernel": 0},
+          f"analytic forward renders launched {counts}")
+    for cfg, img, s_, fd_img, fd_s in zip((acfg, abig), a_images, a_secs,
+                                          images, secs):
+        check(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), "analytic image not finite")
+        check(has_demo_objects(img), "demo objects missing (analytic)")
+        # tests/test_mega.py:176-177: analytic against FD normals
+        diff = (img - fd_img).abs().amax(dim=-1)
+        share = (diff < ANALYTIC_ATOL).double().mean().item()
+        med = diff.median().item()
+        check(share >= ANALYTIC_SHARE and med < ANALYTIC_MEDIAN,
+              f"analytic vs FD image: {share:.6f} of pixels under "
+              f"{ANALYTIC_ATOL}, median {med}")
+        print(f"[analytic] demo {cfg.width}x{cfg.height} ssaa{cfg.ssaa} "
+              f"{cfg.iterations} it, render() with analytic normals: "
+              f"{s_:.4f} s against {fd_s:.4f} s with FD normals in this run, "
+              f"{cfg.rays_per_image / s_ / 1e6:.3f} Mrays/s; image against "
+              f"the FD image: {share:.6f} of pixels under {ANALYTIC_ATOL}, "
+              f"median {med:.3g}, max {diff.max().item():.3g}; {card}")
+    att = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, att, acfg)
+    # K1 with and without the residuals against its twin, every output
+    (k1a, w1a), k1aw_ms = timed(lambda: render_rays(
+        plan, acfg, att, origin, dirs, save_winner=True), runs=5)
+    k1a_n, k1a_ms = timed(lambda: render_rays(plan, acfg, att, origin, dirs),
+                          runs=5)
+    (p1a, pw1a), k1a_plain_ms, k1a_count = timed_counted(
+        lambda: render_rays_plain(plan, acfg, att, origin, dirs,
+                                  save_winner=True))
+    same("K1 analytic at 512^2 with residuals", (*k1a, *w1a), (*p1a, *pw1a),
+         "render_kernel")
+    same("K1 analytic at 512^2 without residuals", k1a_n, p1a,
+         "render_kernel")
+    check(not torch.equal(k1a.light, render_rays(plan, tcfg, att, origin,
+                                                 dirs).light),
+          "the analytic light equals the FD light")
+    # K4 on K1's hits, with and without residuals, against its twin and K1
+    (k4a, w4a), k4aw_ms = timed(lambda: shk.shade_rays(
+        plan, acfg, att, k1a.p, k1a.sd, dirs, save_winner=True), runs=5)
+    k4a_n, k4a_ms = timed(lambda: shk.shade_rays(plan, acfg, att, k1a.p,
+                                                 k1a.sd, dirs), runs=5)
+    (s4a, sw4a), k4a_plain_ms, k4a_count = timed_counted(
+        lambda: shk.shade_rays_plain(plan, acfg, att, k1a.p, k1a.sd, dirs,
+                                     save_winner=True))
+    same("K4 analytic at 512^2 with residuals", (*k4a, *w4a), (*s4a, *sw4a),
+         "shade_kernel")
+    same("K4 analytic at 512^2 without residuals", k4a_n, s4a,
+         "shade_kernel")
+    same("K4 analytic against K1's outputs and residuals", (*k4a, *w4a),
+         (k1a.cidx, k1a.light, k1a.smask, *w1a))
+    # K3 + K4 = K1, and K2's combined and analytic modes = the residuals
+    two, w2 = render_rays(plan, acfg.replace(two_phase_k1=48), att, origin,
+                          dirs, save_winner=True)
+    same("K3, K3, K4 = K1 with analytic normals", (*two, *w2), (*k1a, *w1a))
+    k2a = sk.surface_eval(plan, att, k1a.p, mode=sk.ANALYTIC)
+    same("K2 analytic at K1's hits", k2a, sk.surface_eval_plain(
+        plan, att, k1a.p, mode=sk.ANALYTIC), "surface_kernel")
+    same("K2 analytic = K1's residuals", (k2a[0], k2a[2]), (w1a.sd, w1a.g))
+    same("K2 combined = K1's residuals", scene_vjp.winner_eval(
+        plan, att, k1a.p), w1a)
+    del p1a, pw1a, s4a, sw4a, k4a, w4a, two, w2, k2a, k1a_n, k4a_n
+    zero_counts()
+    a_two = rt.render(demo, acfg.replace(two_phase_k1=48), device=dev)
+    counts = add_counts("two_phase_analytic", 1)
+    check(counts["march_kernel"] == 2 and counts["shade_kernel"] == 1,
+          f"an analytic two-phase frame launched {counts}")
+    check(torch.equal(a_two, a_images[0]),
+          "the analytic two-phase image differs from the one-kernel image")
+    # K1 writes 5 floats and 2 ints a ray and, with the residuals, 4 floats
+    # and an int more; K4 reads 7 floats and writes a float and 2 ints
+    k1a_bound = bound_ms(k1a_count, R * (12 + 32))
+    k4a_bound = bound_ms(k4a_count, R * (28 + 12))
+
+    def in_turns(fa, fb, needle, runs=3):
+        """Median device ms of fa and fb, in turns (a, b, b, a)."""
+        t = [device_ms(f, needle, runs) for f in (fa, fb, fb, fa)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    big_org, big_dirs = rays_for(plan, att, abig)
+    dev_turns = {
+        "K1 512x512 ssaa2": in_turns(
+            lambda: render_rays(plan, tcfg, att, origin, dirs),
+            lambda: render_rays(plan, acfg, att, origin, dirs),
+            "render_kernel"),
+        f"K1 {big.width}x{big.height} ssaa{big.ssaa}": in_turns(
+            lambda: render_rays(plan, big, att, big_org, big_dirs),
+            lambda: render_rays(plan, abig, att, big_org, big_dirs),
+            "render_kernel"),
+        "K4": in_turns(
+            lambda: shk.shade_rays(plan, tcfg, att, k1a.p, k1a.sd, dirs),
+            lambda: shk.shade_rays(plan, acfg, att, k1a.p, k1a.sd, dirs),
+            "shade_kernel"),
+        "K2 FD gradient / analytic": in_turns(
+            lambda: sk.surface_eval(plan, att, k1a.p, mode=sk.FD_GRAD,
+                                    fd_h=tcfg.fd_h),
+            lambda: sk.surface_eval(plan, att, k1a.p, mode=sk.ANALYTIC),
+            "surface_kernel"),
+    }
+    del big_dirs
+    k1aw_dev = device_ms(lambda: render_rays(plan, acfg, att, origin, dirs,
+                                             save_winner=True),
+                         "render_kernel", 3)
+    print(f"[analytic] device time of the kernel alone, FD / analytic "
+          f"normals in turns (fd, analytic, analytic, fd; each the median "
+          f"of 3 launches), demo at 1000 iterations: "
+          + "; ".join(f"{k} {a:.3f} / {b:.3f} ms"
+                      for k, (a, b) in dev_turns.items())
+          + f"; K1 512x512 ssaa2 analytic with its residuals "
+          f"{k1aw_dev:.3f} ms; {card}")
+    print(f"[kernel] render_kernel analytic demo {tcfg.width}x{tcfg.height} "
+          f"ssaa{tcfg.ssaa}: K1 {k1a_ms:.3f} ms with its wrapper "
+          f"({k1aw_ms:.3f} with residuals), plain {k1a_plain_ms:.3f} ms, "
+          f"bound {k1a_bound[0]:.4f} ms by {k1a_bound[1]} ({k1a_bound[5]} "
+          f"operations); every output and residual bitwise equal to the "
+          f"twin's; K4 {k4a_ms:.3f} ms ({k4aw_ms:.3f} with residuals), "
+          f"plain {k4a_plain_ms:.3f} ms, bound {k4a_bound[0]:.4f} ms by "
+          f"{k4a_bound[1]}; K4 and K3 + K4 = K1 bitwise; {card}")
+
+    # the card's analytic gradients against the CPU twins' on the same rays
+    a_gcfg = gcfg.replace(normal_mode="analytic")
+    g_rays = rays_for(plan, tables_to_torch(tables, "cpu"), a_gcfg)
+    ga_card, launched = grads_of(plan, tables, a_gcfg, dev, *g_rays)
+    check(launched == (1, 0), "a differentiable analytic render launched "
+          f"(K1, K2) {launched}: the backward must launch no K2")
+    ga_cpu, _ = grads_of(plan, tables, a_gcfg, torch.device("cpu"), *g_rays)
+    worst_ag = grad_check(tables._fields + ("origin", "dirs"), ga_card,
+                          ga_cpu, "analytic card vs CPU")
+    print(f"[analytic] demo 32x24 gradients with analytic normals, card vs "
+          f"CPU on the same rays, every table field and the rays: max "
+          f"|diff| / field scale {worst_ag[0]:.3g} ({worst_ag[1]}; "
+          f"tolerance rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x scale); "
+          f"launches K1 1, K2 0")
+
+    # the fused analytic fit: one K1 launch a step, no K2
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    ares = rt.fit(plan, start, target, acfg, device=dev, steps=3,
+                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
+    counts = add_counts("train_analytic", 3)
+    check(counts == {"render_kernel": 3, "surface_kernel": 0,
+                     "march_kernel": 0, "shade_kernel": 0},
+          f"3 analytic fit steps launched {counts}")
+    check_step_grads()
+    check(ares.losses[-1] < ares.losses[0], f"loss did not fall: "
+          f"{ares.losses}")
+    astep = statistics.median(np.diff([t0] + stamps))
+    att_g = tables_to_torch(ares.tables, dev, requires_grad=TRAINABLE)
+    opt = adam([getattr(att_g, f) for f in TRAINABLE])
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        img = rt.render_tables(plan, att_g, acfg, differentiable=True,
+                               device=dev)
+        loss = torch.mean((img - target) ** 2)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    a_fwd, a_bwd, a_opt = (statistics.median(c) for c in zip(*splits))
+    # the analytic backward's two float64 scatters alone, on a step's
+    # residuals: the winner rows (7 columns) and the Hessian rows (3)
+    at_ = tables_to_torch(ares.tables, dev)
+    (_, wst) = render_rays(plan, acfg.replace(shade_skip_black=False), at_,
+                           *rays_for(plan, at_, acfg), save_winner=True)
+    u_ = torch.randn(wst.sd.shape, device=dev)
+    gbar_ = torch.randn(wst.g.shape, device=dev)
+    _, rows_, hidx_ = scene_vjp.winner_hessian_chain(plan, at_, wst.widx,
+                                                     wst.g, gbar_, wst.sd)
+    _, a_scatter_ms = timed(lambda: (
+        scene_vjp.theta_cotangents(plan, at_, wst.widx, wst.g, u_),
+        scene_vjp.segment_add(hidx_, rows_, plan.num_primitives)), runs=5)
+    n_hess = int((hidx_ >= 0).sum())
+    del wst, u_, gbar_, rows_, hidx_
+    print(f"[analytic] fit, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, analytic normals, 3 Adam steps: loss "
+          f"{' '.join(f'{v:.6g}' for v in ares.losses)}; step median "
+          f"{astep * 1e3:.1f} ms against {fused_step_s * 1e3:.1f} ms with FD "
+          f"normals in this run; launches a step K1 1, K2 0; {card}")
+    print(f"[analytic] step split (median of 3, CUDA events), analytic / "
+          f"FD normals: forward {a_fwd:.2f} / {fwd_ms:.2f} ms, backward "
+          f"{a_bwd:.2f} / {bwd_ms:.2f} ms (no K2 launch / K2 "
+          f"{k2_fit_ms:.2f} ms), optimizer {a_opt:.2f} / {opt_ms:.2f} ms; "
+          f"the parameter scatters alone {a_scatter_ms:.2f} ms ({R} winner "
+          f"rows x 7 columns and {n_hess} sphere Hessian rows x 3) / "
+          f"{scatter_ms:.2f} ms ({7 * R} rows x 7 columns); {card}")
+
+    # the multi-kernel backend with analytic normals: frame and step
+    zero_counts()
+    rt.render(demo, acfg, backend="multi", device=dev)
+    am_img, am_ms = timed(lambda: rt.render(demo, acfg, backend="multi",
+                                            device=dev), runs=3)
+    counts = add_counts("multi_analytic", 4)
+    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
+                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+          f"4 multi-kernel analytic frames launched {counts}")
+    diff = (am_img - a_images[0]).abs()
+    close = (diff.amax(dim=-1) <= MULTI_ATOL).double().mean().item()
+    check(close >= AGREE and diff.mean().item() <= MULTI_ATOL,
+          f"multi vs fused analytic image: {close:.6f} of pixels within "
+          f"{MULTI_ATOL}, mean {diff.mean().item()}")
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    amres = rt.fit(plan, start, target, acfg, device=dev, backend="multi",
+                   steps=3, trainable=TRAINABLE, optimizer=adam,
+                   callback=on_step)
+    counts = add_counts("train_multi_analytic", 3)
+    # a step: K3 primary + L shadow; K2 winner, analytic, and the combined
+    # mode for MarchOp's and NormalOp's backward
+    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 4,
+                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+          f"3 multi-kernel analytic fit steps launched {counts}")
+    check_step_grads()
+    check(abs(amres.losses[0] - ares.losses[0]) <= 1e-5,
+          f"first loss {amres.losses[0]} against fused {ares.losses[0]}")
+    amstep = statistics.median(np.diff([t0] + stamps))
+    print(f"[analytic] backend=multi, analytic normals: frame "
+          f"{am_ms / 1e3:.4f} s (FD {multi_ms / 1e3:.4f} s in this run), "
+          f"image against the fused analytic one: {close:.6f} of pixels "
+          f"within {MULTI_ATOL}; 3 Adam steps, loss "
+          f"{' '.join(f'{v:.6g}' for v in amres.losses)}, step median "
+          f"{amstep * 1e3:.1f} ms (FD {mmed * 1e3:.1f} ms); launches a "
+          f"frame K3 {1 + L}, K2 2 (winner, analytic), a step K3 {1 + L}, "
+          f"K2 4; {card}")
 
     # 10. K3's step counter through profile_march
     prof = profile_march(plan, tables, tcfg, device=dev)
@@ -1396,7 +1758,7 @@ def main() -> int:
           + "; ".join(f"{k} {json.dumps(v)}" for k, v in per_call.items()))
     csrc = "raymarching_tpu_torch/csrc/"
 
-    def row(kname, replaces, ms, plain_ms, bound):
+    def row(kname, replaces, ms, plain_ms, bound, analytic=None):
         # ms: CUDA events around the wrapper's call, as in earlier runs;
         # device_ms: the kernel alone, from the profiler;
         # launches: the sum over the paths' runs (warm-up frames included);
@@ -1412,7 +1774,14 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1],
                 "bound_ms_leaf_fold": leaf_bounds[kname][0],
-                "library_ms": None}
+                "library_ms": None, "analytic": analytic}
+
+    def analytic_row(ms, device, plain_ms, bound, fd_device):
+        # the kernel with analytic normals (K2: its analytic mode) on the
+        # same rays; fd_device_ms: the FD form's device time in turns
+        return {"ms": ms, "device_ms": device, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "fd_device_ms": fd_device}
 
     for kname, bound in (("render_kernel", k1_bound),
                          ("surface_kernel", k2_bound),
@@ -1428,13 +1797,21 @@ def main() -> int:
               f"bound {old[0]:.4f} ms, by {old[1]}; {card}")
     print(json.dumps({"kernels": [
         row("render_kernel", "raymarching_tpu/ops/pallas_render.py:211",
-            k1_ms, k1_plain_ms, k1_bound),
+            k1_ms, k1_plain_ms, k1_bound, analytic_row(
+                k1a_ms, dev_turns["K1 512x512 ssaa2"][1], k1a_plain_ms,
+                k1a_bound, dev_turns["K1 512x512 ssaa2"][0])),
         row("surface_kernel", "raymarching_tpu/ops/pallas_march.py:2656",
-            k2_ms, k2_plain_ms, k2_bound),
+            k2_ms, k2_plain_ms, k2_bound, analytic_row(
+                k2_modes["analytic"][0],
+                dev_turns["K2 FD gradient / analytic"][1],
+                k2_modes["analytic"][2], k2_modes["analytic"][3],
+                dev_turns["K2 FD gradient / analytic"][0])),
         row("march_kernel", "raymarching_tpu/ops/pallas_march.py:1716",
             k3_ms, k3_plain_ms, k3_bound),
         row("shade_kernel", "raymarching_tpu/ops/pallas_render.py:558",
-            k4_ms, k4_plain_ms, k4_bound)]}))
+            k4_ms, k4_plain_ms, k4_bound, analytic_row(
+                k4a_ms, dev_turns["K4"][1], k4a_plain_ms, k4a_bound,
+                dev_turns["K4"][0]))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

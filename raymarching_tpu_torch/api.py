@@ -6,16 +6,25 @@ Backends (the JAX package's names in brackets):
     CUDA device (K3, K3 and K4 with ``cfg.two_phase_k1``) and runs the
     plain twins on the CPU; then the colour blend and the SSAA mean.  With
     ``differentiable=True`` the rays go through
-    ``ops.render_op.FusedRender`` (that forward, exact-FD backward over
-    K2), so gradients reach every SceneTables field that requires grad.
+    ``ops.render_op.FusedRender`` (that forward; its backward is one K2
+    launch over the FD stencils, or with analytic normals no launch at
+    all: K1 saved the winner residuals), so gradients reach every
+    SceneTables field that requires grad.  ``cfg.ray_chunk > 0`` renders
+    the rays in chunks of that many, one after the other.
   * ``"multi"`` [``pallas``] — the multi-kernel path: ``core.render``'s
     pipeline with the hooks of ``make_render_hooks``: K3 marches the
     primary rays (``ops.march_op.MarchOp``) and, with a per-ray tmax, the
     shadow rays; K2 looks up colours (winner mode) and gives normals
-    (``ops.normal_op.NormalOp``, FD mode); light and colour arithmetic is
-    plain PyTorch under autograd.  Differentiable on every field.
+    (``ops.normal_op.NormalOp``: its FD-gradient mode, or with analytic
+    normals its gradient-only analytic mode); light and colour arithmetic
+    is plain PyTorch under autograd.  Differentiable on every field.
   * ``"ref"`` [``ref``] — the plain PyTorch oracle
-    ``core.render.render_image``, forward only.
+    ``core.render.render_image`` (analytic normals by autograd), forward
+    only.
+
+Both normal modes of ``RenderConfig.normal_mode`` ("fd", the default,
+and "analytic") render on every backend and train on ``cuda`` and
+``multi``.
 
 Every entry point takes an explicit device; nothing picks one by itself.
 """
@@ -35,9 +44,9 @@ from .core.render import render_image
 from .ops.march_kernel import march_rays
 from .ops.march_op import march_op
 from .ops.normal_op import normal_op
-from .ops.render_kernel import (blend, check_supported, render_rays,
-                                winner_colors)
+from .ops.render_kernel import blend, check_supported, render_rays
 from .ops.render_op import FusedRender
+from .ops.scene_vjp import gather_rows
 from .ops.surface_kernel import WINNER, surface_eval
 from .tables import tables_to_torch
 
@@ -90,7 +99,7 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
         with torch.no_grad():
             sd, cidx, _ = surface_eval(plan, const, p.detach(), mode=WINNER)
         # the gather stays under autograd: the colour rows' gradient
-        return sd, winner_colors(cidx, tables.prim_color)
+        return sd, gather_rows(cidx, tables.prim_color)
 
     def normal_fn(p):
         return normal_op(plan, cfg, tables, p)
@@ -128,13 +137,25 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
                 plan, tables, cfg, backend))
         origin, dirs = cam.generate_rays(tables, cfg)
         dirs = dirs.reshape(-1, 3)
-        if differentiable:
-            colors = FusedRender.apply(plan, cfg, origin, dirs, *tables)
-        else:
-            out = render_rays(plan, cfg, tables, origin, dirs)
-            colors = blend(out.cidx, out.light, tables.prim_color)
+        R = dirs.shape[0]
+        chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
+        colors = torch.cat([
+            _fused_colors(plan, cfg, tables,
+                          origin if origin.dim() == 1 else origin[i:i + chunk],
+                          dirs[i:i + chunk], differentiable)
+            for i in range(0, R, chunk)])
         S = cfg.samples_per_pixel
         return colors.reshape(cfg.height, cfg.width, S, 3).mean(dim=2)
+
+
+def _fused_colors(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                  origin: torch.Tensor, dirs: torch.Tensor,
+                  differentiable: bool) -> torch.Tensor:
+    """Colours [R, 3] of rays ``dirs`` [R, 3] through the fused path."""
+    if differentiable:
+        return FusedRender.apply(plan, cfg, origin, dirs, *tables)
+    out = render_rays(plan, cfg, tables, origin, dirs)
+    return blend(out.cidx, out.light, tables.prim_color)
 
 
 def render(scene: Scene, cfg: Optional[RenderConfig] = None, *,

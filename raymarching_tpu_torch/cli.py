@@ -3,6 +3,8 @@
     python -m raymarching_tpu_torch --scene scenes/demo.txt --out out.png
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
         --backend ref,multi,cuda --width 128 --height 96 --ssaa 1 --compare
+    python -m raymarching_tpu_torch --scene scenes/demo.txt \
+        --normal-mode analytic --out analytic.png
 
 Defaults are the reference configuration (1024x768, SSAA 3x3, 1000
 iterations) on the CUDA device; ``--device cpu`` runs the plain PyTorch
@@ -41,6 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma", type=float, default=1.0)
     p.add_argument("--shadows", action=argparse.BooleanOptionalAction,
                    default=True, help="hard shadow rays (default on)")
+    p.add_argument("--normal-mode", choices=["fd", "analytic"], default="fd",
+                   help="surface normals: fd = 6-eval central differences "
+                        "(reference parity), analytic = the SDF's exact "
+                        "gradient, one evaluation")
     p.add_argument("--backend", default="cuda",
                    help="comma list of cuda|multi|ref (fused kernel, "
                         "multi-kernel, plain oracle); the last one is saved")
@@ -72,7 +78,7 @@ def main(argv=None) -> int:
     plan, tables = compile_scene(load_scene(args.scene))
     cfg = RenderConfig(width=args.width, height=args.height, ssaa=args.ssaa,
                        iterations=args.iterations, gamma=args.gamma,
-                       shadows=args.shadows)
+                       shadows=args.shadows, normal_mode=args.normal_mode)
     print(f"scene: {plan.num_primitives} primitives, {plan.num_lights} "
           f"lights; device {device}")
 

@@ -44,8 +44,9 @@ class RenderConfig:
     # --- extensions (no reference equivalent) ---
     # Normal estimation: "fd" = 6-eval central differences, h=1e-3, matching
     # the reference bit-for-bit (scene.cpp:70-89); "analytic" = one
-    # in-kernel winner-gradient evaluation (not ported yet).  The default
-    # is "fd" for bit-parity with the reference's own estimator.
+    # in-kernel winner-gradient evaluation (the ref backend: autograd).
+    # The default is "fd" for bit-parity with the reference's own
+    # estimator.
     normal_mode: str = "fd"
     fd_h: float = 1e-3
 
@@ -69,7 +70,8 @@ class RenderConfig:
     tile_sublanes: int = 32
 
     # Process rays in chunks of this many (0 = whole frame at once) to bound
-    # the [rays, primitives] working set of the JAX package's jnp path.
+    # the working set: the port's fused backend renders the chunks one
+    # after the other (forward and differentiable), each one launch.
     ray_chunk: int = 0
 
     # Serving fast path (mega backend, FORWARD-ONLY): generate primary-ray

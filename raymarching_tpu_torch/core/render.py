@@ -1,8 +1,8 @@
 """The port's reference renderer (the ``ref`` backend): plain PyTorch.
 
 Port of ``raymarching_tpu.core.render.render_image`` for the reference's
-shading model: march -> surface colour at the pre-step point -> FD normal
--> hard-shadowed Lambert -> light * colour, then the mean of the k x k
+shading model: march -> surface colour at the pre-step point -> FD (or,
+with ``normal_mode="analytic"``, autograd) normal -> hard-shadowed Lambert -> light * colour, then the mean of the k x k
 SSAA samples (scene.cpp:26-32, render.cpp:82-120).  It is the oracle the
 kernel path is held to inside the port.  With the four hooks of
 ``api.make_render_hooks`` the same pipeline runs on the kernels: that is
@@ -52,8 +52,12 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
         _, color = scene_surface(plan, tables, p_color)
     else:
         _, color = surface_fn(p_color)
-    g = (shading.normal_fd(sd_fn, p_hit, cfg.fd_h) if normal_fn is None
-         else normal_fn(p_hit))
+    if normal_fn is not None:
+        g = normal_fn(p_hit)
+    elif cfg.normal_mode == "analytic":
+        g = shading.normal_analytic(sd_fn, p_hit)
+    else:
+        g = shading.normal_fd(sd_fn, p_hit, cfg.fd_h)
     n = shading.normalize(g)
     # only the real lights: compile_tree pads a light-less scene with one
     # row that must never shade

@@ -508,7 +508,10 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     """The two-level kernel-form fold at p [..., 3] -> (sd [...], winner
     leaf id [...] int32, -1 where nothing won; None unless ``with_idx``),
     or with ``with_grad`` (sd, winner, d scene / dp [..., 3], zero where
-    nothing won): the combined mode of the JAX surface kernel.
+    nothing won): the combined mode of the JAX surface kernel.  Less its
+    winner it is also the gradient-only analytic mode and the analytic
+    normal of the render kernels (the winner's gradient, which is the one
+    JAX's gradient-carrying fold ``_scene_sd_grad_tile`` keeps off ties).
 
     With ``collapse`` the value fold (neither ``with_idx`` nor
     ``with_grad``) and the ``with_grad`` fold take a Menger group's carve

@@ -2,11 +2,13 @@
 
 Port of ``raymarching_tpu.core.shading`` for the reference's shading model
 (scene.cpp:45-89): the normal is the normalised 6-point central difference
-of the SDF; a light counts only if a march from the hit point, lifted off
-the surface by ``surface_eps + offset_eps`` along the normal, passes the
-light; the Lambert sum over lights is clamped to ``[saturation, 1]``.
-Soft shadows and ambient occlusion are not ported yet.  ``shadow_fn``
-routes the shadow marches through a kernel (``api.make_render_hooks``).
+of the SDF (or, with ``RenderConfig.normal_mode="analytic"``, its exact
+gradient by one reverse-mode sweep); a light counts only if a march from
+the hit point, lifted off the surface by ``surface_eps + offset_eps``
+along the normal, passes the light; the Lambert sum over lights is clamped
+to ``[saturation, 1]``.  Soft shadows and ambient occlusion are not ported
+yet.  ``shadow_fn`` routes the shadow marches through a kernel
+(``api.make_render_hooks``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,19 @@ def fd_stencil(scene_sd: Callable, p: torch.Tensor, h: float) -> torch.Tensor:
 def normal_fd(scene_sd: Callable, p: torch.Tensor, h: float) -> torch.Tensor:
     """Central-difference SDF gradient (not normalised), p [N, 3]."""
     return fd_stencil(scene_sd, p, h) / (2.0 * h)
+
+
+def normal_analytic(scene_sd: Callable, p: torch.Tensor) -> torch.Tensor:
+    """Exact SDF gradient (not normalised) by one reverse-mode sweep,
+    p [N, 3] -> [N, 3] (core.shading.normal_analytic): autograd through
+    the fold's minima and maxima, which give a tie to the first operand
+    where JAX splits it.  Forward only (the ref oracle's): p is detached,
+    and the result carries no graph."""
+    with torch.enable_grad():
+        q = p.detach().requires_grad_()
+        sd = scene_sd(q)
+        (g,) = torch.autograd.grad(sd, q, torch.ones_like(sd))
+    return g
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:

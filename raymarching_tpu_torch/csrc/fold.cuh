@@ -20,9 +20,10 @@
 //   * scene_sd_idx<W>: the value and the first-wins winner leaf.  W =
 //     Winner is the colour winner and folds leaf by leaf, as
 //     _scene_sd_idx_tile does; W = PathWinner also carries the winning
-//     run's prim type and path sign for K2's gradient, and takes a Menger
-//     group's carve through lattice_carve_idx, as _scene_sd_idx_grad_tile
-//     does.
+//     run's prim type and path sign, and takes a Menger group's carve
+//     through lattice_carve_idx, as _scene_sd_idx_grad_tile does;
+//     winner_grad then gives that winner's gradient, the analytic normal
+//     (K2's combined and analytic modes, shade.cuh's analytic normal).
 //
 // The value folds and the PathWinner fold take a Menger group's carve
 // through the exact lattice collapse (pallas_march._menger_carve_lattice,
@@ -628,6 +629,59 @@ __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
   }
   root.sd = rsign * root.sd;
   return root;
+}
+
+// The winner's gradient, d scene / dp = gsign * scale * d leaf / dp, as
+// _scene_sd_idx_grad_tile folds it: only the winner's gradient survives
+// the fold's selects and sign flips are exact, so the gradient of the
+// scene_sd_idx<PathWinner> winner, evaluated once, is the fold's.  K2's
+// combined and analytic modes and the analytic normal of shade.cuh.
+
+__device__ __forceinline__ float sgn(float v) {
+  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+}
+
+// d leaf sd / dp of leaf i of prim type `type` (pallas_march._prim_sd_grad):
+// sphere (p - c) / max(|p - c|, 1e-30); box one-hot sign on the first
+// argmax axis (ties to x, then y); cross one-hot sign on the median axis.
+template <class S>
+__device__ float3 leaf_grad(const S& s, int type, int i, float px, float py,
+                            float pz) {
+  const float4 a = s.row(2 * i);
+  const float dx = px - a.x, dy = py - a.y, dz = pz - a.z;
+  if (type == kSphere) {
+    const float r = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float inv = 1.0f / fmaxf(r, 1e-30f);
+    return make_float3(dx * inv, dy * inv, dz * inv);
+  }
+  const float3 h = half_size(s, i);
+  const float bx = fabsf(dx) - h.x;
+  const float by = fabsf(dy) - h.y;
+  const float bz = fabsf(dz) - h.z;
+  const float sx = sgn(dx), sy = sgn(dy), sz = sgn(dz);
+  const bool max_x = bx >= fmaxf(by, bz);
+  const bool max_y = !max_x && by >= bz;
+  if (type == kBox)
+    return make_float3(max_x ? sx : 0.0f, max_y ? sy : 0.0f,
+                       (max_x || max_y) ? 0.0f : sz);
+  const bool min_x = bx <= fminf(by, bz);
+  const bool min_y = !min_x && by <= bz;
+  const bool med_x = !(max_x || min_x);
+  const bool med_y = !(max_y || min_y || med_x);
+  const bool med_z = !(med_x || med_y);
+  return make_float3(med_x ? sx : 0.0f, med_y ? sy : 0.0f,
+                     med_z ? sz : 0.0f);
+}
+
+// The winner's gradient: its tag gives the prim type and the path sign
+// gsign * scale (the root's rsign cancels in the chain rule).
+template <class S>
+__device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
+                                              float px, float py, float pz) {
+  if (w.idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
+  const float path = w.tag < 0 ? -1.0f : 1.0f;
+  const float3 lg = leaf_grad(s, abs(w.tag) - 1, w.idx, px, py, pz);
+  return make_float3(path * lg.x, path * lg.y, path * lg.z);
 }
 
 }  // namespace

@@ -3,9 +3,13 @@
 // Replaces raymarching_tpu/ops/pallas_render.py::_render_kernel (the
 // pallas_call in _compiled_render_call; entry pallas_render_rays) for the
 // reference shading model: primary march; first-wins colour winner at the
-// pre-step point; 6-eval central-difference normal; one shadow march per
-// light that stops at the light, with the black-lane and saturation-floor
-// skips; Lambert sum clamped to [saturation, 1].  Its plain PyTorch twin is
+// pre-step point; 6-eval central-difference normal, or the analytic
+// normal (the winner's gradient at the hit, which can also be written out
+// as the fused backward's residuals: JAX's save_winner); one shadow march
+// per light that stops at the light, with the black-lane and
+// saturation-floor skips; Lambert sum clamped to [saturation, 1].  The
+// normal is a template argument: one instantiation each.  Its plain
+// PyTorch twin is
 // raymarching_tpu_torch/ops/render_kernel.py::render_rays_plain.
 //
 // The march and the shading are march.cuh and shade.cuh, which K3
@@ -70,12 +74,15 @@ struct Params {
   const float* dirs;      // [3][R]
   float* out;             // [6][R]: px, py, pz, sd, done, light
   int* iout;              // [2][R]: colour winner, shadow mask
+  float* wres;            // analytic: [4][R] winner sd, gx, gy, gz, or null
+  int* widx;              // analytic: [R] winner leaf (with wres)
   unsigned* counter;      // [1]: the next ray to hand out, zero at launch
   unsigned R;
 };
 
-template <class S>
-__global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
+// The rays of one thread, the body of both entry kernels.
+template <int kNormal, class S>
+__device__ __forceinline__ void render_loop(const Params& P) {
   const S s = stage_scene<S>(P.scene);
   const unsigned R = P.R;
   for (;;) {
@@ -97,7 +104,8 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
 
     // 2-4. colour winner, normal, shadows, Lambert clamp
     const Shade sh =
-        shade(s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz);
+        shade<kNormal>(s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz,
+                       WinnerOut{P.wres, P.widx, i, R});
 
     P.out[i] = hit.x;
     P.out[R + i] = hit.y;
@@ -110,33 +118,62 @@ __global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
   }
 }
 
+// The entries, one a normal, with the launch bounds shade.cuh's
+// kAnalyticBlocks explains.
 template <class S>
+__global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
+  render_loop<kNormalFd, S>(P);
+}
+
+template <class S>
+__global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
+    render_kernel_analytic(const Params P) {
+  render_loop<kNormalAnalytic, S>(P);
+}
+
+// The entry kernel for normal kNormal over scene view S.
+template <int kNormal, class S>
+auto entry() {
+  return kNormal == kNormalAnalytic ? render_kernel_analytic<S>
+                                    : render_kernel<S>;
+}
+
+template <int kNormal, class S>
 int launch(const Params& P, cudaStream_t stream) {
   const unsigned smem = staged_bytes<S>(P.scene);
   unsigned blocks = 0;
-  const int err = persistent_blocks(render_kernel<S>, smem, P.R, &blocks);
+  const int err = persistent_blocks(entry<kNormal, S>(), smem, P.R, &blocks);
   if (err != 0) return err;
-  render_kernel<S><<<blocks, kThreads, smem, stream>>>(P);
+  entry<kNormal, S>()<<<blocks, kThreads, smem, stream>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNormal>
+int launch_view(const Params& P, int shared, cudaStream_t stream) {
+  return shared ? launch<kNormal, SharedScene>(P, stream)
+                : launch<kNormal, DeviceScene>(P, stream);
 }
 
 }  // namespace
 
 // Launch K1 on `stream` over R rays, the scene staged in shared memory
-// (`shared` != 0) or read from device memory; `counter` is one zeroed
-// int32.  Returns a CUDA error code.
+// (`shared` != 0) or read from device memory, with the FD normal
+// (`analytic` == 0) or the analytic one; with the analytic normal and
+// `wres` not null, also the winner residuals wres [4][R] (sd, gx, gy, gz)
+// and widx [R].  `counter` is one zeroed int32.  Returns a CUDA error
+// code.
 extern "C" int rt_render_rays(const void* tbl, const void* groups,
                               const void* runs, const void* lat,
                               const void* lat_flag, int n_rows, int n_groups,
                               int n_runs, int n_lat, int root_min,
                               const void* lights, const void* black,
-                              int shared, int n_lights, int n_black,
-                              int shadows, int sat_skip, int iterations,
-                              float eps, float off, float saturation,
-                              float fd_h, const void* org, float ox, float oy,
-                              float oz, const void* dirs, void* out,
-                              void* iout, void* counter, int64_t R,
-                              void* stream) {
+                              int shared, int analytic, int n_lights,
+                              int n_black, int shadows, int sat_skip,
+                              int iterations, float eps, float off,
+                              float saturation, float fd_h, const void* org,
+                              float ox, float oy, float oz, const void* dirs,
+                              void* out, void* iout, void* wres, void* widx,
+                              void* counter, int64_t R, void* stream) {
   Params P;
   P.scene = scene_args(tbl, groups, runs, lat, lat_flag, lights, n_rows,
                        n_groups, n_runs, n_lat, n_lights, root_min);
@@ -157,23 +194,35 @@ extern "C" int rt_render_rays(const void* tbl, const void* groups,
   P.dirs = static_cast<const float*>(dirs);
   P.out = static_cast<float*>(out);
   P.iout = static_cast<int*>(iout);
+  P.wres = static_cast<float*>(wres);
+  P.widx = static_cast<int*>(widx);
   P.counter = static_cast<unsigned*>(counter);
   if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
   P.R = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
+  if (analytic == 0 && wres != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return shared ? launch<SharedScene>(P, st) : launch<DeviceScene>(P, st);
+  return analytic ? launch_view<kNormalAnalytic>(P, shared, st)
+                  : launch_view<kNormalFd>(P, shared, st);
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
-// shared memory (`shared` != 0) or with the scene in device memory, for
-// reports; negative: a CUDA error code.
-extern "C" int rt_blocks_per_sm(int shared, int staged) {
+// shared memory (`shared` != 0) or with the scene in device memory, with
+// the FD normal (`analytic` == 0) or the analytic one, for reports;
+// negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic) {
   int per_sm = 0;
+  const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
   const int err =
-      shared ? blocks_per_sm(render_kernel<SharedScene>,
-                             static_cast<unsigned>(staged), &per_sm)
-             : blocks_per_sm(render_kernel<DeviceScene>, 0u, &per_sm);
+      analytic ? (shared ? blocks_per_sm(render_kernel_analytic<SharedScene>,
+                                         smem, &per_sm)
+                         : blocks_per_sm(render_kernel_analytic<DeviceScene>,
+                                         smem, &per_sm))
+               : (shared ? blocks_per_sm(render_kernel<SharedScene>, smem,
+                                         &per_sm)
+                         : blocks_per_sm(render_kernel<DeviceScene>, smem,
+                                         &per_sm));
   return err != 0 ? -err : per_sm;
 }
 

@@ -1,13 +1,29 @@
 // Steps 2-4 of the per-ray pipeline, shared by K1 (render_kernel.cu) and K4
 // (shade_kernel.cu): pallas_render._shade_body for the reference shading
 // model.  Given a marched hit point: the first-wins colour winner at the
-// pre-step point; the 6-eval central-difference normal; one shadow march
-// per light that stops at the light, with the black-lane and
-// saturation-floor skips; the Lambert sum clamped to [saturation, 1].
+// pre-step point; the normal; one shadow march per light that stops at
+// the light, with the black-lane and saturation-floor skips; the Lambert
+// sum clamped to [saturation, 1].
+//
+// The normal is a compile-time choice, a template argument of shade() and
+// of both kernels' loops, with one entry function a normal in each, so
+// each instantiation keeps only its own registers:
+// kNormalFd, the 6-eval central difference (reference parity); or
+// kNormalAnalytic, the gradient of the scene_sd_idx<PathWinner> winner at
+// the hit (fold.cuh's winner_grad; JAX _scene_sd_idx_grad_tile, the
+// save-the-winner form of the analytic normal), one fold instead of six,
+// which also writes that winner's (sd, leaf, gradient) as the fused
+// backward's residuals when the kernel is given somewhere to put them.
+// JAX's gradient-only fold (_scene_sd_grad_tile) carries three gradient
+// floats through every select; this one carries the winner and evaluates
+// its gradient once, which keeps the value fold's register budget.  The
+// analytic normal is one non-inlined function and the analytic entries
+// ask for kAnalyticBlocks resident blocks an SM: the FD entries' 48
+// registers in the shared view.
 //
 // Layout.  One thread shades one hit, one point a walk of the scene: the
-// winner fold (leaf by leaf), then the normal's six value folds, then the
-// lights' shadow marches one after the other.
+// winner fold (leaf by leaf), then the normal's six value folds or its
+// one winner fold, then the lights' shadow marches one after the other.
 //
 // What bounds it.  The shadow marches: on the demo at 512x512 SSAA 2 they
 // are 94% of K4's device time (NVIDIA H100 80GB HBM3, 700.00 W;
@@ -59,6 +75,32 @@ struct Shade {
   int smask;     // bit l set = light l shadowed
 };
 
+// shade()'s normal estimators
+constexpr int kNormalFd = 0;
+constexpr int kNormalAnalytic = 1;
+
+// Resident blocks an SM that K1's and K4's analytic entries are built for
+// (the second argument of their __launch_bounds__; 48 registers).  The FD
+// entries keep the register count ptxas picks under
+// __launch_bounds__(kThreads) alone (72 / 48, device / shared view):
+// asking them for even one resident block an SM changes that choice
+// (105-109 registers; the demo at 1024x768 SSAA 3, K1 10.0 -> 13.8 ms).
+// The analytic entries left alone take 72 / 72 registers (K1) and 72 / 80
+// (K4).  Demo, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py --times, in
+// turns: K1 at 1024x768 SSAA 3 10.26 and 9.80 ms with 10 blocks, 10.81
+// with 8, 10.66 and 10.70 left alone; at 512x512 SSAA 2 2.12 and 2.18,
+// 2.08, 2.04; K4 on the 512x512 SSAA 2 hits 1.39-1.42 ms with 8 or 10,
+// 1.41 left alone (FD: K1 10.0 and 2.2 ms, K4 1.67).
+constexpr int kAnalyticBlocks = 10;
+
+// Where the analytic normal's winner residuals of ray i of R go: (sd, gx,
+// gy, gz) to f[k R + i], the winner leaf to idx[i]; nowhere when f is null.
+struct WinnerOut {
+  float* f;
+  int* idx;
+  unsigned i, R;
+};
+
 // Unit direction from p to light li (xyz) and the Lambert term n . dir (w).
 // Not inlined: the saturation-floor bound and the shade loop must round it
 // identically for the skip to stay exact.
@@ -76,13 +118,34 @@ __device__ __noinline__ float4 light_dir(const S s, int li, float px, float py,
   return make_float4(rx, ry, rz, nx * rx + ny * ry + nz * rz);
 }
 
-// Shade the hit point (px, py, pz) of a ray of direction (dx, dy, dz) whose
-// march last evaluated the SD `sd` one step back.
+// The analytic normal at (px, py, pz), not normalised: the gradient of the
+// scene_sd_idx<PathWinner> winner; its (sd, leaf, gradient) go to `wo`.
+// Not inlined: a call leaves the entry the registers of a call, as the FD
+// normal's six scene_sd calls do (inlined, K1 at 1024x768 SSAA 3 took
+// 11.0-11.6 ms against the FD entry's 10.0; see kAnalyticBlocks).
 template <class S>
+__device__ __noinline__ float3 analytic_normal(const S s, float px, float py,
+                                               float pz, const WinnerOut wo) {
+  const PathWinner w = scene_sd_idx<PathWinner>(s, px, py, pz);
+  const float3 g = winner_grad(s, w, px, py, pz);
+  if (wo.f != nullptr) {
+    wo.f[wo.i] = w.sd;
+    wo.f[wo.R + wo.i] = g.x;
+    wo.f[2 * wo.R + wo.i] = g.y;
+    wo.f[3 * wo.R + wo.i] = g.z;
+    wo.idx[wo.i] = w.idx;
+  }
+  return g;
+}
+
+// Shade the hit point (px, py, pz) of a ray of direction (dx, dy, dz) whose
+// march last evaluated the SD `sd` one step back; with kNormalAnalytic,
+// write the normal's winner residuals to `wo`.
+template <int kNormal, class S>
 __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
                                        float px, float py, float pz,
                                        float sd, float dx, float dy,
-                                       float dz) {
+                                       float dz, const WinnerOut wo) {
   // 2. colour winner at the pre-step point (scene.cpp:34-42)
   const float back = fminf(sd, kMaxStep);
   const int cidx =
@@ -98,11 +161,20 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
     skip = isb;
   }
 
-  // 3. normal: unscaled central differences, normalised with a tiny floor
-  const float h = P.fd_h;
-  const float gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
-  const float gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
-  const float gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
+  // 3. normal: unscaled central differences, or the winner's gradient at
+  // the hit; normalised with a tiny floor
+  float gx, gy, gz;
+  if constexpr (kNormal == kNormalAnalytic) {
+    const float3 g = analytic_normal(s, px, py, pz, wo);
+    gx = g.x;
+    gy = g.y;
+    gz = g.z;
+  } else {
+    const float h = P.fd_h;
+    gx = scene_sd(s, px + h, py, pz) - scene_sd(s, px - h, py, pz);
+    gy = scene_sd(s, px, py + h, pz) - scene_sd(s, px, py - h, pz);
+    gz = scene_sd(s, px, py, pz + h) - scene_sd(s, px, py, pz - h);
+  }
   const float gn = sqrtf(gx * gx + gy * gy + gz * gz);
   const float inv = 1.0f / fmaxf(gn, FLT_MIN);
   const float nx = gx * inv, ny = gy * inv, nz = gz * inv;

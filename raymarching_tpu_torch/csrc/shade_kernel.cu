@@ -5,10 +5,12 @@
 // backend's two-phase path: the hit points come from K3 (march_kernel.cu)
 // instead of a march inside the kernel.  Per ray, from (hit point, last
 // SD, direction): the first-wins colour winner at the pre-step point, the
-// 6-eval central-difference normal, one shadow march per light that stops
-// at the light, with the black-lane and saturation-floor skips, and the
-// Lambert sum clamped to [saturation, 1] (the reference shading model;
-// white lights).  Its plain PyTorch twin is
+// 6-eval central-difference normal or the analytic one (with the winner
+// residuals of the fused backward when asked, exactly as K1 writes them),
+// one shadow march per light that stops at the light, with the black-lane
+// and saturation-floor skips, and the Lambert sum clamped to [saturation,
+// 1] (the reference shading model; white lights).  The normal is a
+// template argument.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/shade_kernel.py::shade_rays_plain.
 //
 // Layout.  K1's: a persistent grid, the scene and the lights staged in
@@ -42,55 +44,100 @@
 
 namespace {
 
-template <class S>
-__global__ void __launch_bounds__(kThreads)
-    shade_kernel(const SceneArgs A, const ShadeParams P, const float* in,
-                 float* light, int* iout, unsigned* counter, unsigned R) {
+// The rays' buffers: in [7][R] (p xyz, sd, direction xyz), light [R],
+// iout [2][R] (colour winner, shadow mask), and with the analytic normal
+// the winner residuals wres [4][R] (sd, gx, gy, gz) and widx [R], or null.
+struct Rays {
+  const float* in;
+  float* light;
+  int* iout;
+  float* wres;
+  int* widx;
+  unsigned* counter;   // [1]: the next ray to hand out, zero at launch
+  unsigned R;
+};
+
+// The rays of one thread, the body of both entry kernels.
+template <int kNormal, class S>
+__device__ __forceinline__ void shade_loop(const SceneArgs& A,
+                                           const ShadeParams& P,
+                                           const Rays& B) {
   const S s = stage_scene<S>(A);
+  const unsigned R = B.R;
+  const float* in = B.in;
   for (;;) {
-    const unsigned base = next_rays(counter);
+    const unsigned base = next_rays(B.counter);
     if (base >= R) break;
     const unsigned i = base + (threadIdx.x & 31u);
     if (i >= R) continue;
-    const Shade sh =
-        shade(s, P, in[i], in[R + i], in[2 * R + i], in[3 * R + i],
-              in[4 * R + i], in[5 * R + i], in[6 * R + i]);
-    light[i] = sh.light;
-    iout[i] = sh.cidx;
-    iout[R + i] = sh.smask;
+    const Shade sh = shade<kNormal>(
+        s, P, in[i], in[R + i], in[2 * R + i], in[3 * R + i], in[4 * R + i],
+        in[5 * R + i], in[6 * R + i], WinnerOut{B.wres, B.widx, i, R});
+    B.light[i] = sh.light;
+    B.iout[i] = sh.cidx;
+    B.iout[R + i] = sh.smask;
   }
 }
 
+// The entries, one a normal, with the launch bounds shade.cuh's
+// kAnalyticBlocks explains.
 template <class S>
-int launch(const SceneArgs& A, const ShadeParams& P, const float* in,
-           float* light, int* iout, unsigned* counter, unsigned R,
+__global__ void __launch_bounds__(kThreads)
+    shade_kernel(const SceneArgs A, const ShadeParams P, const Rays B) {
+  shade_loop<kNormalFd, S>(A, P, B);
+}
+
+template <class S>
+__global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
+    shade_kernel_analytic(const SceneArgs A, const ShadeParams P,
+                          const Rays B) {
+  shade_loop<kNormalAnalytic, S>(A, P, B);
+}
+
+// The entry kernel for normal kNormal over scene view S.
+template <int kNormal, class S>
+auto entry() {
+  return kNormal == kNormalAnalytic ? shade_kernel_analytic<S>
+                                    : shade_kernel<S>;
+}
+
+template <int kNormal, class S>
+int launch(const SceneArgs& A, const ShadeParams& P, const Rays& B,
            cudaStream_t stream) {
   const unsigned smem = staged_bytes<S>(A);
   unsigned blocks = 0;
-  const int err = persistent_blocks(shade_kernel<S>, smem, R, &blocks);
+  const int err = persistent_blocks(entry<kNormal, S>(), smem, B.R, &blocks);
   if (err != 0) return err;
-  shade_kernel<S><<<blocks, kThreads, smem, stream>>>(A, P, in, light, iout,
-                                                      counter, R);
+  entry<kNormal, S>()<<<blocks, kThreads, smem, stream>>>(A, P, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNormal>
+int launch_view(const SceneArgs& A, const ShadeParams& P, const Rays& B,
+                int shared, cudaStream_t stream) {
+  return shared ? launch<kNormal, SharedScene>(A, P, B, stream)
+                : launch<kNormal, DeviceScene>(A, P, B, stream);
 }
 
 }  // namespace
 
 // Launch K4 on `stream` over R rays: in [7][R] (p xyz, sd, direction xyz),
 // light [R], iout [2][R] (colour winner, shadow mask); the scene staged in
-// shared memory (`shared` != 0) or read from device memory; `counter` is
-// one zeroed int32.  Returns a CUDA error code.
+// shared memory (`shared` != 0) or read from device memory; the FD normal
+// (`analytic` == 0) or the analytic one, and with it and `wres` not null
+// the winner residuals wres [4][R] (sd, gx, gy, gz) and widx [R];
+// `counter` is one zeroed int32.  Returns a CUDA error code.
 extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                              const void* runs, const void* lat,
                              const void* lat_flag, int n_rows, int n_groups,
                              int n_runs, int n_lat, int root_min,
                              const void* lights, const void* black,
-                             int shared, int n_lights, int n_black,
-                             int shadows, int sat_skip, int iterations,
-                             float eps, float off, float saturation,
-                             float fd_h, const void* in, void* light,
-                             void* iout, void* counter, int64_t R,
-                             void* stream) {
+                             int shared, int analytic, int n_lights,
+                             int n_black, int shadows, int sat_skip,
+                             int iterations, float eps, float off,
+                             float saturation, float fd_h, const void* in,
+                             void* light, void* iout, void* wres, void* widx,
+                             void* counter, int64_t R, void* stream) {
   const SceneArgs s = scene_args(tbl, groups, runs, lat, lat_flag, lights,
                                  n_rows, n_groups, n_runs, n_lat, n_lights,
                                  root_min);
@@ -104,27 +151,34 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                       off,
                       saturation,
                       fd_h};
-  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 0 || R > kMaxRays || (analytic == 0 && wres != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
+  const Rays B{static_cast<const float*>(in), static_cast<float*>(light),
+               static_cast<int*>(iout),       static_cast<float*>(wres),
+               static_cast<int*>(widx),       static_cast<unsigned*>(counter),
+               static_cast<unsigned>(R)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* inf = static_cast<const float*>(in);
-  float* lf = static_cast<float*>(light);
-  int* io = static_cast<int*>(iout);
-  unsigned* ctr = static_cast<unsigned*>(counter);
-  const unsigned n = static_cast<unsigned>(R);
-  return shared ? launch<SharedScene>(s, P, inf, lf, io, ctr, n, st)
-                : launch<DeviceScene>(s, P, inf, lf, io, ctr, n, st);
+  return analytic ? launch_view<kNormalAnalytic>(s, P, B, shared, st)
+                  : launch_view<kNormalFd>(s, P, B, shared, st);
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
-// shared memory (`shared` != 0) or with the scene in device memory, for
-// reports; negative: a CUDA error code.
-extern "C" int rt_blocks_per_sm(int shared, int staged) {
+// shared memory (`shared` != 0) or with the scene in device memory, with
+// the FD normal (`analytic` == 0) or the analytic one, for reports;
+// negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic) {
   int per_sm = 0;
+  const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
   const int err =
-      shared ? blocks_per_sm(shade_kernel<SharedScene>,
-                             static_cast<unsigned>(staged), &per_sm)
-             : blocks_per_sm(shade_kernel<DeviceScene>, 0u, &per_sm);
+      analytic ? (shared ? blocks_per_sm(shade_kernel_analytic<SharedScene>,
+                                         smem, &per_sm)
+                         : blocks_per_sm(shade_kernel_analytic<DeviceScene>,
+                                         smem, &per_sm))
+               : (shared ? blocks_per_sm(shade_kernel<SharedScene>, smem,
+                                         &per_sm)
+                         : blocks_per_sm(shade_kernel<DeviceScene>, smem,
+                                         &per_sm));
   return err != 0 ? -err : per_sm;
 }
 

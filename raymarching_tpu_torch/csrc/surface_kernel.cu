@@ -1,4 +1,4 @@
-// K2: the scene evaluated at given points, in four modes.
+// K2: the scene evaluated at given points, in five modes.
 //
 // Replaces raymarching_tpu/ops/pallas_march.py::_surface_kernel (the
 // pallas_call in _compiled_surface_call; entry pallas_surface_eval), not
@@ -14,9 +14,12 @@
 //     backend's colour lookup at the pre-step points;
 //   * fd (with_normal): the SD and the central-difference gradient
 //     (f(p + h e_a) - f(p - h e_a)) * (1 / 2h) from six more folds, the
-//     multi-kernel backend's normals.
-// The gradient-only analytic mode and the fused-generator modes are not
-// ported yet.  Its plain PyTorch twin is
+//     multi-kernel backend's normals;
+//   * analytic (with_normal, analytic): the SD and the winner's gradient,
+//     no winner: the multi-kernel backend's analytic normals.  The
+//     combined mode's fold without its winner store, so its SD and
+//     gradient are the combined mode's, bitwise.
+// The fused-generator modes are not ported yet.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/surface_kernel.py::surface_eval_plain.
 //
 // Layout.  K1's: a persistent grid (persist.cuh), the scene staged in each
@@ -36,13 +39,14 @@
 // Design.  The JAX kernel carries the gradient through every select of the
 // fold.  Only the winner's gradient survives, and sign flips are exact, so
 // this kernel folds (sd, winner, the winning run's prim type and path
-// sign) and then evaluates the gradient of the winning leaf alone: the
-// same bits, for one leaf gradient per point instead of one per leaf.  In
-// the combined mode a Menger group's carve goes through the lattice
-// collapse with winner rows (fold.cuh's lattice_carve_idx), as the JAX
-// kernel's does; the winner mode is the colour winner and folds leaf by
-// leaf.  The fd mode evaluates its seven points in one walk of the scene
-// (scene_sd_n<7>), or with `multipoint` off in seven.
+// sign) and then evaluates the gradient of the winning leaf alone
+// (fold.cuh's winner_grad): the same bits, for one leaf gradient per point
+// instead of one per leaf.  In the combined and analytic modes a Menger
+// group's carve goes through the lattice collapse with winner rows
+// (fold.cuh's lattice_carve_idx), as the JAX kernel's does; the winner
+// mode is the colour winner and folds leaf by leaf.  The fd mode evaluates
+// its seven points in one walk of the scene (scene_sd_n<7>), or with
+// `multipoint` off in seven.
 //
 // What bounds it.  The combined mode on the backward's stencils: bytes
 // (12 read a hit and 20 written a stencil point, against a fold the cull
@@ -67,64 +71,19 @@
 
 namespace {
 
-__device__ __forceinline__ float sgn(float v) {
-  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-}
-
-// d leaf sd / dp of leaf i of prim type `type` (pallas_march._prim_sd_grad):
-// sphere (p - c) / max(|p - c|, 1e-30); box one-hot sign on the first
-// argmax axis (ties to x, then y); cross one-hot sign on the median axis.
-template <class S>
-__device__ float3 leaf_grad(const S& s, int type, int i, float px, float py,
-                            float pz) {
-  const float4 a = s.row(2 * i);
-  const float dx = px - a.x, dy = py - a.y, dz = pz - a.z;
-  if (type == kSphere) {
-    const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float inv = 1.0f / fmaxf(r, 1e-30f);
-    return make_float3(dx * inv, dy * inv, dz * inv);
-  }
-  const float3 h = half_size(s, i);
-  const float bx = fabsf(dx) - h.x;
-  const float by = fabsf(dy) - h.y;
-  const float bz = fabsf(dz) - h.z;
-  const float sx = sgn(dx), sy = sgn(dy), sz = sgn(dz);
-  const bool max_x = bx >= fmaxf(by, bz);
-  const bool max_y = !max_x && by >= bz;
-  if (type == kBox)
-    return make_float3(max_x ? sx : 0.0f, max_y ? sy : 0.0f,
-                       (max_x || max_y) ? 0.0f : sz);
-  const bool min_x = bx <= fminf(by, bz);
-  const bool min_y = !min_x && by <= bz;
-  const bool med_x = !(max_x || min_x);
-  const bool med_y = !(max_y || min_y || med_x);
-  const bool med_z = !(med_x || med_y);
-  return make_float3(med_x ? sx : 0.0f, med_y ? sy : 0.0f,
-                     med_z ? sz : 0.0f);
-}
-
 // ops/surface_kernel.py's mode codes
 constexpr int kCombined = 0;
 constexpr int kSdOnly = 1;
 constexpr int kWinner = 2;
 constexpr int kFdGrad = 3;
-
-// The winner's gradient: its tag gives the prim type and the path sign
-// gsign * scale (the root's rsign cancels in the chain rule).
-template <class S>
-__device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
-                                              float px, float py, float pz) {
-  if (w.idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
-  const float path = w.tag < 0 ? -1.0f : 1.0f;
-  const float3 lg = leaf_grad(s, abs(w.tag) - 1, w.idx, px, py, pz);
-  return make_float3(path * lg.x, path * lg.y, path * lg.z);
-}
+constexpr int kAnalytic = 4;
 
 struct SurfaceParams {
   SceneArgs scene;
   const float* q;       // [3][n]: the points, or the hits of a stencil
-  float* out;           // [4][M] (sd, gx, gy, gz) in the combined and fd
-                        // modes, else [1][M]; M = n, or K n for a stencil
+  float* out;           // [4][M] (sd, gx, gy, gz) in the combined, fd and
+                        // analytic modes, else [1][M]; M = n, or K n for a
+                        // stencil
   int* widx;            // [M] in the combined and winner modes
   unsigned* counter;    // [1]: the next item to hand out, zero at launch
   float h, inv_2h;      // the fd mode's and the stencil's offset; 1 / 2h
@@ -182,6 +141,13 @@ __global__ void __launch_bounds__(kThreads)
       P.widx[i] = w.idx;
     } else if (kMode == kSdOnly) {
       P.out[i] = scene_sd(s, px, py, pz);
+    } else if (kMode == kAnalytic) {
+      const PathWinner w = scene_sd_idx<PathWinner>(s, px, py, pz);
+      const float3 g = winner_grad(s, w, px, py, pz);
+      P.out[i] = w.sd;
+      P.out[n + i] = g.x;
+      P.out[2 * n + i] = g.y;
+      P.out[3 * n + i] = g.z;
     } else {
       // pallas_march._surface_kernel's order of operations: the difference
       // first, then one multiplication by 1 / 2h
@@ -229,8 +195,8 @@ int launch_view(const SurfaceParams& P, int shared, cudaStream_t stream) {
 }  // namespace
 
 // Launch K2 in `mode` on `stream` over N points q [3][N]; out [4][N] (sd,
-// gx, gy, gz) in the combined and fd modes, else [1][N]; widx [N] in the
-// combined and winner modes; the scene staged in shared memory (`shared`
+// gx, gy, gz) in the combined, fd and analytic modes, else [1][N]; widx
+// [N] in the combined and winner modes; the scene staged in shared memory (`shared`
 // != 0) or read from device memory; `counter` is one zeroed int32; h and
 // inv_2h (= 1 / 2h, rounded by the caller) and `multipoint` are read in
 // the fd mode only.  Returns a CUDA error code, cudaErrorInvalidValue for
@@ -254,7 +220,7 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
   P.inv_2h = inv_2h;
   P.center = 0;
   P.multipoint = multipoint;
-  if (mode < kCombined || mode > kFdGrad || N < 0 || N > kMaxRays)
+  if (mode < kCombined || mode > kAnalytic || N < 0 || N > kMaxRays)
     return static_cast<int>(cudaErrorInvalidValue);
   P.n = static_cast<unsigned>(N);
   if (N == 0) return static_cast<int>(cudaGetLastError());
@@ -263,7 +229,8 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
     case kCombined: return launch_view<kCombined, false>(P, shared, st);
     case kSdOnly: return launch_view<kSdOnly, false>(P, shared, st);
     case kWinner: return launch_view<kWinner, false>(P, shared, st);
-    default: return launch_view<kFdGrad, false>(P, shared, st);
+    case kFdGrad: return launch_view<kFdGrad, false>(P, shared, st);
+    default: return launch_view<kAnalytic, false>(P, shared, st);
   }
 }
 

@@ -1,13 +1,21 @@
-"""The differentiable FD normal: K2 forward, stencil backward.
+"""The differentiable normal: K2 forward, winner-algebra backward.
 
-Counterpart of ``raymarching_tpu.api._normal_op`` on its exact-table
-finite-difference branch.  Forward: K2 in its ``FD_GRAD`` mode, g_a =
-(f(p + h e_a) - f(p - h e_a)) / 2h.  Backward (``scene_vjp
-.fd_normal_bwd``): ONE K2 launch in its combined mode over the six stencil
-points of every point, the rows' SD cotangents +-g_bar_a / 2h, then
-p_bar = sum of u * (d scene / dp) over the rows and one scatter of the
-parameter cotangents.  The analytic, fused-generator and procedural
-branches are not ported yet.
+Counterpart of ``raymarching_tpu.api._normal_op`` on its two exact-table
+branches, chosen by ``cfg.normal_mode``:
+
+  * ``"fd"``: forward K2 in its ``FD_GRAD`` mode, g_a = (f(p + h e_a) -
+    f(p - h e_a)) / 2h.  Backward (``scene_vjp.fd_normal_bwd``): ONE K2
+    launch in its combined mode over the six stencil points of every
+    point, the rows' SD cotangents +-g_bar_a / 2h, then p_bar = sum of
+    u * (d scene / dp) over the rows and one scatter of the parameter
+    cotangents.
+  * ``"analytic"``: forward K2 in its ``ANALYTIC`` mode, the winner's
+    gradient.  Backward (``scene_vjp.analytic_normal_bwd``, JAX
+    ``api._normal_bwd``): ONE K2 launch in its combined mode at the
+    points, the closed-form winner Hessian chain, one scatter onto
+    prim_pos.
+
+The fused-generator and procedural branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,17 +24,15 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
-from .scene_vjp import (fd_stencil_cotangents, stencil_eval,
-                        stencil_theta_cotangents)
-from .surface_kernel import FD_GRAD, surface_eval
+from .scene_vjp import (analytic_normal_bwd, fd_stencil_cotangents,
+                        stencil_eval, stencil_theta_cotangents)
+from .shade_kernel import check_normal_mode
+from .surface_kernel import ANALYTIC, FD_GRAD, surface_eval
 
 
 def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for ``_normal_op``'s other branches."""
-    if cfg.normal_mode != "fd":
-        raise NotImplementedError(
-            f"not ported yet: normal_mode={cfg.normal_mode!r} (ROADMAP "
-            "Queue 1 item 7)")
+    check_normal_mode(cfg, False)
     if cfg.fused_generators:
         raise NotImplementedError(
             "not ported yet: fused generators (ROADMAP Queue 1 item 8)")
@@ -44,7 +50,8 @@ class NormalOp(torch.autograd.Function):
     def forward(ctx, plan: ScenePlan, cfg: RenderConfig, p, *fields):
         check_supported(plan, cfg)
         tables = SceneTables(*fields)
-        _, _, g = surface_eval(plan, tables, p, mode=FD_GRAD, fd_h=cfg.fd_h)
+        mode = ANALYTIC if cfg.normal_mode == "analytic" else FD_GRAD
+        _, _, g = surface_eval(plan, tables, p, mode=mode, fd_h=cfg.fd_h)
         ctx.plan, ctx.cfg = plan, cfg
         ctx.save_for_backward(p, *fields)
         return g
@@ -59,12 +66,19 @@ class NormalOp(torch.autograd.Function):
         need_theta = any(ctx.needs_input_grad[3:5])   # prim_pos, prim_aux
         if not (need_p or need_theta):
             return (None,) * (3 + len(fields))
-        _, widx, g = stencil_eval(plan, cfg, tables, p, center=False)
-        u = fd_stencil_cotangents(cfg, g_bar)                    # [6, R]
-        p_bar = (u[..., None] * g).sum(dim=0)
-        # the float64 scatter only when a geometry field asks for it
-        pos_bar, aux_bar = (stencil_theta_cotangents(plan, tables, widx, g, u)
-                            if need_theta else (None, None))
+        if cfg.normal_mode == "analytic":
+            # radii and sizes do not move the winner's gradient
+            p_bar, pos_bar = analytic_normal_bwd(plan, tables, p, g_bar,
+                                                 need_theta)
+            aux_bar = None
+        else:
+            _, widx, g = stencil_eval(plan, cfg, tables, p, center=False)
+            u = fd_stencil_cotangents(cfg, g_bar)                # [6, R]
+            p_bar = (u[..., None] * g).sum(dim=0)
+            # the float64 scatter only when a geometry field asks for it
+            pos_bar, aux_bar = (
+                stencil_theta_cotangents(plan, tables, widx, g, u)
+                if need_theta else (None, None))
         grads = SceneTables(
             prim_pos=pos_bar, prim_aux=aux_bar, prim_color=None,
             light_pos=None, light_color=None, cam_position=None,

@@ -6,6 +6,12 @@ Counterpart of ``raymarching_tpu.ops.pallas_render.pallas_render_rays``
 in plain PyTorch from the ``core`` modules and is what a CPU tensor gets.
 A CUDA tensor always goes to the kernel: a build or launch failure raises.
 
+The normal is a compile-time choice of the kernel: FD, or with
+``cfg.normal_mode="analytic"`` the combined fold's winner gradient (JAX
+``_scene_sd_idx_grad_tile``), which with ``save_winner`` also writes the
+winner residuals (``shade_kernel.Winner``) that the fused analytic
+backward reads instead of launching a kernel.
+
 With ``0 < cfg.two_phase_k1 < cfg.iterations`` the same outputs come from
 three launches instead of one (``pallas_render._two_phase_march`` and the
 shade call): K3 (``ops.march_kernel``) for ``k1`` steps over every ray, K3
@@ -29,8 +35,10 @@ from ..scene.compile import ScenePlan, SceneTables
 from .. import tables as scene_tables
 from . import build
 from .march_kernel import march_rays
-from .shade_kernel import (MAX_LIGHTS, shade_operands, shade_rays,
-                           shade_rays_plain)
+from .scene_vjp import gather_rows
+from .shade_kernel import (MAX_LIGHTS, check_normal_mode, ptr_or_none,
+                           shade_operands, shade_rays, shade_rays_plain,
+                           winner_buffers, winner_of)
 
 # Phase-2 capacity as a fraction of the rays (pallas_render
 # ._PHASE2_CAP_FRAC): with more rays than that still marching after phase 1,
@@ -60,8 +68,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = "coloured lights (ROADMAP Queue 1 item 9)"
     elif cfg.fused_generators:
         todo = "fused generators (ROADMAP Queue 1 item 8)"
-    elif cfg.normal_mode != "fd":
-        todo = f"normal_mode={cfg.normal_mode!r} (ROADMAP Queue 1 item 7)"
     elif cfg.soft_shadow_k > 0.0 or cfg.ao_strength > 0.0:
         todo = "soft shadows and AO (ROADMAP Queue 1 item 9)"
     elif cfg.reflect_strength > 0.0:
@@ -74,24 +80,36 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = f"more than {MAX_LIGHTS} lights"
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
+    check_normal_mode(cfg, False)
 
 
 def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                       origin: torch.Tensor, dirs: torch.Tensor,
-                      collapse: bool = True) -> RayOutputs:
+                      collapse: bool = True, save_winner: bool = False):
     """K1 in plain PyTorch, the same arithmetic in the same order: the
     march over the kernel-form fold, then K4's plain twin on its hit
     points (one march whatever ``cfg.two_phase_k1`` says: this is the
-    twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3]."""
+    twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3] ->
+    RayOutputs, or with ``save_winner`` (RayOutputs, Winner)."""
     check_supported(plan, cfg)
+    check_normal_mode(cfg, save_winner)
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
             plan, tables, q, collapse=collapse)[0]
         hit = march(sd_fn, origin, dirs, cfg.iterations,
                     cfg.surface_precision)
-    sh = shade_rays_plain(plan, cfg, tables, hit.position, hit.sd, dirs,
-                          collapse)
-    return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
+    return _ray_outputs(hit, shade_rays_plain(
+        plan, cfg, tables, hit.position, hit.sd, dirs, collapse, save_winner),
+        save_winner)
+
+
+def _ray_outputs(hit: MarchResult, shaded, save_winner: bool):
+    """RayOutputs of a march and its shading, and with ``save_winner`` the
+    shading's winner residuals beside them."""
+    if not save_winner:
+        return RayOutputs(hit.position, hit.sd, hit.converged, *shaded)
+    sh, winner = shaded
+    return RayOutputs(hit.position, hit.sd, hit.converged, *sh), winner
 
 
 def phase2_capacity(cfg: RenderConfig, R: int) -> int:
@@ -136,8 +154,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library("render_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_render_rays.argtypes = (
-        [ptr] * 5 + [i32] * 5 + [ptr] * 2 + [i32] * 6 + [f32] * 4
-        + [ptr, f32, f32, f32] + [ptr] * 4 + [ctypes.c_int64, ptr])
+        [ptr] * 5 + [i32] * 5 + [ptr] * 2 + [i32] * 7 + [f32] * 4
+        + [ptr, f32, f32, f32] + [ptr] * 6 + [ctypes.c_int64, ptr])
     lib.rt_render_rays.restype = i32
     return lib
 
@@ -145,24 +163,27 @@ def _library() -> ctypes.CDLL:
 @torch.no_grad()
 def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                 origin: torch.Tensor, dirs: torch.Tensor,
-                collapse: bool = True) -> RayOutputs:
+                collapse: bool = True, save_winner: bool = False):
     """Fused forward for rays ``dirs`` [R, 3] from ``origin`` [3] or
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
-    CPU tensors take the plain twin; CUDA tensors launch K1, or with
-    ``cfg.two_phase_k1`` set K3, K3 and K4 (their plain twins on the
-    CPU).  Forward only: it records no autograd graph
+    -> RayOutputs, or with ``save_winner`` (analytic normals)
+    (RayOutputs, Winner).  CPU tensors take the plain twin; CUDA tensors
+    launch K1, or with ``cfg.two_phase_k1`` set K3, K3 and K4 (their
+    plain twins on the CPU).  Forward only: it records no autograd graph
     (``ops.render_op.FusedRender`` differentiates it).  ``collapse``: the
     scene fold may take the exact Menger lattice collapse (the same bits
     as the leaf fold, which ``collapse=False`` keeps)."""
     dev = dirs.device
     check_supported(plan, cfg)
+    analytic = check_normal_mode(cfg, save_winner)
     if 0 < cfg.two_phase_k1 < cfg.iterations:
         hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
-        sh = shade_rays(plan, cfg, tables, hit.position, hit.sd, dirs,
-                        collapse)
-        return RayOutputs(hit.position, hit.sd, hit.converged, *sh)
+        return _ray_outputs(hit, shade_rays(
+            plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
+            save_winner), save_winner)
     if dev.type == "cpu":
-        return render_rays_plain(plan, cfg, tables, origin, dirs, collapse)
+        return render_rays_plain(plan, cfg, tables, origin, dirs, collapse,
+                                 save_winner)
     if dev.type != "cuda":
         raise ValueError(f"render_rays: unsupported device {dev}")
     tensors = [origin, dirs, *tables]
@@ -187,37 +208,30 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         org_soa, o3 = None, tuple(float(v) for v in origin.tolist())
     out = torch.empty((6, R), dtype=torch.float32, device=dev)
     iout = torch.empty((2, R), dtype=torch.int32, device=dev)
+    wres, widx = winner_buffers(R, dev, save_winner)
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_render_rays(
             *scene.args(), lights.data_ptr(), black_t.data_ptr(), int(shared),
-            *shade_args, org_soa.data_ptr() if org_soa is not None else None,
-            *o3, dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(),
-            counter.data_ptr(), R, stream)
+            int(analytic), *shade_args, ptr_or_none(org_soa), *o3,
+            dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(),
+            ptr_or_none(wres), ptr_or_none(widx), counter.data_ptr(), R,
+            stream)
     build.check(lib, code, "render kernel launch")
     if R:    # the C entry point launches nothing for zero rays
         render_rays.launches += 1
     sd = out[3]
-    return RayOutputs(p=out[:3].t(), sd=sd,
-                      done=(out[4] > 0.5) & (sd < cfg.surface_precision),
-                      cidx=iout[0], light=out[5], smask=iout[1])
+    ray = RayOutputs(p=out[:3].t(), sd=sd,
+                     done=(out[4] > 0.5) & (sd < cfg.surface_precision),
+                     cidx=iout[0], light=out[5], smask=iout[1])
+    return (ray, winner_of(wres, widx)) if save_winner else ray
 
 
 render_rays.launches = 0
 
 
-def winner_colors(cidx: torch.Tensor, prim_color: torch.Tensor
-                  ) -> torch.Tensor:
-    """Colours [R, 3] of the winner leaves, misses black: a row gather
-    from the colour table with one zero row appended."""
-    P = prim_color.shape[0]
-    table = torch.cat([prim_color, prim_color.new_zeros(1, 3)])
-    idx = torch.where(cidx < 0, P, cidx).long()
-    return table.index_select(0, idx)
-
-
 def blend(cidx: torch.Tensor, light: torch.Tensor,
           prim_color: torch.Tensor) -> torch.Tensor:
     """Ray colours [R, 3] = light * winner colour, misses black."""
-    return light[:, None] * winner_colors(cidx, prim_color)
+    return light[:, None] * gather_rows(cidx, prim_color)

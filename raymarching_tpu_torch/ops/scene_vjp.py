@@ -1,7 +1,8 @@
-"""Winner algebra of the exact-FD backward: stencil, cotangents, scatter.
+"""Winner algebra of the exact-table backwards: stencil, cotangents, scatter.
 
 Counterpart of ``raymarching_tpu.ops.scene_vjp`` (the exact-table,
-two-level part) and of ``ops.march_op.ift_ray_weights``.  Through every
+two-level part: the FD stencil and the analytic normal's winner Hessian)
+and of ``ops.march_op.ift_ray_weights``.  Through every
 min/max fold the scene SDF is a.e. ``sign_eff * sd_w`` for one winning
 leaf w with a static path sign, so K2's (sd, winner, gradient) per point
 turn every parameter cotangent into a per-point formula and one
@@ -17,7 +18,7 @@ have identical fields, so sums over a tie class agree.
 The JAX package reduces with blocked one-hot matmuls (``_segment_add``,
 ``_gather_rows``), a workaround for the TPU's slow scatter; here the
 reduction is ``index_add_`` (float atomics on the card, so the order of
-the sum changes from run to run).
+the sum changes from run to run) and the gather ``index_select``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..scene.compile import ScenePlan, SceneTables
 from ..scene.csg import PrimType
 
 from ..core.sdf import leaf_signs
-from .surface_kernel import surface_stencil
+from .surface_kernel import COMBINED, surface_eval, surface_stencil
 
 # |grad f . d| can vanish at grazing incidence: the sign-preserving floor
 # of march_op._DENOM_EPS
@@ -52,6 +53,13 @@ def leaf_statics(plan: ScenePlan) -> Tuple[np.ndarray, np.ndarray]:
     is_sphere[:plan.num_primitives] = (np.asarray(plan.prim_type, np.int32)
                                        == int(PrimType.SPHERE))
     return sign_eff, is_sphere
+
+
+def winner_eval(plan: ScenePlan, tables: SceneTables, p: torch.Tensor
+                ) -> tuple:
+    """(sd [R], winner leaf [R] int32, d scene / dp [R, 3]) at points
+    p [R, 3]: one K2 launch in its combined mode (scene_vjp.winner_eval)."""
+    return surface_eval(plan, tables, p, mode=COMBINED)
 
 
 def stencil_eval(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
@@ -103,6 +111,17 @@ def segment_add(idx: torch.Tensor, vals: torch.Tensor, P: int
     return out.index_add_(0, rows, vals.double())[:P].to(vals.dtype)
 
 
+def gather_rows(idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """rows[idx] [R, C] for idx [R] into rows [P, C], zero rows where idx
+    is negative (scene_vjp._gather_rows): one ``index_select`` from the
+    table with a zero row appended.  The winner colours of the blend and
+    the replay, and the winner statics of the Hessian chain; under
+    autograd its cotangent is one row scatter."""
+    P = rows.shape[0]
+    table = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    return table.index_select(0, torch.where(idx < 0, P, idx).long())
+
+
 def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
                      g: torch.Tensor, u: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,3 +159,52 @@ def stencil_theta_cotangents(plan: ScenePlan, tables: SceneTables,
     K = widx.shape[0]
     return theta_cotangents(plan, tables, widx.reshape(-1),
                             g.reshape(K * g.shape[1], 3), u.reshape(-1))
+
+
+def winner_hessian_chain(plan: ScenePlan, tables: SceneTables,
+                         widx: torch.Tensor, g: torch.Tensor,
+                         gbar: torch.Tensor, sd: torch.Tensor) -> tuple:
+    """The a.e. VJP of the analytic normal's primal, the winner-gradient
+    field g(p) (scene_vjp.winner_hessian_chain).  Away from fold switches
+    g = sign_eff * grad sd_w, so dg/dp = sign_eff H_w and dg/d centre_w =
+    -sign_eff H_w, with the winner's Hessian in closed form: a sphere's
+    H = (I - u u^T) / |p - c|, u the unit vector from its centre, and
+    |p - c| = radius + sign_eff * scene sd by the winner's own identity;
+    boxes and crosses are flat (their gradient is a one-hot sign, H = 0
+    a.e.).  Radii and sizes do not move g, so prim_pos is the only
+    parameter that gets a cotangent.
+
+    widx [R], g, gbar [R, 3], sd [R] -> (p_bar [R, 3], rows [R, 3],
+    idx [R]): ``segment_add(idx, rows, P)`` is the prim_pos cotangent
+    (rows = -p_bar on sphere winners; idx -1 elsewhere, dropped)."""
+    P = tables.prim_pos.shape[0]
+    sign_eff, is_sphere = leaf_statics(plan)
+    dev = g.device
+    stats = torch.stack([
+        torch.as_tensor(sign_eff[:P], device=dev),
+        tables.prim_aux[:, 0].detach(),
+        torch.as_tensor(is_sphere[:P], dtype=g.dtype, device=dev)], dim=1)
+    st = gather_rows(widx, stats)               # zeros where nothing won
+    se, r, sph = st[:, 0], st[:, 1], st[:, 2] > 0.5
+    u = se[:, None] * g
+    dist = torch.clamp_min(r + se * sd, 1e-12)[:, None]
+    hg = (gbar - u * (u * gbar).sum(dim=-1, keepdim=True)) / dist
+    # a miss's sd may be inf (0 * inf in dist): the select drops it
+    p_bar = torch.where(sph[:, None], se[:, None] * hg,
+                        torch.zeros((), dtype=g.dtype, device=dev))
+    return p_bar, -p_bar, torch.where(sph, widx, -1)
+
+
+def analytic_normal_bwd(plan: ScenePlan, tables: SceneTables,
+                        p: torch.Tensor, gbar: torch.Tensor,
+                        need_theta: bool = True) -> tuple:
+    """VJP of the analytic normal at points p [R, 3] for its cotangent
+    gbar [R, 3] (scene_vjp.analytic_normal_bwd): one K2 launch in its
+    combined mode, the winner Hessian chain and, when ``need_theta``, one
+    ``segment_add`` -> (p_bar [R, 3], prim_pos cotangent [P, 3] or
+    None)."""
+    sd, widx, g = winner_eval(plan, tables, p)
+    p_bar, rows, idx = winner_hessian_chain(plan, tables, widx, g, gbar, sd)
+    pos_bar = (segment_add(idx, rows, tables.prim_pos.shape[0])
+               if need_theta else None)
+    return p_bar, pos_bar

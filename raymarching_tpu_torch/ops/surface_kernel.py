@@ -1,4 +1,4 @@
-"""K2, the surface kernel: wrapper and plain twins of its four modes.
+"""K2, the surface kernel: wrapper and plain twins of its five modes.
 
 Counterpart of ``raymarching_tpu.ops.pallas_march.pallas_surface_eval``,
 not fused.  Per point of q [N, 3], by ``mode``:
@@ -11,25 +11,29 @@ not fused.  Per point of q [N, 3], by ``mode``:
     backend's colour lookup;
   * ``FD_GRAD`` (with_normal) — the SD and the central-difference gradient
     (f(p + h e_a) - f(p - h e_a)) * (1 / 2h): the multi-kernel backend's
-    normals.
+    normals;
+  * ``ANALYTIC`` (with_normal, analytic) — the SD and the winner's
+    gradient, no winner: the multi-kernel backend's analytic normals.  It
+    is the combined mode's fold less its winner output, so its SD and
+    gradient are the combined mode's, bitwise (JAX carries the gradient
+    through every select instead; off tie sets the two agree).
 
-The gradient-only analytic mode and every fused-generator mode are not
-ported yet (ROADMAP Queue 1 items 7 and 8).  The kernel is
-``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes each mode in
-plain PyTorch and is what a CPU tensor gets.  A CUDA tensor always goes to
-the kernel: a build or launch failure raises.
+Every fused-generator mode is not ported yet (ROADMAP Queue 1 item 8).
+The kernel is ``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes
+each mode in plain PyTorch and is what a CPU tensor gets.  A CUDA tensor
+always goes to the kernel: a build or launch failure raises.
 
 ``surface_stencil`` is the kernel's second entry: the combined mode over
 the FD stencils of hit points, each stencil point made inside the kernel,
 so the backward passes hand over 12 bytes a hit and no stencil tensor.
 
 Keywords for measurements, the same bits either way: ``collapse`` (the
-exact Menger lattice collapse in the SD, FD_GRAD and COMBINED folds, while
-``tables.lattice_ok`` holds; the WINNER mode is the colour winner and
-folds leaf by leaf) and ``multipoint`` (FD_GRAD's seven points in one walk
-of the scene instead of seven; the twins' arithmetic per point is the
-same, so they take no such keyword).  ``surface_eval.launches`` counts the
-launches of both entries.
+exact Menger lattice collapse in the SD, FD_GRAD, COMBINED and ANALYTIC
+folds, while ``tables.lattice_ok`` holds; the WINNER mode is the colour
+winner and folds leaf by leaf) and ``multipoint`` (FD_GRAD's seven points
+in one walk of the scene instead of seven; the twins' arithmetic per point
+is the same, so they take no such keyword).  ``surface_eval.launches``
+counts the launches of both entries.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ from ..scene.compile import ScenePlan, SceneTables
 from . import build
 
 # mode codes, shared with csrc/surface_kernel.cu
-COMBINED, SD, WINNER, FD_GRAD = 0, 1, 2, 3
-MODES = (COMBINED, SD, WINNER, FD_GRAD)
+COMBINED, SD, WINNER, FD_GRAD, ANALYTIC = 0, 1, 2, 3, 4
+MODES = (COMBINED, SD, WINNER, FD_GRAD, ANALYTIC)
 
 Surface = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -66,14 +70,15 @@ def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
                        collapse: bool = True) -> Surface:
     """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32 or
     None, gradient [N, 3] or None), the parts ``mode`` computes; the
-    winner is -1 and the combined mode's gradient zero where nothing won.
-    ``collapse`` reaches the SD, FD_GRAD and COMBINED modes; the WINNER
-    mode folds leaf by leaf."""
+    winner is -1 and the gradient of the COMBINED and ANALYTIC modes zero
+    where nothing won.  ``collapse`` reaches every mode but WINNER, which
+    folds leaf by leaf."""
     _check_mode(mode, fd_h)
     with torch.no_grad():
-        if mode == COMBINED:
-            return kernel_fold(plan, tables, q, with_grad=True,
-                               collapse=collapse)
+        if mode in (COMBINED, ANALYTIC):
+            sd, widx, g = kernel_fold(plan, tables, q, with_grad=True,
+                                      collapse=collapse)
+            return sd, (widx if mode == COMBINED else None), g
         if mode == WINNER:
             sd, widx = kernel_fold(plan, tables, q, with_idx=True)
             return sd, widx, None
@@ -160,7 +165,7 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
     N = q.shape[0]
     scene = scene_tables.scene_operands(plan, tables, dev, collapse)
     shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
-    with_grad = mode in (COMBINED, FD_GRAD)
+    with_grad = mode in (COMBINED, FD_GRAD, ANALYTIC)
     with_idx = mode in (COMBINED, WINNER)
     with torch.no_grad():
         q_soa = q.t().contiguous()

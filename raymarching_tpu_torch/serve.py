@@ -6,10 +6,13 @@
 ``POST /render`` takes the scene text as its body and the query parameters
 and limits of ``raymarching_tpu.serve``: width, height, ssaa, iterations,
 gamma, shadows=0|1, format=png|ppm.  The extensions that are not ported yet
-(soft_shadow_k, ao, reflect, aperture) answer 501 when set;
+(soft_shadow_k, ao, reflect and its bounces, aperture and its focus)
+answer 501 when set; ``bounces`` and ``focus`` are clamped as the JAX
+server clamps them first, so an out-of-range value gets the same answer.
 ``serve_raygen`` is accepted and ignored (the port generates rays outside
 the kernel), which the ``X-Serve-Raygen: ignored`` reply header says.
-``/aovs`` and ``/animate`` are not ported yet.
+Normals are FD, as the JAX server pins them.  ``POST /aovs`` and
+``/animate`` answer 501 (ROADMAP Queue 1 items 9 and 12).
 """
 
 from __future__ import annotations
@@ -36,6 +39,17 @@ MAX_HEIGHT = 4096
 MAX_SSAA = 4
 MAX_ITERATIONS = 10_000
 MAX_BODY_BYTES = 1 << 20
+# The JAX server's routes that the port does not have yet: the ROADMAP item
+# each waits for.
+UNPORTED_ROUTES = {
+    "/aovs": "the AOV passes (ROADMAP Queue 1 item 9)",
+    "/animate": "animated renders (ROADMAP Queue 1 item 12)",
+}
+# Query parameters of features that are not ported yet, and their items.
+UNPORTED_PARAMS = {
+    "bounces": "mirror bounces (ROADMAP Queue 1 item 9)",
+    "focus": "depth of field (ROADMAP Queue 1 item 9)",
+}
 
 
 def make_handler(device, backend: str = "cuda"):
@@ -102,7 +116,14 @@ def make_handler(device, backend: str = "cuda"):
                 ao_strength=max(0.0, float(q.get("ao", 0.0))),
                 reflect_strength=min(max(0.0, float(q.get("reflect", 0.0))),
                                      0.99),
-                aperture=min(max(0.0, float(q.get("aperture", 0.0))), 10.0))
+                reflect_bounces=min(max(int(q.get("bounces", 1)), 1), 3),
+                aperture=min(max(0.0, float(q.get("aperture", 0.0))), 10.0),
+                focus_dist=min(max(float(q.get("focus", 6.0)), 1e-3), 1e4),
+                normal_mode="fd")
+            for name, what in UNPORTED_PARAMS.items():
+                if name in q:
+                    raise NotImplementedError(
+                        f"not ported yet: {name}={q[name]}: {what}")
             plan, tables = compile_scene(parse_scene(text))
             with render_lock:
                 img = render_tables(plan, tables, cfg, backend=backend,
@@ -120,6 +141,10 @@ def make_handler(device, backend: str = "cuda"):
 
         def do_POST(self):
             url = urllib.parse.urlparse(self.path)
+            if url.path in UNPORTED_ROUTES:
+                self._json(501, {"error": "not ported yet: POST "
+                                 f"{url.path}, {UNPORTED_ROUTES[url.path]}"})
+                return
             if url.path != "/render":
                 self._json(404, {"error": "unknown path"})
                 return

@@ -18,6 +18,7 @@ from raymarching_tpu.io.png import read_png  # noqa: E402
 from raymarching_tpu_torch.scene.compile import compile_scene  # noqa: E402
 from raymarching_tpu_torch.scene.parser import parse_scene  # noqa: E402
 from raymarching_tpu_torch import cli  # noqa: E402
+from raymarching_tpu_torch.io.image import read_pfm  # noqa: E402
 from raymarching_tpu_torch.serve import make_server  # noqa: E402
 
 SCENE = """
@@ -60,7 +61,8 @@ def test_render_on_missing_cuda_device_raises(scenes_dir):
 
 
 @pytest.mark.parametrize("change", [
-    dict(normal_mode="analytic"), dict(fused_generators=True),
+    dict(normal_mode="analytic", fused_generators=True),
+    dict(fused_generators=True),
     dict(soft_shadow_k=8.0), dict(ao_strength=0.5),
     dict(reflect_strength=0.3), dict(aperture=0.2),
     dict(serve_raygen=True)])
@@ -161,5 +163,62 @@ def test_render_refusals(server, query, code):
 
 def test_unknown_paths_404(server):
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + "/aovs")
+        _post(server + "/nowhere")
     assert e.value.code == 404
+
+
+@pytest.mark.parametrize("path,item", [("/aovs", "item 9"),
+                                       ("/animate", "item 12")])
+def test_unported_routes_501(server, path, item):
+    """The JAX server's other routes answer 501 and name the ROADMAP item
+    they wait for, not 404."""
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server + f"{path}?width=8&height=6&iterations=40")
+    assert e.value.code == 501
+    assert item in json.loads(e.value.read())["error"]
+
+
+@pytest.mark.parametrize("query", ["bounces=2", "bounces=99", "focus=3.5",
+                                   "focus=-1", "reflect=0.3&bounces=2"])
+def test_unported_parameters_501(server, query):
+    """``bounces`` and ``focus`` reach the configuration (clamped as the
+    JAX server clamps them) and are refused with 501, their features
+    (mirror bounces, depth of field) not being ported: never dropped."""
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server + f"/render?width=8&height=6&iterations=40&{query}")
+    assert e.value.code == 501
+    assert "ROADMAP Queue 1 item 9" in json.loads(e.value.read())["error"]
+
+
+def test_server_pins_fd_normals(server):
+    """The server renders with FD normals, as the JAX server does, and
+    takes no normal_mode parameter."""
+    q = "/render?width=12&height=8&iterations=60&normal_mode=analytic"
+    with _post(server + q) as r:
+        png = rt.decode_png(r.read())
+    cfg = rt.RenderConfig(width=12, height=8, ssaa=1, iterations=60)
+    want = rt.to_uint8(rt.render(parse_scene(SCENE), cfg,
+                                 device="cpu").numpy())
+    np.testing.assert_array_equal(png[..., :3], want)
+
+
+def test_cli_normal_mode_flag(tmp_path, scenes_dir, capsys):
+    """``--normal-mode analytic`` renders the analytic regime: the image of
+    ``render(normal_mode="analytic")``, close to the FD one."""
+    outs = {}
+    for mode in ("fd", "analytic"):
+        out = tmp_path / f"{mode}.pfm"
+        assert cli.main(["--scene", str(scenes_dir / "config1.txt"), "--out",
+                         str(out), "--device", "cpu", "--normal-mode", mode,
+                         *SMALL]) == 0
+        outs[mode] = out
+    cfg = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=100,
+                          normal_mode="analytic")
+    want = rt.render(rt.load_scene(str(scenes_dir / "config1.txt")), cfg,
+                     device="cpu").numpy()
+    got = read_pfm(str(outs["analytic"]))
+    np.testing.assert_array_equal(got, want)
+    diff = np.abs(got - read_pfm(str(outs["fd"]))).max(axis=-1)
+    assert (diff < 5e-3).mean() > 0.99
+    with pytest.raises(SystemExit):
+        cli.main(["--scene", "x", "--normal-mode", "sobel"])

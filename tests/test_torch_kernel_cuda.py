@@ -1,8 +1,9 @@
 """The four kernels on a CUDA card against their plain PyTorch twins (K1,
-K2 in every mode, K3 with and without tmax and with steps, K4), the
-two-phase path against the one kernel, the multi-kernel backend against
-the fused one, and the differentiable render's gradients on the card
-against the CPU's.  Skips without a card.
+K2 in every mode, K3 with and without tmax and with steps, K4; K1 and K4
+with FD and analytic normals), the two-phase path against the one kernel,
+the multi-kernel backend against the fused one, and the differentiable
+render's gradients on the card against the CPU's, in both normal regimes.
+Skips without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
 is installed:
@@ -213,7 +214,7 @@ def test_march_and_shade_kernels_match_plain_twins_on_card(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [sk.SD, sk.WINNER, sk.FD_GRAD])
+@pytest.mark.parametrize("mode", [sk.SD, sk.WINNER, sk.FD_GRAD, sk.ANALYTIC])
 @pytest.mark.parametrize("scene", sorted(ALL_SCENES))
 def test_surface_kernel_modes_match_plain_twins_on_card(cuda_device, scene,
                                                         mode):
@@ -501,3 +502,156 @@ def test_multipoint_walk_equals_single_walks_on_card(cuda_device, monkeypatch,
         _same(one, seven, f"{scene}: one walk against seven")
         _same(one, sk.surface_eval_plain(plan, tt, hits, **kw),
               f"{scene}: one walk against the twin")
+
+
+ANALYTIC = CFG.replace(normal_mode="analytic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("scene", ["demo", "demo moved", "config1", "config4",
+                                   "menger4", "scatter1k", "empty",
+                                   "no_lights"])
+def test_analytic_kernels_match_twins_on_card(cuda_device, monkeypatch,
+                                              scene, placement):
+    """K1 and K4 instantiated with the analytic normal, with and without
+    the winner residuals, and K2's analytic mode: every output bitwise the
+    twins', with the collapse on and off and the scene staged or in device
+    memory; the residuals are K2's combined mode at the hits, and K4's are
+    K1's."""
+    from raymarching_tpu_torch import tables as scene_tables
+    plan, tt = _scene_tables(scene, cuda_device)
+    nbytes = scene_tables.scene_operands(plan, tt, cuda_device).nbytes(
+        plan.num_lights)
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    elif nbytes > scene_tables.SHARED_SCENE_BYTES:
+        pytest.skip(f"{scene}: {nbytes} bytes do not fit shared memory")
+    origin, dirs = cam.generate_rays(tt, ANALYTIC)
+    dirs = dirs.reshape(-1, 3)
+    outs = {}
+    for collapse in (True, False):
+        c = dict(collapse=collapse)
+        n1 = rk.render_rays.launches
+        k1, w1 = rk.render_rays(plan, ANALYTIC, tt, origin, dirs,
+                                save_winner=True, **c)
+        torch.cuda.synchronize()
+        assert rk.render_rays.launches == n1 + 1
+        _same(rk.render_rays(plan, ANALYTIC, tt, origin, dirs, **c), k1,
+              f"{scene}: K1 analytic without residuals")
+        p1, pw = rk.render_rays_plain(plan, ANALYTIC, tt, origin, dirs,
+                                      save_winner=True, **c)
+        _same((*k1, *w1), (*p1, *pw), f"{scene}: K1 analytic vs twin")
+        k4, w4 = shk.shade_rays(plan, ANALYTIC, tt, k1.p, k1.sd, dirs,
+                                save_winner=True, **c)
+        _same((*k4, *w4), (k1.cidx, k1.light, k1.smask, *w1),
+              f"{scene}: K4 analytic vs K1")
+        s4, sw = shk.shade_rays_plain(plan, ANALYTIC, tt, k1.p, k1.sd, dirs,
+                                      save_winner=True, **c)
+        _same((*k4, *w4), (*s4, *sw), f"{scene}: K4 analytic vs twin")
+        k2 = sk.surface_eval(plan, tt, k1.p, mode=sk.ANALYTIC, **c)
+        _same(k2, sk.surface_eval_plain(plan, tt, k1.p, mode=sk.ANALYTIC,
+                                        **c), f"{scene}: K2 analytic")
+        _same((k2[0], k2[2]), (w1.sd, w1.g), f"{scene}: K2 analytic vs K1")
+        _same(sk.surface_eval(plan, tt, k1.p, **c), w1,
+              f"{scene}: K2 combined vs K1's residuals")
+        outs[collapse] = (*k1, w1.sd, w1.g)
+    # the values and gradients do not depend on the collapse
+    _same(outs[True], outs[False], f"{scene}: collapse on vs off")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["demo", "config4", "menger4"])
+def test_fd_instantiation_is_unchanged_on_card(cuda_device, scene):
+    """The FD instantiations of K1 and K4 beside the analytic ones: the
+    same outputs as their twins, and the analytic regime really differs."""
+    plan, tt = _scene_tables(scene, cuda_device)
+    origin, dirs = cam.generate_rays(tt, CFG)
+    dirs = dirs.reshape(-1, 3)
+    fd = rk.render_rays(plan, CFG, tt, origin, dirs)
+    _same(fd, rk.render_rays_plain(plan, CFG, tt, origin, dirs), "K1 FD")
+    _same(shk.shade_rays(plan, CFG, tt, fd.p, fd.sd, dirs),
+          (fd.cidx, fd.light, fd.smask), "K4 FD vs K1")
+    an = rk.render_rays(plan, ANALYTIC, tt, origin, dirs)
+    _same(an[:3], fd[:3], "the march does not depend on the normal")
+    if scene == "demo":     # menger4's lights clamp to the same values
+        assert not torch.equal(an.light, fd.light)
+    with pytest.raises(ValueError, match="analytic"):
+        rk.render_rays(plan, CFG, tt, origin, dirs, save_winner=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1", [1, 8, 48])
+@pytest.mark.parametrize("scene", ["demo", "config4", "menger4"])
+def test_two_phase_analytic_equals_one_kernel_on_card(cuda_device, scene,
+                                                      k1):
+    """K3, K3 and K4 in the analytic regime: K1's outputs and residuals."""
+    plan, tt = _scene_tables(scene, cuda_device)
+    origin, dirs = cam.generate_rays(tt, ANALYTIC)
+    dirs = dirs.reshape(-1, 3)
+    one, w1 = rk.render_rays(plan, ANALYTIC, tt, origin, dirs,
+                             save_winner=True)
+    n1, n4 = rk.render_rays.launches, shk.shade_rays.launches
+    two, w2 = rk.render_rays(plan, ANALYTIC.replace(two_phase_k1=k1), tt,
+                             origin, dirs, save_winner=True)
+    assert rk.render_rays.launches == n1
+    assert shk.shade_rays.launches == n4 + 1
+    _same((*two, *w2), (*one, *w1), f"two-phase analytic k1={k1}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [True, False])
+def test_analytic_gradients_on_card_match_cpu(cuda_device, monkeypatch, save):
+    """The fused analytic step: one K1 launch and no K2 launch with the
+    residuals (one K2 launch without them); card gradients against the CPU
+    twins' on the same rays at tests/test_mega.py:62's tolerance."""
+    from raymarching_tpu_torch.ops import render_op
+    monkeypatch.setattr(render_op, "SAVE_WINNER", save)
+    plan, tables = compile_scene(load_scene(str(SCENES / "demo.txt")))
+    origin, dirs = cam.generate_rays(tables_to_torch(tables, "cpu"), ANALYTIC)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device,
+                             requires_grad=SceneTables._fields)
+        o = origin.to(device).requires_grad_()
+        d = dirs.reshape(-1, 3).to(device).requires_grad_()
+        k1, k2 = rk.render_rays.launches, sk.surface_eval.launches
+        colors = FusedRender.apply(plan, ANALYTIC, o, d, *tt)
+        g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                                allow_unused=True, materialize_grads=True)
+        launched = (rk.render_rays.launches - k1,
+                    sk.surface_eval.launches - k2)
+        assert launched == (((1, 0) if save else (1, 1))
+                            if device.type == "cuda" else (0, 0))
+        grads.append([v.cpu() for v in g])
+    for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["demo", "config4"])
+def test_multi_backend_matches_fused_analytic_on_card(cuda_device, scene):
+    """The multi-kernel analytic frame (K2's analytic mode for the normals,
+    NormalOp's Hessian-chain backward) against the fused one."""
+    plan, tables = _compiled(scene)
+    cfg = ANALYTIC.replace(shade_skip_black=False)
+    imgs, grads = {}, {}
+    for backend in ("cuda", "multi"):
+        tt = tables_to_torch(tables, cuda_device,
+                             requires_grad=SceneTables._fields)
+        img = rt.render_tables(plan, tt, cfg, backend=backend,
+                               differentiable=True, device=cuda_device)
+        grads[backend] = torch.autograd.grad(
+            torch.mean((img - 0.25) ** 2), list(tt), allow_unused=True,
+            materialize_grads=True)
+        imgs[backend] = img.detach()
+    torch.testing.assert_close(imgs["multi"], imgs["cuda"], rtol=0,
+                               atol=1e-6)
+    for name, a, b in zip(SceneTables._fields, grads["multi"],
+                          grads["cuda"]):
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
