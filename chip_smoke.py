@@ -135,6 +135,10 @@ MULTI_ATOL = 1e-6
 # analytic against FD normals: tests/test_mega.py:176-177's rule, this share
 # of pixels under ANALYTIC_ATOL and the median under ANALYTIC_MEDIAN
 ANALYTIC_ATOL, ANALYTIC_SHARE, ANALYTIC_MEDIAN = 5e-3, 0.99, 1e-4
+# the fused gate: the fused analytic frame against the exact FD one, more
+# than GATE_SHARE of its pixels within GATE_ATOL and no offender off a
+# silhouette (tests/test_gate_offenders.py, utils.gatecheck)
+GATE_ATOL, GATE_SHARE = 5e-3, 0.995
 KERNELS = ("render_kernel", "surface_kernel", "march_kernel", "shade_kernel")
 # the largest |kernel - plain twin| over every output of every comparison
 # of this run, per kernel (``compare`` and ``same`` fill it)
@@ -278,7 +282,7 @@ def entry_label(name: str) -> str:
         return name
     kern, analytic, rest = m.groups()
     ints = re.findall(r"Li(\d+)E", rest)
-    parts = []
+    parts = ["fused"] if "Fused" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -411,6 +415,74 @@ def compare_new(plan, cfg, tables, origin, dirs, collapse=True):
         n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
+
+
+def compare_fused(plan, cfg, tables, origin, dirs):
+    """The fused-generator instantiations of all four kernels against their
+    plain twins on a scene with generators, both normals, bitwise: K1 (with
+    analytic normals with and without its residuals), K3 with steps and on
+    shadow rays, K4 on K1's hits and against K1, K2's five modes at the
+    hits, and the residuals against K2's combined mode; the combined mode
+    names some carves by extended ids.  Returns the number of
+    comparisons."""
+    from raymarching_tpu_torch.core.shading import normalize
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
+    n_cmp = 0
+    for normal in ("fd", "analytic"):
+        fc = cfg.replace(fused_generators=True, normal_mode=normal)
+        kw = {"save_winner": True} if normal == "analytic" else {}
+        k1, w1 = (render_rays(plan, fc, tables, origin, dirs, **kw)
+                  if kw else (render_rays(plan, fc, tables, origin, dirs), ()))
+        p1, pw = (render_rays_plain(plan, fc, tables, origin, dirs, **kw)
+                  if kw else (render_rays_plain(plan, fc, tables, origin,
+                                                dirs), ()))
+        same(f"K1 fused {normal}", (*k1, *w1), (*p1, *pw), "render_kernel")
+        if kw:
+            same("K1 fused analytic without residuals",
+                 render_rays(plan, fc, tables, origin, dirs), p1,
+                 "render_kernel")
+            same("K2 fused combined = K1's residuals", sk.surface_eval(
+                plan, tables, k1.p, fused=True), w1)
+        res, steps = mk.march_rays(plan, fc, tables, origin, dirs,
+                                   with_steps=True)
+        res_p, steps_p = mk.march_rays_plain(plan, fc, tables, origin, dirs,
+                                             with_steps=True)
+        same("K3 fused primary", (*res, steps), (*res_p, steps_p),
+             "march_kernel")
+        same("K3 fused against K1's march", res, (k1.p, k1.sd, k1.done))
+        _, _, g = sk.surface_eval(plan, tables, k1.p, mode=sk.FD_GRAD,
+                                  fd_h=cfg.fd_h, fused=True)
+        for li in range(plan.num_lights):
+            s_, d_, tmax = shadow_rays(tables, fc, k1.p, normalize(g), li)
+            same(f"K3 fused shadow rays of light {li}",
+                 mk.march_rays(plan, fc, tables, s_, d_, tmax=tmax),
+                 mk.march_rays_plain(plan, fc, tables, s_, d_, tmax=tmax),
+                 "march_kernel")
+        o4 = shk.shade_rays(plan, fc, tables, k1.p, k1.sd, dirs, **kw)
+        s4 = shk.shade_rays_plain(plan, fc, tables, k1.p, k1.sd, dirs, **kw)
+        k4, w4 = o4 if kw else (o4, ())
+        s4, sw = s4 if kw else (s4, ())
+        same(f"K4 fused {normal}", (*k4, *w4), (*s4, *sw), "shade_kernel")
+        same(f"K4 fused {normal} against K1's", (*k4, *w4),
+             (k1.cidx, k1.light, k1.smask, *w1))
+        n_cmp += 6 + plan.num_lights + (2 if kw else 0)
+    for mode in sk.MODES:
+        k2 = sk.surface_eval(plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h,
+                             fused=True)
+        same(f"K2 fused mode {mode}", k2, sk.surface_eval_plain(
+            plan, tables, k1.p, mode=mode, fd_h=cfg.fd_h, fused=True),
+            "surface_kernel")
+        n_cmp += 1
+    widx = sk.surface_eval(plan, tables, k1.p, fused=True)[1]
+    n_gen = sum(g_.fused is not None for g_ in plan.kernel.groups)
+    check(int(widx.max()) < plan.num_primitives + n_gen,
+          "an extended winner id past the fused groups")
+    torch.cuda.synchronize()
+    return n_cmp, int((widx >= plan.num_primitives).sum())
 
 
 def compare_ragged(plan, cfg, tables, origin, dirs):
@@ -640,6 +712,21 @@ def kernel_times() -> int:
         plan, acfg, tt, hit.position, hit.sd, dirs), "shade_kernel")
     out["K2 analytic"] = device_ms(lambda: sk.surface_eval(
         plan, tt, hit.position, mode=sk.ANALYTIC), "surface_kernel")
+    fcfg = acfg.replace(fused_generators=True)
+    out["K1 512x512 ssaa2 fused analytic"] = device_ms(lambda: render_rays(
+        plan, fcfg, tt, origin, dirs), "render_kernel")
+    out["K1 512x512 ssaa2 fused FD"] = device_ms(lambda: render_rays(
+        plan, fcfg.replace(normal_mode="fd"), tt, origin, dirs),
+        "render_kernel")
+    out["K3 primary fused"] = device_ms(lambda: mk.march_rays(
+        plan, fcfg, tt, origin, dirs), "march_kernel")
+    out["K4 fused analytic"] = device_ms(lambda: shk.shade_rays(
+        plan, fcfg, tt, hit.position, hit.sd, dirs), "shade_kernel")
+    out["K4 fused FD"] = device_ms(lambda: shk.shade_rays(
+        plan, fcfg.replace(normal_mode="fd"), tt, hit.position, hit.sd, dirs),
+        "shade_kernel")
+    out["K2 fused combined"] = device_ms(lambda: sk.surface_eval(
+        plan, tt, hit.position, fused=True), "surface_kernel")
     limit = scene_tables.SHARED_SCENE_BYTES
     scene_tables.SHARED_SCENE_BYTES = 0
     try:
@@ -649,8 +736,10 @@ def kernel_times() -> int:
         scene_tables.SHARED_SCENE_BYTES = limit
     big = rt.RenderConfig()
     big_org, big_dirs = rays_for(plan, tt, big)
-    for b in (big, big.replace(normal_mode="analytic")):
-        name = "" if b.normal_mode == "fd" else " analytic"
+    for b in (big, big.replace(normal_mode="analytic"),
+              big.replace(normal_mode="analytic", fused_generators=True)):
+        name = ("" if b.normal_mode == "fd" else " analytic") + (
+            " fused" if b.fused_generators else "")
         out[f"K1 {b.width}x{b.height} ssaa{b.ssaa}{name}"] = device_ms(
             lambda: render_rays(plan, b, tt, big_org, big_dirs),
             "render_kernel")
@@ -736,6 +825,19 @@ def main() -> int:
                  + compare_new(plan, cfg, tt, *rays, collapse=False))
         ops = scene_operands(plan, tt, dev)
         nbytes = ops.nbytes(plan.num_lights)
+        if any(g_.fused is not None for g_ in plan.kernel.groups):
+            f_cmp, n_ext = compare_fused(plan, cfg, tt, *rays)
+            f_bytes = scene_operands(plan, tt, dev, True, True).nbytes(
+                plan.num_lights)
+            print(f"[compare] {scene} fused generators: K1 (FD; analytic "
+                  f"with and without residuals), K3 (primary with steps, "
+                  f"shadow rays), K4 (both normals), K2's five modes = "
+                  f"plain twins bitwise, K3 and K4 = K1's, K2's combined "
+                  f"mode = K1's residuals ({f_cmp} comparisons; {n_ext} of "
+                  f"{rays[1].shape[0]} hits won by a carve, extended ids); "
+                  f"fused packing {f_bytes} bytes, read from "
+                  f"{'shared' if f_bytes <= SHARED_SCENE_BYTES else 'device'}"
+                  " memory")
         print(f"[compare] {scene}: K3 (primary rays with steps, shadow "
               f"rays with tmax of {plan.num_lights} lights), K4, K2's five "
               f"modes and its stencil entry, K1 and K4 with analytic normals "
@@ -751,20 +853,31 @@ def main() -> int:
             # 16 bytes cover the staged copy's alignment padding; K1 and K4
             # take a third argument, the normal (0 FD, 1 analytic)
             per_sm = {}
+            f_bytes = scene_operands(plan, tt, dev, True, True).nbytes(
+                plan.num_lights)
             for k in KERNELS:
                 lib = build.load_library(k)
-                variants = ({f"{k} FD": (0,), f"{k} analytic": (1,)}
-                            if k in ("render_kernel", "shade_kernel")
-                            else {k: ()})
+                # K1 and K4: (normal, fused); K3: (fused); K2's stencil
+                # entry: exact only
+                variants = {
+                    "render_kernel": {"FD": (0, 0), "analytic": (1, 0),
+                                      "fused FD": (0, 1),
+                                      "fused analytic": (1, 1)},
+                    "shade_kernel": {"FD": (0, 0), "analytic": (1, 0),
+                                     "fused FD": (0, 1),
+                                     "fused analytic": (1, 1)},
+                    "march_kernel": {"": (0,), "fused": (1,)},
+                    "surface_kernel": {"": ()}}[k]
                 for label, extra in variants.items():
-                    per_sm[label] = (
-                        lib.rt_blocks_per_sm(1, nbytes + 16, *extra),
+                    staged = (f_bytes if extra and extra[-1] else nbytes) + 16
+                    per_sm[f"{k} {label}".strip()] = (
+                        lib.rt_blocks_per_sm(1, staged, *extra),
                         lib.rt_blocks_per_sm(0, 0, *extra))
             check(all(min(v) > 0 for v in per_sm.values()),
                   f"resident blocks an SM: {per_sm}")
             print("[occupancy] resident blocks an SM (128 threads each), "
-                  f"the demo's {nbytes} bytes staged in shared memory / the "
-                  "scene in device memory: "
+                  f"the demo's {nbytes} bytes ({f_bytes} fused) staged in "
+                  "shared memory / the scene in device memory: "
                   + "; ".join(f"{k} {a} / {b}"
                               for k, (a, b) in per_sm.items()))
     demo = rt.load_scene(str(DEMO))
@@ -1474,6 +1587,291 @@ def main() -> int:
           f"frame K3 {1 + L}, K2 2 (winner, analytic), a step K3 {1 + L}, "
           f"K2 4; {card}")
 
+    # 9c. fused generators (the JAX bench's headline regime) on the same
+    # footprint: render() fused with analytic normals, the gate against
+    # the exact FD image, every kernel against its twin, device times
+    # against the exact field in turns, gradients, the fit, multi
+    from raymarching_tpu_torch.api import render_aovs
+    from raymarching_tpu_torch.utils.gatecheck import classify_offenders
+    fcfg, fbig = (c.replace(fused_generators=True, normal_mode="analytic")
+                  for c in main_cfgs)
+    ffd = fcfg.replace(normal_mode="fd")
+    zero_counts()
+    f_images, f_secs = [], []
+    for cfg in (fcfg, fbig):
+        rt.render(demo, cfg, device=dev)             # warm-up at this shape
+        img, ms = timed(lambda: rt.render(demo, cfg, device=dev), runs=3)
+        f_images.append(img)
+        f_secs.append(ms / 1e3)
+    counts = add_counts("fused", 8)
+    check(counts == {"render_kernel": 8, "surface_kernel": 0,
+                     "march_kernel": 0, "shade_kernel": 0},
+          f"fused forward renders launched {counts}")
+    for cfg, img, s_, a_s, fd_s in zip((fcfg, fbig), f_images, f_secs,
+                                       a_secs, secs):
+        check(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), "fused image not finite")
+        check(has_demo_objects(img), "demo objects missing (fused)")
+        print(f"[fused] demo {cfg.width}x{cfg.height} ssaa{cfg.ssaa} "
+              f"{cfg.iterations} it, render() with fused generators and "
+              f"analytic normals: {s_:.4f} s against {a_s:.4f} s exact "
+              f"analytic and {fd_s:.4f} s exact FD in this run, "
+              f"{cfg.rays_per_image / s_ / 1e6:.3f} Mrays/s; {card}")
+    # the gate: the fused analytic frame against the exact FD one, its
+    # offenders classified against the exact frame's AOV planes
+    gdiff = (f_images[0] - images[0]).abs().amax(dim=-1)
+    gshare = (gdiff < GATE_ATOL).double().mean().item()
+    # how far the fused field moves the frame: against the exact analytic one
+    fa_diff = (f_images[0] - a_images[0]).abs().amax(dim=-1)
+    aovs = {k: v.cpu().numpy() for k, v in render_aovs(
+        plan, tables, tcfg, device=dev).items()}
+    check(np.array_equal(aovs["color"], images[0].cpu().numpy()),
+          "the AOV colour plane differs from render()'s image")
+    gate = classify_offenders(gdiff.cpu().numpy(), GATE_ATOL, aovs["objid"],
+                              aovs["depth"], aovs["hit"],
+                              shadow=aovs["shadow"], normal=aovs["normal"])
+    check(gshare > GATE_SHARE and gate["offenders_interior"] == 0,
+          f"the fused gate: {gshare:.6f} of pixels within {GATE_ATOL} "
+          f"(needs > {GATE_SHARE}), {gate}")
+    print(f"[fused] gate, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa}: "
+          f"fused analytic against exact FD, {gshare:.6f} of pixels within "
+          f"{GATE_ATOL} (needs > {GATE_SHARE}), max {gdiff.max().item():.3g}; "
+          f"{gate['offenders']} offenders, {gate['offenders_on_silhouette']} "
+          f"on silhouettes, {gate['offenders_interior']} interior "
+          f"(utils.gatecheck against api.render_aovs' exact planes); against "
+          f"the exact analytic frame {(fa_diff < GATE_ATOL).double().mean().item():.6f}"
+          f" within {GATE_ATOL}, {(fa_diff > 0).double().mean().item():.6f} of "
+          f"pixels differ, max {fa_diff.max().item():.3g}")
+    ftt = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, ftt, fcfg)
+    (k1f, w1f), k1f_ms = timed(lambda: render_rays(
+        plan, fcfg, ftt, origin, dirs, save_winner=True), runs=5)
+    (p1f, pw1f), k1f_plain_ms, k1f_count = timed_counted(
+        lambda: render_rays_plain(plan, fcfg, ftt, origin, dirs,
+                                  save_winner=True))
+    same("K1 fused analytic at 512^2 with residuals", (*k1f, *w1f),
+         (*p1f, *pw1f), "render_kernel")
+    n_ext = int((w1f.widx >= plan.num_primitives).sum())
+    del p1f, pw1f
+    k1ffd = render_rays(plan, ffd, ftt, origin, dirs)
+    same(f"K1 fused FD at 512^2 on every {BIG_STRIDE}th ray",
+         tuple(v[::BIG_STRIDE] for v in k1ffd),
+         render_rays_plain(plan, ffd, ftt, origin, dirs[::BIG_STRIDE]),
+         "render_kernel")
+    (k4f, w4f), k4f_ms = timed(lambda: shk.shade_rays(
+        plan, fcfg, ftt, k1f.p, k1f.sd, dirs, save_winner=True), runs=5)
+    (s4f, sw4f), k4f_plain_ms, k4f_count = timed_counted(
+        lambda: shk.shade_rays_plain(plan, fcfg, ftt, k1f.p, k1f.sd, dirs,
+                                     save_winner=True))
+    same("K4 fused analytic at 512^2", (*k4f, *w4f), (*s4f, *sw4f),
+         "shade_kernel")
+    same("K4 fused analytic against K1's", (*k4f, *w4f),
+         (k1f.cidx, k1f.light, k1f.smask, *w1f))
+    del s4f, sw4f, k4f, w4f
+    (hf, stf), k3f_ms = timed(lambda: mk.march_rays(
+        plan, fcfg, ftt, origin, dirs, with_steps=True), runs=5)
+    (hf_p, stf_p), k3f_plain_ms, k3f_count = timed_counted(
+        lambda: mk.march_rays_plain(plan, fcfg, ftt, origin, dirs,
+                                    with_steps=True))
+    same("K3 fused primary at 512^2", (*hf, stf), (*hf_p, stf_p),
+         "march_kernel")
+    same("K3 fused against K1's march", hf, (k1f.p, k1f.sd, k1f.done))
+    del hf_p, stf_p
+    f_k2 = {}
+    for label, mode, out_bytes in (("winner", sk.WINNER, 8),
+                                   ("FD gradient", sk.FD_GRAD, 16),
+                                   ("combined", sk.COMBINED, 20),
+                                   ("analytic", sk.ANALYTIC, 16)):
+        fn = lambda: sk.surface_eval(  # noqa: E731
+            plan, ftt, k1f.p, mode=mode, fd_h=tcfg.fd_h, fused=True)
+        k2m, k2m_ms = timed(fn, runs=5)
+        k2m_p, k2m_plain_ms, k2m_count = timed_counted(
+            lambda: sk.surface_eval_plain(plan, ftt, k1f.p, mode=mode,
+                                          fd_h=tcfg.fd_h, fused=True))
+        same(f"K2 fused {label} at 512^2", k2m, k2m_p, "surface_kernel")
+        f_k2[label] = (k2m_ms, k2m_plain_ms,
+                       bound_ms(k2m_count, R * (12 + out_bytes)))
+    same("K2 fused combined = K1's residuals", sk.surface_eval(
+        plan, ftt, k1f.p, fused=True), w1f)
+    del k2m, k2m_p
+    # K1 with its residuals writes 5 floats, 2 ints, 4 floats and an int a
+    # ray; K4 reads 7 floats and writes a float, 2 ints and the residuals
+    k1f_bound = bound_ms(k1f_count, R * (12 + 32 + 20))
+    k4f_bound = bound_ms(k4f_count, R * (28 + 12 + 20))
+    k3f_bound = bound_ms(k3f_count, R * (12 + 24))
+    print(f"[fused] kernels against their twins at 512^2, bitwise: K1 fused "
+          f"analytic with residuals {k1f_ms:.3f} ms with its wrapper, plain "
+          f"{k1f_plain_ms:.3f} ms, bound {k1f_bound[0]:.4f} ms by "
+          f"{k1f_bound[1]} ({k1f_bound[5]} operations); {n_ext} of {R} hits "
+          f"won by a carve (extended ids in the residuals); K1 fused FD on "
+          f"every {BIG_STRIDE}th ray; K4 {k4f_ms:.3f} ms, plain "
+          f"{k4f_plain_ms:.3f}, bound {k4f_bound[0]:.4f} by {k4f_bound[1]}; "
+          f"K3 {k3f_ms:.3f} ms, plain {k3f_plain_ms:.3f}, bound "
+          f"{k3f_bound[0]:.4f} by {k3f_bound[1]}, {int(stf.sum())} "
+          f"evaluations; K2 "
+          + ", ".join(f"{k} {a:.3f} ms (plain {b:.3f}, bound {c[0]:.4f} by "
+                      f"{c[1]})" for k, (a, b, c) in f_k2.items())
+          + f"; {card}")
+    big_org, big_dirs = rays_for(plan, ftt, fbig)
+    f_turns = {
+        "K1 512x512 ssaa2 analytic": in_turns(
+            lambda: render_rays(plan, acfg, ftt, origin, dirs),
+            lambda: render_rays(plan, fcfg, ftt, origin, dirs),
+            "render_kernel"),
+        "K1 512x512 ssaa2 FD": in_turns(
+            lambda: render_rays(plan, tcfg, ftt, origin, dirs),
+            lambda: render_rays(plan, ffd, ftt, origin, dirs),
+            "render_kernel"),
+        f"K1 {fbig.width}x{fbig.height} ssaa{fbig.ssaa} analytic": in_turns(
+            lambda: render_rays(plan, abig, ftt, big_org, big_dirs),
+            lambda: render_rays(plan, fbig, ftt, big_org, big_dirs),
+            "render_kernel"),
+        "K3 primary": in_turns(
+            lambda: mk.march_rays(plan, tcfg, ftt, origin, dirs),
+            lambda: mk.march_rays(plan, fcfg, ftt, origin, dirs),
+            "march_kernel"),
+        "K4 analytic": in_turns(
+            lambda: shk.shade_rays(plan, acfg, ftt, k1f.p, k1f.sd, dirs),
+            lambda: shk.shade_rays(plan, fcfg, ftt, k1f.p, k1f.sd, dirs),
+            "shade_kernel"),
+        "K4 FD": in_turns(
+            lambda: shk.shade_rays(plan, tcfg, ftt, k1f.p, k1f.sd, dirs),
+            lambda: shk.shade_rays(plan, ffd, ftt, k1f.p, k1f.sd, dirs),
+            "shade_kernel"),
+    }
+    for label, mode in (("winner", sk.WINNER), ("FD gradient", sk.FD_GRAD),
+                        ("combined", sk.COMBINED),
+                        ("analytic", sk.ANALYTIC)):
+        f_turns[f"K2 {label}"] = in_turns(
+            lambda: sk.surface_eval(plan, ftt, k1f.p, mode=mode,
+                                    fd_h=tcfg.fd_h),
+            lambda: sk.surface_eval(plan, ftt, k1f.p, mode=mode,
+                                    fd_h=tcfg.fd_h, fused=True),
+            "surface_kernel")
+    del big_dirs
+    print(f"[fused] device time of the kernel alone, exact / fused "
+          f"generators in turns (exact, fused, fused, exact; each the median "
+          f"of 3 launches), demo at 1000 iterations: "
+          + "; ".join(f"{k} {a:.3f} / {b:.3f} ms"
+                      for k, (a, b) in f_turns.items()) + f"; {card}")
+    # the card's fused gradients against the CPU twins' on the same rays
+    for normal in ("fd", "analytic"):
+        f_gcfg = gcfg.replace(fused_generators=True, normal_mode=normal)
+        g_rays = rays_for(plan, tables_to_torch(tables, "cpu"), f_gcfg)
+        gf_card, launched = grads_of(plan, tables, f_gcfg, dev, *g_rays)
+        check(launched == (1, 0), f"a differentiable fused {normal} render "
+              f"launched (K1, K2) {launched}: the backward launches no K2")
+        gf_cpu, _ = grads_of(plan, tables, f_gcfg, torch.device("cpu"),
+                             *g_rays)
+        worst_fg = grad_check(tables._fields + ("origin", "dirs"), gf_card,
+                              gf_cpu, f"fused {normal} card vs CPU")
+        print(f"[fused] demo 32x24 gradients with fused generators and "
+              f"{normal} normals, card vs CPU on the same rays, every table "
+              f"field and the rays: max |diff| / field scale "
+              f"{worst_fg[0]:.3g} ({worst_fg[1]}); launches K1 1, K2 0")
+    # the fused analytic fit: one K1 launch a step, no K2
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    fres = rt.fit(plan, start, target, fcfg, device=dev, steps=3,
+                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
+    counts = add_counts("train_fused", 3)
+    check(counts == {"render_kernel": 3, "surface_kernel": 0,
+                     "march_kernel": 0, "shade_kernel": 0},
+          f"3 fused analytic fit steps launched {counts}")
+    check_step_grads()
+    check(all(np.isfinite(fres.losses)), f"losses {fres.losses}")
+    fstep = statistics.median(np.diff([t0] + stamps))
+    ft_g = tables_to_torch(fres.tables, dev, requires_grad=TRAINABLE)
+    opt = adam([getattr(ft_g, f) for f in TRAINABLE])
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        img = rt.render_tables(plan, ft_g, fcfg, differentiable=True,
+                               device=dev)
+        loss = torch.mean((img - target) ** 2)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    f_fwd, f_bwd, f_opt = (statistics.median(c) for c in zip(*splits))
+    ft_ = tables_to_torch(fres.tables, dev)
+    (_, wst) = render_rays(plan, fcfg.replace(shade_skip_black=False), ft_,
+                           *rays_for(plan, ft_, fcfg), save_winner=True)
+    u_ = torch.randn(wst.sd.shape, device=dev)
+    gbar_ = torch.randn(wst.g.shape, device=dev)
+    pf_ = k1f.p
+    _, f_scatter_ms = timed(lambda: (
+        scene_vjp.fused_theta_cotangents(plan, ft_, wst.widx, wst.g, u_,
+                                         wst.sd, pf_),
+        scene_vjp.fused_winner_hessian_chain(plan, ft_, wst.widx, wst.g,
+                                             gbar_, wst.sd)), runs=5)
+    del wst, u_, gbar_
+    print(f"[fused] fit, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, fused generators and analytic normals, 3 "
+          f"Adam steps: loss {' '.join(f'{v:.6g}' for v in fres.losses)}; "
+          f"step median {fstep * 1e3:.1f} ms against {astep * 1e3:.1f} ms "
+          f"exact analytic and {fused_step_s * 1e3:.1f} ms exact FD in this "
+          f"run; launches a step K1 1, K2 0; split (median of 3, CUDA "
+          f"events) fused / exact analytic: forward {f_fwd:.2f} / "
+          f"{a_fwd:.2f} ms, backward {f_bwd:.2f} / {a_bwd:.2f} ms, optimizer "
+          f"{f_opt:.2f} / {a_opt:.2f} ms; the scatters and the chain alone "
+          f"{f_scatter_ms:.2f} / {a_scatter_ms:.2f} ms; {card}")
+    # the multi-kernel backend on the fused field: frame, steps, two-phase
+    zero_counts()
+    rt.render(demo, fcfg, backend="multi", device=dev)
+    fm_img, fm_ms = timed(lambda: rt.render(demo, fcfg, backend="multi",
+                                            device=dev), runs=3)
+    counts = add_counts("multi_fused", 4)
+    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
+                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+          f"4 multi-kernel fused frames launched {counts}")
+    diff = (fm_img - f_images[0]).abs()
+    close = (diff.amax(dim=-1) <= MULTI_ATOL).double().mean().item()
+    check(close >= AGREE and diff.mean().item() <= MULTI_ATOL,
+          f"multi vs fused-backend image with fused generators: {close:.6f} "
+          f"of pixels within {MULTI_ATOL}, mean {diff.mean().item()}")
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    fmres = rt.fit(plan, start, target, fcfg, device=dev, backend="multi",
+                   steps=3, trainable=TRAINABLE, optimizer=adam,
+                   callback=on_step)
+    counts = add_counts("train_multi_fused", 3)
+    # a step: K3 primary + L shadow; K2 winner and analytic forward, the
+    # fused combined mode for NormalOp's backward (MarchOp's is autograd
+    # through scene_sd_fused)
+    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 3,
+                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+          f"3 multi-kernel fused fit steps launched {counts}")
+    check_step_grads()
+    check(abs(fmres.losses[0] - fres.losses[0]) <= 1e-5,
+          f"first loss {fmres.losses[0]} against fused {fres.losses[0]}")
+    fmstep = statistics.median(np.diff([t0] + stamps))
+    zero_counts()
+    f_two = rt.render(demo, fcfg.replace(two_phase_k1=48), device=dev)
+    counts = add_counts("two_phase_fused", 1)
+    check(counts["march_kernel"] == 2 and counts["shade_kernel"] == 1,
+          f"a fused two-phase frame launched {counts}")
+    check(torch.equal(f_two, f_images[0]),
+          "the fused two-phase image differs from the one-kernel image")
+    print(f"[fused] backend=multi: frame {fm_ms / 1e3:.4f} s (exact analytic "
+          f"{am_ms / 1e3:.4f} s in this run), image against the fused "
+          f"backend's: {close:.6f} of pixels within {MULTI_ATOL}; 3 Adam "
+          f"steps, loss {' '.join(f'{v:.6g}' for v in fmres.losses)}, step "
+          f"median {fmstep * 1e3:.1f} ms (exact analytic {amstep * 1e3:.1f} "
+          f"ms); launches a frame K3 {1 + L}, K2 2, a step K3 {1 + L}, K2 3; "
+          f"two_phase_k1=48 (K3 2, K4 1) image equal to the one-kernel "
+          f"frame; {card}")
+    del k1f, w1f, k1ffd, hf, stf
+
     # 10. K3's step counter through profile_march
     prof = profile_march(plan, tables, tcfg, device=dev)
     st = prof["steps"]
@@ -1758,7 +2156,8 @@ def main() -> int:
           + "; ".join(f"{k} {json.dumps(v)}" for k, v in per_call.items()))
     csrc = "raymarching_tpu_torch/csrc/"
 
-    def row(kname, replaces, ms, plain_ms, bound, analytic=None):
+    def row(kname, replaces, ms, plain_ms, bound, analytic=None,
+            fused=None):
         # ms: CUDA events around the wrapper's call, as in earlier runs;
         # device_ms: the kernel alone, from the profiler;
         # launches: the sum over the paths' runs (warm-up frames included);
@@ -1774,7 +2173,15 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1],
                 "bound_ms_leaf_fold": leaf_bounds[kname][0],
-                "library_ms": None, "analytic": analytic}
+                "library_ms": None, "analytic": analytic, "fused": fused}
+
+    def fused_row(ms, plain_ms, bound, turns):
+        # the kernel on the fused generator field, analytic normals (K2:
+        # its combined mode) on the same rays; exact_device_ms: the exact
+        # field's device time in turns with device_ms
+        return {"ms": ms, "device_ms": turns[1], "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "exact_device_ms": turns[0]}
 
     def analytic_row(ms, device, plain_ms, bound, fd_device):
         # the kernel with analytic normals (K2: its analytic mode) on the
@@ -1799,19 +2206,25 @@ def main() -> int:
         row("render_kernel", "raymarching_tpu/ops/pallas_render.py:211",
             k1_ms, k1_plain_ms, k1_bound, analytic_row(
                 k1a_ms, dev_turns["K1 512x512 ssaa2"][1], k1a_plain_ms,
-                k1a_bound, dev_turns["K1 512x512 ssaa2"][0])),
+                k1a_bound, dev_turns["K1 512x512 ssaa2"][0]), fused_row(
+                k1f_ms, k1f_plain_ms, k1f_bound,
+                f_turns["K1 512x512 ssaa2 analytic"])),
         row("surface_kernel", "raymarching_tpu/ops/pallas_march.py:2656",
             k2_ms, k2_plain_ms, k2_bound, analytic_row(
                 k2_modes["analytic"][0],
                 dev_turns["K2 FD gradient / analytic"][1],
                 k2_modes["analytic"][2], k2_modes["analytic"][3],
-                dev_turns["K2 FD gradient / analytic"][0])),
+                dev_turns["K2 FD gradient / analytic"][0]), fused_row(
+                f_k2["combined"][0], f_k2["combined"][1],
+                f_k2["combined"][2], f_turns["K2 combined"])),
         row("march_kernel", "raymarching_tpu/ops/pallas_march.py:1716",
-            k3_ms, k3_plain_ms, k3_bound),
+            k3_ms, k3_plain_ms, k3_bound, fused=fused_row(
+                k3f_ms, k3f_plain_ms, k3f_bound, f_turns["K3 primary"])),
         row("shade_kernel", "raymarching_tpu/ops/pallas_render.py:558",
             k4_ms, k4_plain_ms, k4_bound, analytic_row(
                 k4a_ms, dev_turns["K4"][1], k4a_plain_ms, k4a_bound,
-                dev_turns["K4"][0]))]}))
+                dev_turns["K4"][0]), fused_row(
+                k4f_ms, k4f_plain_ms, k4f_bound, f_turns["K4 analytic"]))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

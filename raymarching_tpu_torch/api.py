@@ -24,7 +24,11 @@ Backends (the JAX package's names in brackets):
 
 Both normal modes of ``RenderConfig.normal_mode`` ("fd", the default,
 and "analytic") render on every backend and train on ``cuda`` and
-``multi``.
+``multi``, on exact tables and with ``RenderConfig.fused_generators``
+(the kernels' fused generator field: Menger sponges by space folding,
+DeathStars by their derived carve sphere, gradients to the generators'
+own rows); the ``ref`` backend ignores ``fused_generators``, as JAX's
+does.  ``render_aovs`` gives the compositing planes of one frame.
 
 Every entry point takes an explicit device; nothing picks one by itself.
 """
@@ -40,7 +44,9 @@ from .scene.compile import ScenePlan, SceneTables, compile_scene
 from .scene.parser import Scene
 
 from .core import camera as cam
+from .core.march import dot3
 from .core.render import render_image
+from .core.shading import TINY
 from .ops.march_kernel import march_rays
 from .ops.march_op import march_op
 from .ops.normal_op import normal_op
@@ -74,8 +80,10 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
                       cfg: RenderConfig, backend: str) -> dict:
     """The hooks of ``core.render.render_image`` for ``backend``: none for
     ``"ref"``, the four kernel hooks for ``"multi"``
-    (raymarching_tpu.api.make_render_hooks).  ``tables`` are tensors on
-    the render's device."""
+    (raymarching_tpu.api.make_render_hooks), each on the fused generator
+    field when ``cfg.fused_generators`` is set (``MarchOp`` then takes
+    the implicit-function route through ``core.sdf.scene_sd_fused``).
+    ``tables`` are tensors on the render's device."""
     backend = resolve_backend(backend)
     if backend == "ref":
         return {}
@@ -97,7 +105,8 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
 
     def surface_fn(p):
         with torch.no_grad():
-            sd, cidx, _ = surface_eval(plan, const, p.detach(), mode=WINNER)
+            sd, cidx, _ = surface_eval(plan, const, p.detach(), mode=WINNER,
+                                       fused=cfg.fused_generators)
         # the gather stays under autograd: the colour rows' gradient
         return sd, gather_rows(cidx, tables.prim_color)
 
@@ -171,3 +180,66 @@ def render_ref(scene: Scene, cfg: Optional[RenderConfig] = None, *,
                device) -> torch.Tensor:
     """The plain PyTorch oracle render of a parsed Scene."""
     return render(scene, cfg, backend="ref", device=device)
+
+
+def render_aovs(plan: ScenePlan, tables: SceneTables,
+                cfg: Optional[RenderConfig] = None, *, device) -> dict:
+    """The arbitrary output variables of one frame (raymarching_tpu.api
+    .render_aovs), each a tensor on ``device``:
+
+      color  [H, W, 3]  the beauty image (render_tables' fused backend)
+      depth  [H, W]     mean ray distance t over converged SSAA samples,
+                        +inf where none converged
+      normal [H, W, 3]  SSAA mean of the unit normals, renormalised; zero
+                        on a miss
+      objid  [H, W]     int32 colour winner of the pixel's first sample
+                        (-1: miss)
+      hit    [H, W]     share of converged samples
+      shadow [H, W, L]  per light, the shadowed share of converged samples
+
+    One K1 launch with both shadow skips off (a skipped lane reads as
+    shadowed, which would mark false shadow bands) and one K2 launch for
+    the normal (``NormalOp``'s forward, the configuration's normal and
+    field).  Not differentiable.  ``utils.gatecheck`` classifies a gate's
+    offenders against these planes."""
+    cfg = cfg or RenderConfig()
+    device = resolve_device(device)
+    check_supported(plan, cfg)
+    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
+    with torch.no_grad():
+        tables = tables_to_torch(tables, device)
+        origin, dirs = cam.generate_rays(tables, cfg)
+        flat = dirs.reshape(-1, 3)
+        out = render_rays(plan, cfg.replace(shadow_sat_skip=False,
+                                            shade_skip_black=False),
+                          tables, origin, flat)
+        colors = blend(out.cidx, out.light, tables.prim_color)
+        conv = out.done
+        g = normal_op(plan, cfg, tables, out.p)
+        n = g / torch.sqrt(torch.clamp_min(dot3(g, g), TINY))[:, None]
+        n = torch.where(conv[:, None], n, torch.zeros((), device=device))
+        t = dot3(out.p - origin, flat) / dot3(flat, flat)
+        conv_s = conv.reshape(H, W, S)
+        n_conv = conv_s.sum(dim=2)
+        hit = conv_s.float().mean(dim=2)
+        t_s = torch.where(conv_s, t.reshape(H, W, S),
+                          torch.zeros((), device=device))
+        depth = torch.where(hit > 0.0,
+                            t_s.sum(dim=2) / torch.clamp_min(n_conv, 1),
+                            torch.full((), float("inf"), device=device))
+        nm = torch.where(conv_s[..., None], n.reshape(H, W, S, 3),
+                         torch.zeros((), device=device)).sum(dim=2)
+        nsq = (nm * nm).sum(dim=-1, keepdim=True)
+        normal = torch.where(hit[..., None] > 0.0,
+                             nm / torch.sqrt(torch.clamp_min(nsq, TINY)),
+                             torch.zeros((), device=device))
+        objid = out.cidx.reshape(H, W, S)[..., 0].to(torch.int32)
+        L = max(tables.light_pos.shape[0], 1)
+        bits = (out.smask[:, None] >> torch.arange(
+            L, dtype=torch.int32, device=device)) & 1
+        bits_s = torch.where(conv_s[..., None], bits.reshape(H, W, S, L).float(),
+                             torch.zeros((), device=device))
+        shadow = bits_s.sum(dim=2) / torch.clamp_min(n_conv, 1)[..., None]
+        return {"color": colors.reshape(H, W, S, 3).mean(dim=2),
+                "depth": depth, "normal": normal, "objid": objid,
+                "hit": hit, "shadow": shadow}

@@ -16,7 +16,13 @@ plan.  Two folds:
     form, the exact Menger lattice collapse (``pallas_march
     ._menger_carve_lattice`` and ``_menger_carve_lattice_idx_grad``), read
     from the very descriptor stream the CUDA kernels walk
-    (``tables.pack_plan``).
+    (``tables.pack_plan``).  With ``fused`` it is the kernels' fused
+    generator field (``RenderConfig.fused_generators``): a generator
+    group's carve computed from its base row (``_fused_carve``).
+  * :func:`scene_sd_fused` — the fused field as JAX's
+    ``core.sdf.scene_sd_fused`` writes it, for autograd: the field the
+    fused FD backward and the multi-kernel backend's implicit-function
+    backward differentiate.
 
 The leaf matrix is built in blocks of at most ``_LEAF_BUDGET`` elements so
 the plain path's working set stays bounded at any ray count.
@@ -171,6 +177,24 @@ def prim_sd_grad(ptype: torch.Tensor, pos: torch.Tensor, aux: torch.Tensor,
 # and to each column.
 OPS_PER_LEAF, OPS_PER_EXCESS, OPS_PER_XSET_MEMBER, OPS_PER_COLUMN = 12, 3, 1, 5
 OPS_PER_WINNER_SELECT = 1
+# A fused generator's carve (csrc/fold.cuh's fused_carve) and its min with
+# the base: the DeathStar sphere 13 (the derived centre 2, the sphere 10,
+# the min); the folded Menger union 5 (the offset from the centre 3, the
+# first pitch, the min with the base), 12 a level (a cross: 3 abs, 3 sub,
+# the half-size, 4 min/max of the median, the running min) and 19 between
+# levels (per axis a division, round, clip's min and max, a product and a
+# difference; the next pitch).
+OPS_DEATHSTAR_CARVE = 13
+OPS_MENGER_SETUP, OPS_PER_MENGER_LEVEL, OPS_PER_MENGER_FOLD = 5, 12, 19
+
+
+def fused_carve_ops(g) -> int:
+    """Operations of fused group ``g``'s carve at one point."""
+    if g.fused[0] == "deathstar":
+        return OPS_DEATHSTAR_CARVE
+    levels = g.fused[1]
+    return (OPS_MENGER_SETUP + OPS_PER_MENGER_LEVEL * levels
+            + OPS_PER_MENGER_FOLD * (levels - 1))
 
 
 class LeafCount:
@@ -184,7 +208,10 @@ class LeafCount:
     distinct x-set and 5 for each column (OPS_PER_EXCESS,
     OPS_PER_XSET_MEMBER, OPS_PER_COLUMN; a leaf is OPS_PER_LEAF = 12), and
     in the winner-and-gradient fold one select more for each member and
-    column (OPS_PER_WINNER_SELECT).
+    column (OPS_PER_WINNER_SELECT).  A fused generator group counts its
+    base leaf, and where the cull keeps it its carve's operations
+    (``fused_carve_ops``; one select more in the winner-and-gradient
+    fold).
     The plain twin itself may evaluate more; this is the count of what
     the kernels' data needs.
 
@@ -332,35 +359,98 @@ def _decode_block(lat: np.ndarray, off: int) -> _Block:
 class _FoldLayout(NamedTuple):
     """What the plain fold evaluates leaf by leaf: ``leaves`` are the rows
     of its leaf matrix (None: every leaf), group g's columns start at
-    ``first[g]`` and are ``folded[g]`` wide, and ``blocks`` maps a
-    collapsing group to its block."""
+    ``first[g]`` and are ``folded[g]`` wide, ``blocks`` maps a collapsing
+    group to its block, and ``carves`` a fused group to (its carve run:
+    Menger levels or 0, base row, 0, extended winner id; its carve's
+    operations)."""
 
     leaves: Optional[np.ndarray]
     first: tuple
     folded: tuple
     blocks: dict
+    carves: dict
 
 
 @functools.lru_cache(maxsize=128)
-def _fold_layout(kp: KernelPlan, collapse: bool) -> _FoldLayout:
+def _fold_layout(kp: KernelPlan, collapse: bool,
+                 fused: bool = False) -> _FoldLayout:
     """The leaf fold's layout, or with ``collapse`` the one in which each
-    collapsing group keeps its base leaves only."""
-    from ..tables import pack_plan
+    collapsing group keeps its base leaves only; with ``fused`` a
+    generator group keeps its base leaf (the fused packing's)."""
+    from ..tables import GROUP_FUSED, pack_plan
 
-    blocks = {}
+    blocks, carves = {}, {}
+    packed = pack_plan(kp, fused)
+    if fused:
+        runs = packed.runs.numpy()
+        for gi, (_, first, n_runs, kind) in enumerate(packed.groups.numpy()):
+            if kind == GROUP_FUSED:
+                carves[gi] = (tuple(int(v) for v in runs[first + n_runs]),
+                              fused_carve_ops(kp.groups[gi]))
     if collapse:
-        lat = pack_plan(kp).lattice.numpy().astype(np.int64)
+        lat = packed.lattice.numpy().astype(np.int64)
         blocks = {gi: _decode_block(lat, int(lat[gi]))
                   for gi in range(len(kp.groups)) if lat[gi] != 0}
-    if not blocks:
+    if not blocks and not carves:
         return _FoldLayout(None, tuple(g.start for g in kp.groups),
-                           tuple(g.count for g in kp.groups), blocks)
-    folded = tuple(_base_leaves(g) if gi in blocks else g.count
-                   for gi, g in enumerate(kp.groups))
+                           tuple(g.count for g in kp.groups), blocks, carves)
+    folded = tuple(_base_leaves(g) if gi in blocks or gi in carves
+                   else g.count for gi, g in enumerate(kp.groups))
     leaves = np.concatenate([np.arange(g.start, g.start + n)
                              for g, n in zip(kp.groups, folded)])
     first = tuple(int(v) for v in np.cumsum((0,) + folded[:-1]))
-    return _FoldLayout(leaves, first, folded, blocks)
+    return _FoldLayout(leaves, first, folded, blocks, carves)
+
+
+def _fused_carve(carve: tuple, tables: SceneTables, p: torch.Tensor,
+                 with_grad: bool = False):
+    """A fused group's carve at p [N, 3] -> [N], or with ``with_grad``
+    ([N], d carve / dp [N, 3]): the arithmetic of fold.cuh's fused_carve
+    and winner_carve_grad (pallas_march._fused_carve, _fused_carve_grad),
+    from the base row alone.  ``carve`` is the carve run of the fused
+    packing: (Menger levels, or 0 for the DeathStar's derived sphere; the
+    base row; 0; the extended winner id)."""
+    levels, row = carve[0], carve[1]
+    pos, aux = tables.prim_pos[row], tables.prim_aux[row]
+    if levels == 0:
+        r = aux[0]
+        dx = p[:, 0] - (pos[0] + 1.5 * r)
+        dy, dz = p[:, 1] - pos[1], p[:, 2] - pos[2]
+        d = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        if not with_grad:
+            return d - r
+        inv = 1.0 / torch.clamp_min(d, 1e-30)
+        return d - r, torch.stack([dx * inv, dy * inv, dz * inv], dim=-1)
+    q = p - pos
+    # a tensor divisor: PyTorch divides a CUDA tensor by a Python number as
+    # a product with its reciprocal, which is not the kernels' s / 3
+    three = torch.full((), 3.0, dtype=p.dtype, device=p.device)
+    pitch = aux[0] / three
+    best = torch.full(p.shape[:1], float("inf"), device=p.device)
+    g = torch.zeros_like(p)
+    for k in range(levels):
+        b = q.abs() - pitch * 0.5
+        bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+        sd = med3(bx, by, bz)
+        if with_grad:
+            # the winning level's cross: strict <, its median axis
+            max_x = bx >= torch.maximum(by, bz)
+            max_y = ~max_x & (by >= bz)
+            min_x = bx <= torch.minimum(by, bz)
+            min_y = ~min_x & (by <= bz)
+            med_x = ~(max_x | min_x)
+            med_y = ~(max_y | min_y | med_x)
+            axis = torch.stack([med_x, med_y, ~(med_x | med_y)], dim=-1)
+            cg = torch.where(axis, torch.sign(q),
+                             torch.zeros((), device=p.device))
+            g = torch.where((sd < best)[:, None], cg, g)
+        best = torch.minimum(best, sd)
+        if k + 1 < levels:
+            # round half to even (jnp.round, rintf), clip to one cell
+            cell = torch.clamp(torch.round(q / pitch), -1.0, 1.0)
+            q = q - cell * pitch
+            pitch = pitch / three
+    return (best, g) if with_grad else best
 
 
 def _lattice_carve(levels, tables: SceneTables, p: torch.Tensor):
@@ -424,12 +514,13 @@ def _lattice_carve_idx(levels, tables: SceneTables, p: torch.Tensor):
 
 
 def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
-                       with_grad, collapse):
+                       with_grad, collapse, fused=False):
     from ..tables import is_cullable
 
     kp: KernelPlan = plan.kernel
-    layout = _fold_layout(kp, collapse)
-    blocks = layout.blocks
+    layout = _fold_layout(kp, collapse, fused)
+    blocks, carves = layout.blocks, layout.carves
+    carve_grads = []
     leaf = leaf_sd(plan, tables, p, layout.leaves)
     n = leaf.shape[0]
     rsign = 1.0 if kp.root_op == MIN else -1.0
@@ -443,11 +534,15 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
                                  device=p.device)
         seg = leaf[:, first:first + folded] * scales
         if LeafCount._open:
-            nb = _base_leaves(g) if is_cullable(kp, g) else g.count
+            cullable = is_cullable(kp, g) or gi in carves
+            nb = _base_leaves(g) if cullable else g.count
             counted += n * nb
             if nb < g.count:
                 kept = (-seg[:, :nb].min(dim=-1).values < running).sum()
-                if gi in blocks:
+                if gi in carves:
+                    collapsed += kept * (carves[gi][1] + (
+                        OPS_PER_WINNER_SELECT if with_grad else 0))
+                elif gi in blocks:
                     counted += kept * blocks[gi].singles
                     collapsed += kept * (blocks[gi].ops_idx if with_grad
                                          else blocks[gi].ops)
@@ -457,7 +552,18 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
         # strict-< leaf fold's winner
         gmin, k = seg.min(dim=-1)
         k = k + g.start
-        if gi in blocks and with_grad:
+        if gi in carves:
+            # max(base, -carve): the base wins ties; the colour winner
+            # stays the base leaf, the gradient fold's names the carve
+            run = carves[gi][0]
+            if with_grad:
+                cm, cg = _fused_carve(run, tables, p, with_grad=True)
+                k = torch.where(cm < gmin, run[3], k)
+                carve_grads.append((run[3], cg))
+            else:
+                cm = _fused_carve(run, tables, p)
+            gmin = torch.minimum(gmin, cm)
+        elif gi in blocks and with_grad:
             # the base leaves are earlier in the table: they win ties
             cm, crow = _lattice_carve_idx(blocks[gi].levels, tables, p)
             k = torch.where(cm < gmin, crow, k)
@@ -482,10 +588,14 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
     sign_eff = torch.as_tensor(leaf_signs(plan), device=p.device)
     ptype = torch.zeros(sign_eff.shape, dtype=torch.int64, device=p.device)
     ptype[:plan.num_primitives] = torch.as_tensor(plan.prim_type)
-    w = ridx.clamp_min(0).long()
+    dense = (ridx >= 0) & (ridx < sign_eff.shape[0])
+    w = torch.where(dense, ridx, 0).long()
     g = sign_eff[w][:, None] * prim_sd_grad(ptype[w], tables.prim_pos[w],
                                             tables.prim_aux[w], p)
-    g = torch.where((ridx >= 0)[:, None], g, torch.zeros((), device=p.device))
+    g = torch.where(dense[:, None], g, torch.zeros((), device=p.device))
+    # a carve's path sign is -1: the group is max(base, -carve)
+    for ext, cg in carve_grads:
+        g = torch.where((ridx == ext)[:, None], -cg, g)
     return rsign * running, ridx, g
 
 
@@ -504,7 +614,7 @@ def leaf_signs(plan: ScenePlan) -> np.ndarray:
 
 def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
                 with_idx: bool = False, *, with_grad: bool = False,
-                collapse: bool = True) -> tuple:
+                collapse: bool = True, fused: bool = False) -> tuple:
     """The two-level kernel-form fold at p [..., 3] -> (sd [...], winner
     leaf id [...] int32, -1 where nothing won; None unless ``with_idx``),
     or with ``with_grad`` (sd, winner, d scene / dp [..., 3], zero where
@@ -521,24 +631,100 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     tie between crosses may be another member of the tie class than the
     leaf fold's.  The colour winner (``with_idx``) stays leaf by leaf, as
     the kernels' does.  The collapse and the DIFFERENCE base-bound cull
-    leave every value unchanged, so the twin applies no cull."""
+    leave every value unchanged, so the twin applies no cull.
+
+    With ``fused`` the fold is the kernels' fused generator field (the
+    fused packing of ``tables.pack_plan``): a generator group is max(base,
+    -carve) with its carve from the base row (``_fused_carve``, no floor
+    under the DeathStar's square root, as in the kernels); its colour
+    winner is the base leaf, and in the ``with_grad`` fold a carve that
+    wins reports the extended winner id P + ordinal
+    (``_scene_sd_idx_grad_tile``) with the carve's gradient, negated."""
     if plan.kernel is None:
         raise NotImplementedError(
             "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
     if collapse:
         from ..tables import lattice_ok
 
-        collapse = ((with_grad or not with_idx)
-                    and bool(lattice_ok(plan.kernel, tables)))
+        flag = (lattice_ok(plan.kernel, tables, fused=True) if fused
+                else lattice_ok(plan.kernel, tables))
+        collapse = (with_grad or not with_idx) and bool(flag)
     # the collapsed crosses leave the leaf matrix; a level's columns (its
     # two axis excesses) are the widest tensors then
-    layout = _fold_layout(plan.kernel, collapse)
+    layout = _fold_layout(plan.kernel, collapse, fused)
     width = sum(layout.folded) + 2 * max(
         (b.widest for b in layout.blocks.values()), default=0)
     out = _blocked(lambda q: _kernel_fold_block(plan, tables, q, with_idx,
-                                                with_grad, collapse),
+                                                with_grad, collapse, fused),
                    width, p)
     if with_grad:
         return out
     sd, idx = out
     return sd, (idx if with_idx else None)
+
+
+def _menger_carve_ad(pos, size, levels: int, p: torch.Tensor) -> torch.Tensor:
+    """JAX's core.sdf._menger_carve_jnp: the space-folded Menger union, a
+    function of the base box's centre ``pos`` [3] and size ``size`` under
+    autograd (round and clip have zero gradient)."""
+    q = p - pos
+    pitch = size / 3.0
+    carve = torch.full(p.shape[:-1], float("inf"), dtype=p.dtype,
+                       device=p.device)
+    for k in range(levels):
+        b = q.abs() - pitch * 0.5
+        carve = torch.minimum(carve, med3(b[..., 0], b[..., 1], b[..., 2]))
+        if k + 1 < levels:
+            cell = torch.clamp(torch.round(q / pitch), -1.0, 1.0)
+            q = q - cell * pitch
+            pitch = pitch / 3.0
+    return carve
+
+
+def _deathstar_carve_ad(pos, r, p: torch.Tensor) -> torch.Tensor:
+    """JAX's core.sdf._deathstar_carve_jnp: the sphere derived from the base
+    row (centre + 1.5 r in x, radius r), with the 1e-24 floor under the
+    square root."""
+    shift = torch.stack([1.5 * r, torch.zeros_like(r), torch.zeros_like(r)])
+    d = p - (pos + shift)
+    return torch.sqrt(torch.clamp_min((d * d).sum(dim=-1), 1e-24)) - r
+
+
+def scene_sd_fused(plan: ScenePlan, tables: SceneTables,
+                   p: torch.Tensor) -> torch.Tensor:
+    """The fused generator field at p [..., 3] as JAX's
+    ``core.sdf.scene_sd_fused`` writes it, differentiable in ``tables``
+    and p: a Menger group is max(box, -folded carve) and a DeathStar group
+    max(sphere, -derived carve), both functions of the base row alone, so
+    gradients reach the generator's own position and size and never the
+    carve rows; every other group is its exact leaf fold.  The field the
+    fused FD backward and the multi-kernel backend's implicit-function
+    backward differentiate (the kernels evaluate the same field; this one
+    keeps JAX's floor under the DeathStar's square root)."""
+    from ..tables import fused_groups
+
+    kp: KernelPlan = plan.kernel
+    if kp is None:
+        raise NotImplementedError(
+            "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
+    fused_groups(kp)                    # the form the kernels take
+    rsign = 1.0 if kp.root_op == MIN else -1.0
+    flat = p.reshape(-1, 3)
+    running = torch.full(flat.shape[:1], float("inf"), dtype=p.dtype,
+                         device=p.device)
+    for g in kp.groups:
+        if g.fused is not None:
+            base = leaf_sd(plan, tables, flat, [g.start])[:, 0]
+            pos, aux = tables.prim_pos[g.start], tables.prim_aux[g.start]
+            carve = (_deathstar_carve_ad(pos, aux[0], flat)
+                     if g.fused[0] == "deathstar"
+                     else _menger_carve_ad(pos, aux[0], g.fused[1], flat))
+            gval = torch.maximum(base, -carve)
+        else:
+            rows = np.arange(g.start, g.start + g.count)
+            scales = torch.as_tensor(np.asarray(g.scales, np.float32),
+                                     device=p.device)
+            gmin = (leaf_sd(plan, tables, flat, rows) * scales).min(dim=-1)[0]
+            gval = float(g.gsign) * gmin
+        running = torch.minimum(running, rsign * gval)
+    return (rsign * running).reshape(p.shape[:-1])

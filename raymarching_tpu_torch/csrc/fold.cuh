@@ -25,6 +25,19 @@
 //     winner_grad then gives that winner's gradient, the analytic normal
 //     (K2's combined and analytic modes, shade.cuh's analytic normal).
 //
+// Fused generators (RenderConfig.fused_generators; pallas_march's D6,
+// _fused_carve and the fused branches of the four tile folds) are a
+// compile-time property of the scene view: Fused<S> is S whose plan was
+// packed with tables.pack_plan(kp, fused=True).  There a generator group's
+// descriptor says kGroupFused, its runs are its base leaf alone, and the
+// run after them describes its carve, which is computed from the base row
+// (fused_carve): the space-folded Menger union of the sponge's crosses,
+// O(levels) work, or the DeathStar's derived sphere.  The group's value is
+// max(base, -carve); its colour winner is the base leaf; a carve that wins
+// the PathWinner fold reports the extended winner id P + ordinal, and
+// winner_grad gives its gradient (winner_carve_grad).  The plain views keep
+// kFused false, so the exact entries compile without any of it.
+//
 // The value folds and the PathWinner fold take a Menger group's carve
 // through the exact lattice collapse (pallas_march._menger_carve_lattice,
 // _menger_carve_lattice_idx_grad) while the wrapper's flag says the live
@@ -80,6 +93,7 @@ struct SceneArgs {
 // The scene in device memory, read through the read-only cache.
 struct DeviceScene {
   static constexpr bool kStaged = false;
+  static constexpr bool kFused = false;
   const float4* tbl;
   const int4* groups;
   const int4* runs;
@@ -106,6 +120,7 @@ struct DeviceScene {
 // so every read compiles to a shared-memory load.
 struct SharedScene {
   static constexpr bool kStaged = true;   // sizes halved, stream resolved
+  static constexpr bool kFused = false;
   unsigned tbl, groups, runs, lat, lights;
   int n_groups, root_min;
   bool collapse;
@@ -128,6 +143,14 @@ struct SharedScene {
   __device__ __forceinline__ float4 light(int i) const {
     return reinterpret_cast<const float4*>(rt_smem + lights)[i];
   }
+};
+
+// A scene view whose plan has the fused packing: the same reads, and the
+// folds take kGroupFused groups (kFused selects that code at compile time).
+template <class S>
+struct Fused : S {
+  static constexpr bool kFused = true;
+  __device__ __forceinline__ explicit Fused(const S& s) : S(s) {}
 };
 
 // SceneArgs from a C entry point's leading arguments.
@@ -162,6 +185,61 @@ __device__ __forceinline__ float3 half_size(const S& s, int i) {
               az = s.coord(8 * i + 5);
   if (S::kStaged) return make_float3(ax, ay, az);
   return make_float3(ax * 0.5f, ay * 0.5f, az * 0.5f);
+}
+
+// A fused group's descriptor (the fourth field of its int4; 1 is an exact
+// group that takes the base-bound cull, 0 one that does not).  Its runs are
+// the base leaf alone; the run after them is its carve: (Menger levels, or
+// 0 for the DeathStar's sphere; the base row; 0, so that it names no rows
+// to persist.cuh's staging; the extended winner id P + ordinal).
+constexpr int kGroupFused = 2;
+// |PathWinner.tag| - 1 of a carve winner is kCarveTag + the carve run.
+constexpr int kCarveTag = 3;
+
+// The Menger base box's full size: a staged row holds it halved (exact).
+template <class S>
+__device__ __forceinline__ float base_size(const S& s, float4 a) {
+  return S::kStaged ? 2.0f * a.w : a.w;
+}
+
+// One fold of a query coordinate into the nearest cell of the next level:
+// q - clip(round(q / pitch), -1, 1) * pitch, rounding half to even as
+// jnp.round does.
+__device__ __forceinline__ float menger_fold(float q, float pitch) {
+  const float cell = fminf(fmaxf(rintf(q / pitch), -1.0f), 1.0f);
+  return q - cell * pitch;
+}
+
+// The carve of a fused group at p, from its base row alone
+// (pallas_march._fused_carve): the DeathStar's sphere of the base radius
+// centred 1.5 r along x from the base centre (_deathstar_carve), or the
+// space-folded union of the sponge's crosses (_menger_carve): one cross a
+// level, the query folded into the nearest cell between levels.  JAX's
+// order of operations: pitch = s / 3, then pitch / 3 a level; the cross
+// size of a level equals its pitch.
+template <class S>
+__device__ __forceinline__ float fused_carve(const S& s, int4 c, float px,
+                                             float py, float pz) {
+  const float4 a = s.row(2 * c.y);
+  if (c.x == 0) {
+    const float r = a.w;
+    const float dx = px - (a.x + 1.5f * r), dy = py - a.y, dz = pz - a.z;
+    return sqrtf(dx * dx + dy * dy + dz * dz) - r;
+  }
+  float qx = px - a.x, qy = py - a.y, qz = pz - a.z;
+  float pitch = base_size(s, a) / 3.0f;
+  float carve = kInf;
+  for (int k = 0; k < c.x; ++k) {
+    const float h = pitch * 0.5f;
+    carve = fminf(carve, med3(fabsf(qx) - h, fabsf(qy) - h, fabsf(qz) - h));
+    if (k + 1 < c.x) {
+      qx = menger_fold(qx, pitch);
+      qy = menger_fold(qy, pitch);
+      qz = menger_fold(qz, pitch);
+      pitch = pitch / 3.0f;
+    }
+  }
+  return carve;
 }
 
 template <int kType, class S>
@@ -519,6 +597,10 @@ __device__ __noinline__ float scene_sd(const S s, float px, float py,
         gmin = fold_run(s, run, px, py, pz, gmin);
       }
       if (-gmin >= running) continue;
+      if constexpr (S::kFused) {
+        if (g.w == kGroupFused)
+          gmin = fminf(gmin, fused_carve(s, s.run(end), px, py, pz));
+      }
       const int block = s.collapse ? s.stream(gi) : 0;
       if (block != 0) {
         gmin = fminf(gmin, lattice_carve(s, block, px, py, pz));
@@ -574,6 +656,15 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
         any = any || keep[j];
       }
       if (!any) continue;
+      if constexpr (S::kFused) {
+        if (g.w == kGroupFused) {
+          const int4 c = s.run(end);
+#pragma unroll
+          for (int j = 0; j < N; ++j)
+            gmin[j] = fminf(gmin[j],
+                            fused_carve(s, c, p.x[j], p.y[j], p.z[j]));
+        }
+      }
       const int block = s.collapse ? s.stream(gi) : 0;
       if (block != 0) {
         lattice_carve_n(s, block, p, gmin);
@@ -596,7 +687,8 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
 // (W = Winner) and the value and winner of _scene_sd_idx_grad_tile (W =
 // PathWinner): strict < at every level, the same exact cull (a culled
 // group's value is >= the running minimum, so it cannot win).  The colour
-// winner folds leaf by leaf.  The PathWinner fold takes a collapsing
+// winner folds leaf by leaf; a fused group's is its base leaf, and its
+// PathWinner the base or the carve's extended id.  The PathWinner fold takes a collapsing
 // group's carve through lattice_carve_idx while the flag holds; the base
 // leaves are earlier in the table, so they win ties with the carve.
 template <class W, class S>
@@ -616,6 +708,20 @@ __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
         w = fold_run_idx(s, run, px, py, pz, w);
       }
       if (-w.sd >= root.sd) continue;
+      if constexpr (S::kFused) {
+        if (g.w == kGroupFused) {
+          // the base wins ties (take_base = base >= -carve); the colour
+          // winner stays the base leaf, the PathWinner names the carve
+          const int4 c = s.run(end);
+          const float cv = fused_carve(s, c, px, py, pz);
+          if (cv < w.sd) {
+            if constexpr (W::kPath)
+              w = make_winner<W>(cv, c.w, kCarveTag + 1 + end);
+            else
+              w.sd = cv;
+          }
+        }
+      }
       const int block = W::kPath && s.collapse ? s.stream(gi) : 0;
       if (block != 0) {
         const Winner c = lattice_carve_idx(s, block, px, py, pz);
@@ -673,14 +779,70 @@ __device__ float3 leaf_grad(const S& s, int type, int i, float px, float py,
                      med_z ? sz : 0.0f);
 }
 
-// The winner's gradient: its tag gives the prim type and the path sign
-// gsign * scale (the root's rsign cancels in the chain rule).
+// d carve / dp of the fused carve whose run is c
+// (pallas_march._fused_carve_grad): the DeathStar sphere's unit vector
+// (_deathstar_carve_grad), or the winning level's cross gradient, which
+// the folds (translations almost everywhere) pass through unchanged
+// (_menger_carve_grad): the walk again, a later level winning only with
+// strict <, the cross's one-hot sign on its median axis.
+template <class S>
+__device__ float3 winner_carve_grad(const S& s, int4 c, float px, float py,
+                                    float pz) {
+  const float4 a = s.row(2 * c.y);
+  if (c.x == 0) {
+    const float dx = px - (a.x + 1.5f * a.w), dy = py - a.y, dz = pz - a.z;
+    const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float inv = 1.0f / fmaxf(d, 1e-30f);
+    return make_float3(dx * inv, dy * inv, dz * inv);
+  }
+  float qx = px - a.x, qy = py - a.y, qz = pz - a.z;
+  float pitch = base_size(s, a) / 3.0f;
+  float carve = kInf;
+  float3 g = make_float3(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < c.x; ++k) {
+    const float h = pitch * 0.5f;
+    const float bx = fabsf(qx) - h, by = fabsf(qy) - h, bz = fabsf(qz) - h;
+    const float sd = med3(bx, by, bz);
+    if (sd < carve) {
+      carve = sd;
+      const bool max_x = bx >= fmaxf(by, bz);
+      const bool max_y = !max_x && by >= bz;
+      const bool min_x = bx <= fminf(by, bz);
+      const bool min_y = !min_x && by <= bz;
+      const bool med_x = !(max_x || min_x);
+      const bool med_y = !(max_y || min_y || med_x);
+      const bool med_z = !(med_x || med_y);
+      g = make_float3(med_x ? sgn(qx) : 0.0f, med_y ? sgn(qy) : 0.0f,
+                      med_z ? sgn(qz) : 0.0f);
+    }
+    if (k + 1 < c.x) {
+      qx = menger_fold(qx, pitch);
+      qy = menger_fold(qy, pitch);
+      qz = menger_fold(qz, pitch);
+      pitch = pitch / 3.0f;
+    }
+  }
+  return g;
+}
+
+// The winner's gradient: its tag gives the prim type (or, past kCross, the
+// run of a fused carve) and the path sign gsign * scale (the root's rsign
+// cancels in the chain rule; a carve's is -1: the group is max(base,
+// -carve)).
 template <class S>
 __device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
                                               float px, float py, float pz) {
   if (w.idx < 0) return make_float3(0.0f, 0.0f, 0.0f);
   const float path = w.tag < 0 ? -1.0f : 1.0f;
-  const float3 lg = leaf_grad(s, abs(w.tag) - 1, w.idx, px, py, pz);
+  const int type = abs(w.tag) - 1;
+  float3 lg;
+  if constexpr (S::kFused) {
+    lg = type > kCross
+             ? winner_carve_grad(s, s.run(type - kCarveTag), px, py, pz)
+             : leaf_grad(s, type, w.idx, px, py, pz);
+  } else {
+    lg = leaf_grad(s, type, w.idx, px, py, pz);
+  }
   return make_float3(path * lg.x, path * lg.y, path * lg.z);
 }
 

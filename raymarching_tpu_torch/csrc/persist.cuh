@@ -46,20 +46,8 @@ inline unsigned staged_bytes(const SceneArgs& a) {
          align16(4u * a.n_lat) + 32u * a.n_lights;
 }
 
-// The block's view of the scene: every thread of the block calls it once,
-// at the top of the kernel.
-template <class S>
-__device__ __forceinline__ S stage_scene(const SceneArgs& a);
-
-template <>
-__device__ __forceinline__ DeviceScene stage_scene<DeviceScene>(
-    const SceneArgs& a) {
-  return device_scene(a);
-}
-
-template <>
-__device__ __forceinline__ SharedScene stage_scene<SharedScene>(
-    const SceneArgs& a) {
+// The scene staged in the block's shared memory (see stage_scene).
+__device__ __forceinline__ SharedScene stage_shared(const SceneArgs& a) {
   SharedScene s;
   s.tbl = 0u;
   s.groups = 32u * a.n_rows;
@@ -118,6 +106,18 @@ __device__ __forceinline__ SharedScene stage_scene<SharedScene>(
   }
   __syncthreads();
   return s;
+}
+
+// The block's view of the scene: every thread of the block calls it once,
+// at the top of the kernel.  S is DeviceScene or SharedScene, or either
+// under Fused<> (a fused group's carve run names no rows, so staging
+// halves nothing of it).
+template <class S>
+__device__ __forceinline__ S stage_scene(const SceneArgs& a) {
+  if constexpr (S::kStaged)
+    return S(stage_shared(a));
+  else
+    return S(device_scene(a));
 }
 
 // The first of the warp's next 32 rays, or a value >= R when none is left;

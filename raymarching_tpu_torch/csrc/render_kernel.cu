@@ -2,7 +2,8 @@
 //
 // Replaces raymarching_tpu/ops/pallas_render.py::_render_kernel (the
 // pallas_call in _compiled_render_call; entry pallas_render_rays) for the
-// reference shading model: primary march; first-wins colour winner at the
+// reference shading model, on exact tables or with fused generators (the
+// scene view Fused<S>, fold.cuh; an instantiation each): primary march; first-wins colour winner at the
 // pre-step point; 6-eval central-difference normal, or the analytic
 // normal (the winner's gradient at the hit, which can also be written out
 // as the fused backward's residuals: JAX's save_winner); one shadow march
@@ -149,15 +150,35 @@ int launch(const Params& P, cudaStream_t stream) {
 }
 
 template <int kNormal>
-int launch_view(const Params& P, int shared, cudaStream_t stream) {
+int launch_view(const Params& P, int shared, int fused,
+                cudaStream_t stream) {
+  if (fused)
+    return shared ? launch<kNormal, Fused<SharedScene>>(P, stream)
+                  : launch<kNormal, Fused<DeviceScene>>(P, stream);
   return shared ? launch<kNormal, SharedScene>(P, stream)
                 : launch<kNormal, DeviceScene>(P, stream);
+}
+
+// Resident blocks an SM of the entry for normal kNormal over view S.
+template <int kNormal, class S>
+int occupancy(unsigned smem, int* per_sm) {
+  return blocks_per_sm(entry<kNormal, S>(), smem, per_sm);
+}
+
+template <int kNormal>
+int occupancy_view(int shared, int fused, unsigned smem, int* per_sm) {
+  if (fused)
+    return shared ? occupancy<kNormal, Fused<SharedScene>>(smem, per_sm)
+                  : occupancy<kNormal, Fused<DeviceScene>>(smem, per_sm);
+  return shared ? occupancy<kNormal, SharedScene>(smem, per_sm)
+                : occupancy<kNormal, DeviceScene>(smem, per_sm);
 }
 
 }  // namespace
 
 // Launch K1 on `stream` over R rays, the scene staged in shared memory
-// (`shared` != 0) or read from device memory, with the FD normal
+// (`shared` != 0) or read from device memory, the plan packed with fused
+// generators (`fused` != 0) or exact, with the FD normal
 // (`analytic` == 0) or the analytic one; with the analytic normal and
 // `wres` not null, also the winner residuals wres [4][R] (sd, gx, gy, gz)
 // and widx [R].  `counter` is one zeroed int32.  Returns a CUDA error
@@ -165,7 +186,7 @@ int launch_view(const Params& P, int shared, cudaStream_t stream) {
 extern "C" int rt_render_rays(const void* tbl, const void* groups,
                               const void* runs, const void* lat,
                               const void* lat_flag, int n_rows, int n_groups,
-                              int n_runs, int n_lat, int root_min,
+                              int n_runs, int n_lat, int root_min, int fused,
                               const void* lights, const void* black,
                               int shared, int analytic, int n_lights,
                               int n_black, int shadows, int sat_skip,
@@ -203,26 +224,21 @@ extern "C" int rt_render_rays(const void* tbl, const void* groups,
   if (analytic == 0 && wres != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return analytic ? launch_view<kNormalAnalytic>(P, shared, st)
-                  : launch_view<kNormalFd>(P, shared, st);
+  return analytic ? launch_view<kNormalAnalytic>(P, shared, fused, st)
+                  : launch_view<kNormalFd>(P, shared, fused, st);
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
 // shared memory (`shared` != 0) or with the scene in device memory, with
-// the FD normal (`analytic` == 0) or the analytic one, for reports;
-// negative: a CUDA error code.
-extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic) {
+// the FD normal (`analytic` == 0) or the analytic one, exact or fused
+// (`fused` != 0), for reports; negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
+                                int fused) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
   const int err =
-      analytic ? (shared ? blocks_per_sm(render_kernel_analytic<SharedScene>,
-                                         smem, &per_sm)
-                         : blocks_per_sm(render_kernel_analytic<DeviceScene>,
-                                         smem, &per_sm))
-               : (shared ? blocks_per_sm(render_kernel<SharedScene>, smem,
-                                         &per_sm)
-                         : blocks_per_sm(render_kernel<DeviceScene>, smem,
-                                         &per_sm));
+      analytic ? occupancy_view<kNormalAnalytic>(shared, fused, smem, &per_sm)
+               : occupancy_view<kNormalFd>(shared, fused, smem, &per_sm);
   return err != 0 ? -err : per_sm;
 }
 

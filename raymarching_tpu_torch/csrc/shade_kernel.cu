@@ -114,23 +114,42 @@ int launch(const SceneArgs& A, const ShadeParams& P, const Rays& B,
 
 template <int kNormal>
 int launch_view(const SceneArgs& A, const ShadeParams& P, const Rays& B,
-                int shared, cudaStream_t stream) {
+                int shared, int fused, cudaStream_t stream) {
+  if (fused)
+    return shared ? launch<kNormal, Fused<SharedScene>>(A, P, B, stream)
+                  : launch<kNormal, Fused<DeviceScene>>(A, P, B, stream);
   return shared ? launch<kNormal, SharedScene>(A, P, B, stream)
                 : launch<kNormal, DeviceScene>(A, P, B, stream);
+}
+
+// Resident blocks an SM of the entry for normal kNormal over view S.
+template <int kNormal, class S>
+int occupancy(unsigned smem, int* per_sm) {
+  return blocks_per_sm(entry<kNormal, S>(), smem, per_sm);
+}
+
+template <int kNormal>
+int occupancy_view(int shared, int fused, unsigned smem, int* per_sm) {
+  if (fused)
+    return shared ? occupancy<kNormal, Fused<SharedScene>>(smem, per_sm)
+                  : occupancy<kNormal, Fused<DeviceScene>>(smem, per_sm);
+  return shared ? occupancy<kNormal, SharedScene>(smem, per_sm)
+                : occupancy<kNormal, DeviceScene>(smem, per_sm);
 }
 
 }  // namespace
 
 // Launch K4 on `stream` over R rays: in [7][R] (p xyz, sd, direction xyz),
 // light [R], iout [2][R] (colour winner, shadow mask); the scene staged in
-// shared memory (`shared` != 0) or read from device memory; the FD normal
+// shared memory (`shared` != 0) or read from device memory, the plan
+// packed with fused generators (`fused` != 0) or exact; the FD normal
 // (`analytic` == 0) or the analytic one, and with it and `wres` not null
 // the winner residuals wres [4][R] (sd, gx, gy, gz) and widx [R];
 // `counter` is one zeroed int32.  Returns a CUDA error code.
 extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                              const void* runs, const void* lat,
                              const void* lat_flag, int n_rows, int n_groups,
-                             int n_runs, int n_lat, int root_min,
+                             int n_runs, int n_lat, int root_min, int fused,
                              const void* lights, const void* black,
                              int shared, int analytic, int n_lights,
                              int n_black, int shadows, int sat_skip,
@@ -159,26 +178,21 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                static_cast<int*>(widx),       static_cast<unsigned*>(counter),
                static_cast<unsigned>(R)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return analytic ? launch_view<kNormalAnalytic>(s, P, B, shared, st)
-                  : launch_view<kNormalFd>(s, P, B, shared, st);
+  return analytic ? launch_view<kNormalAnalytic>(s, P, B, shared, fused, st)
+                  : launch_view<kNormalFd>(s, P, B, shared, fused, st);
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
 // shared memory (`shared` != 0) or with the scene in device memory, with
-// the FD normal (`analytic` == 0) or the analytic one, for reports;
-// negative: a CUDA error code.
-extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic) {
+// the FD normal (`analytic` == 0) or the analytic one, exact or fused
+// (`fused` != 0), for reports; negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
+                                int fused) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
   const int err =
-      analytic ? (shared ? blocks_per_sm(shade_kernel_analytic<SharedScene>,
-                                         smem, &per_sm)
-                         : blocks_per_sm(shade_kernel_analytic<DeviceScene>,
-                                         smem, &per_sm))
-               : (shared ? blocks_per_sm(shade_kernel<SharedScene>, smem,
-                                         &per_sm)
-                         : blocks_per_sm(shade_kernel<DeviceScene>, smem,
-                                         &per_sm));
+      analytic ? occupancy_view<kNormalAnalytic>(shared, fused, smem, &per_sm)
+               : occupancy_view<kNormalFd>(shared, fused, smem, &per_sm);
   return err != 0 ? -err : per_sm;
 }
 

@@ -1,8 +1,9 @@
 // K2: the scene evaluated at given points, in five modes.
 //
 // Replaces raymarching_tpu/ops/pallas_march.py::_surface_kernel (the
-// pallas_call in _compiled_surface_call; entry pallas_surface_eval), not
-// fused:
+// pallas_call in _compiled_surface_call; entry pallas_surface_eval), on
+// exact tables or with fused generators (JAX's fused=True: the scene view
+// Fused<S>, fold.cuh; an instantiation each), in five modes:
 //   * combined (with_color, with_normal, analytic): per point the scene
 //     SD, the first-wins winning leaf, and the winner's gradient d scene /
 //     dp = gsign * scale * d leaf / dp, as _scene_sd_idx_grad_tile folds
@@ -19,7 +20,9 @@
 //     no winner: the multi-kernel backend's analytic normals.  The
 //     combined mode's fold without its winner store, so its SD and
 //     gradient are the combined mode's, bitwise.
-// The fused-generator modes are not ported yet.  Its plain PyTorch twin is
+// With fused generators a carve that wins the combined fold reports the
+// extended winner id P + ordinal (_scene_sd_idx_grad_tile), and the winner
+// mode a generator's base leaf.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/surface_kernel.py::surface_eval_plain.
 //
 // Layout.  K1's: a persistent grid (persist.cuh), the scene staged in each
@@ -187,7 +190,11 @@ int launch(const SurfaceParams& P, cudaStream_t stream) {
 }
 
 template <int kMode, bool kStencil>
-int launch_view(const SurfaceParams& P, int shared, cudaStream_t stream) {
+int launch_view(const SurfaceParams& P, int shared, int fused,
+                cudaStream_t stream) {
+  if (fused)
+    return shared ? launch<kMode, kStencil, Fused<SharedScene>>(P, stream)
+                  : launch<kMode, kStencil, Fused<DeviceScene>>(P, stream);
   return shared ? launch<kMode, kStencil, SharedScene>(P, stream)
                 : launch<kMode, kStencil, DeviceScene>(P, stream);
 }
@@ -196,15 +203,16 @@ int launch_view(const SurfaceParams& P, int shared, cudaStream_t stream) {
 
 // Launch K2 in `mode` on `stream` over N points q [3][N]; out [4][N] (sd,
 // gx, gy, gz) in the combined, fd and analytic modes, else [1][N]; widx
-// [N] in the combined and winner modes; the scene staged in shared memory (`shared`
-// != 0) or read from device memory; `counter` is one zeroed int32; h and
+// [N] in the combined and winner modes; the scene staged in shared memory
+// (`shared` != 0) or read from device memory, the plan packed with fused
+// generators (`fused` != 0) or exact; `counter` is one zeroed int32; h and
 // inv_2h (= 1 / 2h, rounded by the caller) and `multipoint` are read in
 // the fd mode only.  Returns a CUDA error code, cudaErrorInvalidValue for
 // an unknown mode.
 extern "C" int rt_surface_eval(const void* tbl, const void* groups,
                                const void* runs, const void* lat,
                                const void* lat_flag, int n_rows, int n_groups,
-                               int n_runs, int n_lat, int root_min,
+                               int n_runs, int n_lat, int root_min, int fused,
                                int shared, int mode, int multipoint, float h,
                                float inv_2h, const void* q, void* out,
                                void* widx, void* counter, int64_t N,
@@ -226,11 +234,11 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
   if (N == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kCombined: return launch_view<kCombined, false>(P, shared, st);
-    case kSdOnly: return launch_view<kSdOnly, false>(P, shared, st);
-    case kWinner: return launch_view<kWinner, false>(P, shared, st);
-    case kFdGrad: return launch_view<kFdGrad, false>(P, shared, st);
-    default: return launch_view<kAnalytic, false>(P, shared, st);
+    case kCombined: return launch_view<kCombined, false>(P, shared, fused, st);
+    case kSdOnly: return launch_view<kSdOnly, false>(P, shared, fused, st);
+    case kWinner: return launch_view<kWinner, false>(P, shared, fused, st);
+    case kFdGrad: return launch_view<kFdGrad, false>(P, shared, fused, st);
+    default: return launch_view<kAnalytic, false>(P, shared, fused, st);
   }
 }
 
@@ -238,12 +246,14 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
 // p [3][R]: K = 7 rows with `center` (row 0 the hit, rows 1 + a and 4 + a
 // the hit +- h on axis a), else 6 (rows a and 3 + a); out [4][K R], widx
 // [K R], row k of hit i at column k R + i.  `shared` and `counter` as
-// rt_surface_eval takes them.  Returns a CUDA error code.
+// rt_surface_eval takes them; exact tables only (`fused` must be 0: the
+// exact FD backward's entry).  Returns a CUDA error code.
 extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
                                   const void* runs, const void* lat,
                                   const void* lat_flag, int n_rows,
                                   int n_groups, int n_runs, int n_lat,
-                                  int root_min, int shared, int center,
+                                  int root_min, int fused, int shared,
+                                  int center,
                                   float h, const void* p, void* out,
                                   void* widx, void* counter, int64_t R,
                                   void* stream) {
@@ -258,11 +268,13 @@ extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
   P.inv_2h = 0.0f;
   P.center = center;
   P.multipoint = 0;
-  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 0 || R > kMaxRays || fused != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   P.n = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
-  return launch_view<kCombined, true>(P, shared,
-                                      static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return shared ? launch<kCombined, true, SharedScene>(P, st)
+                : launch<kCombined, true, DeviceScene>(P, st);
 }
 
 // Resident blocks an SM of the stencil entry's kernel (the one a training

@@ -10,7 +10,8 @@ plain PyTorch (``core.march.march`` over the kernel-form fold) and is what
 a CPU tensor gets.  A CUDA tensor always goes to the kernel: a build or
 launch failure raises.  ``collapse`` (default on) lets the scene fold take
 the exact Menger lattice collapse while the live tables allow it; off, the
-kernel and the twin fold every leaf: the same bits either way.
+kernel and the twin fold every leaf: the same bits either way.  With
+``cfg.fused_generators`` the march is on the fused generator field.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def march_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     its = cfg.iterations if iterations is None else iterations
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
-            plan, tables, q, collapse=collapse)[0]
+            plan, tables, q, collapse=collapse,
+            fused=cfg.fused_generators)[0]
         return march(sd_fn, origin, dirs, its, cfg.surface_precision,
                      tmax=tmax, project_t=True, with_steps=with_steps)
 
@@ -50,7 +52,7 @@ def _library() -> ctypes.CDLL:
     """csrc/march_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("march_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_march_rays.argtypes = ([ptr] * 5 + [i32] * 7 + [f32, ptr]
+    lib.rt_march_rays.argtypes = ([ptr] * 5 + [i32] * 8 + [f32, ptr]
                                   + [f32] * 3 + [ptr] * 5
                                   + [ctypes.c_int64, ptr])
     lib.rt_march_rays.restype = i32
@@ -91,7 +93,8 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{None if tmax is None else tuple(tmax.shape)}")
 
     lib = _library()
-    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse,
+                                        cfg.fused_generators)
     shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
     with torch.no_grad():
         dirs_soa = dirs.t().contiguous()

@@ -1,7 +1,8 @@
 """The differentiable normal: K2 forward, winner-algebra backward.
 
-Counterpart of ``raymarching_tpu.api._normal_op`` on its two exact-table
-branches, chosen by ``cfg.normal_mode``:
+Counterpart of ``raymarching_tpu.api._normal_op`` on its exact-table and
+fused-generator branches, chosen by ``cfg.normal_mode`` and
+``cfg.fused_generators``:
 
   * ``"fd"``: forward K2 in its ``FD_GRAD`` mode, g_a = (f(p + h e_a) -
     f(p - h e_a)) / 2h.  Backward (``scene_vjp.fd_normal_bwd``): ONE K2
@@ -14,8 +15,14 @@ branches, chosen by ``cfg.normal_mode``:
     ``api._normal_bwd``): ONE K2 launch in its combined mode at the
     points, the closed-form winner Hessian chain, one scatter onto
     prim_pos.
+  * fused generators: the forward is K2's mode on the fused field.  With
+    analytic normals the backward is ``scene_vjp
+    .fused_analytic_normal_bwd`` (one fused combined launch, the chain on
+    the fused field, its carve rows landing on the generators' base
+    rows); with FD normals it is autograd through the FD normal of
+    ``core.sdf.scene_sd_fused``, as JAX's replay is plain jnp.
 
-The fused-generator and procedural branches are not ported yet.
+The procedural branch is not ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -23,9 +30,12 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
+from ..core.sdf import scene_sd_fused
+from ..core.shading import normal_fd
 from ..scene.compile import ScenePlan, SceneTables
 from .scene_vjp import (analytic_normal_bwd, fd_stencil_cotangents,
-                        stencil_eval, stencil_theta_cotangents)
+                        fused_analytic_normal_bwd, stencil_eval,
+                        stencil_theta_cotangents)
 from .shade_kernel import check_normal_mode
 from .surface_kernel import ANALYTIC, FD_GRAD, surface_eval
 
@@ -33,9 +43,6 @@ from .surface_kernel import ANALYTIC, FD_GRAD, surface_eval
 def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for ``_normal_op``'s other branches."""
     check_normal_mode(cfg, False)
-    if cfg.fused_generators:
-        raise NotImplementedError(
-            "not ported yet: fused generators (ROADMAP Queue 1 item 8)")
     if plan.proc:
         raise NotImplementedError(
             "not ported yet: procedural leaves (ROADMAP Queue 1 item 10)")
@@ -51,7 +58,8 @@ class NormalOp(torch.autograd.Function):
         check_supported(plan, cfg)
         tables = SceneTables(*fields)
         mode = ANALYTIC if cfg.normal_mode == "analytic" else FD_GRAD
-        _, _, g = surface_eval(plan, tables, p, mode=mode, fd_h=cfg.fd_h)
+        _, _, g = surface_eval(plan, tables, p, mode=mode, fd_h=cfg.fd_h,
+                               fused=cfg.fused_generators)
         ctx.plan, ctx.cfg = plan, cfg
         ctx.save_for_backward(p, *fields)
         return g
@@ -66,7 +74,13 @@ class NormalOp(torch.autograd.Function):
         need_theta = any(ctx.needs_input_grad[3:5])   # prim_pos, prim_aux
         if not (need_p or need_theta):
             return (None,) * (3 + len(fields))
-        if cfg.normal_mode == "analytic":
+        if cfg.fused_generators and cfg.normal_mode == "analytic":
+            p_bar, pos_bar, aux_bar = fused_analytic_normal_bwd(
+                plan, tables, p, g_bar)
+        elif cfg.fused_generators:
+            p_bar, pos_bar, aux_bar = _fused_fd_normal_bwd(plan, cfg, tables,
+                                                           p, g_bar)
+        elif cfg.normal_mode == "analytic":
             # radii and sizes do not move the winner's gradient
             p_bar, pos_bar = analytic_normal_bwd(plan, tables, p, g_bar,
                                                  need_theta)
@@ -84,6 +98,22 @@ class NormalOp(torch.autograd.Function):
             light_pos=None, light_color=None, cam_position=None,
             cam_direction=None, cam_up=None, cam_fov=None)
         return (None, None, p_bar, *grads)
+
+
+def _fused_fd_normal_bwd(plan: ScenePlan, cfg: RenderConfig,
+                         tables: SceneTables, p: torch.Tensor,
+                         g_bar: torch.Tensor) -> tuple:
+    """The VJP of the FD normal of the fused field, by autograd through
+    ``core.shading.normal_fd`` of ``scene_sd_fused`` (api._normal_bwd's
+    replay) -> (p_bar, prim_pos cotangent, prim_aux cotangent)."""
+    with torch.enable_grad():
+        pos = tables.prim_pos.detach().requires_grad_()
+        aux = tables.prim_aux.detach().requires_grad_()
+        q = p.detach().requires_grad_()
+        tb = tables._replace(prim_pos=pos, prim_aux=aux)
+        g = normal_fd(lambda x: scene_sd_fused(plan, tb, x), q, cfg.fd_h)
+        return torch.autograd.grad(g, (q, pos, aux), g_bar,
+                                   materialize_grads=True)
 
 
 def normal_op(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,

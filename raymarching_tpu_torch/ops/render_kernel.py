@@ -10,7 +10,10 @@ The normal is a compile-time choice of the kernel: FD, or with
 ``cfg.normal_mode="analytic"`` the combined fold's winner gradient (JAX
 ``_scene_sd_idx_grad_tile``), which with ``save_winner`` also writes the
 winner residuals (``shade_kernel.Winner``) that the fused analytic
-backward reads instead of launching a kernel.
+backward reads instead of launching a kernel.  So is the field:
+``cfg.fused_generators`` launches the kernel's fused-generator
+instantiation on the fused packing (``tables.pack_plan(kp, fused=True)``),
+whose residuals may name a carve by its extended winner id P + ordinal.
 
 With ``0 < cfg.two_phase_k1 < cfg.iterations`` the same outputs come from
 three launches instead of one (``pallas_render._two_phase_march`` and the
@@ -33,6 +36,7 @@ from ..core.march import MarchResult, march
 from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
 from .. import tables as scene_tables
+from ..tables import fused_groups
 from . import build
 from .march_kernel import march_rays
 from .scene_vjp import gather_rows
@@ -66,8 +70,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = "procedural leaves (ROADMAP Queue 1 item 10)"
     elif plan.colored_lights:
         todo = "coloured lights (ROADMAP Queue 1 item 9)"
-    elif cfg.fused_generators:
-        todo = "fused generators (ROADMAP Queue 1 item 8)"
     elif cfg.soft_shadow_k > 0.0 or cfg.ao_strength > 0.0:
         todo = "soft shadows and AO (ROADMAP Queue 1 item 9)"
     elif cfg.reflect_strength > 0.0:
@@ -81,6 +83,8 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
     check_normal_mode(cfg, False)
+    if cfg.fused_generators:
+        fused_groups(plan.kernel)       # the generator form the kernels take
 
 
 def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
@@ -95,7 +99,8 @@ def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     check_normal_mode(cfg, save_winner)
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
-            plan, tables, q, collapse=collapse)[0]
+            plan, tables, q, collapse=collapse,
+            fused=cfg.fused_generators)[0]
         hit = march(sd_fn, origin, dirs, cfg.iterations,
                     cfg.surface_precision)
     return _ray_outputs(hit, shade_rays_plain(
@@ -154,7 +159,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library("render_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rt_render_rays.argtypes = (
-        [ptr] * 5 + [i32] * 5 + [ptr] * 2 + [i32] * 7 + [f32] * 4
+        [ptr] * 5 + [i32] * 6 + [ptr] * 2 + [i32] * 7 + [f32] * 4
         + [ptr, f32, f32, f32] + [ptr] * 6 + [ctypes.c_int64, ptr])
     lib.rt_render_rays.restype = i32
     return lib
@@ -196,7 +201,8 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{tuple(origin.shape)}")
 
     lib = _library()
-    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse,
+                                        cfg.fused_generators)
     lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
     shared = (scene.nbytes(plan.num_lights)
               <= scene_tables.SHARED_SCENE_BYTES)

@@ -1,7 +1,8 @@
-"""Winner algebra of the exact-table backwards: stencil, cotangents, scatter.
+"""Winner algebra of the backwards: stencil, cotangents, scatter.
 
-Counterpart of ``raymarching_tpu.ops.scene_vjp`` (the exact-table,
-two-level part: the FD stencil and the analytic normal's winner Hessian)
+Counterpart of ``raymarching_tpu.ops.scene_vjp`` (the two-level part: the
+FD stencil and the analytic normal's winner Hessian on exact tables, and
+the fused generator field's winner algebra with its extended winner ids)
 and of ``ops.march_op.ift_ray_weights``.  Through every
 min/max fold the scene SDF is a.e. ``sign_eff * sd_w`` for one winning
 leaf w with a static path sign, so K2's (sd, winner, gradient) per point
@@ -16,9 +17,11 @@ binary-fold rule; the JAX ``jnp`` route splits them evenly.  Tied leaves
 have identical fields, so sums over a tie class agree.
 
 The JAX package reduces with blocked one-hot matmuls (``_segment_add``,
-``_gather_rows``), a workaround for the TPU's slow scatter; here the
-reduction is ``index_add_`` (float atomics on the card, so the order of
-the sum changes from run to run) and the gather ``index_select``.
+``_gather_rows``, and for the fused field ``_segment_add_rows`` over the
+static candidate rows of ``_fused_candidates``), a workaround for the
+TPU's slow scatter; here the reduction is ``index_add_`` (float atomics on
+the card, so the order of the sum changes from run to run) and the gather
+``index_select``, both by id, so no candidate set is needed.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..scene.compile import ScenePlan, SceneTables
 from ..scene.csg import PrimType
 
 from ..core.sdf import leaf_signs
+from ..tables import ext_base, fused_groups
 from .surface_kernel import COMBINED, surface_eval, surface_stencil
 
 # |grad f . d| can vanish at grazing incidence: the sign-preserving floor
@@ -208,3 +212,149 @@ def analytic_normal_bwd(plan: ScenePlan, tables: SceneTables,
     pos_bar = (segment_add(idx, rows, tables.prim_pos.shape[0])
                if need_theta else None)
     return p_bar, pos_bar
+
+
+# Kinds of the P + F winner rows of the fused field (scene_vjp
+# ._fused_statics): a flat leaf (box, cross), a sphere leaf, a Menger carve
+# (a folded cross: flat, its size by homogeneity) and a DeathStar carve (a
+# sphere centred 1.5 r along x from its base).
+K_FLAT, K_SPHERE, K_MENGER_CARVE, K_DS_CARVE = 0, 1, 2, 3
+
+
+@functools.lru_cache(maxsize=64)
+def fused_statics(plan: ScenePlan) -> tuple:
+    """(kind [P + F] int32, sigma [P + F] float32, base_row [P + F] int64,
+    P, F) over the winner rows of the fused field (scene_vjp
+    ._fused_statics): the P leaves, then the extended id P + k of the k-th
+    fused group.  sigma: g = sigma * unit(p - c) on curved rows (a leaf's
+    path sign; -1 for a DeathStar carve, whose group is -carve there);
+    base_row: the table row a winner row's cotangents land on (itself, or
+    the generator's base leaf)."""
+    sign_eff, is_sphere = leaf_statics(plan)
+    P = plan.num_primitives
+    generators = fused_groups(plan.kernel)
+    if generators and ext_base(plan.kernel) != P:
+        raise ValueError("the fused plan's extended ids do not start at P")
+    F = len(generators)
+    kind = np.zeros(P + F, np.int32)
+    kind[:P][is_sphere[:P]] = K_SPHERE
+    sigma = np.ones(P + F, np.float32)
+    sigma[:P] = sign_eff[:P]
+    base_row = np.arange(P + F, dtype=np.int64)
+    for k, g in enumerate(generators):
+        base_row[P + k] = g.start
+        if g.fused[0] == "deathstar":
+            kind[P + k] = K_DS_CARVE
+            sigma[P + k] = -1.0
+        else:
+            kind[P + k] = K_MENGER_CARVE
+    return kind, sigma, base_row, P, F
+
+
+def _on(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, device=like.device)
+
+
+def fused_winner_eval(plan: ScenePlan, tables: SceneTables, p: torch.Tensor
+                      ) -> tuple:
+    """(sd [R], winner [R] int32, d scene / dp [R, 3]) of the fused field
+    at p [R, 3], the winner an extended id P + k where a generator's carve
+    wins: one K2 launch in its fused combined mode
+    (scene_vjp.fused_winner_eval)."""
+    return surface_eval(plan, tables, p, mode=COMBINED, fused=True)
+
+
+def fused_theta_cotangents(plan: ScenePlan, tables: SceneTables,
+                           widx: torch.Tensor, g: torch.Tensor,
+                           u: torch.Tensor, sd: torch.Tensor,
+                           p: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``theta_cotangents`` for the fused field (scene_vjp
+    .fused_theta_cotangents): each point adds [-u g, -u, -u |g| / 2,
+    -u sd, -u g.p] to its winner's row of P + F; leaf rows take the
+    exact-table formulas, and a carve row lands on its base row: the
+    position by translation (the same -u g), a Menger carve's size by
+    degree-1 homogeneity (gval = -s carve((p - c) / s): (sum -u g.p - sum
+    -u sd - c . sum -u g) / s) and a DeathStar carve's radius by its
+    derived centre (d gval / dr = 1 - 1.5 g_x: -sum -u + 1.5 sum -u g_x).
+    -> (prim_pos cotangent [P, 3], prim_aux cotangent [P, 3])."""
+    kind, sigma, base_row, P, F = fused_statics(plan)
+    widx = widx.reshape(-1)
+    g = g.reshape(-1, 3)
+    mu = -u.reshape(-1, 1)
+    vals = torch.cat([mu * g, mu, 0.5 * mu * g.abs(), mu * sd.reshape(-1, 1),
+                      mu * (g * p.reshape(-1, 3)).sum(dim=1, keepdim=True)],
+                     dim=1)
+    red = segment_add(widx, vals.double(), P + F)            # [P + F, 9]
+    kind_t = _on(kind, red)[:, None]
+    sig = _on(sigma, red).double()[:, None]
+    rows = _on(base_row, red)
+    zeros2 = torch.zeros_like(red[:, :2])
+    gpos_ext = red[:, :3]
+    gaux = torch.where(kind_t == K_SPHERE,
+                       sig * torch.cat([red[:, 3:4], zeros2], dim=1),
+                       sig * red[:, 4:7])
+    c_ext = tables.prim_pos.detach()[rows].double()
+    s_ext = tables.prim_aux.detach()[rows, 0].double()
+    s_safe = torch.where(s_ext != 0.0, s_ext, torch.ones_like(s_ext))
+    size_cot = (red[:, 8] - red[:, 7] - (c_ext * gpos_ext).sum(dim=1)
+                ) / s_safe
+    gaux = torch.where(kind_t == K_MENGER_CARVE,
+                       torch.cat([size_cot[:, None], zeros2], dim=1), gaux)
+    ds_cot = -red[:, 3] + 1.5 * red[:, 0]
+    gaux = torch.where(kind_t == K_DS_CARVE,
+                       torch.cat([ds_cot[:, None], zeros2], dim=1), gaux)
+    out = torch.zeros((P, 6), dtype=red.dtype, device=red.device)
+    out.index_add_(0, rows, torch.cat([gpos_ext, gaux], dim=1))
+    out = out.to(g.dtype)
+    return out[:, :3], out[:, 3:]
+
+
+def fused_winner_hessian_chain(plan: ScenePlan, tables: SceneTables,
+                               widx: torch.Tensor, g: torch.Tensor,
+                               gbar: torch.Tensor, sd: torch.Tensor
+                               ) -> tuple:
+    """``winner_hessian_chain`` for the fused field (scene_vjp
+    .fused_winner_hessian_chain): the curved winners are sphere leaves and
+    DeathStar carves, whose sphere is centred at c + 1.5 r e_x; Menger
+    carves are folded crosses, flat.  With u = sigma g and |p - c| =
+    r + sigma sd from the winner's own identity, p_bar = sigma H gbar,
+    the centre gets -p_bar and a carve's radius 1.5 times its x.
+    widx [R], g, gbar [R, 3], sd [R] -> (p_bar [R, 3], prim_pos cotangent
+    [P, 3], prim_aux cotangent [P, 3]), reduced onto the base rows."""
+    kind, sigma, base_row, P, F = fused_statics(plan)
+    dev = g.device
+    rows = _on(base_row, g)
+    stats = torch.stack([
+        _on(sigma, g), tables.prim_aux.detach()[rows, 0],
+        _on(kind == K_SPHERE, g).to(g.dtype),
+        _on(kind == K_DS_CARVE, g).to(g.dtype)], dim=1)
+    st = gather_rows(widx, stats)               # zeros where nothing won
+    sg, r, sph, dsc = st[:, 0], st[:, 1], st[:, 2] > 0.5, st[:, 3] > 0.5
+    curved = sph | dsc
+    u = sg[:, None] * g
+    dist = torch.clamp_min(r + sg * sd, 1e-12)[:, None]
+    hg = (gbar - u * (u * gbar).sum(dim=-1, keepdim=True)) / dist
+    zero = torch.zeros((), dtype=g.dtype, device=dev)
+    # a miss's sd may be inf (0 * inf in dist): the select drops it
+    p_bar = torch.where(curved[:, None], sg[:, None] * hg, zero)
+    pos_rows = -p_bar
+    aux0 = torch.where(dsc, 1.5 * pos_rows[:, 0], zero)
+    red = segment_add(torch.where(curved, widx, -1),
+                      torch.cat([pos_rows, aux0[:, None]], dim=1).double(),
+                      P + F)
+    out = torch.zeros((P, 4), dtype=red.dtype, device=dev)
+    out.index_add_(0, rows, red)
+    out = out.to(g.dtype)
+    aux_bar = torch.cat([out[:, 3:], torch.zeros_like(out[:, :2])], dim=1)
+    return p_bar, out[:, :3], aux_bar
+
+
+def fused_analytic_normal_bwd(plan: ScenePlan, tables: SceneTables,
+                              p: torch.Tensor, gbar: torch.Tensor) -> tuple:
+    """VJP of the fused field's analytic normal at p [R, 3] for gbar
+    [R, 3] (scene_vjp.fused_analytic_normal_bwd): one fused K2 combined
+    launch and the closed-form chain -> (p_bar [R, 3], prim_pos
+    cotangent [P, 3], prim_aux cotangent [P, 3])."""
+    sd, widx, g = fused_winner_eval(plan, tables, p)
+    return fused_winner_hessian_chain(plan, tables, widx, g, gbar, sd)

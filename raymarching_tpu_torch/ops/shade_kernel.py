@@ -4,7 +4,8 @@ Counterpart of ``raymarching_tpu.ops.pallas_render._shade_kernel`` (the
 ``_compiled_shade_call`` of the two-phase path) for the ported shading
 set: K1's shade body on hit points that come in.  In (p, sd, dirs), out
 (colour winner, clamped Lambert term, shadow mask): FD or analytic
-normals (``cfg.normal_mode``), hard shadows that stop at the light, both
+normals (``cfg.normal_mode``) on exact tables or with fused generators
+(``cfg.fused_generators``), hard shadows that stop at the light, both
 shadow skips with the black-lane gate, white lights.  With
 ``save_winner`` (analytic normals only) the winner residuals of the
 normal come out too (``Winner``; JAX's ``save_winner``), which make the
@@ -92,12 +93,13 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     with ``save_winner`` (ShadeOutputs, Winner)."""
     analytic = check_normal_mode(cfg, save_winner)
     eps = cfg.surface_precision
+    fused = cfg.fused_generators
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
-            plan, tables, q, collapse=collapse)[0]
+            plan, tables, q, collapse=collapse, fused=fused)[0]
         back = torch.clamp_max(sd, MAX_STEP)
         _, cidx = kernel_fold(plan, tables, p - back[:, None] * dirs,
-                              with_idx=True)
+                              with_idx=True, fused=fused)
 
         skip = torch.zeros(sd.shape, dtype=torch.bool, device=sd.device)
         black = black_skip_ids(plan, cfg, tables)
@@ -110,7 +112,7 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
             # the combined fold at the hit (K2's combined mode): its
             # gradient is the normal, all three are the residuals
             winner = Winner(*kernel_fold(plan, tables, p, with_grad=True,
-                                         collapse=collapse))
+                                         collapse=collapse, fused=fused))
             g = winner.g
         else:
             g = fd_stencil(sd_fn, p, cfg.fd_h)
@@ -191,7 +193,7 @@ def _library() -> ctypes.CDLL:
     """csrc/shade_kernel.cu, built on first use, its entry point bound."""
     lib = build.load_library("shade_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_shade_rays.argtypes = ([ptr] * 5 + [i32] * 5 + [ptr] * 2
+    lib.rt_shade_rays.argtypes = ([ptr] * 5 + [i32] * 6 + [ptr] * 2
                                   + [i32] * 7 + [f32] * 4 + [ptr] * 6
                                   + [ctypes.c_int64, ptr])
     lib.rt_shade_rays.restype = i32
@@ -227,7 +229,8 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     analytic = check_normal_mode(cfg, save_winner)
 
     lib = _library()
-    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse,
+                                        cfg.fused_generators)
     lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
     shared = (scene.nbytes(plan.num_lights)
               <= scene_tables.SHARED_SCENE_BYTES)

@@ -1,7 +1,8 @@
 """K2, the surface kernel: wrapper and plain twins of its five modes.
 
 Counterpart of ``raymarching_tpu.ops.pallas_march.pallas_surface_eval``,
-not fused.  Per point of q [N, 3], by ``mode``:
+on exact tables and with fused generators.  Per point of q [N, 3], by
+``mode``:
 
   * ``COMBINED`` (JAX: with_color, with_normal, analytic) — the scene SD,
     the first-wins winning leaf and the winner's gradient: the mode of the
@@ -18,14 +19,20 @@ not fused.  Per point of q [N, 3], by ``mode``:
     gradient are the combined mode's, bitwise (JAX carries the gradient
     through every select instead; off tie sets the two agree).
 
-Every fused-generator mode is not ported yet (ROADMAP Queue 1 item 8).
-The kernel is ``csrc/surface_kernel.cu``; ``surface_eval_plain`` computes
-each mode in plain PyTorch and is what a CPU tensor gets.  A CUDA tensor
-always goes to the kernel: a build or launch failure raises.
+With ``fused`` (JAX's ``fused=True``, ``RenderConfig.fused_generators``)
+every mode evaluates the fused generator field: the WINNER mode names a
+generator's base leaf, and the COMBINED mode a carve that wins by its
+extended winner id P + ordinal (``tables.fused_groups``), with the
+carve's gradient.  The kernel is ``csrc/surface_kernel.cu``;
+``surface_eval_plain`` computes each mode in plain PyTorch and is what a
+CPU tensor gets.  A CUDA tensor always goes to the kernel: a build or
+launch failure raises.
 
 ``surface_stencil`` is the kernel's second entry: the combined mode over
 the FD stencils of hit points, each stencil point made inside the kernel,
-so the backward passes hand over 12 bytes a hit and no stencil tensor.
+so the exact FD backward passes hand over 12 bytes a hit and no stencil
+tensor (exact tables only: the fused FD backward differentiates
+``core.sdf.scene_sd_fused`` under autograd, as JAX's does).
 
 Keywords for measurements, the same bits either way: ``collapse`` (the
 exact Menger lattice collapse in the SD, FD_GRAD, COMBINED and ANALYTIC
@@ -67,23 +74,24 @@ def _check_mode(mode: int, fd_h: Optional[float]) -> None:
 def surface_eval_plain(plan: ScenePlan, tables: SceneTables, q: torch.Tensor,
                        *, mode: int = COMBINED,
                        fd_h: Optional[float] = None,
-                       collapse: bool = True) -> Surface:
+                       collapse: bool = True, fused: bool = False) -> Surface:
     """K2 in plain PyTorch: q [N, 3] -> (sd [N], winner leaf [N] int32 or
     None, gradient [N, 3] or None), the parts ``mode`` computes; the
     winner is -1 and the gradient of the COMBINED and ANALYTIC modes zero
     where nothing won.  ``collapse`` reaches every mode but WINNER, which
-    folds leaf by leaf."""
+    folds leaf by leaf; ``fused``: the fused generator field."""
     _check_mode(mode, fd_h)
     with torch.no_grad():
         if mode in (COMBINED, ANALYTIC):
             sd, widx, g = kernel_fold(plan, tables, q, with_grad=True,
-                                      collapse=collapse)
+                                      collapse=collapse, fused=fused)
             return sd, (widx if mode == COMBINED else None), g
         if mode == WINNER:
-            sd, widx = kernel_fold(plan, tables, q, with_idx=True)
+            sd, widx = kernel_fold(plan, tables, q, with_idx=True,
+                                   fused=fused)
             return sd, widx, None
         sd_fn = lambda p: kernel_fold(  # noqa: E731
-            plan, tables, p, collapse=collapse)[0]
+            plan, tables, p, collapse=collapse, fused=fused)[0]
         sd = sd_fn(q)
         if mode == SD:
             return sd, None, None
@@ -121,10 +129,10 @@ def _library() -> ctypes.CDLL:
     """csrc/surface_kernel.cu, built on first use, its entry points bound."""
     lib = build.load_library("surface_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_surface_eval.argtypes = ([ptr] * 5 + [i32] * 8 + [f32] * 2
+    lib.rt_surface_eval.argtypes = ([ptr] * 5 + [i32] * 9 + [f32] * 2
                                     + [ptr] * 4 + [ctypes.c_int64, ptr])
     lib.rt_surface_eval.restype = i32
-    lib.rt_surface_stencil.argtypes = ([ptr] * 5 + [i32] * 7 + [f32]
+    lib.rt_surface_stencil.argtypes = ([ptr] * 5 + [i32] * 8 + [f32]
                                        + [ptr] * 4 + [ctypes.c_int64, ptr])
     lib.rt_surface_stencil.restype = i32
     return lib
@@ -149,7 +157,8 @@ def _check_inputs(what: str, plan: ScenePlan, tables: SceneTables,
 
 def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
                  mode: int = COMBINED, fd_h: Optional[float] = None,
-                 collapse: bool = True, multipoint: bool = True) -> Surface:
+                 collapse: bool = True, multipoint: bool = True,
+                 fused: bool = False) -> Surface:
     """The scene at points q [N, 3] in ``mode`` -> (sd, winner or None,
     gradient or None), as ``surface_eval_plain``; ``tables`` is a
     SceneTables of tensors on q's device.  CPU tensors take the plain
@@ -157,13 +166,13 @@ def surface_eval(plan: ScenePlan, tables: SceneTables, q: torch.Tensor, *,
     dev = q.device
     if dev.type == "cpu":
         return surface_eval_plain(plan, tables, q, mode=mode, fd_h=fd_h,
-                                  collapse=collapse)
+                                  collapse=collapse, fused=fused)
     _check_inputs("surface_eval", plan, tables, q)
     _check_mode(mode, fd_h)
 
     lib = _library()
     N = q.shape[0]
-    scene = scene_tables.scene_operands(plan, tables, dev, collapse)
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse, fused)
     shared = scene.nbytes() <= scene_tables.SHARED_SCENE_BYTES
     with_grad = mode in (COMBINED, FD_GRAD, ANALYTIC)
     with_idx = mode in (COMBINED, WINNER)

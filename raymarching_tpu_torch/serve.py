@@ -11,8 +11,10 @@ answer 501 when set; ``bounces`` and ``focus`` are clamped as the JAX
 server clamps them first, so an out-of-range value gets the same answer.
 ``serve_raygen`` is accepted and ignored (the port generates rays outside
 the kernel), which the ``X-Serve-Raygen: ignored`` reply header says.
-Normals are FD, as the JAX server pins them.  ``POST /aovs`` and
-``/animate`` answer 501 (ROADMAP Queue 1 items 9 and 12).
+Normals are FD, as the JAX server pins them.  ``POST /aovs`` answers 501:
+the planes are ``api.render_aovs``, and what is left is the route that
+packs them into the JAX server's ZIP of PNG and .npy members (ROADMAP
+Queue 1 item 9); ``/animate`` answers 501 (item 12).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ MAX_BODY_BYTES = 1 << 20
 # The JAX server's routes that the port does not have yet: the ROADMAP item
 # each waits for.
 UNPORTED_ROUTES = {
-    "/aovs": "the AOV passes (ROADMAP Queue 1 item 9)",
+    "/aovs": "the route's ZIP of the api.render_aovs planes (ROADMAP "
+             "Queue 1 item 9)",
     "/animate": "animated renders (ROADMAP Queue 1 item 12)",
 }
 # Query parameters of features that are not ported yet, and their items.

@@ -17,8 +17,11 @@ stream for the exact Menger lattice collapse
 ``_menger_carve_lattice_idx_grad``), and ``lattice_ok`` is the JAX
 table's flag row: a one-element tensor that stays on the device and tells
 the kernels whether the live rows still share the lattice's coordinates.
-The JAX table's chunk-bound, Menger-offset and order rows feed culls the
-port does not have and are not built.
+``pack_plan(kp, fused=True)`` is the packing of
+``RenderConfig.fused_generators`` (pallas_march's D6): a generator group
+keeps its base leaf and a carve descriptor, and the kernels evaluate its
+carve from the base row.  The JAX table's chunk-bound, Menger-offset and
+order rows feed culls the port does not have and are not built.
 """
 
 from __future__ import annotations
@@ -35,12 +38,27 @@ from .scene.compile import MIN, KernelPlan, SceneTables
 # (the rule of pallas_march._scene_sd_tile, _CULL_MIN_GROUP).
 CULL_MIN_GROUP = 8
 
+# The fourth field of a group descriptor: 0 an exact group the kernels fold
+# leaf by leaf, 1 one that also takes the base-bound cull, GROUP_FUSED a
+# fused generator group (csrc/fold.cuh's kGroupFused).
+GROUP_FUSED = 2
+
+# The prim type of a fused generator's base leaf, the leaf at g.start
+# (pallas_march._FUSED_BASE_TYPE).
+FUSED_BASE_TYPE = {"menger": 1, "deathstar": 0}     # BOX, SPHERE
+
 
 class PackedPlan(NamedTuple):
     """A ``KernelPlan`` as int32 descriptor tensors (on the host).
 
-    ``groups`` [G, 4]: gsign, first run, number of runs, cullable bit.
-    ``runs`` [N, 4]: prim type, first leaf, leaf count, scale (+-1).
+    ``groups`` [G, 4]: gsign, first run, number of runs, and 0, 1 (the
+    base-bound cull) or GROUP_FUSED.
+    ``runs`` [N, 4]: prim type, first leaf, leaf count, scale (+-1).  In
+    the fused packing a generator group's runs are its base leaf (scale
+    -1), and the run after them is its carve: (Menger levels, or 0 for a
+    DeathStar; the base row; 0; the extended winner id P + ordinal, P the
+    plan's leaf count and ordinal the group's place among the fused
+    groups).  Its ``lattice`` entry is 0.
     ``lattice`` [max(G, 1) + ...]: entry g is the offset in this stream of
     group g's collapse block, 0 where it has none.  A block is the number
     of levels and the offset of the block's winner rows, then per level
@@ -126,6 +144,33 @@ def is_cullable(kp: KernelPlan, g) -> bool:
             and g.count >= CULL_MIN_GROUP)
 
 
+def fused_groups(kp: KernelPlan) -> list:
+    """The groups that the fused packing evaluates by their generator, in
+    plan order: the position of one in this list is its ordinal, and its
+    extended winner id is ``ext_base(kp)`` plus that (scene_vjp
+    ._fused_statics).  Raises NotImplementedError for a fused group that is
+    not a DIFFERENCE of one base leaf under a MIN root (the reference
+    grammar makes none; JAX folds such a group differently in its value
+    fold and its winner folds)."""
+    out = [g for g in kp.groups if g.fused is not None]
+    for g in out:
+        base = [r for r in g.runs if r[3] == -1]
+        if (kp.root_op != MIN or g.gsign != -1 or len(base) != 1
+                or base[0] != g.runs[0] or base[0][1:3] != (g.start, 1)
+                or base[0][0] != FUSED_BASE_TYPE[g.fused[0]]):
+            raise NotImplementedError(
+                f"fused generator group {g.fused} not of the form "
+                "max(base leaf, -carve) under a MIN root")
+    return out
+
+
+def ext_base(kp: KernelPlan) -> int:
+    """P, the first extended winner id: the row past the plan's leaves
+    (pallas_march._flag_row)."""
+    g = kp.groups[-1]
+    return g.start + g.count
+
+
 def collapses(kp: KernelPlan, g) -> bool:
     """Whether group ``g``'s carve takes the lattice collapse while the
     flag holds: a Menger lattice on a DIFFERENCE group under a MIN root
@@ -170,12 +215,23 @@ def _pack_lattice(g, stream: list, members: list) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def pack_plan(kp: KernelPlan) -> PackedPlan:
-    """Flatten ``kp.groups`` into descriptor tensors (cached per plan; the
-    returned tensors are shared, so callers must not write to them)."""
+def pack_plan(kp: KernelPlan, fused: bool = False) -> PackedPlan:
+    """Flatten ``kp.groups`` into descriptor tensors (cached per plan and
+    ``fused``; the returned tensors are shared, so callers must not write
+    to them).  With ``fused``, generator groups take the fused packing."""
     groups, runs = [], []
     lattice, members = [0] * max(len(kp.groups), 1), []
+    ordinals = ({id(g): k for k, g in enumerate(fused_groups(kp))}
+                if fused else {})
     for gi, g in enumerate(kp.groups):
+        ordinal = ordinals.get(id(g))
+        if ordinal is not None:
+            groups.append((g.gsign, len(runs), 1, GROUP_FUSED))
+            kind = g.fused[0]
+            runs.append(tuple(int(v) for v in g.runs[0]))
+            runs.append((g.fused[1] if kind == "menger" else 0, g.start, 0,
+                         ext_base(kp) + ordinal))
+            continue
         if collapses(kp, g):
             lattice[gi] = len(lattice)
             _pack_lattice(g, lattice, members)
@@ -203,20 +259,23 @@ def pack_plan(kp: KernelPlan) -> PackedPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def _packed_on(kp: KernelPlan, device: torch.device) -> PackedPlan:
-    """``pack_plan(kp)`` with its tensors on ``device`` (cached, shared)."""
-    packed = pack_plan(kp)
+def _packed_on(kp: KernelPlan, device: torch.device,
+               fused: bool = False) -> PackedPlan:
+    """``pack_plan(kp, fused)`` with its tensors on ``device`` (cached,
+    shared)."""
+    packed = pack_plan(kp, fused)
     return packed._replace(**{
         name: getattr(packed, name).to(device)
         for name in ("groups", "runs", "lattice", "members")})
 
 
-def _table_flag(kp, table: torch.Tensor) -> torch.Tensor:
+def _table_flag(kp, table: torch.Tensor, fused: bool = False
+                ) -> torch.Tensor:
     """``lattice_ok`` from the [P, 8] primitive rows: one gather over a
     static index array and one comparison."""
     if getattr(kp, "groups", None) is None:     # a generic ScenePlan
         return torch.zeros(1, dtype=torch.int32, device=table.device)
-    members = _packed_on(kp, table.device).members
+    members = _packed_on(kp, table.device, fused).members
     if members.numel() == 0:
         return torch.zeros(1, dtype=torch.int32, device=table.device)
     with torch.no_grad():
@@ -225,16 +284,18 @@ def _table_flag(kp, table: torch.Tensor) -> torch.Tensor:
         return (own == rep).all().to(torch.int32).reshape(1)
 
 
-def lattice_ok(kp, tables: SceneTables) -> torch.Tensor:
+def lattice_ok(kp, tables: SceneTables, fused: bool = False
+               ) -> torch.Tensor:
     """One-element int32 tensor on the tables' device, 1 while the live
     rows still satisfy every collapsing group's shared-coordinate structure
-    (pallas_march.lattice_ok), 0 otherwise or when nothing collapses.
+    (pallas_march.lattice_ok), 0 otherwise or when nothing collapses (in
+    the fused packing, ``fused``, no generator group collapses).
     Nothing comes back to the host, so a kernel reads the flag without a
     synchronisation.  Generated scenes pass bitwise; a table whose cross
     rows an optimizer has moved drops every kernel and twin to the plain
     leaf fold."""
     with torch.no_grad():
-        return _table_flag(kp, build_table(tables))
+        return _table_flag(kp, build_table(tables), fused)
 
 
 # A scene whose rows, descriptors and lights fit this many bytes is staged
@@ -253,15 +314,16 @@ class SceneOperands(NamedTuple):
     lattice: torch.Tensor   # int32 collapse stream
     flag: torch.Tensor      # [1] int32: the collapse may be taken
     root_min: int           # 1 when the root folds with MIN
+    fused: int = 0          # 1: the fused packing (fused generators)
 
     def args(self) -> tuple:
         """The leading arguments of every C entry point: five pointers,
-        then the row, group, run and stream counts and root_min."""
+        then the row, group, run and stream counts, root_min and fused."""
         return (self.table.data_ptr(), self.groups.data_ptr(),
                 self.runs.data_ptr(), self.lattice.data_ptr(),
                 self.flag.data_ptr(), self.table.shape[0],
                 self.groups.shape[0], self.runs.shape[0],
-                self.lattice.shape[0], self.root_min)
+                self.lattice.shape[0], self.root_min, self.fused)
 
     def nbytes(self, n_lights: int = 0) -> int:
         """Bytes a block stages when the scene goes to shared memory."""
@@ -271,18 +333,21 @@ class SceneOperands(NamedTuple):
 
 
 def scene_operands(plan, tables: SceneTables, device,
-                   collapse: bool = True) -> SceneOperands:
-    """The scene as the kernels read it, on ``device``.  With ``collapse``
-    the flag is ``lattice_ok`` of the live tables, else 0 (the plain leaf
-    fold).  The caller keeps the tensors alive across its launch."""
-    packed = _packed_on(plan.kernel, torch.device(device))
+                   collapse: bool = True, fused: bool = False
+                   ) -> SceneOperands:
+    """The scene as the kernels read it, on ``device``: the exact packing,
+    or with ``fused`` the fused one (``RenderConfig.fused_generators``).
+    With ``collapse`` the flag is ``lattice_ok`` of the live tables, else 0
+    (the plain leaf fold).  The caller keeps the tensors alive across its
+    launch."""
+    packed = _packed_on(plan.kernel, torch.device(device), bool(fused))
     with torch.no_grad():
         table = build_table(tables)
-        flag = (_table_flag(plan.kernel, table) if collapse else
-                torch.zeros(1, dtype=torch.int32, device=device))
+        flag = (_table_flag(plan.kernel, table, bool(fused)) if collapse
+                else torch.zeros(1, dtype=torch.int32, device=device))
         ops = SceneOperands(table, packed.groups, packed.runs,
                             packed.lattice, flag,
-                            int(packed.root_op == MIN))
+                            int(packed.root_op == MIN), int(bool(fused)))
     for name in ("groups", "runs", "lattice", "flag"):
         t = getattr(ops, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()

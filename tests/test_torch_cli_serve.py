@@ -61,8 +61,8 @@ def test_render_on_missing_cuda_device_raises(scenes_dir):
 
 
 @pytest.mark.parametrize("change", [
-    dict(normal_mode="analytic", fused_generators=True),
-    dict(fused_generators=True),
+    dict(normal_mode="analytic", soft_shadow_k=8.0),
+    dict(fused_generators=True, reflect_strength=0.3),
     dict(soft_shadow_k=8.0), dict(ao_strength=0.5),
     dict(reflect_strength=0.3), dict(aperture=0.2),
     dict(serve_raygen=True)])

@@ -655,3 +655,208 @@ def test_multi_backend_matches_fused_analytic_on_card(cuda_device, scene):
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)
+
+
+# fused generators: the scenes with generator groups, and a DeathStar alone
+FUSED_SCENES = ("demo", "config3", "config4", "menger4", "deathstar")
+DEATHSTAR = "Bounds 40\nLight 5 8 4\nColor 0.3 0.4 0.9\nDeathStar 0 0 -6 2\n"
+
+
+def _fused_scene_tables(scene, device):
+    text = DEATHSTAR if scene == "deathstar" else None
+    plan, tables = compile_scene(
+        parse_scene(text) if text is not None
+        else load_scene(str(SCENES / f"{scene}.txt")))
+    assert any(g.fused is not None for g in plan.kernel.groups)
+    return plan, tables, tables_to_torch(tables, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("scene", FUSED_SCENES)
+def test_fused_kernels_match_twins_on_card(cuda_device, monkeypatch, scene,
+                                           placement, normal):
+    """The fused-generator instantiations of all four kernels against their
+    twins, bitwise: K1 (with analytic normals with and without its winner
+    residuals), K3 with steps and on shadow rays, K4 on K1's hits and
+    against K1, and K2's five modes at the hits; extended winner ids in
+    the combined mode and the residuals, and the residuals equal to K2's
+    combined mode."""
+    from raymarching_tpu_torch import tables as scene_tables
+    plan, _, tt = _fused_scene_tables(scene, cuda_device)
+    cfg = CFG.replace(fused_generators=True, normal_mode=normal)
+    nbytes = scene_tables.scene_operands(plan, tt, cuda_device, True,
+                                         True).nbytes(plan.num_lights)
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    elif nbytes > scene_tables.SHARED_SCENE_BYTES:
+        pytest.skip(f"{scene}: {nbytes} bytes do not fit shared memory")
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    analytic = normal == "analytic"
+    kw = dict(save_winner=True) if analytic else {}
+    n1 = rk.render_rays.launches
+    out = rk.render_rays(plan, cfg, tt, origin, dirs, **kw)
+    torch.cuda.synchronize()
+    assert rk.render_rays.launches == n1 + 1
+    plain = rk.render_rays_plain(plan, cfg, tt, origin, dirs, **kw)
+    k1, w1 = out if analytic else (out, ())
+    p1, pw = plain if analytic else (plain, ())
+    _same((*k1, *w1), (*p1, *pw), f"{scene}: K1 fused {normal}")
+    if analytic:
+        _same(rk.render_rays(plan, cfg, tt, origin, dirs), k1,
+              f"{scene}: K1 fused analytic without residuals")
+        _same(sk.surface_eval(plan, tt, k1.p, fused=True), w1,
+              f"{scene}: K2 combined vs K1's residuals")
+    # exact and fused fields differ on the generators' carves
+    exact = rk.render_rays(plan, cfg.replace(fused_generators=False), tt,
+                           origin, dirs)
+    assert exact.p.shape == k1.p.shape
+    res, steps = mk.march_rays(plan, cfg, tt, origin, dirs, with_steps=True)
+    res_p, steps_p = mk.march_rays_plain(plan, cfg, tt, origin, dirs,
+                                         with_steps=True)
+    _same((*res, steps), (*res_p, steps_p), f"{scene}: K3 fused")
+    _same(res, (k1.p, k1.sd, k1.done), f"{scene}: K3 fused vs K1")
+    for li in range(plan.num_lights):
+        n = normalize(sk.surface_eval(plan, tt, k1.p, mode=sk.FD_GRAD,
+                                      fd_h=cfg.fd_h, fused=True)[2])
+        lp = tt.light_pos[li]
+        start = k1.p + n * (cfg.surface_precision + cfg.offset_precision)
+        d = normalize(lp - k1.p)
+        tmax = torch.sqrt(dot3(lp - start, lp - start))
+        _same(mk.march_rays(plan, cfg, tt, start, d, tmax=tmax),
+              mk.march_rays_plain(plan, cfg, tt, start, d, tmax=tmax),
+              f"{scene}: K3 fused shadow rays {li}")
+    o4 = shk.shade_rays(plan, cfg, tt, k1.p, k1.sd, dirs, **kw)
+    k4, w4 = o4 if analytic else (o4, ())
+    s4 = shk.shade_rays_plain(plan, cfg, tt, k1.p, k1.sd, dirs, **kw)
+    s4, sw = s4 if analytic else (s4, ())
+    _same((*k4, *w4), (*s4, *sw), f"{scene}: K4 fused {normal}")
+    _same((*k4, *w4), (k1.cidx, k1.light, k1.smask, *w1),
+          f"{scene}: K4 fused vs K1")
+    for mode in sk.MODES:
+        _same(sk.surface_eval(plan, tt, k1.p, mode=mode, fd_h=cfg.fd_h,
+                              fused=True),
+              sk.surface_eval_plain(plan, tt, k1.p, mode=mode, fd_h=cfg.fd_h,
+                                    fused=True),
+              f"{scene}: K2 fused mode {mode}")
+    P = plan.num_primitives
+    _, widx, _ = sk.surface_eval(plan, tt, k1.p, fused=True)
+    assert int(widx.max()) < P + len([g for g in plan.kernel.groups
+                                      if g.fused is not None])
+    _, cidx, _ = sk.surface_eval(plan, tt, k1.p, mode=sk.WINNER, fused=True)
+    assert int(cidx.max()) < P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", ["demo", "config3", "menger4"])
+def test_fused_two_phase_equals_one_kernel_on_card(cuda_device, scene,
+                                                   normal):
+    """K3, K3 and K4 on the fused field: K1's outputs (and residuals)."""
+    plan, _, tt = _fused_scene_tables(scene, cuda_device)
+    cfg = CFG.replace(fused_generators=True, normal_mode=normal)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    kw = dict(save_winner=True) if normal == "analytic" else {}
+    one = rk.render_rays(plan, cfg, tt, origin, dirs, **kw)
+    n1, n4 = rk.render_rays.launches, shk.shade_rays.launches
+    two = rk.render_rays(plan, cfg.replace(two_phase_k1=8), tt, origin,
+                         dirs, **kw)
+    assert rk.render_rays.launches == n1
+    assert shk.shade_rays.launches == n4 + 1
+    flat = lambda o: (*o[0], *o[1]) if kw else o  # noqa: E731
+    _same(flat(two), flat(one), f"{scene}: two-phase fused {normal}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 700])
+def test_fused_ragged_counts_on_card(cuda_device, n):
+    """The fused instantiations on the first n rays alone: the full
+    launch's outputs on them."""
+    plan, _, tt = _fused_scene_tables("demo", cuda_device)
+    cfg = ANALYTIC.replace(fused_generators=True)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    org = origin.expand(dirs.shape).contiguous()
+    full, wf = rk.render_rays(plan, cfg, tt, org, dirs, save_winner=True)
+    part, wp = rk.render_rays(plan, cfg, tt, org[:n], dirs[:n],
+                              save_winner=True)
+    _same((*part, *wp), tuple(v[:n] for v in (*full, *wf)), f"K1 on {n}")
+    m = mk.march_rays(plan, cfg, tt, org, dirs)
+    _same(mk.march_rays(plan, cfg, tt, org[:n], dirs[:n]),
+          tuple(v[:n] for v in m), f"K3 on {n}")
+    _same(shk.shade_rays(plan, cfg, tt, full.p[:n], full.sd[:n], dirs[:n]),
+          (full.cidx[:n], full.light[:n], full.smask[:n]), f"K4 on {n}")
+    for mode in sk.MODES:
+        k = sk.surface_eval(plan, tt, full.p, mode=mode, fd_h=CFG.fd_h,
+                            fused=True)
+        _same(sk.surface_eval(plan, tt, full.p[:n], mode=mode, fd_h=CFG.fd_h,
+                              fused=True),
+              tuple(None if v is None else v[:n] for v in k),
+              f"K2 mode {mode} on {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal,save", [("fd", True), ("analytic", True),
+                                         ("analytic", False)])
+def test_fused_gradients_on_card_match_cpu(cuda_device, monkeypatch, normal,
+                                           save):
+    """The fused step on the card against the CPU twins on the same rays
+    (tests/test_mega.py:62's tolerance): with analytic normals one K1
+    launch and no K2 launch with the residuals, one K2 launch without;
+    with FD normals one K1 launch (the backward is autograd through
+    scene_sd_fused)."""
+    from raymarching_tpu_torch.ops import render_op
+    monkeypatch.setattr(render_op, "SAVE_WINNER", save)
+    plan, tables, _ = _fused_scene_tables("demo", "cpu")
+    cfg = CFG.replace(fused_generators=True, normal_mode=normal)
+    origin, dirs = cam.generate_rays(tables_to_torch(tables, "cpu"), cfg)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device,
+                             requires_grad=SceneTables._fields)
+        o = origin.to(device).requires_grad_()
+        d = dirs.reshape(-1, 3).to(device).requires_grad_()
+        k1, k2 = rk.render_rays.launches, sk.surface_eval.launches
+        colors = FusedRender.apply(plan, cfg, o, d, *tt)
+        g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                                allow_unused=True, materialize_grads=True)
+        launched = (rk.render_rays.launches - k1,
+                    sk.surface_eval.launches - k2)
+        want = (1, 0) if save or normal == "fd" else (1, 1)
+        assert launched == (want if device.type == "cuda" else (0, 0))
+        grads.append([v.cpu() for v in g])
+    for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+def test_multi_backend_matches_fused_generators_on_card(cuda_device, normal):
+    """The multi-kernel frame and gradients on the fused field against the
+    fused backend's."""
+    plan, tables, _ = _fused_scene_tables("demo", "cpu")
+    cfg = CFG.replace(fused_generators=True, normal_mode=normal,
+                      shade_skip_black=False)
+    imgs, grads = {}, {}
+    for backend in ("cuda", "multi"):
+        tt = tables_to_torch(tables, cuda_device,
+                             requires_grad=SceneTables._fields)
+        img = rt.render_tables(plan, tt, cfg, backend=backend,
+                               differentiable=True, device=cuda_device)
+        grads[backend] = torch.autograd.grad(
+            torch.mean((img - 0.25) ** 2), list(tt), allow_unused=True,
+            materialize_grads=True)
+        imgs[backend] = img.detach()
+    torch.testing.assert_close(imgs["multi"], imgs["cuda"], rtol=0,
+                               atol=1e-6)
+    for name, a, b in zip(SceneTables._fields, grads["multi"],
+                          grads["cuda"]):
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)

@@ -201,7 +201,7 @@ def test_scene_operands_carry_stream_and_flag(scenes_dir):
         for name in ("groups", "runs", "lattice", "flag"):
             v = getattr(ops, name)
             assert v.dtype == torch.int32 and v.is_contiguous(), name
-        assert len(ops.args()) == 10
+        assert len(ops.args()) == 11
         assert torch.equal(ops.lattice, pack_plan(plan.kernel).lattice)
     # the demo fits a block's shared memory, menger4 does not
     assert on.nbytes(plan.num_lights) <= tt_mod.SHARED_SCENE_BYTES

@@ -234,16 +234,18 @@ def test_normal_op_matches_autograd_through_plain_scene_sd():
         assert a.abs().max() > 0 or name == "prim_aux", name
 
 
-def test_normal_op_refuses_unported_branches():
-    plan, tables = _world()
+def test_normal_op_refuses_unported_branches(scenes_dir):
+    # both normals on exact tables and on the fused generator field are
+    # ported; a procedural plan waits for item 10 in every one of them
+    plan, tables = compile_scene(load_scene(str(scenes_dir /
+                                                "mandelbox.txt")))
+    assert plan.proc
     tt = tables_to_torch(tables, "cpu")
     p = torch.as_tensor(np.array(_points(8)))
-    # analytic normals are ported; on the fused-generator field they wait
-    # for item 8 as the FD normal does
-    for change, item in ((dict(normal_mode="analytic",
-                               fused_generators=True), "item 8"),
-                         (dict(fused_generators=True), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for change in (dict(), dict(normal_mode="analytic"),
+                   dict(fused_generators=True),
+                   dict(normal_mode="analytic", fused_generators=True)):
+        with pytest.raises(NotImplementedError, match="item 10"):
             normal_op(plan, OP_CFG.replace(**change), tt, p)
 
 

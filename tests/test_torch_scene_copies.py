@@ -1,7 +1,8 @@
 """The port's own copies of the numpy-only modules (config, scene, io,
 utils) against the JAX package's originals: the same plans and tables bit
 for bit on every scene file, the same configuration, the same encoded
-bytes, checkpoints that cross between the packages."""
+bytes, checkpoints that cross between the packages, the same gate
+classification."""
 
 import dataclasses
 import io
@@ -22,6 +23,7 @@ from raymarching_tpu.io import png as jpng  # noqa: E402
 from raymarching_tpu.scene import compile as jcompile  # noqa: E402
 from raymarching_tpu.scene import parser as jparser  # noqa: E402
 from raymarching_tpu.scene import writer as jwriter  # noqa: E402
+from raymarching_tpu.utils import gatecheck as jgate  # noqa: E402
 from raymarching_tpu.utils import structlog as jlog  # noqa: E402
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu_torch.io import checkpoint as tckpt  # noqa: E402
@@ -33,6 +35,7 @@ from raymarching_tpu_torch.scene import parser as tparser  # noqa: E402
 from raymarching_tpu_torch.scene import writer as twriter  # noqa: E402
 from raymarching_tpu_torch.tables import (tables_to_numpy,  # noqa: E402
                                           tables_to_torch)
+from raymarching_tpu_torch.utils import gatecheck as tgate  # noqa: E402
 from raymarching_tpu_torch.utils import structlog as tlog  # noqa: E402
 
 SCENES_DIR = Path(__file__).resolve().parent.parent / "scenes"
@@ -195,3 +198,32 @@ def test_structlog_records_equal_jax_package():
     assert tlog.StructuredLogger(stream=tbuf, rank=5).log("e")["process"] == 5
     assert tlog.get_logger() is None
     tlog.emit("dropped")             # a no-op with no default logger
+
+
+@pytest.mark.parametrize("planes", ["geometry", "shadow", "normal", "all"])
+def test_gatecheck_equals_jax_package(planes):
+    """The port's utils.gatecheck classifies seeded AOV planes (object ids
+    in patches, depth jumps, partial coverage, shadow fractions, normals
+    with creases) as JAX's does: the same mask and the same record."""
+    rng = np.random.default_rng(11)
+    H, W, L = 24, 32, 2
+    objid = np.repeat(np.repeat(rng.integers(-1, 4, (6, 8)), 4, 0), 4, 1)
+    hit = np.where(objid < 0, 0.0, 1.0)
+    hit[rng.random((H, W)) < 0.05] = 0.5
+    depth = np.where(hit > 0, 5.0 + objid + 0.01 * rng.random((H, W)),
+                     np.inf)
+    shadow = (rng.random((H, W, L)) < 0.3) * rng.choice([0.5, 1.0],
+                                                        (H, W, L))
+    normal = rng.normal(size=(H, W, 3))
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    diff = rng.random((H, W)) * 1e-2
+    kw = {"geometry": {}, "shadow": dict(shadow=shadow),
+          "normal": dict(normal=normal, crease_deg=30.0),
+          "all": dict(shadow=shadow, normal=normal, dilate=2)}[planes]
+    np.testing.assert_array_equal(
+        tgate.silhouette_mask(objid, depth, hit, **kw),
+        jgate.silhouette_mask(objid, depth, hit, **kw))
+    got = tgate.classify_offenders(diff, 5e-3, objid, depth, hit, **kw)
+    assert got == jgate.classify_offenders(diff, 5e-3, objid, depth, hit,
+                                           **kw)
+    assert got["offenders"] > 0
