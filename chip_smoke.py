@@ -5,8 +5,10 @@
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
-  2. build       — nvcc builds the four kernels from csrc/, in parallel;
-                   each one's ptxas registers and spills;
+  2. build       — nvcc builds the seven sources of csrc/ (K1's reference,
+                   extended-shading and raygen entries, K2, K3, K4's
+                   reference and extended-shading entries), in parallel;
+                   each one's ptxas registers and stack by entry;
   3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
@@ -71,6 +73,17 @@ Phases, one line each, every failure an uncaught exception:
                    gradients (one K1 launch, no K2); 3 fit steps (no K2
                    launch) split into forward, backward, optimizer and the
                    scatters; the multi-kernel frame and 3 steps;
+ 9d. shading     — the shading extensions at the same footprint: render()
+                   of the demo with soft shadows (k 6) and AO (0.8) and of
+                   scenes/mirror.txt (coloured lights, reflect 0); K1's
+                   and K4's extended entries against their twins, bitwise
+                   on every output (light, factors, residuals), FD and
+                   analytic, exact and fused, each scene in device memory
+                   against shared; K4 and two-phase against K1; device
+                   times against the reference entries in turns; 5 steps
+                   of the fused analytic fit with soft shadows and AO (one
+                   K1, no K2 a step); card vs CPU gradients, light_color
+                   included;
  10. profile     — ``utils.timing.profile_march``: K3's step counts;
  11. warp        — where a thread-per-ray kernel loses its lanes, from K3's
                    step counter and the fold's cull test on the demo frame:
@@ -90,8 +103,15 @@ Phases, one line each, every failure an uncaught exception:
                    ``[multipoint]``: K2's FD-gradient mode with its seven
                    points in one walk of the scene against seven walks, in
                    turns, outputs bitwise equal;
- 13. serve       — the port's HTTP server answers /healthz and three
-                   /render requests with PNGs equal to direct renders.
+ 13. serve       — ``[serve-raygen]``: K1's raygen entry against K1 on the
+                   raygen twin's directions and against its twin, bitwise,
+                   with the extensions and analytic normals too; the image
+                   against the standard path's by the agreement share;
+                   then the port's HTTP server: /healthz, /render (raygen,
+                   its default), serve_raygen=0 and the extensions with
+                   PNGs equal to direct renders, and render() and /render
+                   at 256x256 and 512x512 SSAA 2 with raygen on and off in
+                   turns, with their launches.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -103,6 +123,7 @@ H100's published float32 rate) and, last, the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -139,7 +160,11 @@ ANALYTIC_ATOL, ANALYTIC_SHARE, ANALYTIC_MEDIAN = 5e-3, 0.99, 1e-4
 # than GATE_SHARE of its pixels within GATE_ATOL and no offender off a
 # silhouette (tests/test_gate_offenders.py, utils.gatecheck)
 GATE_ATOL, GATE_SHARE = 5e-3, 0.995
-KERNELS = ("render_kernel", "surface_kernel", "march_kernel", "shade_kernel")
+# each CUDA source, one library each: K1's reference, extended-shading and
+# raygen entries, K2, K3, K4's reference and extended-shading entries
+KERNELS = ("render_kernel", "render_ext_kernel", "render_raygen_kernel",
+           "surface_kernel", "march_kernel", "shade_kernel",
+           "shade_ext_kernel")
 # the largest |kernel - plain twin| over every output of every comparison
 # of this run, per kernel (``compare`` and ``same`` fill it)
 ERRS = dict.fromkeys(KERNELS, 0.0)
@@ -276,13 +301,15 @@ def ptxas_summary(log: str) -> str:
 def entry_label(name: str) -> str:
     """A kernel entry's mangled name in short: the kernel and its template
     arguments (K1's and K4's normal, K2's mode, the scene view)."""
-    m = re.search(r"((?:render|surface|march|shade)_kernel)(_analytic)?I(.*)",
-                  name)
+    m = re.search(r"((?:render|surface|march|shade)_kernel)(_raygen)?(_ext)?"
+                  r"(_analytic)?I(.*)", name)
     if not m:
         return name
-    kern, analytic, rest = m.groups()
+    kern, raygen, ext, analytic, rest = m.groups()
     ints = re.findall(r"Li(\d+)E", rest)
-    parts = ["fused"] if "Fused" in rest else []
+    parts = ["raygen"] if raygen else []
+    parts += ["extended"] if ext else []
+    parts += ["fused"] if "Fused" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -551,23 +578,36 @@ def bound_ms(count, n_bytes: int):
 
 
 def launch_counts():
+    """Each source's launches since zero_counts (the wrappers' counts)."""
     from raymarching_tpu_torch.ops.march_kernel import march_rays
-    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
+                                                         render_rays)
     from raymarching_tpu_torch.ops.shade_kernel import shade_rays
     from raymarching_tpu_torch.ops.surface_kernel import surface_eval
-    return {"render_kernel": render_rays.launches,
+    return {**render_rays.entry_launches,
+            "render_raygen_kernel": render_raygen.launches,
             "surface_kernel": surface_eval.launches,
             "march_kernel": march_rays.launches,
-            "shade_kernel": shade_rays.launches}
+            **shade_rays.entry_launches}
+
+
+def only(**counts) -> dict:
+    """A launch_counts dict with these counts and 0 for every other
+    source."""
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def zero_counts():
     from raymarching_tpu_torch.ops.march_kernel import march_rays
-    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
+                                                         render_rays)
     from raymarching_tpu_torch.ops.shade_kernel import shade_rays
     from raymarching_tpu_torch.ops.surface_kernel import surface_eval
-    for fn in (render_rays, surface_eval, march_rays, shade_rays):
+    for fn in (render_rays, render_raygen, surface_eval, march_rays,
+               shade_rays):
         fn.launches = 0
+    for fn in (render_rays, shade_rays):
+        fn.entry_launches = dict.fromkeys(fn.entry_launches, 0)
 
 
 def compare_bwd(plan, cfg, tables, origin, dirs):
@@ -666,17 +706,19 @@ def kernel_times() -> int:
     on the primary rays and on the slowest of them alone, of K4, of K2 on
     the 7-point stencils of the hits (and that call with its wrapper,
     CUDA events) and in its FD-gradient mode, of K1, K4 and K2 with
-    analytic normals, and of K1 with the scene read from device memory, on
-    the demo at 1,000 iterations.  For holding two checkouts against each
-    other on one card: run it from each in one command, in turns (parent,
-    change, change, parent)."""
+    analytic normals, of K1 and K4 with soft shadows and AO, K1's raygen
+    entry, K1 on scenes/mirror.txt (coloured lights), and of K1 with the
+    scene read from device memory, on the demo at 1,000 iterations.  For
+    holding two checkouts against each other on one card: run it from
+    each in one command, in turns (parent, change, change, parent)."""
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch import tables as scene_tables
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops import shade_kernel as shk
     from raymarching_tpu_torch.ops import surface_kernel as sk
-    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
+                                                         render_rays)
 
     dev = torch.device("cuda")
     plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
@@ -727,6 +769,20 @@ def kernel_times() -> int:
         "shade_kernel")
     out["K2 fused combined"] = device_ms(lambda: sk.surface_eval(
         plan, tt, hit.position, fused=True), "surface_kernel")
+    scfg = cfg.replace(soft_shadow_k=6.0, ao_strength=0.8)
+    out["K1 512x512 ssaa2 soft + AO"] = device_ms(lambda: render_rays(
+        plan, scfg, tt, origin, dirs), "render_kernel")
+    out["K4 soft + AO"] = device_ms(lambda: shk.shade_rays(
+        plan, scfg, tt, hit.position, hit.sd, dirs), "shade_kernel")
+    out["K1 512x512 ssaa2 raygen"] = device_ms(lambda: render_raygen(
+        plan, cfg, tt, 0, dirs.shape[0]), "render_kernel")
+    mplan, mtables = rt.compile_scene(rt.load_scene(str(
+        ROOT / "scenes" / "mirror.txt")))
+    mtt = scene_tables.tables_to_torch(mtables, dev)
+    m_org, m_dirs = rays_for(mplan, mtt, cfg)
+    out["K1 512x512 ssaa2 mirror.txt coloured"] = device_ms(
+        lambda: render_rays(mplan, cfg, mtt, m_org, m_dirs), "render_kernel")
+    del m_dirs
     limit = scene_tables.SHARED_SCENE_BYTES
     scene_tables.SHARED_SCENE_BYTES = 0
     try:
@@ -793,7 +849,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     print(card)
 
-    # 2. build: one nvcc per kernel, all started together
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = list(pool.map(build.build, KERNELS))
@@ -805,7 +861,7 @@ def main() -> int:
         check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
               + "; ".join(f"{e} {r} / {st} B" for e, r, st in entries))
-    print(f"[build] {len(KERNELS)} kernels in "
+    print(f"[build] {len(KERNELS)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels vs plain twins at small sizes, and the ref oracle
@@ -857,19 +913,23 @@ def main() -> int:
                 plan.num_lights)
             for k in KERNELS:
                 lib = build.load_library(k)
-                # K1 and K4: (normal, fused); K3: (fused); K2's stencil
-                # entry: exact only
+                # K1 and K4 (each source): (normal, fused); K1's raygen
+                # entries (normal, fused, extended); K3: (fused); K2's
+                # stencil entry: exact only
+                nf = {"FD": (0, 0), "analytic": (1, 0), "fused FD": (0, 1),
+                      "fused analytic": (1, 1)}
                 variants = {
-                    "render_kernel": {"FD": (0, 0), "analytic": (1, 0),
-                                      "fused FD": (0, 1),
-                                      "fused analytic": (1, 1)},
-                    "shade_kernel": {"FD": (0, 0), "analytic": (1, 0),
-                                     "fused FD": (0, 1),
-                                     "fused analytic": (1, 1)},
+                    "render_kernel": nf, "render_ext_kernel": nf,
+                    "shade_kernel": nf, "shade_ext_kernel": nf,
+                    "render_raygen_kernel": {
+                        "FD": (0, 0, 0), "analytic": (1, 0, 0),
+                        "extended FD": (0, 0, 1),
+                        "extended analytic": (1, 0, 1)},
                     "march_kernel": {"": (0,), "fused": (1,)},
                     "surface_kernel": {"": ()}}[k]
                 for label, extra in variants.items():
-                    staged = (f_bytes if extra and extra[-1] else nbytes) + 16
+                    fz = extra[1] if len(extra) > 1 else sum(extra)
+                    staged = (f_bytes if fz else nbytes) + 16
                     per_sm[f"{k} {label}".strip()] = (
                         lib.rt_blocks_per_sm(1, staged, *extra),
                         lib.rt_blocks_per_sm(0, 0, *extra))
@@ -933,9 +993,7 @@ def main() -> int:
         secs.append(ms / 1e3)
     counts = add_counts("main", 4 * len(main_cfgs))
     # one launch per render(): a warm-up and three timed frames per shape
-    check(counts == {"render_kernel": 4 * len(main_cfgs),
-                     "surface_kernel": 0, "march_kernel": 0,
-                     "shade_kernel": 0},
+    check(counts == only(render_kernel=4 * len(main_cfgs)),
           f"forward renders launched {counts}")
     for cfg, img, s in zip(main_cfgs, images, secs):
         check(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
@@ -1012,8 +1070,8 @@ def main() -> int:
     res = rt.fit(plan, start, target, tcfg, device=dev, steps=5,
                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
     counts = add_counts("train", 5)
-    check(counts == {"render_kernel": 5, "surface_kernel": 5,
-                     "march_kernel": 0, "shade_kernel": 0},
+    check(counts == only(render_kernel=5, surface_kernel=5,
+                         march_kernel=0, shade_kernel=0),
           f"5 fit steps launched {counts}")
     check_step_grads()
     check(res.losses[-1] < res.losses[0], f"loss did not fall: {res.losses}")
@@ -1111,8 +1169,8 @@ def main() -> int:
         lambda: rt.render(demo, tcfg, backend="multi", device=dev), runs=3)
     counts = add_counts("multi", 4)
     L = plan.num_lights
-    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
-                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=4 * 2,
+                         march_kernel=4 * (1 + L), shade_kernel=0),
           f"4 multi-kernel frames launched {counts}")
     check(has_demo_objects(multi_img), "demo objects missing (multi)")
     diff = (multi_img - fused_img).abs()
@@ -1210,8 +1268,8 @@ def main() -> int:
     rt.render(demo, cfg2, device=dev)
     tp_img, tp_ms = timed(lambda: rt.render(demo, cfg2, device=dev), runs=3)
     counts = add_counts("two_phase", 4)
-    check(counts == {"render_kernel": 0, "surface_kernel": 0,
-                     "march_kernel": 4 * 2, "shade_kernel": 4},
+    check(counts == only(render_kernel=0, surface_kernel=0,
+                         march_kernel=4 * 2, shade_kernel=4),
           f"4 two-phase frames launched {counts}")
     check(torch.equal(tp_img, fused_img),
           "the two-phase image differs from the one-kernel image")
@@ -1307,8 +1365,8 @@ def main() -> int:
     counts = add_counts("train_multi", 3)
     # a step: K3 primary + L shadow; K2 winner, FD gradient, and the
     # combined mode for MarchOp's and NormalOp's backward
-    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 4,
-                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=3 * 4,
+                         march_kernel=3 * (1 + L), shade_kernel=0),
           f"3 multi-kernel fit steps launched {counts}")
     check_step_grads()
     check(all(np.isfinite(mres.losses)), f"losses {mres.losses}")
@@ -1352,8 +1410,8 @@ def main() -> int:
         a_images.append(img)
         a_secs.append(ms / 1e3)
     counts = add_counts("analytic", 8)
-    check(counts == {"render_kernel": 8, "surface_kernel": 0,
-                     "march_kernel": 0, "shade_kernel": 0},
+    check(counts == only(render_kernel=8, surface_kernel=0,
+                         march_kernel=0, shade_kernel=0),
           f"analytic forward renders launched {counts}")
     for cfg, img, s_, fd_img, fd_s in zip((acfg, abig), a_images, a_secs,
                                           images, secs):
@@ -1495,8 +1553,8 @@ def main() -> int:
     ares = rt.fit(plan, start, target, acfg, device=dev, steps=3,
                   trainable=TRAINABLE, optimizer=adam, callback=on_step)
     counts = add_counts("train_analytic", 3)
-    check(counts == {"render_kernel": 3, "surface_kernel": 0,
-                     "march_kernel": 0, "shade_kernel": 0},
+    check(counts == only(render_kernel=3, surface_kernel=0,
+                         march_kernel=0, shade_kernel=0),
           f"3 analytic fit steps launched {counts}")
     check_step_grads()
     check(ares.losses[-1] < ares.losses[0], f"loss did not fall: "
@@ -1553,8 +1611,8 @@ def main() -> int:
     am_img, am_ms = timed(lambda: rt.render(demo, acfg, backend="multi",
                                             device=dev), runs=3)
     counts = add_counts("multi_analytic", 4)
-    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
-                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=4 * 2,
+                         march_kernel=4 * (1 + L), shade_kernel=0),
           f"4 multi-kernel analytic frames launched {counts}")
     diff = (am_img - a_images[0]).abs()
     close = (diff.amax(dim=-1) <= MULTI_ATOL).double().mean().item()
@@ -1571,8 +1629,8 @@ def main() -> int:
     counts = add_counts("train_multi_analytic", 3)
     # a step: K3 primary + L shadow; K2 winner, analytic, and the combined
     # mode for MarchOp's and NormalOp's backward
-    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 4,
-                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=3 * 4,
+                         march_kernel=3 * (1 + L), shade_kernel=0),
           f"3 multi-kernel analytic fit steps launched {counts}")
     check_step_grads()
     check(abs(amres.losses[0] - ares.losses[0]) <= 1e-5,
@@ -1604,8 +1662,8 @@ def main() -> int:
         f_images.append(img)
         f_secs.append(ms / 1e3)
     counts = add_counts("fused", 8)
-    check(counts == {"render_kernel": 8, "surface_kernel": 0,
-                     "march_kernel": 0, "shade_kernel": 0},
+    check(counts == only(render_kernel=8, surface_kernel=0,
+                         march_kernel=0, shade_kernel=0),
           f"fused forward renders launched {counts}")
     for cfg, img, s_, a_s, fd_s in zip((fcfg, fbig), f_images, f_secs,
                                        a_secs, secs):
@@ -1777,8 +1835,8 @@ def main() -> int:
     fres = rt.fit(plan, start, target, fcfg, device=dev, steps=3,
                   trainable=TRAINABLE, optimizer=adam, callback=on_step)
     counts = add_counts("train_fused", 3)
-    check(counts == {"render_kernel": 3, "surface_kernel": 0,
-                     "march_kernel": 0, "shade_kernel": 0},
+    check(counts == only(render_kernel=3, surface_kernel=0,
+                         march_kernel=0, shade_kernel=0),
           f"3 fused analytic fit steps launched {counts}")
     check_step_grads()
     check(all(np.isfinite(fres.losses)), f"losses {fres.losses}")
@@ -1829,8 +1887,8 @@ def main() -> int:
     fm_img, fm_ms = timed(lambda: rt.render(demo, fcfg, backend="multi",
                                             device=dev), runs=3)
     counts = add_counts("multi_fused", 4)
-    check(counts == {"render_kernel": 0, "surface_kernel": 4 * 2,
-                     "march_kernel": 4 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=4 * 2,
+                         march_kernel=4 * (1 + L), shade_kernel=0),
           f"4 multi-kernel fused frames launched {counts}")
     diff = (fm_img - f_images[0]).abs()
     close = (diff.amax(dim=-1) <= MULTI_ATOL).double().mean().item()
@@ -1848,8 +1906,8 @@ def main() -> int:
     # a step: K3 primary + L shadow; K2 winner and analytic forward, the
     # fused combined mode for NormalOp's backward (MarchOp's is autograd
     # through scene_sd_fused)
-    check(counts == {"render_kernel": 0, "surface_kernel": 3 * 3,
-                     "march_kernel": 3 * (1 + L), "shade_kernel": 0},
+    check(counts == only(render_kernel=0, surface_kernel=3 * 3,
+                         march_kernel=3 * (1 + L), shade_kernel=0),
           f"3 multi-kernel fused fit steps launched {counts}")
     check_step_grads()
     check(abs(fmres.losses[0] - fres.losses[0]) <= 1e-5,
@@ -1871,6 +1929,229 @@ def main() -> int:
           f"two_phase_k1=48 (K3 2, K4 1) image equal to the one-kernel "
           f"frame; {card}")
     del k1f, w1f, k1ffd, hf, stf
+
+    # 9d. the shading extensions at the same footprint: soft shadows (k 6)
+    # with AO (0.8) on the demo, coloured lights on scenes/mirror.txt
+    # (reflect 0: its mirror bounces are not ported); K1's and K4's
+    # extended entries against their twins in both normals, both fields
+    # and both placements, two-phase, device times against the reference
+    # entries in turns, the fused analytic fit, card vs CPU gradients
+    from raymarching_tpu_torch import tables as scene_tables
+    from raymarching_tpu_torch.ops.render_kernel import render_rays_plain as k1_plain
+    mirror = rt.load_scene(str(ROOT / "scenes" / "mirror.txt"))
+    mplan, mtables = rt.compile_scene(mirror)
+    check(mplan.colored_lights, "scenes/mirror.txt has no coloured lights")
+    softao = dict(soft_shadow_k=6.0, ao_strength=0.8)
+    scfg = tcfg.replace(**softao)
+    mcfg = tcfg
+    zero_counts()
+    s_imgs, s_secs = {}, {}
+    for label, scene_, cfg in (("demo soft + AO", demo, scfg),
+                               ("mirror.txt coloured", mirror, mcfg)):
+        rt.render(scene_, cfg, device=dev)           # warm-up at this shape
+        s_imgs[label], ms = timed(lambda: rt.render(scene_, cfg, device=dev),
+                                  runs=3)
+        s_secs[label] = ms / 1e3
+    counts = add_counts("shading", 8)
+    check(counts == only(render_ext_kernel=8),
+          f"extended-shading renders launched {counts}")
+    for label, img in s_imgs.items():
+        check(img.shape == (tcfg.height, tcfg.width, 3)
+              and bool(torch.isfinite(img).all()) and img.max().item() > 0,
+              f"{label}: image")
+    s_diff = (s_imgs["demo soft + AO"] - fused_img).abs()
+    check(s_diff.max().item() > 1e-2, "soft shadows and AO moved nothing")
+    mw = rt.render(mirror, mcfg.replace(shadows=False), device=dev)
+    chan = (mw[..., 0] - mw[..., 2]).abs().max().item()
+    check(chan > 1e-2, "the coloured lights gave a grey frame")
+    print(f"[shading] render() at {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it: demo with soft shadows (k 6) and AO (0.8) "
+          f"{s_secs['demo soft + AO']:.4f} s (reference shading "
+          f"{fused_s:.4f} s in this run), max |diff| to the reference image "
+          f"{s_diff.max().item():.3g}; mirror.txt with coloured lights "
+          f"(reflect 0) {s_secs['mirror.txt coloured']:.4f} s; launches a "
+          f"frame: K1's extended entry 1; {card}")
+
+    def flat(out):
+        """A render's outputs and extras (Winner, Factors) as one tuple."""
+        if isinstance(out, tuple) and not hasattr(out, "_fields"):
+            return tuple(v for part in out for v in part)
+        return tuple(out)
+
+    def every(vals, stride=BIG_STRIDE):
+        """Every stride-th ray of each output ([L, R] factors by column)."""
+        n = vals[0].shape[0]
+        return tuple(None if v is None else
+                     v[:, ::stride] if v.dim() == 2 and v.shape[1] == n
+                     and v.shape[0] != n else v[::stride] for v in vals)
+
+    limit = scene_tables.SHARED_SCENE_BYTES
+    n_cmp = 0
+    for sname, pl, tb, ch in (("demo", plan, tables, softao),
+                              ("mirror.txt", mplan, mtables, {})):
+        stt = tables_to_torch(tb, dev)
+        for normal in ("fd", "analytic"):
+            for fz in (False, True):
+                c = tcfg.replace(normal_mode=normal, fused_generators=fz,
+                                 **ch)
+                kw = dict(save_winner=normal == "analytic",
+                          save_factors=True)
+                tag = f"{sname} {normal} {'fused' if fz else 'exact'}"
+                o_, d_ = rays_for(pl, stt, c)
+                k1 = render_rays(pl, c, stt, o_, d_, **kw)
+                k4 = shk.shade_rays(pl, c, stt, k1[0].p, k1[0].sd, d_, **kw)
+                scene_tables.SHARED_SCENE_BYTES = 0
+                try:
+                    same(f"K1 extended {tag}, scene in device memory / "
+                         "shared", flat(render_rays(pl, c, stt, o_, d_, **kw)),
+                         flat(k1))
+                    same(f"K4 extended {tag}, scene in device memory / "
+                         "shared", flat(shk.shade_rays(pl, c, stt, k1[0].p,
+                                                       k1[0].sd, d_, **kw)),
+                         flat(k4))
+                finally:
+                    scene_tables.SHARED_SCENE_BYTES = limit
+                same(f"K4 extended = K1 extended, {tag}", flat(k4),
+                     (k1[0].cidx, k1[0].light, k1[0].smask,
+                      *flat(tuple(k1[1:]))))
+                sub = slice(None, None, BIG_STRIDE)
+                same(f"K1 extended {tag} on every {BIG_STRIDE}th ray",
+                     every(flat(k1)), flat(k1_plain(pl, c, stt, o_, d_[sub],
+                                                    **kw)),
+                     "render_ext_kernel")
+                same(f"K4 extended {tag} on every {BIG_STRIDE}th ray",
+                     every(flat(k4)), flat(shk.shade_rays_plain(
+                         pl, c, stt, k1[0].p[sub], k1[0].sd[sub], d_[sub],
+                         **kw)), "shade_ext_kernel")
+                n_cmp += 6
+                del k1, k4
+    # the rows' configuration in full: demo, soft shadows and AO, FD, exact
+    tt = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, tt, scfg)
+    (k1s, fs), k1s_ms = timed(lambda: render_rays(
+        plan, scfg, tt, origin, dirs, save_factors=True), runs=5)
+    (p1s, pfs), k1s_plain_ms, k1s_count = timed_counted(
+        lambda: k1_plain(plan, scfg, tt, origin, dirs, save_factors=True))
+    same("K1 extended, demo soft + AO at 512^2, every ray", (*k1s, *fs),
+         (*p1s, *pfs), "render_ext_kernel")
+    del p1s, pfs
+    (k4s, f4s), k4s_ms = timed(lambda: shk.shade_rays(
+        plan, scfg, tt, k1s.p, k1s.sd, dirs, save_factors=True), runs=5)
+    (p4s, pf4s), k4s_plain_ms, k4s_count = timed_counted(
+        lambda: shk.shade_rays_plain(plan, scfg, tt, k1s.p, k1s.sd, dirs,
+                                     save_factors=True))
+    same("K4 extended, demo soft + AO at 512^2, every ray", (*k4s, *f4s),
+         (*p4s, *pf4s), "shade_ext_kernel")
+    same("K4 extended = K1 extended at 512^2", (*k4s, *f4s),
+         (k1s.cidx, k1s.light, k1s.smask, *fs))
+    del p4s, pf4s
+    # K1 writes 5 floats, 2 ints, the light, 2 penumbra factors and the AO
+    # factor a ray; K4 reads 7 floats and writes the same less the march's
+    L = plan.num_lights
+    k1s_bound = bound_ms(k1s_count, R * (12 + 28 + 4 + 4 * L + 4))
+    k4s_bound = bound_ms(k4s_count, R * (28 + 12 + 4 * L + 4))
+    zero_counts()
+    s_two = rt.render(demo, scfg.replace(two_phase_k1=48), device=dev)
+    counts = add_counts("two_phase_shading", 1)
+    check(counts == only(march_kernel=2, shade_ext_kernel=1),
+          f"a two-phase soft + AO frame launched {counts}")
+    check(torch.equal(s_two, s_imgs["demo soft + AO"]),
+          "the two-phase soft + AO image differs from the one-kernel image")
+    # device time against the reference entries, in turns
+    white = dataclasses.replace(mplan, colored_lights=False)
+    mtt = tables_to_torch(mtables, dev)
+    m_org, m_dirs = rays_for(mplan, mtt, mcfg)
+    f_soft = fcfg.replace(**softao)
+    s_turns = {
+        "K1 demo reference / soft + AO": in_turns(
+            lambda: render_rays(plan, tcfg, tt, origin, dirs),
+            lambda: render_rays(plan, scfg, tt, origin, dirs),
+            "render_kernel"),
+        "K1 demo reference / soft": in_turns(
+            lambda: render_rays(plan, tcfg, tt, origin, dirs),
+            lambda: render_rays(plan, tcfg.replace(soft_shadow_k=6.0), tt,
+                                origin, dirs), "render_kernel"),
+        "K1 demo reference / AO": in_turns(
+            lambda: render_rays(plan, tcfg, tt, origin, dirs),
+            lambda: render_rays(plan, tcfg.replace(ao_strength=0.8), tt,
+                                origin, dirs), "render_kernel"),
+        "K1 demo fused analytic reference / soft + AO": in_turns(
+            lambda: render_rays(plan, fcfg, tt, origin, dirs),
+            lambda: render_rays(plan, f_soft, tt, origin, dirs),
+            "render_kernel"),
+        "K1 mirror.txt white lights / coloured": in_turns(
+            lambda: render_rays(white, mcfg, mtt, m_org, m_dirs),
+            lambda: render_rays(mplan, mcfg, mtt, m_org, m_dirs),
+            "render_kernel"),
+        "K4 demo reference / soft + AO": in_turns(
+            lambda: shk.shade_rays(plan, tcfg, tt, k1s.p, k1s.sd, dirs),
+            lambda: shk.shade_rays(plan, scfg, tt, k1s.p, k1s.sd, dirs),
+            "shade_kernel"),
+    }
+    dev_ms["render_ext_kernel"] = s_turns["K1 demo reference / soft + AO"][1]
+    dev_ms["shade_ext_kernel"] = s_turns["K4 demo reference / soft + AO"][1]
+    print(f"[shading] K1 and K4 extended against their twins, bitwise on "
+          f"every output (light, colour winner, shadow bits, penumbra and "
+          f"AO factors, winner residuals): demo soft + AO and mirror.txt "
+          f"coloured, FD and analytic, exact and fused, on every "
+          f"{BIG_STRIDE}th ray; each scene in device memory = shared, K4 = "
+          f"K1 on every ray ({n_cmp} comparisons); demo soft + AO FD exact "
+          f"on every ray: K1 {k1s_ms:.3f} ms with its wrapper, plain "
+          f"{k1s_plain_ms:.3f} ms, bound {k1s_bound[0]:.4f} ms by "
+          f"{k1s_bound[1]} ({k1s_bound[5]} operations); K4 {k4s_ms:.3f} ms, "
+          f"plain {k4s_plain_ms:.3f} ms, bound {k4s_bound[0]:.4f} ms by "
+          f"{k4s_bound[1]}; two_phase_k1=48 (K3 2, K4 extended 1) image "
+          f"equal to the one-kernel frame; {card}")
+    print(f"[shading] device time of the kernel alone, reference / extended "
+          f"entry in turns (reference, extended, extended, reference; each "
+          f"the median of 3 launches), 512x512 ssaa2 1000 it: "
+          + "; ".join(f"{k} {a:.3f} / {b:.3f} ms"
+                      for k, (a, b) in s_turns.items()) + f"; {card}")
+    del k1s, fs, k4s, f4s, m_dirs
+    # the fused analytic fit with soft shadows and AO: one K1 a step, no K2
+    s_target = rt.render_tables(plan, tables, f_soft, device=dev)
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    sres = rt.fit(plan, start, s_target, f_soft, device=dev, steps=5,
+                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
+    counts = add_counts("train_shading", 5)
+    check(counts == only(render_ext_kernel=5),
+          f"5 soft + AO fused analytic fit steps launched {counts}")
+    check_step_grads()
+    check(sres.losses[-1] < sres.losses[0], f"loss did not fall: "
+          f"{sres.losses}")
+    sstep = statistics.median(np.diff([t0] + stamps))
+    print(f"[shading] fit, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, fused generators, analytic normals, soft "
+          f"shadows and AO, 5 Adam steps: loss "
+          f"{' '.join(f'{v:.6g}' for v in sres.losses)}; step median "
+          f"{sstep * 1e3:.1f} ms against {fstep * 1e3:.1f} ms with the "
+          f"reference shading in this run; launches a step K1 1 (extended), "
+          f"K2 0; {card}")
+    # card vs CPU gradients at 32x24, light_color included on mirror.txt
+    for sname, pl, tb, ch in (
+            ("demo soft + AO, fused analytic", plan, tables,
+             dict(fused_generators=True, normal_mode="analytic", **softao)),
+            ("mirror.txt coloured, FD", mplan, mtables, {}),
+            ("mirror.txt coloured, soft + AO, analytic", mplan, mtables,
+             dict(normal_mode="analytic", **softao))):
+        c = gcfg.replace(**ch)
+        g_rays = rays_for(pl, tables_to_torch(tb, "cpu"), c)
+        gs_card, launched = grads_of(pl, tb, c, dev, *g_rays)
+        want = (1, 1 if c.normal_mode == "fd" else 0)
+        check(launched == want, f"{sname}: a differentiable render "
+              f"launched (K1, K2) {launched}")
+        gs_cpu, _ = grads_of(pl, tb, c, torch.device("cpu"), *g_rays)
+        worst_sg = grad_check(tb._fields + ("origin", "dirs"), gs_card,
+                              gs_cpu, f"{sname} card vs CPU")
+        lc = tb._fields.index("light_color")
+        print(f"[shading] {sname}: 32x24 gradients, card vs CPU on the same "
+              f"rays, every table field and the rays: max |diff| / field "
+              f"scale {worst_sg[0]:.3g} ({worst_sg[1]}); light_color "
+              f"gradient max {gs_card[lc].abs().max().item():.3g}; launches "
+              f"K1 1, K2 {launched[1]}")
 
     # 10. K3's step counter through profile_march
     prof = profile_march(plan, tables, tcfg, device=dev)
@@ -2111,7 +2392,70 @@ def main() -> int:
           f"{small.height} and {tcfg.width}x{tcfg.height}, all bitwise")
     del m_dirs
 
-    # 13. the server
+    # 13. the serving path: K1's raygen entry against K1 on its twin's
+    # directions and against its twin, the image against the standard
+    # path's, render() and /render with raygen on and off in turns
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
+                                                         render_raygen_plain)
+    tt = tables_to_torch(tables, dev)
+    rg_dirs = cam.raygen_dirs(cam.serve_cam_rows(tt, tcfg), tcfg, 0, R)
+    rg, rg_ms = timed(lambda: render_raygen(plan, tcfg, tt, 0, R), runs=5)
+    same("K1 raygen entry against K1 on the raygen twin's directions",
+         tuple(rg), tuple(render_rays(plan, tcfg, tt, tt.cam_position,
+                                      rg_dirs)))
+    rg_p, rg_plain_ms, rg_count = timed_counted(
+        lambda: render_raygen_plain(plan, tcfg, tt, 0, R))
+    same("K1 raygen entry against its plain twin", tuple(rg), tuple(rg_p),
+         "render_raygen_kernel")
+    del rg_p
+    same("K1 raygen entry on a chunk of the frame",
+         tuple(render_raygen(plan, tcfg, tt, 99_999, 300_001)),
+         tuple(v[99_999:400_000] for v in rg))
+    # the raygen entries with the extensions and analytic normals (fused)
+    rcfg = fcfg.replace(**softao)
+    kw = dict(save_winner=True, save_factors=True)
+    rg_x = render_raygen(plan, rcfg, tt, 0, R, **kw)
+    same("K1 raygen extended fused analytic against K1 extended on the "
+         "twin's directions", flat(rg_x), flat(render_rays(
+             plan, rcfg, tt, tt.cam_position, rg_dirs, **kw)))
+    same(f"K1 raygen extended fused analytic against its twin on every "
+         f"{BIG_STRIDE}th ray", every(flat(rg_x)), flat(k1_plain(
+             plan, rcfg, tt, tt.cam_position, rg_dirs[::BIG_STRIDE], **kw)),
+         "render_raygen_kernel")
+    del rg_x
+    # K1 raygen writes 6 floats and 2 ints a ray and reads nothing of it
+    rg_bound = bound_ms(rg_count, R * 32)
+    rg_turns = in_turns(lambda: render_rays(plan, tcfg, tt, tt.cam_position,
+                                            rg_dirs),
+                        lambda: render_raygen(plan, tcfg, tt, 0, R),
+                        "render_kernel")
+    dev_ms["render_raygen_kernel"] = rg_turns[1]
+    del rg, rg_dirs
+    # the image against the standard path's: tests/test_serve_raygen.py's
+    # agreement rule
+    zero_counts()
+    rg_img = rt.render(demo, tcfg.replace(serve_raygen=True), device=dev)
+    counts = add_counts("serve_raygen", 1)
+    check(counts == only(render_raygen_kernel=1),
+          f"a serve_raygen frame launched {counts}")
+    rdiff = (rg_img - fused_img).abs().amax(dim=-1)
+    rshare = (rdiff < 5e-3).double().mean().item()
+    check(rshare > 0.995 and rdiff.median().item() < 1e-4,
+          f"raygen image against the standard one: {rshare:.6f} of pixels "
+          f"under 5e-3, median {rdiff.median().item()}")
+    print(f"[serve-raygen] K1's raygen entry at {tcfg.width}x{tcfg.height} "
+          f"ssaa{tcfg.ssaa}: = K1 on the raygen twin's directions, = its "
+          f"plain twin (every output, every ray), a chunk = the frame's "
+          f"rays; extended fused analytic = K1 extended on the same "
+          f"directions and its twin on every {BIG_STRIDE}th ray; "
+          f"{rg_ms:.3f} ms with its wrapper, device {rg_turns[1]:.3f} ms "
+          f"against K1 on the same directions {rg_turns[0]:.3f} ms in "
+          f"turns, plain {rg_plain_ms:.3f} ms, bound {rg_bound[0]:.4f} ms by "
+          f"{rg_bound[1]}; image against the standard path's: {rshare:.6f} "
+          f"of pixels under 5e-3, median {rdiff.median().item():.3g}, max "
+          f"{rdiff.max().item():.3g}; {card}")
+
     srv = make_server("127.0.0.1", 0, dev)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -2120,19 +2464,69 @@ def main() -> int:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         check(health.get("status") == "ok", f"healthz {health}")
-        cfg = rt.RenderConfig(width=256, height=192, ssaa=2)
-        want = rt.to_uint8(rt.render(demo, cfg, device=dev).cpu().numpy())
         body = DEMO.read_bytes()
-        for _ in range(3):
-            req = urllib.request.Request(
-                url + "/render?width=256&height=192&ssaa=2", data=body,
-                method="POST")
+
+        def post(query):
+            req = urllib.request.Request(url + "/render?" + query, data=body,
+                                         method="POST")
             with urllib.request.urlopen(req, timeout=300) as r:
-                png = rt.decode_png(r.read())
+                return rt.decode_png(r.read())
+
+        # the server's default is the raygen path; serve_raygen=0 the
+        # standard one: each PNG is the direct render's
+        cfg = rt.RenderConfig(width=256, height=192, ssaa=2)
+        for q, c in (("", cfg.replace(serve_raygen=True)),
+                     ("&serve_raygen=0", cfg),
+                     ("&soft_shadow_k=6&ao=0.8", cfg.replace(
+                         serve_raygen=True, **softao))):
+            want = rt.to_uint8(rt.render(demo, c, device=dev).cpu().numpy())
+            png = post("width=256&height=192&ssaa=2" + q)
             check(png.shape == want.shape and (png == want).all(),
-                  "/render PNG differs from a direct render")
-        print(f"[serve] /healthz ok; 3 x /render 256x192 ssaa2 equal to "
-              "direct renders")
+                  f"/render{q} PNG differs from a direct render")
+        # render() and /render at 256^2 and 512^2, raygen on and off in
+        # turns (off, on, on, off; render() the median of 3 frames, /render
+        # the median of 3 requests, host clock), launches of each
+        serve_rows = []
+        for size in (256, 512):
+            c = rt.RenderConfig(width=size, height=size, ssaa=2)
+            q = f"width={size}&height={size}&ssaa=2"
+            t_r, t_s = {False: [], True: []}, {False: [], True: []}
+            for on in (False, True):
+                rt.render(demo, c.replace(serve_raygen=on), device=dev)
+                post(q + ("" if on else "&serve_raygen=0"))
+            for on in (False, True, True, False):
+                zero_counts()
+                t_r[on].append(timed(lambda: rt.render(
+                    demo, c.replace(serve_raygen=on), device=dev),
+                    runs=3)[1])
+                counts = add_counts(f"render_{size}_raygen_{int(on)}", 3)
+                check(counts == (only(render_raygen_kernel=3) if on
+                                 else only(render_kernel=3)),
+                      f"render() {size}^2 raygen {on} launched {counts}")
+                zero_counts()
+                lat = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    post(q + ("" if on else "&serve_raygen=0"))
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                counts = add_counts(f"serve_{size}_raygen_{int(on)}", 3)
+                check(counts == (only(render_raygen_kernel=3) if on
+                                 else only(render_kernel=3)),
+                      f"/render {size}^2 raygen {on} launched {counts}")
+                t_s[on].append(statistics.median(lat))
+            serve_rows.append(
+                f"{size}x{size} ssaa2: render() "
+                f"{statistics.mean(t_r[False]):.3f} / "
+                f"{statistics.mean(t_r[True]):.3f} ms (turns "
+                f"{', '.join(f'{v:.3f}' for v in t_r[False])} / "
+                f"{', '.join(f'{v:.3f}' for v in t_r[True])}), /render "
+                f"{statistics.mean(t_s[False]):.1f} / "
+                f"{statistics.mean(t_s[True]):.1f} ms")
+        print(f"[serve] /healthz ok; /render (raygen, the default), "
+              f"serve_raygen=0 and soft_shadow_k=6&ao=0.8 at 256x192 ssaa2 "
+              f"equal to direct renders; standard / raygen, launches a "
+              f"frame K1 1 / K1's raygen entry 1: " + "; ".join(serve_rows)
+              + f"; {card}")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -2172,7 +2566,7 @@ def main() -> int:
                 "device_ms": dev_ms[kname],
                 "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1],
-                "bound_ms_leaf_fold": leaf_bounds[kname][0],
+                "bound_ms_leaf_fold": leaf_bounds.get(kname, (None,))[0],
                 "library_ms": None, "analytic": analytic, "fused": fused}
 
     def fused_row(ms, plain_ms, bound, turns):
@@ -2224,7 +2618,22 @@ def main() -> int:
             k4_ms, k4_plain_ms, k4_bound, analytic_row(
                 k4a_ms, dev_turns["K4"][1], k4a_plain_ms, k4a_bound,
                 dev_turns["K4"][0]), fused_row(
-                k4f_ms, k4f_plain_ms, k4f_bound, f_turns["K4 analytic"]))]}))
+                k4f_ms, k4f_plain_ms, k4f_bound, f_turns["K4 analytic"])),
+        # the extended entries on the demo with soft shadows and AO (FD,
+        # exact), device time in turns with the reference entry
+        # (reference_device_ms); the raygen entries on the demo's frame in
+        # scan order, in turns with K1 on the same directions
+        {**row("render_ext_kernel", "raymarching_tpu/ops/pallas_render.py"
+               ":211 (_shade_body :327: soft :517, coloured :526, AO :541)",
+               k1s_ms, k1s_plain_ms, k1s_bound),
+         "reference_device_ms": s_turns["K1 demo reference / soft + AO"][0]},
+        {**row("render_raygen_kernel", "raymarching_tpu/ops/pallas_render.py"
+               ":211 (_raygen_dirs :162)", rg_ms, rg_plain_ms, rg_bound),
+         "reference_device_ms": rg_turns[0]},
+        {**row("shade_ext_kernel", "raymarching_tpu/ops/pallas_render.py:558"
+               " (_shade_body :327)", k4s_ms, k4s_plain_ms, k4s_bound),
+         "reference_device_ms": s_turns["K4 demo reference / soft + AO"][0]},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,12 @@ Backends (the JAX package's names in brackets):
     launch over the FD stencils, or with analytic normals no launch at
     all: K1 saved the winner residuals), so gradients reach every
     SceneTables field that requires grad.  ``cfg.ray_chunk > 0`` renders
-    the rays in chunks of that many, one after the other.
+    the rays in chunks of that many, one after the other.  With
+    ``cfg.serve_raygen`` a forward render is the serving path
+    (``api._render_mega_serve``): K1's raygen entry per chunk computes the
+    directions from the ray index, so there is no camera pass and no
+    direction tensor; it has no backward, so ``differentiable=True``
+    raises.
   * ``"multi"`` [``pallas``] — the multi-kernel path: ``core.render``'s
     pipeline with the hooks of ``make_render_hooks``: K3 marches the
     primary rays (``ops.march_op.MarchOp``) and, with a per-ray tmax, the
@@ -21,6 +26,13 @@ Backends (the JAX package's names in brackets):
   * ``"ref"`` [``ref``] — the plain PyTorch oracle
     ``core.render.render_image`` (analytic normals by autograd), forward
     only.
+
+The shading extensions of the JAX package render on every backend and
+train on ``cuda`` (and ``multi``): coloured lights (``LightColor``; the
+light term per channel, ``light_color`` differentiable), soft shadows
+(``cfg.soft_shadow_k``) and ambient occlusion (``cfg.ao_strength``); the
+last two route ``multi`` to ``cuda``, as JAX routes ``pallas`` to
+``mega``.
 
 Both normal modes of ``RenderConfig.normal_mode`` ("fd", the default,
 and "analytic") render on every backend and train on ``cuda`` and
@@ -50,7 +62,8 @@ from .core.shading import TINY
 from .ops.march_kernel import march_rays
 from .ops.march_op import march_op
 from .ops.normal_op import normal_op
-from .ops.render_kernel import blend, check_supported, render_rays
+from .ops.render_kernel import (blend, check_supported, render_raygen,
+                                render_rays)
 from .ops.render_op import FusedRender
 from .ops.scene_vjp import gather_rows
 from .ops.surface_kernel import WINNER, surface_eval
@@ -139,11 +152,21 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
         raise NotImplementedError(
             "not ported yet: the differentiable ref oracle (ROADMAP Queue 1 "
             "item 3); use backend='cuda'")
+    serve = serves_in_kernel(cfg, backend)
+    if serve and differentiable:
+        raise ValueError(
+            "serve_raygen renders forward only (its directions come from the "
+            "kernel and have no backward, as in the JAX package): render "
+            "with serve_raygen=False to differentiate")
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         tables = tables_to_torch(tables, device)
         if backend != "cuda":
             return render_image(plan, tables, cfg, **make_render_hooks(
                 plan, tables, cfg, backend))
+        S = cfg.samples_per_pixel
+        if serve:
+            return _render_serve(plan, tables, cfg).reshape(
+                cfg.height, cfg.width, S, 3).mean(dim=2)
         origin, dirs = cam.generate_rays(tables, cfg)
         dirs = dirs.reshape(-1, 3)
         R = dirs.shape[0]
@@ -153,8 +176,31 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
                           origin if origin.dim() == 1 else origin[i:i + chunk],
                           dirs[i:i + chunk], differentiable)
             for i in range(0, R, chunk)])
-        S = cfg.samples_per_pixel
         return colors.reshape(cfg.height, cfg.width, S, 3).mean(dim=2)
+
+
+def serves_in_kernel(cfg: RenderConfig, backend: str) -> bool:
+    """Whether a render takes the in-kernel raygen serving path: asked for
+    (``cfg.serve_raygen``), on the fused backend, and inside its envelope.
+    Outside it the JAX package falls back to the standard raygen, and so
+    does this: depth of field (``aperture > 0``, per-ray lens origins)
+    needs the camera pass.  ``render_tables`` gives no per-ray origins,
+    the JAX envelope's other bound."""
+    return cfg.serve_raygen and backend == "cuda" and cfg.aperture == 0.0
+
+
+def _render_serve(plan: ScenePlan, tables: SceneTables,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Colours [R, 3] of the frame's rays in scan order (generate_rays'
+    order: the SSAA mean needs no reorder), one K1 raygen launch per
+    ``cfg.ray_chunk`` rays (api._render_mega_serve)."""
+    R = cfg.rays_per_image
+    chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
+    colors = []
+    for base in range(0, R, chunk):
+        out = render_raygen(plan, cfg, tables, base, min(chunk, R - base))
+        colors.append(blend(out.cidx, out.light, tables.prim_color))
+    return torch.cat(colors)
 
 
 def _fused_colors(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,

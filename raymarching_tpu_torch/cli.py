@@ -5,6 +5,8 @@
         --backend ref,multi,cuda --width 128 --height 96 --ssaa 1 --compare
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
         --normal-mode analytic --out analytic.png
+    python -m raymarching_tpu_torch --scene scenes/demo.txt \
+        --soft-shadow-k 6 --ao 0.8 --out soft.png
 
 Defaults are the reference configuration (1024x768, SSAA 3x3, 1000
 iterations) on the CUDA device; ``--device cpu`` runs the plain PyTorch
@@ -43,6 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma", type=float, default=1.0)
     p.add_argument("--shadows", action=argparse.BooleanOptionalAction,
                    default=True, help="hard shadow rays (default on)")
+    p.add_argument("--soft-shadow-k", type=float, default=0.0,
+                   help="penumbra sharpness for soft shadows (extension; "
+                        "0 = the reference's hard shadows)")
+    p.add_argument("--ao", type=float, default=0.0, metavar="STRENGTH",
+                   help="SDF ambient-occlusion strength (extension; "
+                        "0 = off)")
     p.add_argument("--normal-mode", choices=["fd", "analytic"], default="fd",
                    help="surface normals: fd = 6-eval central differences "
                         "(reference parity), analytic = the SDF's exact "
@@ -78,7 +86,8 @@ def main(argv=None) -> int:
     plan, tables = compile_scene(load_scene(args.scene))
     cfg = RenderConfig(width=args.width, height=args.height, ssaa=args.ssaa,
                        iterations=args.iterations, gamma=args.gamma,
-                       shadows=args.shadows, normal_mode=args.normal_mode)
+                       shadows=args.shadows, normal_mode=args.normal_mode,
+                       soft_shadow_k=args.soft_shadow_k, ao_strength=args.ao)
     print(f"scene: {plan.num_primitives} primitives, {plan.num_lights} "
           f"lights; device {device}")
 

@@ -74,3 +74,51 @@ def generate_rays(tables: SceneTables, cfg: RenderConfig
                      xc * R[1, 0] + yc * R[1, 1] + zc * R[1, 2],
                      xc * R[2, 0] + yc * R[2, 1] + zc * R[2, 2]], dim=-1)
     return tables.cam_position, d.reshape(cfg.height, cfg.width, k * k, 3)
+
+
+def serve_cam_rows(tables: SceneTables, cfg: RenderConfig) -> torch.Tensor:
+    """[3, 8] camera rows of the in-kernel raygen (pallas_render
+    ._serve_cam_rows): row 0 = [position xyz, focal w, focal h, 0, 0, 0],
+    rows 1-2 = the camera rotation row-major (R22 wraps to row 2), on the
+    tables' device.  The JAX rows carry a chunk's first ray index as a
+    float32 in row 0; here it is an integer argument of the kernel."""
+    dev = tables.cam_position.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    w = camera_focal(tables.cam_fov)
+    # a divisor tensor: a CUDA tensor divided by a Python number becomes a
+    # product with its reciprocal
+    h = w / torch.tensor(cfg.aspect_ratio, **f32)
+    R = camera_rotation(tables.cam_direction, tables.cam_up).reshape(9)
+    row0 = torch.cat([tables.cam_position.reshape(3), w.reshape(1),
+                      h.reshape(1), torch.zeros(3, **f32)])
+    return torch.cat([row0, R, torch.zeros(7, **f32)]).reshape(3, 8)
+
+
+def raygen_dirs(rows: torch.Tensor, cfg: RenderConfig, base: int,
+                n: int) -> torch.Tensor:
+    """Directions [n, 3] of rays base .. base + n - 1 of the frame in scan
+    order (pixel-major, SSAA sample minor: ``generate_rays``' order), by
+    the in-kernel raygen's arithmetic (pallas_render._raygen_dirs): sample
+    offsets (i + 1) (1/k), the pixel lerp times 1/W and 1/H (the
+    reciprocals doubles rounded once to float32), normalise with z^2 = 1,
+    rotate; ``rows`` from ``serve_cam_rows``.  The plain twin of K1's
+    raygen entries.  It differs from ``generate_rays`` by roundings."""
+    dev = rows.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    k, W = cfg.ssaa, cfg.width
+    r = torch.arange(base, base + n, dtype=torch.int64, device=dev)
+    s, t1 = r % (k * k), r // (k * k)
+    px, py = (t1 % W).to(torch.float32), (t1 // W).to(torch.float32)
+    si, sj = (s // k).to(torch.float32), (s % k).to(torch.float32)
+    rk, rw, rh = (torch.tensor(v, **f32)
+                  for v in (1.0 / k, 1.0 / W, 1.0 / cfg.height))
+    u = (px + (si + 1.0) * rk) * rw
+    v = (py + (sj + 1.0) * rk) * rh
+    x = rows[0, 3] * (u - 0.5)
+    y = rows[0, 4] * (0.5 - v)
+    nrm = torch.sqrt(x * x + y * y + 1.0)
+    xc, yc, zc = x / nrm, y / nrm, torch.full_like(nrm, -1.0) / nrm
+    R = rows[1:].reshape(-1)[:9]
+    return torch.stack([xc * R[0] + yc * R[1] + zc * R[2],
+                        xc * R[3] + yc * R[4] + zc * R[5],
+                        xc * R[6] + yc * R[7] + zc * R[8]], dim=-1)

@@ -35,7 +35,8 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
           iterations: int, eps: float, *, tmax: Optional[torch.Tensor] = None,
           init_done: Optional[torch.Tensor] = None,
-          project_t: bool = False, with_steps: bool = False):
+          project_t: bool = False, with_steps: bool = False,
+          soft_k: Optional[float] = None):
     """March rays ``ray`` [N, 3] from ``origin`` [3] or [N, 3].
 
     ``tmax`` [N]: also stop once the ray has passed this distance (shadow
@@ -45,7 +46,11 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
     the render kernel.  ``init_done`` [N] bool: rays that start done and
     take no step (position = origin, sd = +inf).  ``with_steps``: return
     (MarchResult, steps [N] int32), the scene evaluations each ray took
-    (core.march.march_profile)."""
+    (core.march.march_profile).  ``soft_k`` (shadow rays of soft
+    shadows, with ``tmax``): return (MarchResult, pen [N]), the penumbra
+    tracker min over each ray's steps of clamp(soft_k sd / max(t, eps), 0,
+    1) with t the distance before the step (core.shading._soft_step; 1 for
+    a ray that takes no step)."""
     o = origin.expand(ray.shape)
     p = o.clone()
     n = ray.shape[0]
@@ -54,12 +59,19 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
             if init_done is None else init_done.clone())
     t = torch.zeros(n, dtype=ray.dtype, device=ray.device)
     steps = torch.zeros(n, dtype=torch.int32, device=ray.device)
+    pen = (None if soft_k is None else
+           torch.ones(n, dtype=ray.dtype, device=ray.device))
     for _ in range(iterations):
         act = (~done).nonzero().squeeze(1)
         if act.numel() == 0:
             break
         pa, ra = p[act], ray[act]
         sd = sd_fn(pa)
+        if soft_k is not None:
+            t_cur = dot3(pa - o[act], ra) if project_t else t[act]
+            ratio = torch.clamp(sd * soft_k / torch.clamp_min(t_cur, eps),
+                                0.0, 1.0)
+            pen[act] = torch.minimum(pen[act], ratio)
         step = torch.clamp_max(sd, MAX_STEP)
         pa = pa + step[:, None] * ra
         dn = sd < eps
@@ -77,4 +89,6 @@ def march(sd_fn: Callable, origin: torch.Tensor, ray: torch.Tensor,
             steps[act] += 1
     res = MarchResult(position=p, sd=sd_last,
                       converged=done & (sd_last < eps))
+    if soft_k is not None:
+        return res, pen
     return (res, steps) if with_steps else res

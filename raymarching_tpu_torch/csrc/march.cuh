@@ -24,15 +24,32 @@ struct Hit {
 // steps clamped to kMaxStep.  With has_tmax (shadow rays) the ray is also
 // done once (p - o) . d reaches tmax.  A ray that starts done takes no
 // step and keeps sd = +inf.
-template <class S>
+//
+// kPen (the extended shading's shadow rays, a compile-time argument so the
+// other marches keep their code): with soft_k > 0 (a warp-uniform switch)
+// also track the penumbra factor *pen = min over the steps of
+// clamp(soft_k sd / max(t, eps), 0, 1), t = (p - o) . d at the point
+// before the step (pallas_render._march_values' soft_k); *pen starts at 1
+// and a ray that takes no step keeps it.
+template <bool kPen = false, class S>
 __device__ __forceinline__ Hit march(const S& s, int iterations, float eps,
                                      float ox, float oy, float oz, float dx,
                                      float dy, float dz, bool has_tmax,
-                                     float tmax, bool done) {
+                                     float tmax, bool done,
+                                     float soft_k = 0.0f,
+                                     float* pen = nullptr) {
   float px = ox, py = oy, pz = oz, sd_last = kInf;
   int it = 0;
   for (; it < iterations && !done; ++it) {
     const float sd = scene_sd(s, px, py, pz);
+    if constexpr (kPen) {
+      if (soft_k > 0.0f) {
+        const float t = (px - ox) * dx + (py - oy) * dy + (pz - oz) * dz;
+        const float ratio =
+            fminf(fmaxf(soft_k * sd / fmaxf(t, eps), 0.0f), 1.0f);
+        *pen = fminf(*pen, ratio);
+      }
+    }
     const float step = fminf(sd, kMaxStep);
     px = px + step * dx;
     py = py + step * dy;

@@ -166,4 +166,35 @@ inline int persistent_blocks(Kernel kernel, unsigned smem, int64_t R,
   return 0;
 }
 
+// A scene view as a value, for on_view's callbacks.
+template <class S>
+struct View {
+  using type = S;
+};
+
+// f(View<S>{}) for the scene view S that `shared` (the scene staged in
+// shared memory, else read from device memory) and `fused` (the fused
+// generator packing, else exact) name; returns what f returns.
+template <class F>
+inline int on_view(int shared, int fused, const F& f) {
+  if (fused)
+    return shared ? f(View<Fused<SharedScene>>{})
+                  : f(View<Fused<DeviceScene>>{});
+  return shared ? f(View<SharedScene>{}) : f(View<DeviceScene>{});
+}
+
+// Launch `kernel` (an entry over scene view S) persistently over R rays on
+// `stream`, with the staged scene's shared memory, passing it `args`.
+// Returns a CUDA error code.
+template <class S, class Kernel, class... Args>
+inline int launch_persistent(Kernel kernel, const SceneArgs& a, int64_t R,
+                             cudaStream_t stream, const Args&... args) {
+  const unsigned smem = staged_bytes<S>(a);
+  unsigned blocks = 0;
+  const int err = persistent_blocks(kernel, smem, R, &blocks);
+  if (err != 0) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace

@@ -2,7 +2,9 @@
 //
 // Replaces raymarching_tpu/ops/pallas_render.py::_render_kernel (the
 // pallas_call in _compiled_render_call; entry pallas_render_rays) for the
-// reference shading model, on exact tables or with fused generators (the
+// reference shading model (its shading extensions are the entries of
+// render_ext_kernel.cu, its in-kernel raygen those of
+// render_raygen_kernel.cu, over the same loop, render.cuh), on exact tables or with fused generators (the
 // scene view Fused<S>, fold.cuh; an instantiation each): primary march; first-wins colour winner at the
 // pre-step point; 6-eval central-difference normal, or the analytic
 // normal (the winner's gradient at the hit, which can also be written out
@@ -13,7 +15,8 @@
 // PyTorch twin is
 // raymarching_tpu_torch/ops/render_kernel.py::render_rays_plain.
 //
-// The march and the shading are march.cuh and shade.cuh, which K3
+// The loop is render.cuh; the march and the shading are march.cuh and
+// shade.cuh, which K3
 // (march_kernel.cu) and K4 (shade_kernel.cu) include too: the two-phase
 // path (K3, K3, K4) therefore gives this kernel's outputs bitwise.
 //
@@ -62,74 +65,21 @@
 
 #include <cstdint>
 
-#include "persist.cuh"
-#include "shade.cuh"
+#include "render.cuh"
 
 namespace {
-
-struct Params {
-  SceneArgs scene;
-  ShadeParams shade;      // also the primary march's iterations and eps
-  const float* org;       // [3][R] per-ray origins, or null
-  float ox, oy, oz;       // the shared origin when org is null
-  const float* dirs;      // [3][R]
-  float* out;             // [6][R]: px, py, pz, sd, done, light
-  int* iout;              // [2][R]: colour winner, shadow mask
-  float* wres;            // analytic: [4][R] winner sd, gx, gy, gz, or null
-  int* widx;              // analytic: [R] winner leaf (with wres)
-  unsigned* counter;      // [1]: the next ray to hand out, zero at launch
-  unsigned R;
-};
-
-// The rays of one thread, the body of both entry kernels.
-template <int kNormal, class S>
-__device__ __forceinline__ void render_loop(const Params& P) {
-  const S s = stage_scene<S>(P.scene);
-  const unsigned R = P.R;
-  for (;;) {
-    const unsigned base = next_rays(P.counter);
-    if (base >= R) break;
-    const unsigned i = base + (threadIdx.x & 31u);
-    if (i >= R) continue;
-    float ox = P.ox, oy = P.oy, oz = P.oz;
-    if (P.org != nullptr) {
-      ox = P.org[i];
-      oy = P.org[R + i];
-      oz = P.org[2 * R + i];
-    }
-    const float dx = P.dirs[i], dy = P.dirs[R + i], dz = P.dirs[2 * R + i];
-
-    // 1. primary march
-    const Hit hit = march(s, P.shade.iterations, P.shade.eps, ox, oy, oz, dx,
-                          dy, dz, false, 0.0f, false);
-
-    // 2-4. colour winner, normal, shadows, Lambert clamp
-    const Shade sh =
-        shade<kNormal>(s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz,
-                       WinnerOut{P.wres, P.widx, i, R});
-
-    P.out[i] = hit.x;
-    P.out[R + i] = hit.y;
-    P.out[2 * R + i] = hit.z;
-    P.out[3 * R + i] = hit.sd;
-    P.out[4 * R + i] = hit.done ? 1.0f : 0.0f;
-    P.out[5 * R + i] = sh.light;
-    P.iout[i] = sh.cidx;
-    P.iout[R + i] = sh.smask;
-  }
-}
 
 // The entries, one a normal, with the launch bounds shade.cuh's
 // kAnalyticBlocks explains.
 template <class S>
 __global__ void __launch_bounds__(kThreads) render_kernel(const Params P) {
-  render_loop<kNormalFd, S>(P);
+  render_loop<kNormalFd, false, false, S>(P);
 }
 
 template <class S>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
     render_kernel_analytic(const Params P) {
-  render_loop<kNormalAnalytic, S>(P);
+  render_loop<kNormalAnalytic, false, false, S>(P);
 }
 
 // The entry kernel for normal kNormal over scene view S.
@@ -137,41 +87,6 @@ template <int kNormal, class S>
 auto entry() {
   return kNormal == kNormalAnalytic ? render_kernel_analytic<S>
                                     : render_kernel<S>;
-}
-
-template <int kNormal, class S>
-int launch(const Params& P, cudaStream_t stream) {
-  const unsigned smem = staged_bytes<S>(P.scene);
-  unsigned blocks = 0;
-  const int err = persistent_blocks(entry<kNormal, S>(), smem, P.R, &blocks);
-  if (err != 0) return err;
-  entry<kNormal, S>()<<<blocks, kThreads, smem, stream>>>(P);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kNormal>
-int launch_view(const Params& P, int shared, int fused,
-                cudaStream_t stream) {
-  if (fused)
-    return shared ? launch<kNormal, Fused<SharedScene>>(P, stream)
-                  : launch<kNormal, Fused<DeviceScene>>(P, stream);
-  return shared ? launch<kNormal, SharedScene>(P, stream)
-                : launch<kNormal, DeviceScene>(P, stream);
-}
-
-// Resident blocks an SM of the entry for normal kNormal over view S.
-template <int kNormal, class S>
-int occupancy(unsigned smem, int* per_sm) {
-  return blocks_per_sm(entry<kNormal, S>(), smem, per_sm);
-}
-
-template <int kNormal>
-int occupancy_view(int shared, int fused, unsigned smem, int* per_sm) {
-  if (fused)
-    return shared ? occupancy<kNormal, Fused<SharedScene>>(smem, per_sm)
-                  : occupancy<kNormal, Fused<DeviceScene>>(smem, per_sm);
-  return shared ? occupancy<kNormal, SharedScene>(smem, per_sm)
-                : occupancy<kNormal, DeviceScene>(smem, per_sm);
 }
 
 }  // namespace
@@ -195,37 +110,25 @@ extern "C" int rt_render_rays(const void* tbl, const void* groups,
                               float ox, float oy, float oz, const void* dirs,
                               void* out, void* iout, void* wres, void* widx,
                               void* counter, int64_t R, void* stream) {
-  Params P;
-  P.scene = scene_args(tbl, groups, runs, lat, lat_flag, lights, n_rows,
-                       n_groups, n_runs, n_lat, n_lights, root_min);
-  P.shade = ShadeParams{static_cast<const int*>(black),
-                        n_lights,
-                        n_black,
-                        shadows,
-                        sat_skip,
-                        iterations,
-                        eps,
-                        off,
-                        saturation,
-                        fd_h};
-  P.org = static_cast<const float*>(org);
-  P.ox = ox;
-  P.oy = oy;
-  P.oz = oz;
-  P.dirs = static_cast<const float*>(dirs);
-  P.out = static_cast<float*>(out);
-  P.iout = static_cast<int*>(iout);
-  P.wres = static_cast<float*>(wres);
-  P.widx = static_cast<int*>(widx);
-  P.counter = static_cast<unsigned*>(counter);
-  if (R < 0 || R > kMaxRays) return static_cast<int>(cudaErrorInvalidValue);
-  P.R = static_cast<unsigned>(R);
-  if (R == 0) return static_cast<int>(cudaGetLastError());
-  if (analytic == 0 && wres != nullptr)
+  if (!valid_launch(R, analytic, wres))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  const SceneArgs scene =
+      scene_args(tbl, groups, runs, lat, lat_flag, lights, n_rows, n_groups,
+                 n_runs, n_lat, n_lights, root_min);
+  const Params P = make_params(
+      scene,
+      ShadeParams{static_cast<const int*>(black), n_lights, n_black, shadows,
+                  sat_skip, iterations, eps, off, saturation, fd_h},
+      org, ox, oy, oz, dirs, out, iout, wres, widx, counter, R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return analytic ? launch_view<kNormalAnalytic>(P, shared, fused, st)
-                  : launch_view<kNormalFd>(P, shared, fused, st);
+  return on_view(shared, fused, [&](auto v) {
+    using S = typename decltype(v)::type;
+    return analytic
+               ? launch_persistent<S>(entry<kNormalAnalytic, S>(), scene, R,
+                                      st, P)
+               : launch_persistent<S>(entry<kNormalFd, S>(), scene, R, st, P);
+  });
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
@@ -236,9 +139,12 @@ extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
                                 int fused) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err =
-      analytic ? occupancy_view<kNormalAnalytic>(shared, fused, smem, &per_sm)
-               : occupancy_view<kNormalFd>(shared, fused, smem, &per_sm);
+  const int err = on_view(shared, fused, [&](auto v) {
+    using S = typename decltype(v)::type;
+    return analytic
+               ? blocks_per_sm(entry<kNormalAnalytic, S>(), smem, &per_sm)
+               : blocks_per_sm(entry<kNormalFd, S>(), smem, &per_sm);
+  });
   return err != 0 ? -err : per_sm;
 }
 

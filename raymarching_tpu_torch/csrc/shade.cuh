@@ -1,9 +1,19 @@
-// Steps 2-4 of the per-ray pipeline, shared by K1 (render_kernel.cu) and K4
-// (shade_kernel.cu): pallas_render._shade_body for the reference shading
-// model.  Given a marched hit point: the first-wins colour winner at the
-// pre-step point; the normal; one shadow march per light that stops at
-// the light, with the black-lane and saturation-floor skips; the Lambert
-// sum clamped to [saturation, 1].
+// Steps 2-4 of the per-ray pipeline, shared by K1 (render_kernel.cu and its
+// extended and raygen entries) and K4 (shade_kernel.cu, shade_ext_kernel.cu):
+// pallas_render._shade_body.  Given a marched hit point: the first-wins
+// colour winner at the pre-step point; the normal; one shadow march per
+// light that stops at the light, with the black-lane and saturation-floor
+// skips; the Lambert sum clamped to [saturation, 1].
+//
+// The shading extensions (_shade_body's branches) are a compile-time
+// argument, kExt, so the reference entries keep their code; inside an
+// extended entry three warp-uniform switches of ShadeExt pick them:
+// soft shadows (the penumbra tracker in each shadow march, march.cuh's
+// kPen; the Lambert term times the factor, 0 where the march stops short,
+// which goes out per light), coloured lights (three sums, each term times
+// its light's colour row; the saturation-floor skip off, which the host
+// sees to, as JAX's `not colored`) and ambient occlusion (after the
+// per-channel clamp: taps along the normal, their factor out too).
 //
 // The normal is a compile-time choice, a template argument of shade() and
 // of both kernels' loops, with one entry function a normal in each, so
@@ -93,6 +103,45 @@ constexpr int kNormalAnalytic = 1;
 // 1.41 left alone (FD: K1 10.0 and 2.2 ms, K4 1.67).
 constexpr int kAnalyticBlocks = 10;
 
+// AO taps an extended entry takes (ops/shade_kernel.py MAX_AO_SAMPLES).
+constexpr int kMaxAoSamples = 32;
+
+// The extensions of an extended entry: switches and constants, the same
+// for every ray (pallas_render._shade_body's soft_k, colored, ao_*).
+struct ShadeExt {
+  float soft_k;        // > 0: soft shadows (the host passes 0 without shadows)
+  int colored;         // != 0: coloured lights, light rows' columns 4-6
+  float ao_strength;   // > 0: ambient occlusion
+  int ao_samples;
+  float ao_d[kMaxAoSamples];   // tap i's distance (i + 1) ao_delta
+};
+
+// Where ray i of R writes the extended outputs: light [3][R] (coloured) or
+// [R]; the penumbra factors sfac [L][R] and the AO factor aofac [R], each
+// when its extension is on.
+struct ShadeExtOut {
+  float* light;
+  float* sfac;
+  float* aofac;
+  unsigned i, R;
+};
+
+// The reference entries' stand-in for ShadeExt and ShadeExtOut.
+struct NoExt {};
+
+// ShadeExt from a C entry point's arguments; ao_d is a host array of
+// ao_samples <= kMaxAoSamples tap distances.
+inline ShadeExt shade_ext(float soft_k, int colored, float ao_strength,
+                          int ao_samples, const float* ao_d) {
+  ShadeExt x{};
+  x.soft_k = soft_k;
+  x.colored = colored;
+  x.ao_strength = ao_strength;
+  x.ao_samples = ao_samples;
+  for (int k = 0; k < ao_samples; ++k) x.ao_d[k] = ao_d[k];
+  return x;
+}
+
 // Where the analytic normal's winner residuals of ray i of R go: (sd, gx,
 // gy, gz) to f[k R + i], the winner leaf to idx[i]; nowhere when f is null.
 struct WinnerOut {
@@ -140,12 +189,18 @@ __device__ __noinline__ float3 analytic_normal(const S s, float px, float py,
 
 // Shade the hit point (px, py, pz) of a ray of direction (dx, dy, dz) whose
 // march last evaluated the SD `sd` one step back; with kNormalAnalytic,
-// write the normal's winner residuals to `wo`.
-template <int kNormal, class S>
+// write the normal's winner residuals to `wo`.  With kExt (X a ShadeExt, O
+// a ShadeExtOut) the extensions X switches on, and the light term goes to
+// O (the returned `light` is then unused); without (X and O NoExt) the
+// reference shading.
+template <int kNormal, bool kExt = false, class S, class X = NoExt,
+          class O = NoExt>
 __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
                                        float px, float py, float pz,
                                        float sd, float dx, float dy,
-                                       float dz, const WinnerOut wo) {
+                                       float dz, const WinnerOut wo,
+                                       const X& ext = X{},
+                                       const O& eo = O{}) {
   // 2. colour winner at the pre-step point (scene.cpp:34-42)
   const float back = fminf(sd, kMaxStep);
   const int cidx =
@@ -192,6 +247,7 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
   // 4. Lambert over lights with hard shadows (scene.cpp:45-62); a skipped
   // lane's march stays at its origin and so reads as shadowed
   float total = 0.0f;
+  [[maybe_unused]] float total_g = 0.0f, total_b = 0.0f;
   unsigned smask = 0u;
   for (int li = 0; li < P.n_lights; ++li) {
     const float4 r = light_dir(s, li, px, py, pz, nx, ny, nz);
@@ -202,19 +258,69 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
                   sz = pz + nz * P.off;
       const float tx = l.x - sx, ty = l.y - sy, tz = l.z - sz;
       const float tmax = sqrtf(tx * tx + ty * ty + tz * tz);
-      const Hit q = march(s, P.iterations, P.eps, sx, sy, sz, r.x, r.y, r.z,
-                          true, tmax, skip);
-      const bool passed =
-          (l.x - q.x) * r.x + (l.y - q.y) * r.y + (l.z - q.z) * r.z <= 0.0f;
-      if (!passed) {
-        smask |= 1u << li;
-        lamb = 0.0f;
+      if constexpr (kExt) {
+        float pen = 1.0f;
+        const Hit q = march<true>(s, P.iterations, P.eps, sx, sy, sz, r.x,
+                                  r.y, r.z, true, tmax, skip, ext.soft_k,
+                                  &pen);
+        const bool passed =
+            (l.x - q.x) * r.x + (l.y - q.y) * r.y + (l.z - q.z) * r.z <=
+            0.0f;
+        if (!passed) smask |= 1u << li;
+        if (ext.soft_k > 0.0f) {
+          const float fac = passed ? pen : 0.0f;
+          eo.sfac[li * eo.R + eo.i] = fac;
+          lamb = lamb * fac;
+        } else if (!passed) {
+          lamb = 0.0f;
+        }
+      } else {
+        const Hit q = march(s, P.iterations, P.eps, sx, sy, sz, r.x, r.y,
+                            r.z, true, tmax, skip);
+        const bool passed =
+            (l.x - q.x) * r.x + (l.y - q.y) * r.y + (l.z - q.z) * r.z <=
+            0.0f;
+        if (!passed) {
+          smask |= 1u << li;
+          lamb = 0.0f;
+        }
+      }
+    }
+    if constexpr (kExt) {
+      if (ext.colored) {
+        const float4 c = s.light(2 * li + 1);
+        total = total + lamb * c.x;
+        total_g = total_g + lamb * c.y;
+        total_b = total_b + lamb * c.z;
+        continue;
       }
     }
     total = total + lamb;
   }
-  return Shade{cidx, fminf(fmaxf(total, P.saturation), 1.0f),
-               static_cast<int>(smask)};
+  const float light = fminf(fmaxf(total, P.saturation), 1.0f);
+  if constexpr (kExt) {
+    // ambient occlusion after the clamp: taps along the unit normal
+    float ao = 1.0f;
+    if (ext.ao_strength > 0.0f) {
+      float occ = 0.0f;
+      for (int k = 0; k < ext.ao_samples; ++k) {
+        const float d = ext.ao_d[k];
+        const float sdo = scene_sd(s, px + d * nx, py + d * ny, pz + d * nz);
+        occ = occ + ldexpf(1.0f, -(k + 1)) * (d - sdo);
+      }
+      ao = fminf(fmaxf(1.0f - ext.ao_strength * occ, 0.0f), 1.0f);
+      eo.aofac[eo.i] = ao;
+    }
+    const bool with_ao = ext.ao_strength > 0.0f;
+    eo.light[eo.i] = with_ao ? light * ao : light;
+    if (ext.colored) {
+      const float lg = fminf(fmaxf(total_g, P.saturation), 1.0f);
+      const float lb = fminf(fmaxf(total_b, P.saturation), 1.0f);
+      eo.light[eo.R + eo.i] = with_ao ? lg * ao : lg;
+      eo.light[2 * eo.R + eo.i] = with_ao ? lb * ao : lb;
+    }
+  }
+  return Shade{cidx, light, static_cast<int>(smask)};
 }
 
 }  // namespace

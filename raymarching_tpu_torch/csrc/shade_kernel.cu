@@ -9,7 +9,8 @@
 // residuals of the fused backward when asked, exactly as K1 writes them),
 // one shadow march per light that stops at the light, with the black-lane
 // and saturation-floor skips, and the Lambert sum clamped to [saturation,
-// 1] (the reference shading model; white lights).  The normal is a
+// 1] (the reference shading model; its extensions are the entries of
+// shade_ext_kernel.cu over the same loop, shade_loop.cuh).  The normal is a
 // template argument.  Its plain PyTorch twin is
 // raymarching_tpu_torch/ops/shade_kernel.py::shade_rays_plain.
 //
@@ -39,59 +40,23 @@
 
 #include <cstdint>
 
-#include "persist.cuh"
-#include "shade.cuh"
+#include "shade_loop.cuh"
 
 namespace {
-
-// The rays' buffers: in [7][R] (p xyz, sd, direction xyz), light [R],
-// iout [2][R] (colour winner, shadow mask), and with the analytic normal
-// the winner residuals wres [4][R] (sd, gx, gy, gz) and widx [R], or null.
-struct Rays {
-  const float* in;
-  float* light;
-  int* iout;
-  float* wres;
-  int* widx;
-  unsigned* counter;   // [1]: the next ray to hand out, zero at launch
-  unsigned R;
-};
-
-// The rays of one thread, the body of both entry kernels.
-template <int kNormal, class S>
-__device__ __forceinline__ void shade_loop(const SceneArgs& A,
-                                           const ShadeParams& P,
-                                           const Rays& B) {
-  const S s = stage_scene<S>(A);
-  const unsigned R = B.R;
-  const float* in = B.in;
-  for (;;) {
-    const unsigned base = next_rays(B.counter);
-    if (base >= R) break;
-    const unsigned i = base + (threadIdx.x & 31u);
-    if (i >= R) continue;
-    const Shade sh = shade<kNormal>(
-        s, P, in[i], in[R + i], in[2 * R + i], in[3 * R + i], in[4 * R + i],
-        in[5 * R + i], in[6 * R + i], WinnerOut{B.wres, B.widx, i, R});
-    B.light[i] = sh.light;
-    B.iout[i] = sh.cidx;
-    B.iout[R + i] = sh.smask;
-  }
-}
 
 // The entries, one a normal, with the launch bounds shade.cuh's
 // kAnalyticBlocks explains.
 template <class S>
 __global__ void __launch_bounds__(kThreads)
     shade_kernel(const SceneArgs A, const ShadeParams P, const Rays B) {
-  shade_loop<kNormalFd, S>(A, P, B);
+  shade_loop<kNormalFd, false, S>(A, P, B);
 }
 
 template <class S>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
     shade_kernel_analytic(const SceneArgs A, const ShadeParams P,
                           const Rays B) {
-  shade_loop<kNormalAnalytic, S>(A, P, B);
+  shade_loop<kNormalAnalytic, false, S>(A, P, B);
 }
 
 // The entry kernel for normal kNormal over scene view S.
@@ -99,42 +64,6 @@ template <int kNormal, class S>
 auto entry() {
   return kNormal == kNormalAnalytic ? shade_kernel_analytic<S>
                                     : shade_kernel<S>;
-}
-
-template <int kNormal, class S>
-int launch(const SceneArgs& A, const ShadeParams& P, const Rays& B,
-           cudaStream_t stream) {
-  const unsigned smem = staged_bytes<S>(A);
-  unsigned blocks = 0;
-  const int err = persistent_blocks(entry<kNormal, S>(), smem, B.R, &blocks);
-  if (err != 0) return err;
-  entry<kNormal, S>()<<<blocks, kThreads, smem, stream>>>(A, P, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kNormal>
-int launch_view(const SceneArgs& A, const ShadeParams& P, const Rays& B,
-                int shared, int fused, cudaStream_t stream) {
-  if (fused)
-    return shared ? launch<kNormal, Fused<SharedScene>>(A, P, B, stream)
-                  : launch<kNormal, Fused<DeviceScene>>(A, P, B, stream);
-  return shared ? launch<kNormal, SharedScene>(A, P, B, stream)
-                : launch<kNormal, DeviceScene>(A, P, B, stream);
-}
-
-// Resident blocks an SM of the entry for normal kNormal over view S.
-template <int kNormal, class S>
-int occupancy(unsigned smem, int* per_sm) {
-  return blocks_per_sm(entry<kNormal, S>(), smem, per_sm);
-}
-
-template <int kNormal>
-int occupancy_view(int shared, int fused, unsigned smem, int* per_sm) {
-  if (fused)
-    return shared ? occupancy<kNormal, Fused<SharedScene>>(smem, per_sm)
-                  : occupancy<kNormal, Fused<DeviceScene>>(smem, per_sm);
-  return shared ? occupancy<kNormal, SharedScene>(smem, per_sm)
-                : occupancy<kNormal, DeviceScene>(smem, per_sm);
 }
 
 }  // namespace
@@ -157,7 +86,10 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                              float saturation, float fd_h, const void* in,
                              void* light, void* iout, void* wres, void* widx,
                              void* counter, int64_t R, void* stream) {
-  const SceneArgs s = scene_args(tbl, groups, runs, lat, lat_flag, lights,
+  if (R < 0 || R > kMaxRays || (analytic == 0 && wres != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  const SceneArgs A = scene_args(tbl, groups, runs, lat, lat_flag, lights,
                                  n_rows, n_groups, n_runs, n_lat, n_lights,
                                  root_min);
   const ShadeParams P{static_cast<const int*>(black),
@@ -170,16 +102,15 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                       off,
                       saturation,
                       fd_h};
-  if (R < 0 || R > kMaxRays || (analytic == 0 && wres != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (R == 0) return static_cast<int>(cudaGetLastError());
-  const Rays B{static_cast<const float*>(in), static_cast<float*>(light),
-               static_cast<int*>(iout),       static_cast<float*>(wres),
-               static_cast<int*>(widx),       static_cast<unsigned*>(counter),
-               static_cast<unsigned>(R)};
+  const Rays B = make_rays(in, light, iout, wres, widx, counter, R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return analytic ? launch_view<kNormalAnalytic>(s, P, B, shared, fused, st)
-                  : launch_view<kNormalFd>(s, P, B, shared, fused, st);
+  return on_view(shared, fused, [&](auto v) {
+    using S = typename decltype(v)::type;
+    return analytic ? launch_persistent<S>(entry<kNormalAnalytic, S>(), A, R,
+                                           st, A, P, B)
+                    : launch_persistent<S>(entry<kNormalFd, S>(), A, R, st,
+                                           A, P, B);
+  });
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
@@ -190,9 +121,12 @@ extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
                                 int fused) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err =
-      analytic ? occupancy_view<kNormalAnalytic>(shared, fused, smem, &per_sm)
-               : occupancy_view<kNormalFd>(shared, fused, smem, &per_sm);
+  const int err = on_view(shared, fused, [&](auto v) {
+    using S = typename decltype(v)::type;
+    return analytic
+               ? blocks_per_sm(entry<kNormalAnalytic, S>(), smem, &per_sm)
+               : blocks_per_sm(entry<kNormalFd, S>(), smem, &per_sm);
+  });
   return err != 0 ? -err : per_sm;
 }
 

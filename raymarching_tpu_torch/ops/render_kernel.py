@@ -6,6 +6,16 @@ Counterpart of ``raymarching_tpu.ops.pallas_render.pallas_render_rays``
 in plain PyTorch from the ``core`` modules and is what a CPU tensor gets.
 A CUDA tensor always goes to the kernel: a build or launch failure raises.
 
+The shading extensions (coloured lights, soft shadows, ambient occlusion;
+``shade_kernel.extended``) launch the kernel's extended entries
+(``csrc/render_ext_kernel.cu``): the light term is [R, 3] with coloured
+lights, and ``save_factors`` returns the penumbra and occlusion factors
+(``shade_kernel.Factors``) beside the outputs.  ``render_raygen`` is the
+serving path (``pallas_render.serve_render_chunk``): K1's raygen entries
+(``csrc/render_raygen_kernel.cu``) compute the primary directions of a
+chunk of the frame from the ray index; its twin is
+``core.camera.raygen_dirs`` and this module's plain twin.
+
 The normal is a compile-time choice of the kernel: FD, or with
 ``cfg.normal_mode="analytic"`` the combined fold's winner gradient (JAX
 ``_scene_sd_idx_grad_tile``), which with ``save_winner`` also writes the
@@ -32,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..core import camera as cam
 from ..core.march import MarchResult, march
 from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
@@ -40,9 +51,11 @@ from ..tables import fused_groups
 from . import build
 from .march_kernel import march_rays
 from .scene_vjp import gather_rows
-from .shade_kernel import (MAX_LIGHTS, check_normal_mode, ptr_or_none,
-                           shade_operands, shade_rays, shade_rays_plain,
-                           winner_buffers, winner_of)
+from .shade_kernel import (EXT_ARGTYPES, ShadeOutputs, MAX_LIGHTS, SHADE_ARGTYPES, Factors,
+                           check_normal_mode, ext_operands, extended,
+                           light_of, ptr_or_none, shade_operands, shade_rays,
+                           shade_rays_plain, winner_buffers, winner_of,
+                           with_extras)
 
 # Phase-2 capacity as a fraction of the rays (pallas_render
 # ._PHASE2_CAP_FRAC): with more rays than that still marching after phase 1,
@@ -57,7 +70,7 @@ class RayOutputs(NamedTuple):
     sd: torch.Tensor     # [R] SD at the pre-step point
     done: torch.Tensor   # [R] bool: converged (done and sd < eps)
     cidx: torch.Tensor   # [R] int32 colour winner leaf, -1 = none
-    light: torch.Tensor  # [R] clamped Lambert term
+    light: torch.Tensor  # [R] clamped Lambert term; [R, 3] coloured lights
     smask: torch.Tensor  # [R] int32, bit l set = light l shadowed
 
 
@@ -68,16 +81,12 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = "depth > 2 scenes (ROADMAP Queue 2, D8)"
     elif plan.proc:
         todo = "procedural leaves (ROADMAP Queue 1 item 10)"
-    elif plan.colored_lights:
-        todo = "coloured lights (ROADMAP Queue 1 item 9)"
-    elif cfg.soft_shadow_k > 0.0 or cfg.ao_strength > 0.0:
-        todo = "soft shadows and AO (ROADMAP Queue 1 item 9)"
     elif cfg.reflect_strength > 0.0:
-        todo = "mirror bounces (ROADMAP Queue 1 item 9)"
+        todo = ("mirror bounces (ROADMAP Queue 1 item 9, its open part: "
+                "bounces, depth of field, the /aovs route)")
     elif cfg.aperture > 0.0:
-        todo = "depth of field (ROADMAP Queue 1 item 9)"
-    elif cfg.serve_raygen:
-        todo = "in-kernel serve raygen (ROADMAP Queue 1 item 9)"
+        todo = ("depth of field (ROADMAP Queue 1 item 9, its open part: "
+                "bounces, depth of field, the /aovs route)")
     elif plan.num_lights > MAX_LIGHTS:
         todo = f"more than {MAX_LIGHTS} lights"
     if todo is not None:
@@ -89,12 +98,14 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
 
 def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                       origin: torch.Tensor, dirs: torch.Tensor,
-                      collapse: bool = True, save_winner: bool = False):
+                      collapse: bool = True, save_winner: bool = False,
+                      save_factors: bool = False):
     """K1 in plain PyTorch, the same arithmetic in the same order: the
     march over the kernel-form fold, then K4's plain twin on its hit
     points (one march whatever ``cfg.two_phase_k1`` says: this is the
     twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3] ->
-    RayOutputs, or with ``save_winner`` (RayOutputs, Winner)."""
+    RayOutputs, or with ``save_winner`` or ``save_factors`` (RayOutputs,
+    Winner if asked, Factors if asked)."""
     check_supported(plan, cfg)
     check_normal_mode(cfg, save_winner)
     with torch.no_grad():
@@ -104,17 +115,17 @@ def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         hit = march(sd_fn, origin, dirs, cfg.iterations,
                     cfg.surface_precision)
     return _ray_outputs(hit, shade_rays_plain(
-        plan, cfg, tables, hit.position, hit.sd, dirs, collapse, save_winner),
-        save_winner)
+        plan, cfg, tables, hit.position, hit.sd, dirs, collapse, save_winner,
+        save_factors))
 
 
-def _ray_outputs(hit: MarchResult, shaded, save_winner: bool):
-    """RayOutputs of a march and its shading, and with ``save_winner`` the
-    shading's winner residuals beside them."""
-    if not save_winner:
+def _ray_outputs(hit: MarchResult, shaded):
+    """RayOutputs of a march and its shading, with the shading's extras
+    (winner residuals, factors) beside them when it returned any."""
+    if isinstance(shaded, ShadeOutputs):
         return RayOutputs(hit.position, hit.sd, hit.converged, *shaded)
-    sh, winner = shaded
-    return RayOutputs(hit.position, hit.sd, hit.converged, *sh), winner
+    sh, *extras = shaded
+    return (RayOutputs(hit.position, hit.sd, hit.converged, *sh), *extras)
 
 
 def phase2_capacity(cfg: RenderConfig, R: int) -> int:
@@ -154,30 +165,58 @@ def two_phase_march(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """csrc/render_kernel.cu, built on first use, its entry point bound."""
-    lib = build.load_library("render_kernel")
+def _library(name: str = "render_kernel") -> ctypes.CDLL:
+    """One of K1's sources (render_kernel, render_ext_kernel,
+    render_raygen_kernel), built on first use, its entry point bound."""
+    lib = build.load_library(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_render_rays.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [ptr] * 2 + [i32] * 7 + [f32] * 4
-        + [ptr, f32, f32, f32] + [ptr] * 6 + [ctypes.c_int64, ptr])
-    lib.rt_render_rays.restype = i32
+    rays = [ptr, f32, f32, f32, ptr]            # org, ox, oy, oz, dirs
+    tail = [ctypes.c_int64, ptr]                # R, stream
+    if name == "render_kernel":
+        fn = lib.rt_render_rays
+        fn.argtypes = SHADE_ARGTYPES + rays + [ptr] * 5 + tail
+    elif name == "render_ext_kernel":
+        fn = lib.rt_render_rays_ext
+        fn.argtypes = SHADE_ARGTYPES + EXT_ARGTYPES + rays + [ptr] * 8 + tail
+    else:
+        fn = lib.rt_render_raygen
+        fn.argtypes = (SHADE_ARGTYPES + [i32] + EXT_ARGTYPES + [i32] * 3
+                       + [f32] * 3 + [ptr, ctypes.c_int64] + [ptr] * 8
+                       + tail)
+    fn.restype = i32
     return lib
+
+
+def _launch_head(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                 dev, collapse: bool, analytic: bool) -> tuple:
+    """The C entry points' arguments from ``tbl`` to ``fd_h`` and the
+    tensors they point into (kept alive across the launch)."""
+    scene = scene_tables.scene_operands(plan, tables, dev, collapse,
+                                        cfg.fused_generators)
+    lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
+    shared = (scene.nbytes(plan.num_lights)
+              <= scene_tables.SHARED_SCENE_BYTES)
+    head = (*scene.args(), lights.data_ptr(), black_t.data_ptr(),
+            int(shared), int(analytic), *shade_args)
+    return head, (scene, lights, black_t)
 
 
 @torch.no_grad()
 def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                 origin: torch.Tensor, dirs: torch.Tensor,
-                collapse: bool = True, save_winner: bool = False):
+                collapse: bool = True, save_winner: bool = False,
+                save_factors: bool = False):
     """Fused forward for rays ``dirs`` [R, 3] from ``origin`` [3] or
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
-    -> RayOutputs, or with ``save_winner`` (analytic normals)
-    (RayOutputs, Winner).  CPU tensors take the plain twin; CUDA tensors
-    launch K1, or with ``cfg.two_phase_k1`` set K3, K3 and K4 (their
-    plain twins on the CPU).  Forward only: it records no autograd graph
-    (``ops.render_op.FusedRender`` differentiates it).  ``collapse``: the
-    scene fold may take the exact Menger lattice collapse (the same bits
-    as the leaf fold, which ``collapse=False`` keeps)."""
+    -> RayOutputs, or with ``save_winner`` (analytic normals) or
+    ``save_factors`` (RayOutputs, Winner if asked, Factors if asked).
+    CPU tensors take the plain twin; CUDA tensors launch K1 (its extended
+    entry when ``shade_kernel.extended``), or with ``cfg.two_phase_k1``
+    set K3, K3 and K4 (their plain twins on the CPU).  Forward only: it
+    records no autograd graph (``ops.render_op.FusedRender``
+    differentiates it).  ``collapse``: the scene fold may take the exact
+    Menger lattice collapse (the same bits as the leaf fold, which
+    ``collapse=False`` keeps)."""
     dev = dirs.device
     check_supported(plan, cfg)
     analytic = check_normal_mode(cfg, save_winner)
@@ -185,10 +224,10 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
         return _ray_outputs(hit, shade_rays(
             plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
-            save_winner), save_winner)
+            save_winner, save_factors))
     if dev.type == "cpu":
         return render_rays_plain(plan, cfg, tables, origin, dirs, collapse,
-                                 save_winner)
+                                 save_winner, save_factors)
     if dev.type != "cuda":
         raise ValueError(f"render_rays: unsupported device {dev}")
     tensors = [origin, dirs, *tables]
@@ -200,44 +239,136 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         raise ValueError(f"render_rays: dirs {tuple(dirs.shape)}, origin "
                          f"{tuple(origin.shape)}")
 
-    lib = _library()
-    scene = scene_tables.scene_operands(plan, tables, dev, collapse,
-                                        cfg.fused_generators)
-    lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
-    shared = (scene.nbytes(plan.num_lights)
-              <= scene_tables.SHARED_SCENE_BYTES)
+    ext = extended(plan, cfg)
+    name = "render_ext_kernel" if ext else "render_kernel"
+    lib = _library(name)
+    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     dirs_soa = dirs.t().contiguous()
     if origin.dim() == 2:
         org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
     else:
         org_soa, o3 = None, tuple(float(v) for v in origin.tolist())
+    rays = (ptr_or_none(org_soa), *o3, dirs_soa.data_ptr())
     out = torch.empty((6, R), dtype=torch.float32, device=dev)
     iout = torch.empty((2, R), dtype=torch.int32, device=dev)
     wres, widx = winner_buffers(R, dev, save_winner)
+    outs = (out.data_ptr(), iout.data_ptr(), ptr_or_none(wres),
+            ptr_or_none(widx))
+    sfac = aofac = None
+    light = out[5]
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.rt_render_rays(
-            *scene.args(), lights.data_ptr(), black_t.data_ptr(), int(shared),
-            int(analytic), *shade_args, ptr_or_none(org_soa), *o3,
-            dirs_soa.data_ptr(), out.data_ptr(), iout.data_ptr(),
-            ptr_or_none(wres), ptr_or_none(widx), counter.data_ptr(), R,
-            stream)
+        if ext:
+            ext_args, light, sfac, aofac = ext_operands(plan, cfg, R, dev)
+            code = lib.rt_render_rays_ext(
+                *head, *ext_args, *rays, *outs, light.data_ptr(),
+                ptr_or_none(sfac), ptr_or_none(aofac), counter.data_ptr(), R,
+                stream)
+            light = light_of(light)
+        else:
+            code = lib.rt_render_rays(*head, *rays, *outs,
+                                      counter.data_ptr(), R, stream)
     build.check(lib, code, "render kernel launch")
-    if R:    # the C entry point launches nothing for zero rays
+    if R:    # the C entry points launch nothing for zero rays
         render_rays.launches += 1
+        render_rays.entry_launches[name] += 1
+    return _outputs(cfg, out, iout, light, wres, widx, Factors(sfac, aofac),
+                    save_winner, save_factors)
+
+
+# K1's launches, and by source (the reference and the extended entries);
+# the raygen entries count in render_raygen.launches
+render_rays.launches = 0
+render_rays.entry_launches = {"render_kernel": 0, "render_ext_kernel": 0}
+
+
+def _outputs(cfg, out, iout, light, wres, widx, factors, save_winner,
+             save_factors):
+    """K1's outputs from its launch buffers, with the extras asked for."""
     sd = out[3]
     ray = RayOutputs(p=out[:3].t(), sd=sd,
                      done=(out[4] > 0.5) & (sd < cfg.surface_precision),
-                     cidx=iout[0], light=out[5], smask=iout[1])
-    return (ray, winner_of(wres, widx)) if save_winner else ray
+                     cidx=iout[0], light=light, smask=iout[1])
+    return with_extras(ray, winner_of(wres, widx) if save_winner else None,
+                       factors, save_winner, save_factors)
 
 
-render_rays.launches = 0
+def render_raygen_plain(plan: ScenePlan, cfg: RenderConfig,
+                        tables: SceneTables, base: int, n: int,
+                        collapse: bool = True, save_winner: bool = False,
+                        save_factors: bool = False):
+    """K1's raygen entry in plain PyTorch: the directions of rays base ..
+    base + n - 1 of the frame by ``core.camera.raygen_dirs``, then K1's
+    plain twin on them from the camera position."""
+    dirs = cam.raygen_dirs(cam.serve_cam_rows(tables, cfg), cfg, base, n)
+    return render_rays_plain(plan, cfg, tables, tables.cam_position, dirs,
+                             collapse, save_winner, save_factors)
+
+
+@torch.no_grad()
+def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                  base: int, n: int, collapse: bool = True,
+                  save_winner: bool = False, save_factors: bool = False):
+    """K1 on rays base .. base + n - 1 of the frame (scan order, the
+    order of ``core.camera.generate_rays``), their directions computed in
+    the kernel from the ray index (``pallas_render.serve_render_chunk``;
+    the serving path of ``api.render_tables``): no direction tensor and
+    no camera pass.  Returns what ``render_rays`` returns.  CPU tensors
+    take ``render_raygen_plain``; CUDA tensors launch K1's raygen entry
+    (with the shading extensions when ``shade_kernel.extended``), always
+    one kernel (``cfg.two_phase_k1`` is not taken, as in the JAX path).
+    Forward only."""
+    dev = tables.cam_position.device
+    check_supported(plan, cfg)
+    analytic = check_normal_mode(cfg, save_winner)
+    if dev.type == "cpu":
+        return render_raygen_plain(plan, cfg, tables, base, n, collapse,
+                                   save_winner, save_factors)
+    if dev.type != "cuda":
+        raise ValueError(f"render_raygen: unsupported device {dev}")
+    if any(t.device != dev or t.dtype != torch.float32 for t in tables):
+        raise ValueError("render_raygen: every tensor must be float32 on "
+                         f"{dev}")
+    if base < 0 or n < 0:
+        raise ValueError(f"render_raygen: rays {base} + {n}")
+    ext = extended(plan, cfg)
+    lib = _library("render_raygen_kernel")
+    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
+    # the kernel reads the camera rows on the device: no host copy, no wait
+    rows = cam.serve_cam_rows(tables, cfg).contiguous()
+    recip = [1.0 / cfg.ssaa, 1.0 / cfg.width, 1.0 / cfg.height]
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    iout = torch.empty((2, n), dtype=torch.int32, device=dev)
+    wres, widx = winner_buffers(n, dev, save_winner)
+    if ext:
+        ext_args, light, sfac, aofac = ext_operands(plan, cfg, n, dev)
+    else:
+        ext_args = (0.0, 0, 0.0, 0, (ctypes.c_float * 1)())
+        light, sfac, aofac = out[5:6], None, None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rt_render_raygen(
+            *head, int(ext), *ext_args, cfg.width, cfg.height, cfg.ssaa,
+            *recip, rows.data_ptr(), base, out.data_ptr(), iout.data_ptr(),
+            ptr_or_none(wres), ptr_or_none(widx),
+            light.data_ptr() if ext else None, ptr_or_none(sfac),
+            ptr_or_none(aofac), counter.data_ptr(), n, stream)
+    build.check(lib, code, "render kernel raygen launch")
+    if n:    # the C entry point launches nothing for zero rays
+        render_raygen.launches += 1
+    return _outputs(cfg, out, iout, light_of(light), wres, widx,
+                    Factors(sfac, aofac), save_winner, save_factors)
+
+
+render_raygen.launches = 0
 
 
 def blend(cidx: torch.Tensor, light: torch.Tensor,
           prim_color: torch.Tensor) -> torch.Tensor:
-    """Ray colours [R, 3] = light * winner colour, misses black."""
-    return light[:, None] * gather_rows(cidx, prim_color)
+    """Ray colours [R, 3] = light * winner colour, misses black; ``light``
+    [R] (white lights) or [R, 3] (coloured)."""
+    lit = light[:, None] if light.dim() == 1 else light
+    return lit * gather_rows(cidx, prim_color)

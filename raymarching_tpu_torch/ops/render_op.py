@@ -4,7 +4,12 @@ Counterpart of ``raymarching_tpu.ops.pallas_render.fused_render_op`` with
 its ``_fused_fwd``, ``_exact_fd_bwd``, ``_exact_analytic_bwd`` and
 ``_fused_analytic_bwd`` rules and the fused-generator FD branch of
 ``_fused_bwd``, for the training configurations on exact tables and with
-fused generators (FD or analytic normals, hard shadows, white lights).
+fused generators (FD or analytic normals), with the shading extensions:
+coloured lights, soft shadows and ambient occlusion.  The forward saves
+K1's penumbra and occlusion factors (``shade_kernel.Factors``), and every
+backward's Lambert replay reapplies them as constants with the shadow
+bits, as JAX's ``_lambert_replay`` does; with coloured lights
+``light_color`` gets its cotangent from the same replay.
 
 Forward: K1 over every ray (``render_rays``) with the black-lane shadow
 skip off, then the colour blend; with analytic normals K1 also writes the
@@ -49,6 +54,8 @@ Camera gradients flow on from ``origin``/``dirs`` through
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..config import RenderConfig
@@ -87,28 +94,37 @@ class FusedRender(torch.autograd.Function):
         # saturation-floor skip stays: it is exact for gradients too.
         cfg = cfg.replace(shade_skip_black=False)
         save = cfg.normal_mode == "analytic" and SAVE_WINNER
-        out = render_rays(plan, cfg, tables, origin, dirs, save_winner=save)
-        out, winner = out if save else (out, ())
+        res = render_rays(plan, cfg, tables, origin, dirs, save_winner=save,
+                          save_factors=True)
+        out, *extras = res
+        winner = extras[0] if save else ()
+        factors = extras[-1]
         colors = blend(out.cidx, out.light, tables.prim_color)
         t = dot3(out.p - origin, dirs) / dot3(dirs, dirs)
         ctx.plan, ctx.cfg = plan, cfg
         ctx.origin_dim = origin.dim()
         ctx.n_winner = len(winner)
+        ctx.factors = tuple(f is not None for f in factors)
         ctx.save_for_backward(out.p, out.done, out.cidx, out.smask, t, dirs,
-                              *winner, *fields)
+                              *winner, *(f for f in factors if f is not None),
+                              *fields)
         return colors
 
     @staticmethod
     def backward(ctx, g_out):
         plan, cfg = ctx.plan, ctx.cfg
         p, conv, cidx, smask, t, dirs, *rest = ctx.saved_tensors
-        winner, fields = rest[:ctx.n_winner], rest[ctx.n_winner:]
-        tables = SceneTables(*fields)
+        winner, rest = rest[:ctx.n_winner], rest[ctx.n_winner:]
+        soft, ao = ctx.factors
+        sfac = rest.pop(0) if soft else None
+        aofac = rest.pop(0) if ao else None
+        shadow = Shadow(smask, sfac, aofac)
+        tables = SceneTables(*rest)
         P = tables.prim_color.shape[0]
         fused = cfg.fused_generators
         if fused and cfg.normal_mode == "fd":
             p_bar, gp, grads = _fused_fd_bwd(plan, cfg, tables, p, conv,
-                                             cidx, smask, dirs, g_out)
+                                             cidx, shadow, dirs, g_out)
             o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
             return (None, None, o_bar, t[:, None] * gp, *grads)
         if cfg.normal_mode == "analytic":
@@ -124,8 +140,8 @@ class FusedRender(torch.autograd.Function):
             g0 = g7[0]
 
         # 1. shading replay from the normal's primal
-        p_bar, g_bar, pc_bar, light_bar = _replay(plan, cfg, tables, p, g,
-                                                  cidx, smask, g_out)
+        p_bar, g_bar, pc_bar, light_bar, lc_bar = _replay(
+            plan, cfg, tables, p, g, cidx, shadow, g_out)
 
         if cfg.normal_mode == "analytic" and fused:
             # 2. the chain on the fused field, reduced onto base rows
@@ -165,73 +181,114 @@ class FusedRender(torch.autograd.Function):
         d_bar = t[:, None] * gp
         grads = SceneTables(
             prim_pos=pos_bar, prim_aux=aux_bar, prim_color=pc_bar,
-            light_pos=light_bar, light_color=None, cam_position=None,
+            light_pos=light_bar, light_color=lc_bar, cam_position=None,
             cam_direction=None, cam_up=None, cam_fov=None)
         return (None, None, o_bar, d_bar, *grads)
 
 
+class Shadow(NamedTuple):
+    """The forward's stop-gradient shading decisions that the replay
+    reapplies: the shadow bits, and the penumbra and occlusion factors
+    when those extensions are on."""
+
+    smask: torch.Tensor
+    sfac: Optional[torch.Tensor]   # [L, R] or None
+    aofac: Optional[torch.Tensor]  # [R] or None
+
+
+def _light_leaves(plan: ScenePlan, tables: SceneTables) -> tuple:
+    """Leaf copies of the real lights' positions and, with coloured
+    lights, colours (else None), for a replay under autograd."""
+    L = plan.num_lights
+    lp = tables.light_pos[:L].detach().requires_grad_()
+    lc = (tables.light_color[:L].detach().requires_grad_()
+          if plan.colored_lights else None)
+    return lp, lc
+
+
+def _shade(cfg: RenderConfig, lp, lc, p_, n, shadow: Shadow,
+           col_) -> torch.Tensor:
+    """The replayed shade [R, 3]: the Lambert term times the colour."""
+    light = lambert_replay(lp, p_, n, shadow.smask, cfg.saturation,
+                           shadow.sfac, shadow.aofac, lc)
+    return (light if lc is not None else light[:, None]) * col_
+
+
+def _light_cotangents(tables: SceneTables, L: int, lp_bar, lc_bar) -> tuple:
+    """(light_pos, light_color) cotangents on the tables' rows from those
+    of the L real lights; light_color's is None without coloured lights."""
+    light_bar = torch.zeros_like(tables.light_pos)
+    light_bar[:L] = lp_bar
+    if lc_bar is None:
+        return light_bar, None
+    color_bar = torch.zeros_like(tables.light_color)
+    color_bar[:L] = lc_bar
+    return light_bar, color_bar
+
+
 def _fused_fd_bwd(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                   p: torch.Tensor, conv: torch.Tensor, cidx: torch.Tensor,
-                  smask: torch.Tensor, dirs: torch.Tensor,
+                  shadow: Shadow, dirs: torch.Tensor,
                   g_out: torch.Tensor) -> tuple:
     """The fused FD backward (pallas_render._fused_bwd with fused
     generators and FD normals): autograd through the Lambert replay of
     normalize(normal_fd(scene_sd_fused)) at the hits with the forward's
-    shadow bits, then the implicit-function route through scene_sd_fused
-    at the hits.  -> (p_bar [R, 3], p_bar + w grad f [R, 3], SceneTables
-    of cotangents)."""
+    shadow decisions, then the implicit-function route through
+    scene_sd_fused at the hits.  -> (p_bar [R, 3], p_bar + w grad f
+    [R, 3], SceneTables of cotangents)."""
     L = plan.num_lights
     color_p = gather_rows(cidx, tables.prim_color)
     with torch.enable_grad():
         pos = tables.prim_pos.detach().requires_grad_()
         aux = tables.prim_aux.detach().requires_grad_()
-        lp = tables.light_pos[:L].detach().requires_grad_()
+        lp, lc = _light_leaves(plan, tables)
         p_ = p.detach().requires_grad_()
         col_ = color_p.detach().requires_grad_()
         tb = tables._replace(prim_pos=pos, prim_aux=aux)
         n = normalize(normal_fd(lambda q: scene_sd_fused(plan, tb, q), p_,
                                 cfg.fd_h))
-        shade = lambert_replay(lp, p_, n, smask, cfg.saturation)[:, None] * col_
-        pos_bar, aux_bar, lp_bar, p_bar, color_bar = torch.autograd.grad(
-            shade, (pos, aux, lp, p_, col_), g_out, allow_unused=True,
-            materialize_grads=True)
+        shade = _shade(cfg, lp, lc, p_, n, shadow, col_)
+        leaves = (pos, aux, lp, p_, col_) + ((lc,) if lc is not None else ())
+        pos_bar, aux_bar, lp_bar, p_bar, color_bar, *lc_bar = (
+            torch.autograd.grad(shade, leaves, g_out, allow_unused=True,
+                                materialize_grads=True))
     # the implicit-function route: grad_p f and the parameters' f_theta
     t_bar = torch.where(conv, dot3(p_bar, dirs),
                         torch.zeros((), device=p.device))
     grad_p, w, pos2_bar, aux2_bar = fused_ift(plan, cfg, tables, p, dirs,
                                               t_bar)
-    light_bar = torch.zeros_like(tables.light_pos)
-    light_bar[:L] = lp_bar
+    light_bar, lcolor_bar = _light_cotangents(tables, L, lp_bar,
+                                              lc_bar[0] if lc_bar else None)
     grads = SceneTables(
         prim_pos=pos_bar + pos2_bar, prim_aux=aux_bar + aux2_bar,
         prim_color=segment_add(cidx, color_bar, tables.prim_color.shape[0]),
-        light_pos=light_bar, light_color=None, cam_position=None,
+        light_pos=light_bar, light_color=lcolor_bar, cam_position=None,
         cam_direction=None, cam_up=None, cam_fov=None)
     return p_bar, p_bar + w[:, None] * grad_p, grads
 
 
 def _replay(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
             p: torch.Tensor, g: torch.Tensor, cidx: torch.Tensor,
-            smask: torch.Tensor, g_out: torch.Tensor) -> tuple:
+            shadow: Shadow, g_out: torch.Tensor) -> tuple:
     """Autograd through the Lambert term of ``normalize(g)`` at the hits,
-    with the forward's shadow bits, times the winner colour ->
+    with the forward's shadow decisions, times the winner colour ->
     (p_bar [R, 3], g_bar [R, 3], prim_color cotangent [P, 3], light_pos
-    cotangent).  The colour gather stays outside autograd, so its
-    cotangent is one row scatter."""
+    cotangent, light_color cotangent or None without coloured lights).
+    The colour gather stays outside autograd, so its cotangent is one row
+    scatter."""
     L = plan.num_lights
     color_p = gather_rows(cidx, tables.prim_color)
     with torch.enable_grad():
-        lp = tables.light_pos[:L].detach().requires_grad_()
+        lp, lc = _light_leaves(plan, tables)
         p_ = p.detach().requires_grad_()
         g_ = g.detach().requires_grad_()
         col_ = color_p.detach().requires_grad_()
-        light = lambert_replay(lp, p_, normalize(g_), smask, cfg.saturation)
-        shade = light[:, None] * col_
+        shade = _shade(cfg, lp, lc, p_, normalize(g_), shadow, col_)
         # with no lights, nothing but the colour reaches the shade
-        lp_bar, p_bar, g_bar, color_bar = torch.autograd.grad(
-            shade, (lp, p_, g_, col_), g_out, allow_unused=True,
-            materialize_grads=True)
+        leaves = (lp, p_, g_, col_) + ((lc,) if lc is not None else ())
+        lp_bar, p_bar, g_bar, color_bar, *lc_bar = torch.autograd.grad(
+            shade, leaves, g_out, allow_unused=True, materialize_grads=True)
     pc_bar = segment_add(cidx, color_bar, tables.prim_color.shape[0])
-    light_bar = torch.zeros_like(tables.light_pos)
-    light_bar[:L] = lp_bar
-    return p_bar, g_bar, pc_bar, light_bar
+    light_bar, lcolor_bar = _light_cotangents(tables, L, lp_bar,
+                                              lc_bar[0] if lc_bar else None)
+    return p_bar, g_bar, pc_bar, light_bar, lcolor_bar

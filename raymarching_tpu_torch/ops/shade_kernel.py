@@ -1,19 +1,25 @@
 """K4, the shade kernel: wrapper and plain twin.
 
 Counterpart of ``raymarching_tpu.ops.pallas_render._shade_kernel`` (the
-``_compiled_shade_call`` of the two-phase path) for the ported shading
-set: K1's shade body on hit points that come in.  In (p, sd, dirs), out
-(colour winner, clamped Lambert term, shadow mask): FD or analytic
-normals (``cfg.normal_mode``) on exact tables or with fused generators
-(``cfg.fused_generators``), hard shadows that stop at the light, both
-shadow skips with the black-lane gate, white lights.  With
-``save_winner`` (analytic normals only) the winner residuals of the
-normal come out too (``Winner``; JAX's ``save_winner``), which make the
-fused analytic backward launch no kernel.  The kernel is
-``csrc/shade_kernel.cu``;
-``shade_rays_plain`` computes the same thing in plain PyTorch (it is the
-second half of K1's own twin) and is what a CPU tensor gets.  A CUDA
-tensor always goes to the kernel: a build or launch failure raises.
+``_compiled_shade_call`` of the two-phase path): K1's shade body on hit
+points that come in.  In (p, sd, dirs), out (colour winner, clamped
+Lambert term, shadow mask): FD or analytic normals (``cfg.normal_mode``)
+on exact tables or with fused generators (``cfg.fused_generators``),
+shadows that stop at the light, both shadow skips with the black-lane
+gate.  With ``save_winner`` (analytic normals only) the winner residuals
+of the normal come out too (``Winner``; JAX's ``save_winner``), which make
+the fused analytic backward launch no kernel.
+
+The shading extensions (``extended``: coloured lights, soft shadows,
+ambient occlusion; ``_shade_body``'s branches) take the kernel's extended
+entries (``csrc/shade_ext_kernel.cu``): the light term is [R, 3] with
+coloured lights, and with ``save_factors`` the penumbra and occlusion
+factors come out beside it (``Factors``; the backward replay reapplies
+them).  The reference shading keeps the reference entries
+(``csrc/shade_kernel.cu``).  ``shade_rays_plain`` computes the same thing
+in plain PyTorch (it is the second half of K1's own twin) and is what a
+CPU tensor gets.  A CUDA tensor always goes to a kernel: a build or
+launch failure raises.
 """
 
 from __future__ import annotations
@@ -35,12 +41,24 @@ from . import build
 
 # Shadow outcomes travel as bits of an int32 mask.
 MAX_LIGHTS = 32
+# AO taps the extended entries take (csrc/shade.cuh kMaxAoSamples)
+MAX_AO_SAMPLES = 32
 
 
 class ShadeOutputs(NamedTuple):
     cidx: torch.Tensor   # [R] int32 colour winner leaf, -1 = none
-    light: torch.Tensor  # [R] clamped Lambert term
+    light: torch.Tensor  # [R] clamped Lambert term; [R, 3] coloured lights
     smask: torch.Tensor  # [R] int32, bit l set = light l shadowed
+
+
+class Factors(NamedTuple):
+    """The stop-gradient factors of the shading extensions, which the
+    backward replay reapplies as constants (pallas_render
+    ._unpack_shade_outs' sfac and aofac).  They travel beside
+    RayOutputs and ShadeOutputs, as Winner does."""
+
+    sfac: Optional[torch.Tensor]   # [L, R] penumbra factor a light, or None
+    aofac: Optional[torch.Tensor]  # [R] occlusion factor, or None
 
 
 class Winner(NamedTuple):
@@ -69,6 +87,37 @@ def check_normal_mode(cfg: RenderConfig, save_winner: bool) -> bool:
     return analytic
 
 
+def extensions(plan: ScenePlan, cfg: RenderConfig) -> Tuple[bool, bool,
+                                                              bool]:
+    """Which shading extensions a render takes: (coloured lights, soft
+    shadows, ambient occlusion), as pallas_render_rays decides them."""
+    return (bool(plan.colored_lights),
+            cfg.shadows and cfg.soft_shadow_k > 0.0,
+            cfg.ao_strength > 0.0)
+
+
+def extended(plan: ScenePlan, cfg: RenderConfig) -> bool:
+    """Whether a render takes the kernels' extended shading entries."""
+    return any(extensions(plan, cfg))
+
+
+def with_extras(out, winner, factors, save_winner: bool,
+                save_factors: bool):
+    """``out`` alone, or (out, Winner if asked, Factors if asked)."""
+    extras = ((winner,) if save_winner else ()) + (
+        (factors,) if save_factors else ())
+    return (out, *extras) if extras else out
+
+
+def ao_taps(cfg: RenderConfig) -> Tuple[list, list]:
+    """AO tap distances i ao_delta and weights 2^-i, i = 1..ao_samples:
+    doubles, which the kernels and the twin round once to float32 as the
+    JAX kernel rounds its Python constants."""
+    n = cfg.ao_samples
+    return ([i * cfg.ao_delta for i in range(1, n + 1)],
+            [2.0 ** -i for i in range(1, n + 1)])
+
+
 def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
                    tables: SceneTables) -> Tuple[int, ...]:
     """Leaf ids of the black-lane shadow skip, or () when it is off: the
@@ -84,16 +133,23 @@ def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
 
 def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                      p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor,
-                     collapse: bool = True, save_winner: bool = False):
+                     collapse: bool = True, save_winner: bool = False,
+                     save_factors: bool = False):
     """K4 in plain PyTorch, the same arithmetic in the same order: the
     winner at the pre-step point p - min(sd, MAX_STEP) dirs, the unscaled
     FD stencil (or the combined fold's winner gradient) normalised with a
     tiny floor, the shadow march measured by projection and stopped at the
-    light, both shadow skips.  p, dirs [R, 3], sd [R] -> ShadeOutputs, or
-    with ``save_winner`` (ShadeOutputs, Winner)."""
+    light, both shadow skips (the saturation floor's not with coloured
+    lights), and the extensions: the penumbra tracker inside the shadow
+    march, the coloured sum, the per-channel clamp, the AO taps.
+    p, dirs [R, 3], sd [R] -> ShadeOutputs, or with ``save_winner`` or
+    ``save_factors`` (ShadeOutputs, Winner if asked, Factors if asked)."""
     analytic = check_normal_mode(cfg, save_winner)
+    colored, soft, ao = extensions(plan, cfg)
     eps = cfg.surface_precision
     fused = cfg.fused_generators
+    f32 = dict(dtype=torch.float32, device=sd.device)
+    winner = None
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
             plan, tables, q, collapse=collapse, fused=fused)[0]
@@ -127,15 +183,16 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                                            TINY))[:, None]
             dirs_l.append(r)
             lamb_l.append(dot3(n, r))
-        if cfg.shadows and cfg.shadow_sat_skip and L > 0:
+        if cfg.shadows and cfg.shadow_sat_skip and L > 0 and not colored:
             upper = torch.zeros_like(sd)
             for lamb in lamb_l:
                 upper = upper + torch.clamp_min(lamb, 0.0)
             skip = skip | (upper < cfg.saturation)
 
         off = cfg.surface_precision + cfg.offset_precision
-        total = torch.zeros_like(sd)
+        total = [torch.zeros_like(sd) for _ in range(3 if colored else 1)]
         smask = torch.zeros(sd.shape, dtype=torch.int32, device=sd.device)
+        sfac = []
         for li in range(L):
             lamb = lamb_l[li]
             if cfg.shadows:
@@ -143,30 +200,82 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                 s = p + n * off
                 t = lp - s
                 tmax = torch.sqrt(dot3(t, t))
-                q = march(sd_fn, s, dirs_l[li], cfg.iterations, eps,
-                          tmax=tmax, init_done=skip, project_t=True).position
+                res = march(sd_fn, s, dirs_l[li], cfg.iterations, eps,
+                            tmax=tmax, init_done=skip, project_t=True,
+                            soft_k=cfg.soft_shadow_k if soft else None)
+                q = (res[0] if soft else res).position
                 passed = dot3(lp - q, dirs_l[li]) <= 0
                 smask = smask | torch.where(passed, 0, 1 << li).to(torch.int32)
-                lamb = torch.where(passed, lamb, 0.0)
-            total = total + lamb
-        light = torch.clamp(total, cfg.saturation, 1.0)
+                if soft:
+                    fac = torch.where(passed, res[1], torch.zeros((), **f32))
+                    sfac.append(fac)
+                    lamb = lamb * fac
+                else:
+                    lamb = torch.where(passed, lamb, 0.0)
+            if colored:
+                col = tables.light_color[li]
+                total = [t_ + lamb * col[c] for c, t_ in enumerate(total)]
+            else:
+                total = [total[0] + lamb]
+        light = torch.stack([torch.clamp(t_, cfg.saturation, 1.0)
+                             for t_ in total], dim=-1)
+        aofac = None
+        if ao:
+            occ = torch.zeros_like(sd)
+            for d, w in zip(*ao_taps(cfg)):
+                d = torch.tensor(d, **f32)
+                occ = occ + w * (d - sd_fn(p + d * n))
+            aofac = torch.clamp(1.0 - cfg.ao_strength * occ, 0.0, 1.0)
+            light = light * aofac[:, None]
+        light = light if colored else light[:, 0]
     out = ShadeOutputs(cidx, light, smask)
-    return (out, winner) if save_winner else out
+    factors = Factors(
+        (torch.stack(sfac) if sfac else torch.zeros((0,) + sd.shape, **f32))
+        if soft else None, aofac)
+    return with_extras(out, winner, factors, save_winner, save_factors)
 
 
 def shade_operands(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                    device) -> tuple:
     """The ``ShadeParams`` part of K1's and K4's C entry points: the
     tensors to keep alive across the launch (light rows, black ids) and
-    the argument list from ``lights`` to ``fd_h``."""
+    the argument list from ``lights`` to ``fd_h``.  With coloured lights
+    the saturation-floor skip is off (no bound holds per channel)."""
     lights = light_rows(tables)
     black = black_skip_ids(plan, cfg, tables)
     black_t = torch.tensor(black or (0,), dtype=torch.int32, device=device)
+    sat_skip = cfg.shadow_sat_skip and not plan.colored_lights
     args = (plan.num_lights, len(black) if black else -1, int(cfg.shadows),
-            int(cfg.shadow_sat_skip), cfg.iterations, cfg.surface_precision,
+            int(sat_skip), cfg.iterations, cfg.surface_precision,
             cfg.surface_precision + cfg.offset_precision, cfg.saturation,
             cfg.fd_h)
     return lights, black_t, args
+
+
+def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device):
+    """The extended entries' arguments from ``soft_k`` to ``ao_d`` and
+    their outputs: (args, light [C, R] (C = 3 with coloured lights, else
+    1), sfac [L, R] or None, aofac [R] or None)."""
+    colored, soft, ao = extensions(plan, cfg)
+    if ao and cfg.ao_samples > MAX_AO_SAMPLES:
+        raise NotImplementedError(
+            f"not ported yet: more than {MAX_AO_SAMPLES} AO samples")
+    d, _ = ao_taps(cfg) if ao else ([], [])
+    ao_d = (ctypes.c_float * max(len(d), 1))(*d)
+    # no lights, no penumbra to track
+    soft = soft and plan.num_lights > 0
+    args = (cfg.soft_shadow_k if soft else 0.0, int(colored),
+            cfg.ao_strength if ao else 0.0, len(d), ao_d)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (args, torch.empty((3 if colored else 1, R), **f32),
+            torch.empty((plan.num_lights, R), **f32) if soft else None,
+            torch.empty((R,), **f32) if ao else None)
+
+
+def light_of(light: torch.Tensor) -> torch.Tensor:
+    """The light term of an extended launch's [C, R] buffer: [R, 3] or
+    [R]."""
+    return light.t() if light.shape[0] == 3 else light[0]
 
 
 def winner_buffers(R: int, device, save_winner: bool) -> tuple:
@@ -188,32 +297,47 @@ def ptr_or_none(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# ctypes argument types of ShadeParams' C arguments, from ``tbl`` to
+# ``fd_h``, and of the extensions' from ``soft_k`` to ``ao_d``
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SHADE_ARGTYPES = [_PTR] * 5 + [_I32] * 6 + [_PTR] * 2 + [_I32] * 7 + [_F32] * 4
+EXT_ARGTYPES = [_F32, _I32, _F32, _I32, ctypes.POINTER(_F32)]
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """csrc/shade_kernel.cu, built on first use, its entry point bound."""
+def _library(ext: bool = False) -> ctypes.CDLL:
+    """csrc/shade_kernel.cu (or with ``ext`` csrc/shade_ext_kernel.cu),
+    built on first use, its entry point bound."""
+    if ext:
+        lib = build.load_library("shade_ext_kernel")
+        lib.rt_shade_rays_ext.argtypes = (SHADE_ARGTYPES + EXT_ARGTYPES
+                                          + [_PTR] * 8 + [ctypes.c_int64,
+                                                          _PTR])
+        lib.rt_shade_rays_ext.restype = _I32
+        return lib
     lib = build.load_library("shade_kernel")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rt_shade_rays.argtypes = ([ptr] * 5 + [i32] * 6 + [ptr] * 2
-                                  + [i32] * 7 + [f32] * 4 + [ptr] * 6
-                                  + [ctypes.c_int64, ptr])
-    lib.rt_shade_rays.restype = i32
+    lib.rt_shade_rays.argtypes = (SHADE_ARGTYPES + [_PTR] * 6
+                                  + [ctypes.c_int64, _PTR])
+    lib.rt_shade_rays.restype = _I32
     return lib
 
 
 @torch.no_grad()
 def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor,
-               collapse: bool = True, save_winner: bool = False):
+               collapse: bool = True, save_winner: bool = False,
+               save_factors: bool = False):
     """Shade hit points p [R, 3] of rays ``dirs`` [R, 3] whose march last
     evaluated ``sd`` [R]; ``tables`` is a SceneTables of tensors on the
     rays' device, and the configuration must be one ``ops.render_kernel
     .check_supported`` accepts.  -> ShadeOutputs, or with ``save_winner``
-    (analytic normals) (ShadeOutputs, Winner).  CPU tensors take the
-    plain twin; CUDA tensors launch K4.  Forward only."""
+    (analytic normals) or ``save_factors`` (ShadeOutputs, Winner if asked,
+    Factors if asked).  CPU tensors take the plain twin; CUDA tensors
+    launch K4 (its extended entry when ``extended``).  Forward only."""
     dev = dirs.device
     if dev.type == "cpu":
         return shade_rays_plain(plan, cfg, tables, p, sd, dirs, collapse,
-                                save_winner)
+                                save_winner, save_factors)
     if dev.type != "cuda":
         raise ValueError(f"shade_rays: unsupported device {dev}")
     R = dirs.shape[0]
@@ -228,7 +352,8 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                                   "lights")
     analytic = check_normal_mode(cfg, save_winner)
 
-    lib = _library()
+    ext = extended(plan, cfg)
+    lib = _library(ext)
     scene = scene_tables.scene_operands(plan, tables, dev, collapse,
                                         cfg.fused_generators)
     lights, black_t, shade_args = shade_operands(plan, cfg, tables, dev)
@@ -236,21 +361,37 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
               <= scene_tables.SHARED_SCENE_BYTES)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     rows = torch.cat([p.t(), sd[None], dirs.t()]).contiguous()     # [7, R]
-    light = torch.empty((R,), dtype=torch.float32, device=dev)
     iout = torch.empty((2, R), dtype=torch.int32, device=dev)
     wres, widx = winner_buffers(R, dev, save_winner)
+    head = (*scene.args(), lights.data_ptr(), black_t.data_ptr(),
+            int(shared), int(analytic), *shade_args)
+    sfac = aofac = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.rt_shade_rays(
-            *scene.args(), lights.data_ptr(), black_t.data_ptr(), int(shared),
-            int(analytic), *shade_args, rows.data_ptr(), light.data_ptr(),
-            iout.data_ptr(), ptr_or_none(wres), ptr_or_none(widx),
-            counter.data_ptr(), R, stream)
+        if ext:
+            ext_args, light, sfac, aofac = ext_operands(plan, cfg, R, dev)
+            code = lib.rt_shade_rays_ext(
+                *head, *ext_args, rows.data_ptr(), light.data_ptr(),
+                iout.data_ptr(), ptr_or_none(wres), ptr_or_none(widx),
+                ptr_or_none(sfac), ptr_or_none(aofac), counter.data_ptr(), R,
+                stream)
+            light = light_of(light)
+        else:
+            light = torch.empty((R,), dtype=torch.float32, device=dev)
+            code = lib.rt_shade_rays(
+                *head, rows.data_ptr(), light.data_ptr(), iout.data_ptr(),
+                ptr_or_none(wres), ptr_or_none(widx), counter.data_ptr(), R,
+                stream)
     build.check(lib, code, "shade kernel launch")
-    if R:    # the C entry point launches nothing for zero rays
+    if R:    # the C entry points launch nothing for zero rays
         shade_rays.launches += 1
+        shade_rays.entry_launches["shade_ext_kernel" if ext
+                                  else "shade_kernel"] += 1
     out = ShadeOutputs(cidx=iout[0], light=light, smask=iout[1])
-    return (out, winner_of(wres, widx)) if save_winner else out
+    return with_extras(out, winner_of(wres, widx) if save_winner else None,
+                       Factors(sfac, aofac), save_winner, save_factors)
 
 
+# K4's launches, and by source (the reference and the extended entries)
 shade_rays.launches = 0
+shade_rays.entry_launches = {"shade_kernel": 0, "shade_ext_kernel": 0}

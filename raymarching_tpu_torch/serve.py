@@ -5,12 +5,13 @@
 
 ``POST /render`` takes the scene text as its body and the query parameters
 and limits of ``raymarching_tpu.serve``: width, height, ssaa, iterations,
-gamma, shadows=0|1, format=png|ppm.  The extensions that are not ported yet
-(soft_shadow_k, ao, reflect and its bounces, aperture and its focus)
+gamma, shadows=0|1, soft_shadow_k and ao (the shading extensions, clamped
+non-negative; 0 is off), serve_raygen=0|1 (default 1: K1 computes the
+primary directions from the ray index, ``api.render_tables``' serving
+path; 0 takes the standard camera pass), format=png|ppm.  The extensions
+that are not ported yet (reflect and its bounces, aperture and its focus)
 answer 501 when set; ``bounces`` and ``focus`` are clamped as the JAX
 server clamps them first, so an out-of-range value gets the same answer.
-``serve_raygen`` is accepted and ignored (the port generates rays outside
-the kernel), which the ``X-Serve-Raygen: ignored`` reply header says.
 Normals are FD, as the JAX server pins them.  ``POST /aovs`` answers 501:
 the planes are ``api.render_aovs``, and what is left is the route that
 packs them into the JAX server's ZIP of PNG and .npy members (ROADMAP
@@ -50,8 +51,8 @@ UNPORTED_ROUTES = {
 }
 # Query parameters of features that are not ported yet, and their items.
 UNPORTED_PARAMS = {
-    "bounces": "mirror bounces (ROADMAP Queue 1 item 9)",
-    "focus": "depth of field (ROADMAP Queue 1 item 9)",
+    "bounces": "mirror bounces (ROADMAP Queue 1 item 9, its open part)",
+    "focus": "depth of field (ROADMAP Queue 1 item 9, its open part)",
 }
 
 
@@ -78,12 +79,10 @@ def make_handler(device, backend: str = "cuda"):
             self.end_headers()
             self.wfile.write(body)
 
-        def _send_bytes(self, body: bytes, ctype: str, headers=()):
+        def _send_bytes(self, body: bytes, ctype: str):
             self.send_response(200)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
-            for k, v in headers:
-                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
@@ -122,6 +121,7 @@ def make_handler(device, backend: str = "cuda"):
                 reflect_bounces=min(max(int(q.get("bounces", 1)), 1), 3),
                 aperture=min(max(0.0, float(q.get("aperture", 0.0))), 10.0),
                 focus_dist=min(max(float(q.get("focus", 6.0)), 1e-3), 1e4),
+                serve_raygen=q.get("serve_raygen", "1") != "0",
                 normal_mode="fd")
             for name, what in UNPORTED_PARAMS.items():
                 if name in q:
@@ -133,14 +133,12 @@ def make_handler(device, backend: str = "cuda"):
                                     device=device)
                 img = img.cpu().numpy()
             data = to_uint8(img, cfg.gamma)
-            headers = ([("X-Serve-Raygen", "ignored")]
-                       if "serve_raygen" in q else [])
             if q.get("format", "png") == "ppm":
                 h, w, _ = data.shape
                 body = b"P6\n%d %d\n255\n" % (w, h) + data.tobytes()
-                self._send_bytes(body, "image/x-portable-pixmap", headers)
+                self._send_bytes(body, "image/x-portable-pixmap")
             else:
-                self._send_bytes(encode_png(data), "image/png", headers)
+                self._send_bytes(encode_png(data), "image/png")
 
         def do_POST(self):
             url = urllib.parse.urlparse(self.path)

@@ -61,16 +61,34 @@ def test_render_on_missing_cuda_device_raises(scenes_dir):
 
 
 @pytest.mark.parametrize("change", [
-    dict(normal_mode="analytic", soft_shadow_k=8.0),
+    dict(normal_mode="analytic", reflect_strength=0.3),
     dict(fused_generators=True, reflect_strength=0.3),
-    dict(soft_shadow_k=8.0), dict(ao_strength=0.5),
+    dict(soft_shadow_k=8.0, reflect_strength=0.3),
+    dict(ao_strength=0.5, aperture=0.2),
     dict(reflect_strength=0.3), dict(aperture=0.2),
-    dict(serve_raygen=True)])
+    dict(serve_raygen=True, aperture=0.2)])
 def test_unsupported_config_raises(change, scenes_dir):
+    """Mirror bounces and depth of field, alone or beside the ported
+    extensions, raise naming their ROADMAP item."""
     scene = rt.load_scene(str(scenes_dir / "config1.txt"))
     cfg = rt.RenderConfig(width=4, height=4, ssaa=1, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         rt.render(scene, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(soft_shadow_k=8.0), dict(ao_strength=0.5),
+    dict(normal_mode="analytic", soft_shadow_k=8.0, ao_strength=0.5),
+    dict(serve_raygen=True)])
+def test_shading_extensions_render(change, scenes_dir):
+    """The ported extensions render, and move the image off the
+    reference shading's."""
+    scene = rt.load_scene(str(scenes_dir / "demo.txt"))
+    base = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=100)
+    img = rt.render(scene, base.replace(**change), device="cpu")
+    assert torch.isfinite(img).all() and img.max() > 0
+    if "serve_raygen" not in change:
+        assert not torch.equal(img, rt.render(scene, base, device="cpu"))
 
 
 @pytest.mark.parametrize("change", [
@@ -134,14 +152,41 @@ def test_healthz(server):
 
 
 def test_render_png_equals_direct_render(server):
+    """``serve_raygen=1`` (the default) renders through the raygen serving
+    path: the PNG of ``render`` with ``serve_raygen=True``."""
     q = "/render?width=20&height=14&ssaa=2&iterations=80&serve_raygen=1"
     with _post(server + q) as r:
         assert r.status == 200 and r.headers["Content-Type"] == "image/png"
-        assert r.headers["X-Serve-Raygen"] == "ignored"
+        assert "X-Serve-Raygen" not in r.headers
         png = rt.decode_png(r.read())
-    cfg = rt.RenderConfig(width=20, height=14, ssaa=2, iterations=80)
+    cfg = rt.RenderConfig(width=20, height=14, ssaa=2, iterations=80,
+                          serve_raygen=True)
     want = rt.to_uint8(rt.render(parse_scene(SCENE), cfg,
                                  device="cpu").numpy())
+    np.testing.assert_array_equal(png[..., :3], want)
+
+
+@pytest.mark.parametrize("query,change", [
+    ("", dict(serve_raygen=True)),
+    ("&serve_raygen=0", dict()),
+    ("&soft_shadow_k=6", dict(serve_raygen=True, soft_shadow_k=6.0)),
+    ("&ao=0.8&serve_raygen=0", dict(ao_strength=0.8)),
+    ("&soft_shadow_k=6&ao=0.8",
+     dict(serve_raygen=True, soft_shadow_k=6.0, ao_strength=0.8)),
+    ("&soft_shadow_k=-3&ao=-1", dict(serve_raygen=True))])
+def test_render_shading_parameters(server, query, change):
+    """``soft_shadow_k``, ``ao`` (clamped non-negative) and
+    ``serve_raygen`` answer 200 with the image of ``render_tables`` under
+    the same configuration (FD normals, the server's default raygen)."""
+    with _post(server + "/render?width=16&height=12&ssaa=1&iterations=80"
+               + query) as r:
+        assert r.status == 200
+        png = rt.decode_png(r.read())
+    plan, tables = compile_scene(parse_scene(SCENE))
+    cfg = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=80,
+                          **change)
+    want = rt.to_uint8(rt.render_tables(plan, tables, cfg,
+                                        device="cpu").numpy())
     np.testing.assert_array_equal(png[..., :3], want)
 
 
@@ -153,8 +198,8 @@ def test_render_ppm(server):
     assert len(body.split(b"255\n", 1)[1]) == 8 * 6 * 3
 
 
-@pytest.mark.parametrize("query,code", [("ao=0.5", 501), ("width=0", 422),
-                                        ("ssaa=9", 422)])
+@pytest.mark.parametrize("query,code", [("aperture=0.2", 501),
+                                        ("width=0", 422), ("ssaa=9", 422)])
 def test_render_refusals(server, query, code):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server + f"/render?width=8&height=6&iterations=40&{query}")
@@ -179,7 +224,9 @@ def test_unported_routes_501(server, path, item):
 
 
 @pytest.mark.parametrize("query", ["bounces=2", "bounces=99", "focus=3.5",
-                                   "focus=-1", "reflect=0.3&bounces=2"])
+                                   "focus=-1", "reflect=0.3&bounces=2",
+                                   "reflect=0.3", "aperture=0.5",
+                                   "soft_shadow_k=6&reflect=0.3"])
 def test_unported_parameters_501(server, query):
     """``bounces`` and ``focus`` reach the configuration (clamped as the
     JAX server clamps them) and are refused with 501, their features
@@ -200,6 +247,20 @@ def test_server_pins_fd_normals(server):
     want = rt.to_uint8(rt.render(parse_scene(SCENE), cfg,
                                  device="cpu").numpy())
     np.testing.assert_array_equal(png[..., :3], want)
+
+
+def test_cli_shading_flags(tmp_path, scenes_dir):
+    """``--soft-shadow-k`` and ``--ao`` render the extensions: the image of
+    ``render`` with those settings."""
+    out = tmp_path / "soft.pfm"
+    assert cli.main(["--scene", str(scenes_dir / "config1.txt"), "--out",
+                     str(out), "--device", "cpu", "--soft-shadow-k", "6",
+                     "--ao", "0.8", *SMALL]) == 0
+    cfg = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=100,
+                          soft_shadow_k=6.0, ao_strength=0.8)
+    want = rt.render(rt.load_scene(str(scenes_dir / "config1.txt")), cfg,
+                     device="cpu").numpy()
+    np.testing.assert_array_equal(read_pfm(str(out)), want)
 
 
 def test_cli_normal_mode_flag(tmp_path, scenes_dir, capsys):

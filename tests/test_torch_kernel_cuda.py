@@ -2,7 +2,9 @@
 K2 in every mode, K3 with and without tmax and with steps, K4; K1 and K4
 with FD and analytic normals), the two-phase path against the one kernel,
 the multi-kernel backend against the fused one, and the differentiable
-render's gradients on the card against the CPU's, in both normal regimes.
+render's gradients on the card against the CPU's, in both normal regimes;
+K1's and K4's extended-shading entries (soft shadows, AO, coloured lights)
+and K1's raygen entries against their twins, with their gradients.
 Skips without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
@@ -857,6 +859,141 @@ def test_multi_backend_matches_fused_generators_on_card(cuda_device, normal):
                                atol=1e-6)
     for name, a, b in zip(SceneTables._fields, grads["multi"],
                           grads["cuda"]):
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+
+
+# the shading extensions: (scene, configuration change) of the extended
+# entries' cases; mirror.txt has coloured lights, a Menger sponge and a
+# DeathStar
+EXT_CASES = {
+    "demo-soft-ao": ("demo", dict(soft_shadow_k=6.0, ao_strength=0.8)),
+    "demo-soft": ("demo", dict(soft_shadow_k=6.0)),
+    "config4-ao": ("config4", dict(ao_strength=0.8)),
+    "mirror-coloured": ("mirror", dict()),
+    "mirror-coloured-soft-ao": ("mirror", dict(soft_shadow_k=6.0,
+                                               ao_strength=0.8)),
+}
+
+
+def _flat(out):
+    """A render's outputs and extras (Winner, Factors) as one tuple."""
+    if isinstance(out, rk.RayOutputs) or isinstance(out, shk.ShadeOutputs):
+        return tuple(out)
+    return tuple(v for part in out for v in part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("case", sorted(EXT_CASES))
+def test_extended_kernels_match_twins_on_card(cuda_device, monkeypatch, case,
+                                              placement, normal, fused):
+    """K1's and K4's extended entries (soft shadows, AO, coloured lights)
+    against their twins bitwise on every output, the light term, the
+    factors and the winner residuals included; K4 and K3 + K4 against K1;
+    the scene in shared and in device memory."""
+    from raymarching_tpu_torch import tables as scene_tables
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    scene, change = EXT_CASES[case]
+    plan, tables = compile_scene(load_scene(str(SCENES / f"{scene}.txt")))
+    if fused and not any(g.fused is not None for g in plan.kernel.groups):
+        pytest.skip("no generator to fuse")
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused, **change)
+    assert shk.extended(plan, cfg)
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    sw = normal == "analytic"
+    n1 = rk.render_rays.entry_launches["render_ext_kernel"]
+    k1 = rk.render_rays(plan, cfg, tt, origin, dirs, save_winner=sw,
+                        save_factors=True)
+    torch.cuda.synchronize()
+    assert rk.render_rays.entry_launches["render_ext_kernel"] == n1 + 1
+    _same(_flat(k1), _flat(rk.render_rays_plain(
+        plan, cfg, tt, origin, dirs, save_winner=sw, save_factors=True)),
+        f"{case}: K1 extended")
+    n4 = shk.shade_rays.entry_launches["shade_ext_kernel"]
+    k4 = shk.shade_rays(plan, cfg, tt, k1[0].p, k1[0].sd, dirs,
+                        save_winner=sw, save_factors=True)
+    torch.cuda.synchronize()
+    assert shk.shade_rays.entry_launches["shade_ext_kernel"] == n4 + 1
+    _same(_flat(k4), _flat(shk.shade_rays_plain(
+        plan, cfg, tt, k1[0].p, k1[0].sd, dirs, save_winner=sw,
+        save_factors=True)), f"{case}: K4 extended")
+    _same(_flat(k4), (k1[0].cidx, k1[0].light, k1[0].smask,
+                      *_flat(k1[1:])), f"{case}: K4 vs K1")
+    two = rk.render_rays(plan, cfg.replace(two_phase_k1=8), tt, origin,
+                         dirs, save_winner=sw, save_factors=True)
+    _same(_flat(two), _flat(k1), f"{case}: K3 + K4 vs K1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("case", ["reference", "demo-soft-ao",
+                                  "mirror-coloured-soft-ao"])
+def test_raygen_entry_matches_k1_on_twin_directions_on_card(cuda_device,
+                                                            case, normal):
+    """K1's raygen entries (reference and extended shading) against K1 on
+    the raygen twin's directions and against their own twin, bitwise, on a
+    whole frame and on a chunk of it."""
+    scene, change = EXT_CASES.get(case, ("demo", {}))
+    plan, tables = compile_scene(load_scene(str(SCENES / f"{scene}.txt")))
+    cfg = CFG.replace(normal_mode=normal, ssaa=2, **change)
+    tt = tables_to_torch(tables, cuda_device)
+    R = cfg.rays_per_image
+    sw = normal == "analytic"
+    n = rk.render_raygen.launches
+    g = rk.render_raygen(plan, cfg, tt, 0, R, save_winner=sw,
+                         save_factors=True)
+    torch.cuda.synchronize()
+    assert rk.render_raygen.launches == n + 1
+    dirs = cam.raygen_dirs(cam.serve_cam_rows(tt, cfg), cfg, 0, R)
+    _same(_flat(g), _flat(rk.render_rays(plan, cfg, tt, tt.cam_position,
+                                         dirs, save_winner=sw,
+                                         save_factors=True)),
+          f"{case}: raygen vs K1")
+    _same(_flat(g), _flat(rk.render_raygen_plain(
+        plan, cfg, tt, 0, R, save_winner=sw, save_factors=True)),
+        f"{case}: raygen vs twin")
+    part = rk.render_raygen(plan, cfg, tt, 1001, 333)
+    _same(tuple(part), tuple(v[1001:1334] for v in g[0]), f"{case}: chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["demo-soft-ao", "mirror-coloured"])
+@pytest.mark.parametrize("normal,fused", [("fd", False), ("analytic", False),
+                                          ("analytic", True)])
+def test_extended_gradients_on_card_match_cpu(cuda_device, case, normal,
+                                              fused):
+    """The differentiable render with the extensions on the card against
+    the CPU twins on the same rays, every field (light_color included),
+    tests/test_mega.py:62's tolerance; one K1 launch, and one K2 launch
+    only in the exact FD backward."""
+    scene, change = EXT_CASES[case]
+    plan, tables = compile_scene(load_scene(str(SCENES / f"{scene}.txt")))
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused, **change)
+    origin, dirs = cam.generate_rays(tables_to_torch(tables, "cpu"), cfg)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device,
+                             requires_grad=SceneTables._fields)
+        o = origin.to(device).requires_grad_()
+        d = dirs.reshape(-1, 3).to(device).requires_grad_()
+        k1, k2 = rk.render_rays.launches, sk.surface_eval.launches
+        colors = FusedRender.apply(plan, cfg, o, d, *tt)
+        g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                                allow_unused=True, materialize_grads=True)
+        if device.type == "cuda":
+            assert (rk.render_rays.launches - k1,
+                    sk.surface_eval.launches - k2) == (
+                        1, 1 if normal == "fd" else 0)
+        grads.append([v.cpu() for v in g])
+    for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
+        assert bool(torch.isfinite(a).all()), name
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)

@@ -110,14 +110,23 @@ def test_multi_without_shadows_and_lights(scenes_dir):
     assert bool(torch.isfinite(img).all()) and float(img.abs().max()) == 0.0
 
 
-def test_soft_shadows_and_ao_route_to_the_fused_backend(scenes_dir):
+def test_soft_shadows_and_ao_route_to_the_fused_backend(scenes_dir,
+                                                       monkeypatch):
     """As raymarching_tpu.api.render_tables: the hooks carry no penumbra
-    factor, so these go to the fused kernel, where they are not ported."""
+    or occlusion factor, so these go to the fused backend (K1's extended
+    entry; its twin here): the image of backend="cuda", bit for bit, and
+    no hook is built."""
+    from raymarching_tpu_torch import api
     plan, tables = _scene("mega_world", scenes_dir)
     for change in (dict(soft_shadow_k=8.0), dict(ao_strength=0.5)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            rt.render_tables(plan, tables, MEGA_CFG.replace(**change),
-                             backend="multi", device="cpu")
+        cfg = MEGA_CFG.replace(**change)
+        want = rt.render_tables(plan, tables, cfg, backend="cuda",
+                                device="cpu")
+        with monkeypatch.context() as m:
+            m.setattr(api, "make_render_hooks", None)
+            img = rt.render_tables(plan, tables, cfg, backend="multi",
+                                   device="cpu")
+        assert torch.equal(img, want)
 
 
 def test_hooks_of_each_backend(scenes_dir):
