@@ -5,10 +5,11 @@
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
-  2. build       — nvcc builds the seven sources of csrc/ (K1's reference,
-                   extended-shading and raygen entries, K2, K3, K4's
-                   reference and extended-shading entries), in parallel;
-                   each one's ptxas registers and stack by entry;
+  2. build       — nvcc builds the eight sources of csrc/ (K1's reference,
+                   extended-shading, raygen and mirror-bounce entries, K2,
+                   K3, K4's reference and extended-shading entries;
+                   ops.build.SOURCES), in parallel; each one's ptxas
+                   registers and stack by entry;
   3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
@@ -23,8 +24,14 @@ Phases, one line each, every failure an uncaught exception:
                    instantiation); K1, K3, K4 and K2 on counts that are no
                    multiple of a tile, on one ray and with per-ray origins;
                    which scenes the kernels stage in shared memory; each
-                   kernel's resident blocks an SM.  Then the demo image
-                   against the port's ref oracle;
+                   kernel's resident blocks an SM.  K1's bounce entries
+                   against their twins, bitwise over every output of every
+                   shade set, on demo, config3, config4, menger4 and
+                   scenes/mirror.txt (BOUNCE_CASES: 1-3 bounces, both
+                   normals, both fields, extensions off and soft + AO), on
+                   1, 31, 1000 and R - 37 rays with per-ray origins, the
+                   raygen bounce entry, the scene in device memory = staged.
+                   Then the demo image against the port's ref oracle;
   4. compare-bwd — K2 (ops.surface_kernel.surface_eval) against its plain
                    twin on the 7-point stencils of K1's hits on the same
                    scenes, bitwise; the card's gradients of a 32x24 demo
@@ -84,6 +91,17 @@ Phases, one line each, every failure an uncaught exception:
                    of the fused analytic fit with soft shadows and AO (one
                    K1, no K2 a step); card vs CPU gradients, light_color
                    included;
+ 9e. reflect     — mirror bounces (reflect 0.4) at the same footprint:
+                   render() of the demo and mirror.txt with 1 and 2
+                   bounces (one K1 bounce launch a frame), the images
+                   against backend="multi"; K1's bounce entry against its
+                   twin on every ray, its device time in turns with the
+                   reference entry, the raygen bounce entry; 5 fit steps
+                   with one bounce (the anchored replay backward, no K2),
+                   their split and peak memory; card vs CPU gradients;
+ 9f. dof         — thin-lens depth of field (aperture 0.2, focus 8): the
+                   frame (K1 with per-ray origins), then with a bounce,
+                   against backend="multi"; card vs CPU gradients;
  10. profile     — ``utils.timing.profile_march``: K3's step counts;
  11. warp        — where a thread-per-ray kernel loses its lanes, from K3's
                    step counter and the fold's cull test on the demo frame:
@@ -108,10 +126,13 @@ Phases, one line each, every failure an uncaught exception:
                    with the extensions and analytic normals too; the image
                    against the standard path's by the agreement share;
                    then the port's HTTP server: /healthz, /render (raygen,
-                   its default), serve_raygen=0 and the extensions with
-                   PNGs equal to direct renders, and render() and /render
+                   its default), serve_raygen=0, the extensions, two
+                   bounces (K1's raygen bounce entry) and a lens with PNGs
+                   equal to direct renders, and render() and /render
                    at 256x256 and 512x512 SSAA 2 with raygen on and off in
-                   turns, with their launches.
+                   turns, with their launches; ``[aovs]``: POST /aovs at
+                   256x256 with a bounce, its ZIP of six planes, the
+                   colour plane the beauty frame's PNG.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -124,6 +145,7 @@ H100's published float32 rate) and, last, the device line.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import re
 import statistics
@@ -132,7 +154,7 @@ import sys
 import threading
 import time
 import urllib.request
-from concurrent.futures import ThreadPoolExecutor
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -160,11 +182,89 @@ ANALYTIC_ATOL, ANALYTIC_SHARE, ANALYTIC_MEDIAN = 5e-3, 0.99, 1e-4
 # than GATE_SHARE of its pixels within GATE_ATOL and no offender off a
 # silhouette (tests/test_gate_offenders.py, utils.gatecheck)
 GATE_ATOL, GATE_SHARE = 5e-3, 0.995
-# each CUDA source, one library each: K1's reference, extended-shading and
-# raygen entries, K2, K3, K4's reference and extended-shading entries
+# mirror bounces and the lens, fused against multi: JAX's pallas-vs-mega
+# image tolerance (tests/test_reflections.py:79), on a share AGREE of the
+# pixels (an ulp in a normal may turn a grazing bounce)
+REFLECT_ATOL = 2e-3
+# each CUDA source, one library each: K1's reference, extended-shading,
+# raygen and mirror-bounce entries, K2, K3, K4's reference and
+# extended-shading entries
 KERNELS = ("render_kernel", "render_ext_kernel", "render_raygen_kernel",
-           "surface_kernel", "march_kernel", "shade_kernel",
-           "shade_ext_kernel")
+           "render_bounce_kernel", "surface_kernel", "march_kernel",
+           "shade_kernel", "shade_ext_kernel")
+# ptxas's registers and stack frame by entry of the sources the mirror-bounce
+# entries were added beside (the seven-source tree's build, NVIDIA H100
+# 80GB HBM3 machine, nvcc of CUDA 12): [build] says whether they held
+_K1 = ("{0}<{1}FD, device> 72 / 64 B; {0}<{1}analytic, device> 48 / {2} B; "
+       "{0}<{1}FD, shared> 48 / 160 B; {0}<{1}analytic, shared> 48 / 96 B; "
+       "{0}<{1}fused, FD, device> 72 / 64 B; {0}<{1}fused, analytic, device> "
+       "48 / {3} B; {0}<{1}fused, FD, shared> 64 / 32 B; {0}<{1}fused, "
+       "analytic, shared> 48 / 88 B")
+SEVEN_SOURCE_PTXAS = {
+    "render_kernel": _K1.format("render_kernel", "", 160, 144),
+    "render_ext_kernel": (
+        "render_kernel<extended, FD, device> 72 / 64 B; render_kernel<"
+        "extended, analytic, device> 48 / 176 B; render_kernel<extended, FD, "
+        "shared> 72 / 16 B; render_kernel<extended, analytic, shared> 48 / "
+        "120 B; render_kernel<extended, fused, FD, device> 80 / 24 B; "
+        "render_kernel<extended, fused, analytic, device> 48 / 168 B; "
+        "render_kernel<extended, fused, FD, shared> 64 / 56 B; render_kernel<"
+        "extended, fused, analytic, shared> 48 / 120 B"),
+    "render_raygen_kernel": (
+        "render_kernel<raygen, FD, device> 72 / 64 B; render_kernel<raygen,"
+        " analytic, device> 48 / 160 B; render_kernel<raygen, extended, FD,"
+        " device> 72 / 56 B; render_kernel<raygen, extended, analytic, "
+        "device> 48 / 168 B; render_kernel<raygen, FD, shared> 48 / 160 B; "
+        "render_kernel<raygen, analytic, shared> 48 / 96 B; "
+        "render_kernel<raygen, extended, FD, shared> 72 / 8 B; "
+        "render_kernel<raygen, extended, analytic, shared> 48 / 112 B; "
+        "render_kernel<raygen, fused, FD, device> 72 / 64 B; "
+        "render_kernel<raygen, fused, analytic, device> 48 / 152 B; "
+        "render_kernel<raygen, extended, fused, FD, device> 72 / 56 B; "
+        "render_kernel<raygen, extended, fused, analytic, device> 48 / 160 "
+        "B; render_kernel<raygen, fused, FD, shared> 64 / 32 B; "
+        "render_kernel<raygen, fused, analytic, shared> 48 / 88 B; "
+        "render_kernel<raygen, extended, fused, FD, shared> 64 / 64 B; "
+        "render_kernel<raygen, extended, fused, analytic, shared> 48 / 112 "
+        "B"),
+    "surface_kernel": (
+        "surface_kernel<mode 4, device> 56 / 16 B; surface_kernel<mode 4, "
+        "shared> 56 / 0 B; surface_kernel<fused, mode 4, device> 56 / 16 B;"
+        " surface_kernel<fused, mode 4, shared> 56 / 0 B; "
+        "surface_kernel<mode 3, device> 64 / 24 B; surface_kernel<mode 3, "
+        "shared> 80 / 0 B; surface_kernel<fused, mode 3, device> 64 / 32 B;"
+        " surface_kernel<fused, mode 3, shared> 72 / 8 B; "
+        "surface_kernel<mode 2, device> 40 / 0 B; surface_kernel<mode 2, "
+        "shared> 48 / 0 B; surface_kernel<fused, mode 2, device> 40 / 0 B; "
+        "surface_kernel<fused, mode 2, shared> 54 / 0 B; "
+        "surface_kernel<mode 1, device> 48 / 0 B; surface_kernel<mode 1, "
+        "shared> 56 / 0 B; surface_kernel<fused, mode 1, device> 48 / 8 B; "
+        "surface_kernel<fused, mode 1, shared> 48 / 0 B; "
+        "surface_kernel<mode 0, device> 56 / 8 B; surface_kernel<mode 0, "
+        "shared> 64 / 0 B; surface_kernel<fused, mode 0, device> 56 / 16 B;"
+        " surface_kernel<fused, mode 0, shared> 48 / 32 B; "
+        "surface_kernel<mode 0, stencil, device> 64 / 24 B; "
+        "surface_kernel<mode 0, stencil, shared> 72 / 0 B"),
+    "march_kernel": (
+        "march_kernel<device> 48 / 40 B; march_kernel<shared> 64 / 0 B; "
+        "march_kernel<fused, device> 48 / 48 B; march_kernel<fused, shared> "
+        "48 / 32 B"),
+    "shade_kernel": (
+        "shade_kernel<FD, device> 72 / 80 B; shade_kernel<analytic, device> "
+        "48 / 128 B; shade_kernel<FD, shared> 48 / 160 B; shade_kernel<"
+        "analytic, shared> 48 / 88 B; shade_kernel<fused, FD, device> 72 / "
+        "80 B; shade_kernel<fused, analytic, device> 48 / 128 B; "
+        "shade_kernel<fused, FD, shared> 64 / 32 B; shade_kernel<fused, "
+        "analytic, shared> 48 / 88 B"),
+    "shade_ext_kernel": (
+        "shade_kernel<extended, FD, device> 72 / 64 B; shade_kernel<extended, "
+        "analytic, device> 48 / 176 B; shade_kernel<extended, FD, shared> "
+        "72 / 16 B; shade_kernel<extended, analytic, shared> 48 / 112 B; "
+        "shade_kernel<extended, fused, FD, device> 72 / 64 B; shade_kernel<"
+        "extended, fused, analytic, device> 48 / 200 B; shade_kernel<"
+        "extended, fused, FD, shared> 72 / 8 B; shade_kernel<extended, fused, "
+        "analytic, shared> 48 / 112 B"),
+}
 # the largest |kernel - plain twin| over every output of every comparison
 # of this run, per kernel (``compare`` and ``same`` fill it)
 ERRS = dict.fromkeys(KERNELS, 0.0)
@@ -302,13 +402,14 @@ def entry_label(name: str) -> str:
     """A kernel entry's mangled name in short: the kernel and its template
     arguments (K1's and K4's normal, K2's mode, the scene view)."""
     m = re.search(r"((?:render|surface|march|shade)_kernel)(_raygen)?(_ext)?"
-                  r"(_analytic)?I(.*)", name)
+                  r"(_bounce)?(_analytic)?I(.*)", name)
     if not m:
         return name
-    kern, raygen, ext, analytic, rest = m.groups()
+    kern, raygen, ext, bounce, analytic, rest = m.groups()
     ints = re.findall(r"Li(\d+)E", rest)
     parts = ["raygen"] if raygen else []
     parts += ["extended"] if ext else []
+    parts += ["bounce"] if bounce else []
     parts += ["fused"] if "Fused" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
@@ -554,6 +655,83 @@ def compare_ragged(plan, cfg, tables, origin, dirs):
     return counts
 
 
+def flat(out):
+    """A render's outputs and extras (Winner, Factors, a tuple of
+    BounceOutputs) as one tuple of tensors and Nones."""
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        return tuple(v for part in out for v in flat(part))
+    return tuple(out)
+
+
+def rows_of(vals, idx):
+    """Rays ``idx`` (a slice or index tensor) of each of ``flat``'s
+    outputs: [L, R] factors by column, everything else by row."""
+    n = vals[0].shape[0]
+    return tuple(None if v is None else
+                 v[:, idx] if v.dim() == 2 and v.shape[1] == n
+                 and v.shape[0] != n else v[idx] for v in vals)
+
+
+# K1's bounce entries in [compare]: (bounces, normal, fused field,
+# extensions) on every scene, every pair of the four settings covered
+BOUNCE_CASES = ((1, "fd", False, False), (1, "analytic", True, True),
+                (2, "fd", True, True), (2, "analytic", False, False),
+                (3, "fd", False, True), (3, "analytic", True, False))
+
+
+def compare_bounce(plan, cfg, tables, origin, dirs):
+    """K1's bounce entries (csrc/render_bounce_kernel.cu) against their
+    plain twins, bitwise over every output of every shade set (the
+    primary hit's and each bounce's colour winner, light, shadow bits,
+    penumbra and AO factors, hit point, SD and convergence): BOUNCE_CASES
+    (the fused field where the scene has generators; the extensions soft
+    shadows k 6 and AO 0.8, coloured lights where the scene has them);
+    the first n rays with per-ray origins for n that is 1, below a warp
+    and no multiple of a warp or a tile, against the full launch; the
+    raygen bounce entry against its twin and against the bounce entry on
+    the twin's directions.  Returns the number of comparisons."""
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.ops.render_kernel import (
+        render_raygen, render_raygen_plain, render_rays, render_rays_plain)
+    fused_ok = any(g_.fused is not None for g_ in plan.kernel.groups)
+    n_cmp = 0
+    R = dirs.shape[0]
+    for B, normal, fz, ext in BOUNCE_CASES:
+        c = cfg.replace(reflect_strength=0.4, reflect_bounces=B,
+                        normal_mode=normal, fused_generators=fz and fused_ok,
+                        **(dict(soft_shadow_k=6.0, ao_strength=0.8) if ext
+                           else {}))
+        tag = (f"B {B} {normal} {'fused' if c.fused_generators else 'exact'}"
+               f"{' soft + AO' if ext else ''}")
+        k = flat(render_rays(plan, c, tables, origin, dirs,
+                             save_factors=True))
+        same(f"K1 bounce {tag}", k, flat(render_rays_plain(
+            plan, c, tables, origin, dirs, save_factors=True)),
+            "render_bounce_kernel")
+        n_cmp += 1
+        if B == 2:
+            for n in (n_ for n_ in (1, 31, 1000, R - 37) if 0 < n_ <= R):
+                org = origin.expand(R, 3)[:n].contiguous()
+                same(f"K1 bounce {tag} on {n} rays with per-ray origins",
+                     flat(render_rays(plan, c, tables, org, dirs[:n],
+                                      save_factors=True)),
+                     rows_of(k, slice(0, n)))
+                n_cmp += 1
+    rc = cfg.replace(reflect_strength=0.4, reflect_bounces=2,
+                     soft_shadow_k=6.0, ao_strength=0.8)
+    rg = flat(render_raygen(plan, rc, tables, 0, R, save_factors=True))
+    same("K1 raygen bounce entry against its twin", rg, flat(
+        render_raygen_plain(plan, rc, tables, 0, R, save_factors=True)),
+        "render_bounce_kernel")
+    rg_dirs = cam.raygen_dirs(cam.serve_cam_rows(tables, rc), rc, 0, R)
+    same("K1 raygen bounce entry against the bounce entry on the twin's "
+         "directions", rg, flat(render_rays(
+             plan, rc, tables, tables.cam_position, rg_dirs,
+             save_factors=True)))
+    torch.cuda.synchronize()
+    return n_cmp + 2
+
+
 def timed_counted(plain_fn):
     """(result, ms, count) of one call of a plain twin under
     core.sdf.LeafCount, which counts the work the kernels' fold does on
@@ -584,9 +762,12 @@ def launch_counts():
                                                          render_rays)
     from raymarching_tpu_torch.ops.shade_kernel import shade_rays
     from raymarching_tpu_torch.ops.surface_kernel import surface_eval
-    return {**render_rays.entry_launches,
-            "render_raygen_kernel": render_raygen.launches,
-            "surface_kernel": surface_eval.launches,
+    counts = {**render_rays.entry_launches,
+              "render_raygen_kernel":
+                  render_raygen.entry_launches["render_raygen_kernel"]}
+    counts["render_bounce_kernel"] += render_raygen.entry_launches[
+        "render_bounce_kernel"]
+    return {**counts, "surface_kernel": surface_eval.launches,
             "march_kernel": march_rays.launches,
             **shade_rays.entry_launches}
 
@@ -606,7 +787,7 @@ def zero_counts():
     for fn in (render_rays, render_raygen, surface_eval, march_rays,
                shade_rays):
         fn.launches = 0
-    for fn in (render_rays, shade_rays):
+    for fn in (render_rays, render_raygen, shade_rays):
         fn.entry_launches = dict.fromkeys(fn.entry_launches, 0)
 
 
@@ -833,6 +1014,8 @@ def main() -> int:
                                                          render_rays_plain,
                                                          two_phase_march)
     from raymarching_tpu_torch.serve import make_server
+    from raymarching_tpu_torch import tables as scene_tables
+    from raymarching_tpu_torch.core import camera as cam
     from raymarching_tpu_torch.core.sdf import carve_folded
     from raymarching_tpu_torch.tables import (SHARED_SCENE_BYTES,
                                               lattice_ok, scene_operands,
@@ -851,16 +1034,23 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(build.build, KERNELS))
+    check(set(KERNELS) == set(build.SOURCES),
+          f"the package's sources {build.SOURCES}, this script's {KERNELS}")
+    libs = build.build_all(KERNELS)
     for kname, lib_path in zip(KERNELS, libs):
         build.load_library(kname)
         log = lib_path.with_suffix(".log").read_text()
         print(f"[build] {lib_path.name}; " + ptxas_summary(log))
         entries = ptxas_entries(log)
         check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
+        report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries)
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
-              + "; ".join(f"{e} {r} / {st} B" for e, r, st in entries))
+              + report)
+        if kname in SEVEN_SOURCE_PTXAS:
+            same_ = report == SEVEN_SOURCE_PTXAS[kname]
+            print(f"[ptxas] {kname}: the seven-source build's registers "
+                  f"and stack, entry for entry: "
+                  f"{'the same' if same_ else 'CHANGED'}")
     print(f"[build] {len(KERNELS)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -905,6 +1095,16 @@ def main() -> int:
               f"origins = the full launch's; scene {nbytes} bytes, read "
               f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
               " memory")
+        if scene != "config1" and scene != "config2":
+            b_cmp = compare_bounce(plan, cfg, tt, *rays)
+            print(f"[compare] {scene}: K1's bounce entries = plain twins "
+                  f"bitwise on every output of every shade set ({b_cmp} "
+                  f"comparisons: B 1-3, FD and analytic, "
+                  f"{'exact and fused' if any(g_.fused is not None for g_ in plan.kernel.groups) else 'exact'}, "
+                  f"extensions off and soft + AO; 1, 31, 1000 and "
+                  f"{rays[1].shape[0] - 37} rays with per-ray origins = "
+                  f"the full launch's; the raygen bounce entry = its twin "
+                  f"and the bounce entry on its directions)")
         if scene == "demo":
             # 16 bytes cover the staged copy's alignment padding; K1 and K4
             # take a third argument, the normal (0 FD, 1 analytic)
@@ -925,6 +1125,10 @@ def main() -> int:
                         "FD": (0, 0, 0), "analytic": (1, 0, 0),
                         "extended FD": (0, 0, 1),
                         "extended analytic": (1, 0, 1)},
+                    "render_bounce_kernel": {
+                        "FD": (0, 0, 0), "analytic": (1, 0, 0),
+                        "fused analytic": (1, 1, 0), "raygen FD": (0, 0, 1),
+                        "raygen analytic": (1, 0, 1)},
                     "march_kernel": {"": (0,), "fused": (1,)},
                     "surface_kernel": {"": ()}}[k]
                 for label, extra in variants.items():
@@ -940,6 +1144,29 @@ def main() -> int:
                   "shared memory / the scene in device memory: "
                   + "; ".join(f"{k} {a} / {b}"
                               for k, (a, b) in per_sm.items()))
+    # K1's bounce entries on scenes/mirror.txt (coloured lights), and the
+    # demo's scene read from device memory against staged
+    mplan, mtables = rt.compile_scene(rt.load_scene(str(ROOT / "scenes" /
+                                                        "mirror.txt")))
+    mtt = tables_to_torch(mtables, dev)
+    b_cmp = compare_bounce(mplan, small, mtt, *rays_for(mplan, mtt, small))
+    plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
+    tt = tables_to_torch(tables, dev)
+    rays = rays_for(plan, tt, small)
+    bc = small.replace(reflect_strength=0.4, reflect_bounces=2,
+                       normal_mode="analytic", soft_shadow_k=6.0,
+                       ao_strength=0.8)
+    staged = flat(render_rays(plan, bc, tt, *rays, save_factors=True))
+    limit = scene_tables.SHARED_SCENE_BYTES
+    scene_tables.SHARED_SCENE_BYTES = 0
+    try:
+        same("K1 bounce, demo in device memory / staged", flat(render_rays(
+            plan, bc, tt, *rays, save_factors=True)), staged)
+    finally:
+        scene_tables.SHARED_SCENE_BYTES = limit
+    print(f"[compare] mirror.txt (coloured lights): K1's bounce entries = "
+          f"plain twins bitwise ({b_cmp} comparisons, as above); demo B 2 "
+          f"analytic soft + AO, scene in device memory = staged")
     demo = rt.load_scene(str(DEMO))
     ref = rt.render_ref(demo, small, device=dev)
     fused = rt.render(demo, small, device=dev)
@@ -1972,18 +2199,9 @@ def main() -> int:
           f"(reflect 0) {s_secs['mirror.txt coloured']:.4f} s; launches a "
           f"frame: K1's extended entry 1; {card}")
 
-    def flat(out):
-        """A render's outputs and extras (Winner, Factors) as one tuple."""
-        if isinstance(out, tuple) and not hasattr(out, "_fields"):
-            return tuple(v for part in out for v in part)
-        return tuple(out)
-
     def every(vals, stride=BIG_STRIDE):
         """Every stride-th ray of each output ([L, R] factors by column)."""
-        n = vals[0].shape[0]
-        return tuple(None if v is None else
-                     v[:, ::stride] if v.dim() == 2 and v.shape[1] == n
-                     and v.shape[0] != n else v[::stride] for v in vals)
+        return rows_of(vals, slice(None, None, stride))
 
     limit = scene_tables.SHARED_SCENE_BYTES
     n_cmp = 0
@@ -2152,6 +2370,216 @@ def main() -> int:
               f"scale {worst_sg[0]:.3g} ({worst_sg[1]}); light_color "
               f"gradient max {gs_card[lc].abs().max().item():.3g}; launches "
               f"K1 1, K2 {launched[1]}")
+
+    # 9e. mirror bounces at the same footprint: render() of the demo and
+    # scenes/mirror.txt with reflect 0.4 and 1 or 2 bounces (one K1 bounce
+    # launch a frame); K1's bounce entry against its twin on every ray and
+    # its device time in turns with the reference entry; the raygen bounce
+    # entry likewise; the images against backend="multi"; 5 fit steps
+    # with one bounce and their split; card vs CPU gradients
+    from raymarching_tpu_torch.ops import render_op
+    from raymarching_tpu_torch.ops.render_kernel import render_raygen
+    reflect = dict(reflect_strength=0.4)
+    zero_counts()
+    r_imgs, r_secs = {}, {}
+    for sname, scene_ in (("demo", demo), ("mirror.txt", mirror)):
+        for B in (1, 2):
+            c = tcfg.replace(reflect_bounces=B, **reflect)
+            rt.render(scene_, c, device=dev)         # warm-up at this shape
+            r_imgs[sname, B], ms = timed(
+                lambda: rt.render(scene_, c, device=dev), runs=3)
+            r_secs[sname, B] = ms / 1e3
+    counts = add_counts("reflect", 16)
+    check(counts == only(render_bounce_kernel=16),
+          f"renders with mirror bounces launched {counts}")
+    for (sname, B), img in r_imgs.items():
+        check(img.shape == (tcfg.height, tcfg.width, 3)
+              and bool(torch.isfinite(img).all()) and img.max().item() > 0,
+              f"{sname} B {B}: image")
+    r_moved = (r_imgs["demo", 1] - fused_img).abs().max().item()
+    r_deeper = (r_imgs["demo", 2] - r_imgs["demo", 1]).abs().max().item()
+    check(r_moved > 1e-2 and r_deeper > 1e-4,
+          f"bounces moved the demo by {r_moved}, the second by {r_deeper}")
+    # against the multi backend (K3 with per-ray origins, K2): JAX's
+    # pallas-vs-mega tolerance, tests/test_reflections.py:79, on a share
+    r_multi = []
+    for sname, scene_, B in (("demo", demo, 1), ("demo", demo, 2),
+                             ("mirror.txt", mirror, 1)):
+        mimg = rt.render(scene_, tcfg.replace(reflect_bounces=B, **reflect),
+                         backend="multi", device=dev)
+        md = (mimg - r_imgs[sname, B]).abs().amax(dim=-1)
+        share = (md <= REFLECT_ATOL).double().mean().item()
+        check(share >= AGREE, f"{sname} B {B}: multi against fused, "
+              f"{share:.6f} of pixels within {REFLECT_ATOL}")
+        r_multi.append(f"{sname} B {B}: {share:.6f} of pixels within "
+                       f"{REFLECT_ATOL}, max {md.max().item():.3g}")
+        del mimg
+    print(f"[reflect] render() at {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, reflect 0.4 (median of 3, CUDA events): "
+          + "; ".join(f"{n} B {b} {t * 1e3:.3f} ms"
+                      for (n, b), t in r_secs.items())
+          + f" (no bounce {fused_s * 1e3:.3f} ms in this run); launches a "
+          f"frame: K1's bounce entry 1; demo moved by {r_moved:.3g}, the "
+          f"second bounce by {r_deeper:.3g}; against backend=multi: "
+          + "; ".join(r_multi) + f"; {card}")
+    tt = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, tt, tcfg)
+    rc1 = tcfg.replace(reflect_bounces=1, **reflect)
+    (kb, kbf, kbb), kb_ms = timed(lambda: render_rays(
+        plan, rc1, tt, origin, dirs, save_factors=True), runs=5)
+    pb, kb_plain_ms, kb_count = timed_counted(lambda: k1_plain(
+        plan, rc1, tt, origin, dirs, save_factors=True))
+    same("K1 bounce, demo B 1 at 512^2, every ray", flat((kb, kbf, kbb)),
+         flat(pb), "render_bounce_kernel")
+    del pb, kb, kbf, kbb
+    # reads the directions, writes 5 floats, 2 ints and the light a set
+    kb_bound = bound_ms(kb_count, R * (12 + 2 * 32))
+    b_turns = {
+        f"K1 demo reference / B {B}": in_turns(
+            lambda: render_rays(plan, tcfg, tt, origin, dirs),
+            lambda: render_rays(plan, tcfg.replace(reflect_bounces=B,
+                                                   **reflect),
+                                tt, origin, dirs), "render_kernel")
+        for B in (1, 2)}
+    rg_dirs = cam.raygen_dirs(cam.serve_cam_rows(tt, rc1), rc1, 0, R)
+    (rgb, rgbb), rgb_ms = timed(lambda: render_raygen(plan, rc1, tt, 0, R),
+                                runs=5)
+    same("K1 raygen bounce against the bounce entry on its directions, "
+         "every ray", flat((rgb, rgbb)), flat(render_rays(
+             plan, rc1, tt, tt.cam_position, rg_dirs)))
+    del rgb, rgbb
+    b_turns["K1 demo bounce B 1 on the raygen directions / raygen bounce"] = (
+        in_turns(lambda: render_rays(plan, rc1, tt, tt.cam_position,
+                                     rg_dirs),
+                 lambda: render_raygen(plan, rc1, tt, 0, R),
+                 "render_kernel"))
+    del rg_dirs
+    dev_ms["render_bounce_kernel"] = b_turns["K1 demo reference / B 1"][1]
+    print(f"[reflect] K1's bounce entry, demo B 1 at {tcfg.width}x"
+          f"{tcfg.height} ssaa{tcfg.ssaa}: = its twin on every ray (every "
+          f"output of both shade sets); {kb_ms:.3f} ms with its wrapper, "
+          f"plain {kb_plain_ms:.3f} ms, bound {kb_bound[0]:.4f} ms by "
+          f"{kb_bound[1]} ({kb_bound[5]} operations); the raygen bounce "
+          f"entry = the bounce entry on its directions, {rgb_ms:.3f} ms with "
+          f"its wrapper; device time of the kernel alone in turns (a, b, b, "
+          f"a; each the median of 3 launches): "
+          + "; ".join(f"{k} {a:.3f} / {b:.3f} ms"
+                      for k, (a, b) in b_turns.items()) + f"; {card}")
+    # 5 fit steps with one bounce: one K1 bounce launch a step, no K2 (the
+    # backward replays the chain in plain PyTorch, REPLAY_RAYS at a time)
+    r_target = rt.render_tables(plan, tables, rc1, device=dev)
+    stamps.clear()
+    step_grads.clear()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rres = rt.fit(plan, start, r_target, rc1, device=dev, steps=5,
+                  trainable=TRAINABLE, optimizer=adam, callback=on_step)
+    counts = add_counts("train_reflect", 5)
+    check(counts == only(render_bounce_kernel=5),
+          f"5 fit steps with a bounce launched {counts}")
+    check_step_grads()
+    check(rres.losses[-1] < rres.losses[0], f"loss did not fall: "
+          f"{rres.losses}")
+    r_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rstep = statistics.median(np.diff([t0] + stamps))
+    rtt = tables_to_torch(rres.tables, dev, requires_grad=TRAINABLE)
+    opt = adam([getattr(rtt, f) for f in TRAINABLE])
+    splits = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        img = rt.render_tables(plan, rtt, rc1, differentiable=True,
+                               device=dev)
+        loss = torch.mean((img - r_target) ** 2)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    r_split = [statistics.mean(c) for c in zip(*splits)]
+    del rtt, opt, img, loss
+    print(f"[reflect] fit, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, reflect 0.4, 1 bounce, FD normals, 5 Adam "
+          f"steps: loss {' '.join(f'{v:.6g}' for v in rres.losses)}; step "
+          f"median {rstep * 1e3:.1f} ms; split (mean of 2 more, CUDA "
+          f"events): forward {r_split[0]:.1f} ms, backward (the replay, "
+          f"{render_op.REPLAY_RAYS} rays a slice) {r_split[1]:.1f} ms, "
+          f"optimizer {r_split[2]:.2f} ms; peak device memory "
+          f"{r_peak:.2f} GiB (torch.cuda.max_memory_allocated over the 5 "
+          f"steps); launches a step K1's bounce entry 1, K2 0; {card}")
+    # card vs CPU gradients at 32x24 on the same rays
+    for sname, pl, tb, ch in (
+            ("demo B 1 FD", plan, tables, dict(reflect_bounces=1)),
+            ("demo B 2 analytic", plan, tables,
+             dict(reflect_bounces=2, normal_mode="analytic")),
+            ("mirror.txt B 1 FD soft + AO", mplan, mtables,
+             dict(reflect_bounces=1, **softao))):
+        c = gcfg.replace(**reflect, **ch)
+        g_rays = rays_for(pl, tables_to_torch(tb, "cpu"), c)
+        gr_card, launched = grads_of(pl, tb, c, dev, *g_rays)
+        check(launched == (1, 0), f"{sname}: a differentiable render "
+              f"launched (K1, K2) {launched}")
+        gr_cpu, _ = grads_of(pl, tb, c, torch.device("cpu"), *g_rays)
+        worst_rg = grad_check(tb._fields + ("origin", "dirs"), gr_card,
+                              gr_cpu, f"{sname} card vs CPU")
+        print(f"[reflect] {sname}: 32x24 gradients, card vs CPU on the same "
+              f"rays, every table field and the rays: max |diff| / field "
+              f"scale {worst_rg[0]:.3g} ({worst_rg[1]}); launches K1 1 "
+              f"(bounce), K2 0")
+
+    # 9f. thin-lens depth of field at the same footprint: aperture 0.2,
+    # focus 8 (K1 with per-ray origins, one launch a frame), then with a
+    # mirror bounce (K1's bounce entry); the images against multi; card vs
+    # CPU gradients of the lens pose
+    d_imgs, d_secs = {}, {}
+    dof = dict(aperture=0.2, focus_dist=8.0)
+    for label, c, want in (("dof", tcfg.replace(**dof), "render_kernel"),
+                           ("dof + reflect", tcfg.replace(**dof, **reflect),
+                            "render_bounce_kernel")):
+        zero_counts()
+        rt.render(demo, c, device=dev)               # warm-up at this shape
+        d_imgs[label], ms = timed(lambda: rt.render(demo, c, device=dev),
+                                  runs=3)
+        d_secs[label] = ms / 1e3
+        counts = add_counts(label.replace(" + ", "_"), 4)
+        check(counts == only(**{want: 4}),
+              f"{label} frames launched {counts}")
+        img = d_imgs[label]
+        check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+              f"{label}: image")
+        mimg = rt.render(demo, c, backend="multi", device=dev)
+        md = (mimg - img).abs().amax(dim=-1)
+        d_secs[label] = (d_secs[label], (md <= REFLECT_ATOL).double().mean()
+                         .item(), md.max().item())
+        check(d_secs[label][1] >= AGREE, f"{label}: multi against fused, "
+              f"{d_secs[label][1]:.6f} of pixels within {REFLECT_ATOL}")
+        del mimg
+    d_blur = (d_imgs["dof"] - fused_img).abs().max().item()
+    check(d_blur > 1e-2, f"the lens moved the frame by {d_blur}")
+    c = gcfg.replace(**dof)
+    o_, d_ = cam.generate_rays_dof(tables_to_torch(tables, "cpu"), c)
+    g_rays = (o_.reshape(-1, 3), d_.reshape(-1, 3))
+    gd_card, launched = grads_of(plan, tables, c, dev, *g_rays)
+    check(launched == (1, 1), f"a differentiable DOF render launched "
+          f"(K1, K2) {launched}")
+    gd_cpu, _ = grads_of(plan, tables, c, torch.device("cpu"), *g_rays)
+    worst_dg = grad_check(tables._fields + ("origin", "dirs"), gd_card,
+                          gd_cpu, "DOF card vs CPU")
+    print(f"[dof] render() at {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
+          f"{tcfg.iterations} it, aperture 0.2, focus 8 (median of 3, CUDA "
+          f"events): " + "; ".join(
+              f"{k} {t * 1e3:.3f} ms, against backend=multi {sh:.6f} of "
+              f"pixels within {REFLECT_ATOL}, max {mx:.3g}"
+              for k, (t, sh, mx) in d_secs.items())
+          + f"; pinhole {fused_s * 1e3:.3f} ms in this run; launches a frame "
+          f"K1 1 (per-ray origins; the bounce entry with reflect 0.4); the "
+          f"lens moved the frame by {d_blur:.3g}; 32x24 gradients card vs "
+          f"CPU on the same lens rays, every field and the rays: max |diff| "
+          f"/ field scale {worst_dg[0]:.3g} ({worst_dg[1]}); {card}")
 
     # 10. K3's step counter through profile_march
     prof = profile_march(plan, tables, tcfg, device=dev)
@@ -2395,9 +2823,7 @@ def main() -> int:
     # 13. the serving path: K1's raygen entry against K1 on its twin's
     # directions and against its twin, the image against the standard
     # path's, render() and /render with raygen on and off in turns
-    from raymarching_tpu_torch.core import camera as cam
-    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
-                                                         render_raygen_plain)
+    from raymarching_tpu_torch.ops.render_kernel import render_raygen_plain
     tt = tables_to_torch(tables, dev)
     rg_dirs = cam.raygen_dirs(cam.serve_cam_rows(tt, tcfg), tcfg, 0, R)
     rg, rg_ms = timed(lambda: render_raygen(plan, tcfg, tt, 0, R), runs=5)
@@ -2478,11 +2904,54 @@ def main() -> int:
         for q, c in (("", cfg.replace(serve_raygen=True)),
                      ("&serve_raygen=0", cfg),
                      ("&soft_shadow_k=6&ao=0.8", cfg.replace(
-                         serve_raygen=True, **softao))):
+                         serve_raygen=True, **softao)),
+                     ("&reflect=0.4&bounces=2", cfg.replace(
+                         serve_raygen=True, reflect_bounces=2, **reflect)),
+                     ("&aperture=0.2&focus=8", cfg.replace(
+                         serve_raygen=True, **dof))):
             want = rt.to_uint8(rt.render(demo, c, device=dev).cpu().numpy())
+            zero_counts()
             png = post("width=256&height=192&ssaa=2" + q)
+            counts = add_counts(f"serve{q.replace('&', '_') or '_default'}",
+                                1)
             check(png.shape == want.shape and (png == want).all(),
                   f"/render{q} PNG differs from a direct render")
+        check(paths["serve_reflect=0.4_bounces=2"][1] == only(
+            render_bounce_kernel=1), "/render with bounces launched "
+            f"{paths['serve_reflect=0.4_bounces=2'][1]}")
+        # POST /aovs at 256x256 with a bounce: the ZIP of the six planes,
+        # its colour plane the beauty frame's PNG (render_aovs blends the
+        # bounces; one K1 bounce launch and one K2 launch for the normal)
+        aq = "width=256&height=256&reflect=0.4&bounces=1"
+        areq = urllib.request.Request(url + "/aovs?" + aq, data=body,
+                                      method="POST")
+        zero_counts()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(areq, timeout=300) as r:
+            zbody = r.read()
+        aovs_ms = (time.perf_counter() - t0) * 1e3
+        counts = add_counts("aovs", 1)
+        check(counts == only(render_bounce_kernel=1, surface_kernel=1),
+              f"/aovs launched {counts}")
+        with zipfile.ZipFile(io.BytesIO(zbody)) as zf:
+            members = sorted(zf.namelist())
+            check(members == sorted(("color.png", "normal.png", "hit.png",
+                                     "depth.npy", "objid.npy",
+                                     "shadow.npy")), f"/aovs ZIP {members}")
+            acolor = rt.decode_png(zf.read("color.png"))
+            adepth = np.load(io.BytesIO(zf.read("depth.npy")))
+        beauty = rt.to_uint8(rt.render(demo, rt.RenderConfig(
+            width=256, height=256, ssaa=1, reflect_bounces=1, **reflect),
+            device=dev).cpu().numpy())
+        check(acolor.shape == beauty.shape and (acolor == beauty).all(),
+              "/aovs color.png differs from the beauty frame")
+        check(adepth.shape == (256, 256) and bool(np.isfinite(
+            adepth).any()), "/aovs depth plane")
+        print(f"[aovs] POST /aovs 256x256 reflect 0.4, 1 bounce: ZIP of "
+              f"{', '.join(members)} ({len(zbody)} bytes) in "
+              f"{aovs_ms:.1f} ms; color.png = the beauty frame's PNG; "
+              f"launches K1's bounce entry 1, K2 1 (the normal plane); "
+              f"{card}")
         # render() and /render at 256^2 and 512^2, raygen on and off in
         # turns (off, on, on, off; render() the median of 3 frames, /render
         # the median of 3 requests, host clock), launches of each
@@ -2523,8 +2992,10 @@ def main() -> int:
                 f"{statistics.mean(t_s[False]):.1f} / "
                 f"{statistics.mean(t_s[True]):.1f} ms")
         print(f"[serve] /healthz ok; /render (raygen, the default), "
-              f"serve_raygen=0 and soft_shadow_k=6&ao=0.8 at 256x192 ssaa2 "
-              f"equal to direct renders; standard / raygen, launches a "
+              f"serve_raygen=0, soft_shadow_k=6&ao=0.8, reflect=0.4&bounces=2 "
+              f"(K1's raygen bounce entry) and aperture=0.2&focus=8 at "
+              f"256x192 ssaa2 equal to direct renders; standard / raygen, "
+              f"launches a "
               f"frame K1 1 / K1's raygen entry 1: " + "; ".join(serve_rows)
               + f"; {card}")
     finally:
@@ -2633,6 +3104,16 @@ def main() -> int:
         {**row("shade_ext_kernel", "raymarching_tpu/ops/pallas_render.py:558"
                " (_shade_body :327)", k4s_ms, k4s_plain_ms, k4s_bound),
          "reference_device_ms": s_turns["K4 demo reference / soft + AO"][0]},
+        # the bounce entries on the demo with reflect 0.4 and one bounce
+        # (FD, exact), device time in turns with the reference entry on the
+        # same rays; two bounces and the raygen bounce entry beside it
+        {**row("render_bounce_kernel", "raymarching_tpu/ops/pallas_render.py"
+               ":211 (bounce branch :284-309)", kb_ms, kb_plain_ms, kb_bound),
+         "reference_device_ms": b_turns["K1 demo reference / B 1"][0],
+         "device_ms_2_bounces": b_turns["K1 demo reference / B 2"][1],
+         "raygen": {"ms": rgb_ms, "device_ms": b_turns[
+             "K1 demo bounce B 1 on the raygen directions / raygen bounce"][1],
+             "bound_ms": kb_bound[0], "bound_by": kb_bound[1]}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,15 @@ DeathStars by their derived carve sphere, gradients to the generators'
 own rows); the ``ref`` backend ignores ``fused_generators``, as JAX's
 does.  ``render_aovs`` gives the compositing planes of one frame.
 
+Mirror bounces (``cfg.reflect_strength``, ``cfg.reflect_bounces``) render
+on every backend and train on ``cuda`` (K1's bounce entries; the backward
+replays the bounce chain, ``ops.render_op.reflect_bwd``) and ``multi``
+(the recursion of ``core.render.shade_rays`` through the hooks);
+thin-lens depth of field (``cfg.aperture``, ``cfg.focus_dist``) renders
+each frame as a bundle of per-ray lens origins, through ``render_rays`` on
+``cuda`` and the hooks elsewhere.  ``render_rays`` renders any bundle of
+rays on the fused path.
+
 Every entry point takes an explicit device; nothing picks one by itself.
 """
 
@@ -57,15 +66,16 @@ from .scene.parser import Scene
 
 from .core import camera as cam
 from .core.march import dot3
-from .core.render import render_image
+from .core.render import render_image, shade_rays
 from .core.shading import TINY
 from .ops.march_kernel import march_rays
 from .ops.march_op import march_op
 from .ops.normal_op import normal_op
-from .ops.render_kernel import (blend, check_supported, render_raygen,
-                                render_rays)
+from .ops.render_kernel import (check_supported, ray_colors, render_raygen,
+                                render_rays as render_kernel_rays)
 from .ops.render_op import FusedRender
 from .ops.scene_vjp import gather_rows
+from .ops.shade_kernel import bounce_count
 from .ops.surface_kernel import WINNER, surface_eval
 from .tables import tables_to_torch
 
@@ -160,6 +170,8 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
             "with serve_raygen=False to differentiate")
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         tables = tables_to_torch(tables, device)
+        if cfg.aperture > 0.0:
+            return _render_dof(plan, tables, cfg, backend, device)
         if backend != "cuda":
             return render_image(plan, tables, cfg, **make_render_hooks(
                 plan, tables, cfg, backend))
@@ -185,8 +197,65 @@ def serves_in_kernel(cfg: RenderConfig, backend: str) -> bool:
     Outside it the JAX package falls back to the standard raygen, and so
     does this: depth of field (``aperture > 0``, per-ray lens origins)
     needs the camera pass.  ``render_tables`` gives no per-ray origins,
-    the JAX envelope's other bound."""
+    the JAX envelope's other bound.  Mirror bounces serve in the kernel
+    too (K1's raygen bounce entry), as JAX's serve_render_chunk does."""
     return cfg.serve_raygen and backend == "cuda" and cfg.aperture == 0.0
+
+
+def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+                backend: str, device) -> torch.Tensor:
+    """Thin-lens depth of field (``cfg.aperture > 0``; api._render_dof):
+    the frame is one bundle of per-ray origins and directions
+    (``core.camera.generate_rays_dof``), and the SSAA mean integrates over
+    the lens.  ``cuda`` renders it through ``render_rays`` (K1 with per-ray
+    origins, chunked by ``cfg.ray_chunk``, differentiable through
+    ``FusedRender``); ``multi`` and ``ref`` through the hooks, whose
+    marches take per-ray origins (the reflection recursion relies on it),
+    chunked the same way.  ``tables`` are tensors on ``device``."""
+    o, d = cam.generate_rays_dof(tables, cfg)
+    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    if backend == "cuda":
+        colors = render_rays(plan, tables, o, d, cfg, device=device)
+    else:
+        hooks = make_render_hooks(plan, tables, cfg, backend)
+        R = d.shape[0]
+        chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
+        colors = torch.cat([
+            shade_rays(plan, tables, cfg, o[i:i + chunk], d[i:i + chunk],
+                       **hooks) for i in range(0, R, chunk)])
+    return colors.reshape(H, W, S, 3).mean(dim=2)
+
+
+def render_rays(plan: ScenePlan, tables: SceneTables, origins, dirs,
+                cfg: Optional[RenderConfig] = None, *,
+                device) -> torch.Tensor:
+    """Colours [R, 3] (linear) of an arbitrary bundle of rays
+    (raymarching_tpu.api.render_rays): ``dirs`` [R, 3] unit, ``origins``
+    [R, 3] (a ray each) or [3] (shared), tensors or arrays.  The fused
+    path (``render_tables``' ``cuda`` backend: K1 on a CUDA device, its
+    plain twin on the CPU), ``cfg.ray_chunk`` rays a launch.
+    Differentiable in ``tables``, ``origins`` and ``dirs`` through
+    ``FusedRender`` when grad is enabled and any of them requires it."""
+    cfg = cfg or RenderConfig()
+    device = resolve_device(device)
+    check_supported(plan, cfg)
+    tables = tables_to_torch(tables, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    origins = torch.as_tensor(origins, **f32)
+    dirs = torch.as_tensor(dirs, **f32)
+    R = dirs.shape[0]
+    if dirs.shape != (R, 3) or origins.shape not in ((3,), (R, 3)):
+        raise ValueError(f"render_rays: dirs {tuple(dirs.shape)}, origins "
+                         f"{tuple(origins.shape)}")
+    diff = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (origins, dirs, *tables))
+    chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else max(R, 1)
+    return torch.cat([
+        _fused_colors(plan, cfg, tables,
+                      origins if origins.dim() == 1 else origins[i:i + chunk],
+                      dirs[i:i + chunk], diff)
+        for i in range(0, R, chunk)]) if R else dirs.new_zeros((0, 3))
 
 
 def _render_serve(plan: ScenePlan, tables: SceneTables,
@@ -198,8 +267,8 @@ def _render_serve(plan: ScenePlan, tables: SceneTables,
     chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
     colors = []
     for base in range(0, R, chunk):
-        out = render_raygen(plan, cfg, tables, base, min(chunk, R - base))
-        colors.append(blend(out.cidx, out.light, tables.prim_color))
+        res = render_raygen(plan, cfg, tables, base, min(chunk, R - base))
+        colors.append(ray_colors(cfg, res, tables.prim_color))
     return torch.cat(colors)
 
 
@@ -209,8 +278,8 @@ def _fused_colors(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     """Colours [R, 3] of rays ``dirs`` [R, 3] through the fused path."""
     if differentiable:
         return FusedRender.apply(plan, cfg, origin, dirs, *tables)
-    out = render_rays(plan, cfg, tables, origin, dirs)
-    return blend(out.cidx, out.light, tables.prim_color)
+    return ray_colors(cfg, render_kernel_rays(plan, cfg, tables, origin,
+                                              dirs), tables.prim_color)
 
 
 def render(scene: Scene, cfg: Optional[RenderConfig] = None, *,
@@ -256,10 +325,11 @@ def render_aovs(plan: ScenePlan, tables: SceneTables,
         tables = tables_to_torch(tables, device)
         origin, dirs = cam.generate_rays(tables, cfg)
         flat = dirs.reshape(-1, 3)
-        out = render_rays(plan, cfg.replace(shadow_sat_skip=False,
-                                            shade_skip_black=False),
-                          tables, origin, flat)
-        colors = blend(out.cidx, out.light, tables.prim_color)
+        res = render_kernel_rays(plan, cfg.replace(shadow_sat_skip=False,
+                                                   shade_skip_black=False),
+                                 tables, origin, flat)
+        out = res if bounce_count(cfg) == 0 else res[0]
+        colors = ray_colors(cfg, res, tables.prim_color)
         conv = out.done
         g = normal_op(plan, cfg, tables, out.p)
         n = g / torch.sqrt(torch.clamp_min(dot3(g, g), TINY))[:, None]

@@ -7,6 +7,8 @@
         --normal-mode analytic --out analytic.png
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
         --soft-shadow-k 6 --ao 0.8 --out soft.png
+    python -m raymarching_tpu_torch --scene scenes/mirror.txt \
+        --reflect 0.4 --bounces 2 --aperture 0.2 --focus 8 --out dof.png
 
 Defaults are the reference configuration (1024x768, SSAA 3x3, 1000
 iterations) on the CUDA device; ``--device cpu`` runs the plain PyTorch
@@ -51,6 +53,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ao", type=float, default=0.0, metavar="STRENGTH",
                    help="SDF ambient-occlusion strength (extension; "
                         "0 = off)")
+    p.add_argument("--reflect", type=float, default=0.0, metavar="S",
+                   help="mirror reflection strength in [0, 1), 0 = off "
+                        "(tinted-mirror extension)")
+    p.add_argument("--bounces", type=int, default=1,
+                   help="mirror bounce count (with --reflect)")
+    p.add_argument("--aperture", type=float, default=0.0, metavar="RADIUS",
+                   help="thin-lens aperture radius in world units "
+                        "(extension; 0 = pinhole; blur quality scales "
+                        "with --ssaa)")
+    p.add_argument("--focus", type=float, default=6.0, metavar="DIST",
+                   help="focus-plane distance along the view axis "
+                        "(with --aperture)")
     p.add_argument("--normal-mode", choices=["fd", "analytic"], default="fd",
                    help="surface normals: fd = 6-eval central differences "
                         "(reference parity), analytic = the SDF's exact "
@@ -87,7 +101,10 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height, ssaa=args.ssaa,
                        iterations=args.iterations, gamma=args.gamma,
                        shadows=args.shadows, normal_mode=args.normal_mode,
-                       soft_shadow_k=args.soft_shadow_k, ao_strength=args.ao)
+                       soft_shadow_k=args.soft_shadow_k, ao_strength=args.ao,
+                       reflect_strength=args.reflect,
+                       reflect_bounces=args.bounces, aperture=args.aperture,
+                       focus_dist=args.focus)
     print(f"scene: {plan.num_primitives} primitives, {plan.num_lights} "
           f"lights; device {device}")
 

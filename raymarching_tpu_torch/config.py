@@ -78,8 +78,9 @@ class RenderConfig:
     # directions INSIDE the kernel from the ray index (the same
     # corner-biased camera math as core.camera.generate_rays), skipping
     # the ray generation pass and the [R, 3] directions stream.  Primal
-    # only by design.  Pinhole cameras only (aperture == 0).  Off by
-    # default; not ported yet.
+    # only by design.  Pinhole cameras only (aperture == 0); mirror
+    # bounces serve in the kernel too.  Off by default; the port's server
+    # turns it on, as the JAX server does.
     serve_raygen: bool = False
 
     # Two-phase march (mega backend): march every ray K1 steps, then
@@ -144,7 +145,7 @@ class RenderConfig:
     # colored surfaces tint what they mirror, so no miss masking is needed.
     # The bounce origin is pushed off the surface by
     # (surface_precision + offset_precision) along the normal, exactly like
-    # shadow rays.  Not ported yet.
+    # shadow rays.  On every backend of the port, forward and backward.
     reflect_strength: float = 0.0
     reflect_bounces: int = 1
 
@@ -184,7 +185,7 @@ class RenderConfig:
     # else defocuses with circle of confusion ~ aperture * |t - F| / t.
     # The existing SSAA average IS the lens integral, so blur quality
     # scales with ssaa.  Rides the per-ray-origin bundle machinery
-    # of the JAX package; not ported yet.
+    # (api.render_rays on the fused backend, the hooks on the others).
     aperture: float = 0.0
     focus_dist: float = 6.0
 

@@ -122,3 +122,46 @@ def raygen_dirs(rows: torch.Tensor, cfg: RenderConfig, base: int,
     return torch.stack([xc * R[0] + yc * R[1] + zc * R[2],
                         xc * R[3] + yc * R[4] + zc * R[5],
                         xc * R[6] + yc * R[7] + zc * R[8]], dim=-1)
+
+
+# pi (3 - sqrt(5)): successive lens samples land evenly over the disk (a
+# sunflower spiral), so the mean of the ssaa^2 samples converges to the
+# lens integral with no random numbers (core.camera.GOLDEN_ANGLE).
+GOLDEN_ANGLE = 2.3999632297286533
+
+
+def lens_offsets(cfg: RenderConfig, device) -> torch.Tensor:
+    """[S, 2] sunflower lens-disk offsets of radius ``cfg.aperture`` (world
+    units) for thin-lens depth of field (core.camera.lens_offsets)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    S = cfg.samples_per_pixel
+    s = torch.arange(S, **f32)
+    r = cfg.aperture * torch.sqrt((s + 0.5) / torch.tensor(S, **f32))
+    th = s * GOLDEN_ANGLE
+    return torch.stack([r * torch.cos(th), r * torch.sin(th)], dim=-1)
+
+
+def generate_rays_dof(tables: SceneTables, cfg: RenderConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Thin-lens rays of one frame (core.camera.generate_rays_dof) ->
+    (origins [H, W, S, 3], directions [H, W, S, 3]): SSAA sample s starts
+    at its lens-disk point (``lens_offsets`` in the camera's right / up
+    plane) and aims at its pinhole ray's focal point, where that ray
+    crosses the focus plane ``cfg.focus_dist`` along the view axis.  The
+    SSAA mean is the lens integral.  Differentiable in the pose, as
+    ``generate_rays`` is."""
+    o, d = generate_rays(tables, cfg)
+    R = camera_rotation(tables.cam_direction, tables.cam_up)
+    right, up2, fwd = R[:, 0], R[:, 1], -R[:, 2]
+    off = lens_offsets(cfg, o.device)
+    off_w = off[:, 0:1] * right + off[:, 1:2] * up2          # [S, 3]
+    # elementwise, never a [*, 3] @ [3] product (generate_rays' note); a
+    # tensor numerator (a Python number over a tensor is a reciprocal
+    # product in PyTorch)
+    focus = torch.tensor(cfg.focus_dist, dtype=d.dtype, device=d.device)
+    tf = focus / (d[..., 0] * fwd[0] + d[..., 1] * fwd[1] + d[..., 2] * fwd[2])
+    pf = o + tf[..., None] * d
+    origins = o.expand(d.shape) + off_w
+    dirs = pf - origins
+    norm = torch.sqrt((dirs * dirs).sum(dim=-1, keepdim=True))
+    return origins, dirs / norm

@@ -4,8 +4,8 @@ Port of ``raymarching_tpu.core.render.render_image`` for the reference's
 shading model: march -> surface colour at the pre-step point -> FD (or,
 with ``normal_mode="analytic"``, autograd) normal -> hard-shadowed Lambert -> light * colour, then the mean of the k x k
 SSAA samples (scene.cpp:26-32, render.cpp:82-120), with the JAX package's
-shading extensions (coloured lights, soft shadows, ambient occlusion) when
-the scene or ``cfg`` asks for them.  It is the oracle the
+shading extensions (coloured lights, soft shadows, ambient occlusion) and
+mirror bounces when the scene or ``cfg`` asks for them.  It is the oracle the
 kernel path is held to inside the port.  With the four hooks of
 ``api.make_render_hooks`` the same pipeline runs on the kernels: that is
 the multi-kernel backend.
@@ -22,7 +22,7 @@ from ..scene.compile import ScenePlan, SceneTables
 
 from . import camera as cam
 from . import shading
-from .march import MAX_STEP, march
+from .march import MAX_STEP, dot3, march
 from .sdf import scene_sd, scene_surface
 
 
@@ -31,9 +31,14 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                march_fn: Optional[Callable] = None,
                shadow_fn: Optional[Callable] = None,
                surface_fn: Optional[Callable] = None,
-               normal_fn: Optional[Callable] = None) -> torch.Tensor:
+               normal_fn: Optional[Callable] = None,
+               _bounces: Optional[int] = None) -> torch.Tensor:
     """Colours [N, 3] of rays ``dirs`` [N, 3] from ``origin`` [3] or
-    [N, 3].
+    [N, 3].  With ``cfg.reflect_strength`` s > 0, the tinted mirror of
+    the JAX package (core.render._shade_rays): colour ((1 - s) light +
+    s c_reflected), each bounce this same function (same hooks) from
+    p + (surface_eps + offset_eps) n along d - 2 (d . n) n, for
+    ``cfg.reflect_bounces`` levels, the last one plain.
 
     Optional hooks that replace the plain PyTorch stages (core.render
     ._shade_rays of the JAX package):
@@ -72,7 +77,18 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                       if plan.colored_lights else None),
         soft_shadow_k=cfg.soft_shadow_k, ao_strength=cfg.ao_strength,
         ao_samples=cfg.ao_samples, ao_delta=cfg.ao_delta)
-    return (light if plan.colored_lights else light[:, None]) * color
+    base = (light if plan.colored_lights else light[:, None]) * color
+    s = cfg.reflect_strength
+    bounces = cfg.reflect_bounces if _bounces is None else _bounces
+    if s > 0.0 and bounces > 0:
+        off = cfg.surface_precision + cfg.offset_precision
+        rdir = dirs - 2.0 * dot3(dirs, n)[:, None] * n
+        c_ref = shade_rays(plan, tables, cfg, p_hit + off * n, rdir,
+                           march_fn=march_fn, shadow_fn=shadow_fn,
+                           surface_fn=surface_fn, normal_fn=normal_fn,
+                           _bounces=bounces - 1)
+        return (1.0 - s) * base + s * color * c_ref
+    return base
 
 
 def render_image(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,

@@ -53,7 +53,10 @@ def med3(a, b, c):
 def leaf_sd(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
             leaves=None) -> torch.Tensor:
     """Signed distances of every leaf: p [N, 3] -> [N, P] (body.cpp:32-57);
-    with ``leaves`` (an index array) of those leaves only."""
+    with ``leaves`` (an index array) of those leaves only.  Each primitive
+    type is evaluated on its own leaves only (the columns are put back in
+    leaf order), so a sponge's crosses cost one SDF each, under autograd
+    too."""
     if plan.proc:
         raise NotImplementedError(
             "procedural leaves are not ported yet (ROADMAP Queue 1 item 10)")
@@ -62,18 +65,35 @@ def leaf_sd(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     if leaves is not None:
         rows = torch.as_tensor(leaves, device=p.device)
         pos, aux, ptype = pos[rows], aux[rows], ptype[leaves]
-    d = p[:, None, :] - pos                              # [N, P, 3]
+    kinds = np.unique(ptype)
+    if len(kinds) <= 1:                 # one type, or no leaves: [N, 0]
+        return _prim_sd(int(kinds[0]) if len(kinds) else int(PrimType.BOX),
+                        p, pos, aux)
+    parts, order = [], []
+    for kind in kinds:
+        rows_k = np.nonzero(ptype == kind)[0]
+        r = torch.as_tensor(rows_k, device=p.device)
+        parts.append(_prim_sd(int(kind), p, pos[r], aux[r]))
+        order.append(rows_k)
+    back = torch.as_tensor(np.argsort(np.concatenate(order)), device=p.device)
+    return torch.cat(parts, dim=1).index_select(1, back)
+
+
+def _prim_sd(kind: int, p: torch.Tensor, pos: torch.Tensor,
+             aux: torch.Tensor) -> torch.Tensor:
+    """[N, K] signed distances of K leaves of one primitive type (any
+    type but a sphere or a box is a cross)."""
+    d = p[:, None, :] - pos                              # [N, K, 3]
+    if kind == int(PrimType.SPHERE):
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        # the JAX oracle's 1e-24 floor (value-neutral for distances >= 1e-12)
+        return (torch.sqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz,
+                                           1e-24)) - aux[:, 0])
     b = d.abs() - aux * 0.5
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    box = torch.maximum(torch.maximum(bx, by), bz)
-    cross = med3(bx, by, bz)
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    # the JAX oracle's 1e-24 floor (value-neutral for distances >= 1e-12)
-    sphere = (torch.sqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-24))
-              - aux[:, 0])
-    t = torch.as_tensor(ptype, device=p.device)
-    return torch.where(t == int(PrimType.SPHERE), sphere,
-                       torch.where(t == int(PrimType.BOX), box, cross))
+    if kind == int(PrimType.BOX):
+        return torch.maximum(torch.maximum(bx, by), bz)
+    return med3(bx, by, bz)
 
 
 def _blocked(fn: Callable, num_prims: int, p: torch.Tensor):
@@ -93,30 +113,54 @@ def _blocked(fn: Callable, num_prims: int, p: torch.Tensor):
 
 def _fold_values(plan: ScenePlan, leaf: torch.Tensor, with_color: bool):
     """The static post-order fold (core.sdf._fold_values).  leaf [N, P] ->
-    (sd [N], colour leaf index [N] int32 or None; -1 = empty list)."""
-    n = leaf.shape[0]
+    (sd [N], colour leaf index [N] int32 or None; -1 = empty list).
+
+    A list's operands are taken from the leaf matrix with one
+    ``index_select`` (its leaves) and put in entry order with another, so
+    that autograd's backward of a wide list is one scatter, not one
+    [N, P] buffer per leaf; the values and the winner are the left fold's
+    all the same."""
+    n, dev = leaf.shape[0], leaf.device
     results = []
     for lp in plan.lists:
         if not lp.entries:
-            results.append((torch.full((n,), float("inf"), device=leaf.device),
+            results.append((torch.full((n,), float("inf"), device=dev),
                             torch.full((n,), -1, dtype=torch.int32,
-                                       device=leaf.device)))
+                                       device=dev)))
             continue
-        vals, idxs = [], []
-        for kind, idx, neg in lp.entries:
+        leaves = [idx for kind, idx, _ in lp.entries if kind == KIND_LEAF]
+        subs = [idx for kind, idx, _ in lp.entries if kind != KIND_LEAF]
+        # position of each entry in [leaves..., sub-lists...]
+        order, nl, ns = [], 0, len(leaves)
+        for kind, _, _ in lp.entries:
             if kind == KIND_LEAF:
-                v = leaf[:, idx]
-                ci = torch.full((n,), idx, dtype=torch.int32, device=leaf.device)
+                order.append(nl)
+                nl += 1
             else:
-                v, ci = results[idx]
-            vals.append(-v if neg else v)
-            idxs.append(ci)
-        stack = torch.stack(vals, dim=-1)
+                order.append(ns)
+                ns += 1
+        cols = [leaf.index_select(1, torch.tensor(leaves, device=dev))] \
+            if leaves else []
+        cols += [results[i][0][:, None] for i in subs]
+        stack = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
+        if order != list(range(len(order))):
+            stack = stack.index_select(1, torch.tensor(order, device=dev))
+        neg = torch.tensor([e[2] for e in lp.entries], device=dev)
+        if bool(neg.any()):
+            stack = torch.where(neg, -stack, stack)
         # argmin/argmax return the first extremum: the reference's left
         # fold with first-operand-wins ties
         k = stack.argmin(-1) if lp.op == MIN else stack.argmax(-1)
         sd = stack.gather(-1, k[:, None])[:, 0]
-        ci = torch.stack(idxs, dim=-1).gather(-1, k[:, None])[:, 0]
+        ci = None
+        if with_color:
+            ids = [torch.tensor(leaves, dtype=torch.int32,
+                                device=dev).expand(n, -1)] if leaves else []
+            ids += [results[i][1][:, None] for i in subs]
+            ids = torch.cat(ids, dim=1) if len(ids) > 1 else ids[0]
+            if order != list(range(len(order))):
+                ids = ids.index_select(1, torch.tensor(order, device=dev))
+            ci = ids.gather(-1, k[:, None])[:, 0]
         results.append((sd, ci))
     sd, ci = results[-1]
     return sd, (ci if with_color else None)

@@ -41,12 +41,21 @@ def normal_fd(scene_sd: Callable, p: torch.Tensor, h: float) -> torch.Tensor:
     return fd_stencil(scene_sd, p, h) / (2.0 * h)
 
 
-def normal_analytic(scene_sd: Callable, p: torch.Tensor) -> torch.Tensor:
+def normal_analytic(scene_sd: Callable, p: torch.Tensor,
+                    graph: bool = False) -> torch.Tensor:
     """Exact SDF gradient (not normalised) by one reverse-mode sweep,
     p [N, 3] -> [N, 3] (core.shading.normal_analytic): autograd through
     the fold's minima and maxima, which give a tie to the first operand
     where JAX splits it.  Forward only (the ref oracle's): p is detached,
-    and the result carries no graph."""
+    and the result carries no graph.  With ``graph`` the gradient is a
+    function of p (which must require grad) and of what ``scene_sd``
+    reads, for a second sweep (the mirror-bounce replay, which
+    differentiates the reflected direction)."""
+    if graph:
+        sd = scene_sd(p)
+        (g,) = torch.autograd.grad(sd, p, torch.ones_like(sd),
+                                   create_graph=True)
+        return g
     with torch.enable_grad():
         q = p.detach().requires_grad_()
         sd = scene_sd(q)

@@ -1,20 +1,24 @@
-// K1's per-ray loop, shared by its three sources: the reference entries
-// (render_kernel.cu), the extended-shading entries (render_ext_kernel.cu)
-// and the in-kernel raygen entries (render_raygen_kernel.cu).  One thread
+// K1's per-ray loop, shared by its four sources: the reference entries
+// (render_kernel.cu), the extended-shading entries (render_ext_kernel.cu),
+// the in-kernel raygen entries (render_raygen_kernel.cu) and the
+// mirror-bounce entries (render_bounce_kernel.cu).  One thread
 // renders one ray: the primary march (march.cuh), then shade.cuh's
 // shading; a warp takes the next 32 consecutive rays from the counter
 // (persist.cuh) until none is left.
 //
-// Two compile-time arguments pick what an entry does beyond the reference
+// Three compile-time arguments pick what an entry does beyond the reference
 // pipeline, so the reference entries keep their code:
 //   kExt     the shading extensions (shade.cuh's kExt): the light term
 //            and the factors go to RenderExt's buffers;
 //   kRaygen  the directions come from the ray index instead of a [3][R]
 //            buffer: pallas_render._raygen_dirs in scan order, the camera
-//            model of core.camera.generate_rays evaluated per thread.
+//            model of core.camera.generate_rays evaluated per thread;
+//   kBounce  mirror bounces after the primary hit (bounce_ray), with the
+//            extended shading.
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include "persist.cuh"
@@ -85,13 +89,70 @@ __device__ __forceinline__ float3 raygen_dir(const Raygen& G, unsigned i) {
       xc * __ldg(rot + 6) + yc * __ldg(rot + 7) + zc * __ldg(rot + 8));
 }
 
+// Ray i with mirror bounces (pallas_render._render_kernel :284-309): the
+// primary march and shade, then `bounces` times: reflect the direction off
+// the unit normal the shade returned (d and n are unit, so the mirrored
+// direction needs no renormalisation), lift the origin off the hit by
+// P.shade.off (surface_eps + offset_eps rounded once, the shadow rays'
+// lift), march and shade again.  Shade set b (0 the primary hit) goes to
+// rows b of every output, B = bounces: P.out [1 + B][5][R] (px, py, pz,
+// sd, done), P.iout [1 + B][2][R] (colour winner, shadow mask), ext.light
+// [1 + B][C][R] (C = 3 with coloured lights, else 1), ext.sfac
+// [1 + B][L][R] and ext.aofac [1 + B][R] when their extension is on.
+// No winner residuals: the backward replays the bounce chain (JAX's
+// save_winner is reflection-free), and the host turns the black-lane skip
+// off (JAX passes black_ids = () with bounces).  One march and one shade
+// in the code, whatever the count: nothing is kept per bounce.
+template <int kNormal, class S>
+__device__ __forceinline__ void bounce_ray(const S& s, const Params& P,
+                                           const RenderExt& ext, int bounces,
+                                           unsigned i, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz) {
+  const unsigned R = P.R;
+  const size_t C = ext.x.colored ? 3 : 1;
+  const size_t L = static_cast<size_t>(P.shade.n_lights);
+  const auto row = [&](size_t k) { return k * R + i; };
+  for (int b = 0;; ++b) {
+    const Hit hit = march(s, P.shade.iterations, P.shade.eps, ox, oy, oz, dx,
+                          dy, dz, false, 0.0f, false);
+    const Shade sh = shade<kNormal, true>(
+        s, P.shade, hit.x, hit.y, hit.z, hit.sd, dx, dy, dz,
+        WinnerOut{nullptr, nullptr, i, R}, ext.x,
+        ShadeExtOut{ext.light + C * b * R,
+                    ext.sfac != nullptr ? ext.sfac + L * b * R : nullptr,
+                    ext.aofac != nullptr ? ext.aofac + size_t{1} * b * R
+                                         : nullptr,
+                    i, R});
+    const size_t g = 5 * static_cast<size_t>(b);
+    P.out[row(g)] = hit.x;
+    P.out[row(g + 1)] = hit.y;
+    P.out[row(g + 2)] = hit.z;
+    P.out[row(g + 3)] = hit.sd;
+    P.out[row(g + 4)] = hit.done ? 1.0f : 0.0f;
+    P.iout[row(2 * static_cast<size_t>(b))] = sh.cidx;
+    P.iout[row(2 * static_cast<size_t>(b) + 1)] = sh.smask;
+    if (b == bounces) break;
+    // d - (2 (d . n)) n and p + n off, in the JAX kernel's order
+    const float t = 2.0f * (dx * sh.nx + dy * sh.ny + dz * sh.nz);
+    dx = dx - t * sh.nx;
+    dy = dy - t * sh.ny;
+    dz = dz - t * sh.nz;
+    ox = hit.x + sh.nx * P.shade.off;
+    oy = hit.y + sh.ny * P.shade.off;
+    oz = hit.z + sh.nz * P.shade.off;
+  }
+}
+
 // The rays of one thread, the body of every K1 entry.  E is RenderExt with
-// kExt (else NoExt), G Raygen with kRaygen (else NoExt).
+// kExt (else NoExt), G Raygen with kRaygen (else NoExt); with kBounce
+// (and kExt) each ray takes `bounces` mirror bounces (bounce_ray).
 template <int kNormal, bool kExt, bool kRaygen, class S, class E = NoExt,
-          class G = NoExt>
+          class G = NoExt, bool kBounce = false>
 __device__ __forceinline__ void render_loop(const Params& P,
                                             const E& ext = E{},
-                                            const G& gen = G{}) {
+                                            const G& gen = G{},
+                                            int bounces = 0) {
   const S s = stage_scene<S>(P.scene);
   const unsigned R = P.R;
   for (;;) {
@@ -118,6 +179,11 @@ __device__ __forceinline__ void render_loop(const Params& P,
       dx = P.dirs[i];
       dy = P.dirs[R + i];
       dz = P.dirs[2 * R + i];
+    }
+    if constexpr (kBounce) {
+      static_assert(kExt, "the bounce entries take the extended shading");
+      bounce_ray<kNormal>(s, P, ext, bounces, i, ox, oy, oz, dx, dy, dz);
+      continue;
     }
 
     // 1. primary march

@@ -83,6 +83,8 @@ struct Shade {
   int cidx;      // colour winner leaf, -1 = none
   float light;   // clamped Lambert term
   int smask;     // bit l set = light l shadowed
+  float nx, ny, nz;   // the unit normal (K1's mirror bounces reflect off
+                      // it; a caller that ignores it compiles without it)
 };
 
 // shade()'s normal estimators
@@ -320,7 +322,7 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
       eo.light[2 * eo.R + eo.i] = with_ao ? lb * ao : lb;
     }
   }
-  return Shade{cidx, light, static_cast<int>(smask)};
+  return Shade{cidx, light, static_cast<int>(smask), nx, ny, nz};
 }
 
 }  // namespace

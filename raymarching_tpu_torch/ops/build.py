@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -30,6 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FLAGS_TAG = "// nvcc-flags:"
 
 _LOCK = threading.Lock()
+
+# Every kernel source of the package, csrc/<name>.cu, one library each:
+# K1's reference, extended-shading, raygen and mirror-bounce entries, K2,
+# K3, K4's reference and extended-shading entries.
+SOURCES = ("render_kernel", "render_ext_kernel", "render_raygen_kernel",
+           "render_bounce_kernel", "surface_kernel", "march_kernel",
+           "shade_kernel", "shade_ext_kernel")
 
 
 def nvcc_path() -> str:
@@ -90,6 +98,13 @@ def build(name: str) -> Path:
                                         + proc.stderr)
     os.replace(tmp, path)
     return path
+
+
+def build_all(names=SOURCES) -> list:
+    """Build every named kernel that is not built yet, one ``nvcc`` a
+    source, all started together; returns their library paths."""
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,7 @@
 """K1, the fused forward render: wrapper, plain twin and colour blend.
 
 Counterpart of ``raymarching_tpu.ops.pallas_render.pallas_render_rays``
-(primary outputs) and of ``_blend_bounces`` without bounces.  The kernel is
+and of ``_blend_bounces``.  The kernel is
 ``csrc/render_kernel.cu``; ``render_rays_plain`` computes the same thing
 in plain PyTorch from the ``core`` modules and is what a CPU tensor gets.
 A CUDA tensor always goes to the kernel: a build or launch failure raises.
@@ -14,7 +14,11 @@ lights, and ``save_factors`` returns the penumbra and occlusion factors
 serving path (``pallas_render.serve_render_chunk``): K1's raygen entries
 (``csrc/render_raygen_kernel.cu``) compute the primary directions of a
 chunk of the frame from the ray index; its twin is
-``core.camera.raygen_dirs`` and this module's plain twin.
+``core.camera.raygen_dirs`` and this module's plain twin.  Mirror bounces
+(``cfg.reflect_strength > 0``) launch K1's bounce entries
+(``csrc/render_bounce_kernel.cu``, both ray sources): every bounce's shade
+set and hit come out as BounceOutputs, ``blend`` mixes the sets, and
+``ops.render_op`` replays the chain for the backward.
 
 The normal is a compile-time choice of the kernel: FD, or with
 ``cfg.normal_mode="analytic"`` the combined fold's winner gradient (JAX
@@ -37,13 +41,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import RenderConfig
 from ..core import camera as cam
-from ..core.march import MarchResult, march
+from ..core.march import MarchResult, dot3, march
 from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
 from .. import tables as scene_tables
@@ -52,10 +56,10 @@ from . import build
 from .march_kernel import march_rays
 from .scene_vjp import gather_rows
 from .shade_kernel import (EXT_ARGTYPES, ShadeOutputs, MAX_LIGHTS, SHADE_ARGTYPES, Factors,
-                           check_normal_mode, ext_operands, extended,
-                           light_of, ptr_or_none, shade_operands, shade_rays,
-                           shade_rays_plain, winner_buffers, winner_of,
-                           with_extras)
+                           bounce_count, check_normal_mode, ext_operands,
+                           extended, light_of, ptr_or_none, shade_operands,
+                           shade_plain, shade_rays, shade_rays_plain,
+                           winner_buffers, winner_of, with_extras)
 
 # Phase-2 capacity as a fraction of the rays (pallas_render
 # ._PHASE2_CAP_FRAC): with more rays than that still marching after phase 1,
@@ -74,6 +78,21 @@ class RayOutputs(NamedTuple):
     smask: torch.Tensor  # [R] int32, bit l set = light l shadowed
 
 
+class BounceOutputs(NamedTuple):
+    """One mirror bounce's outputs for R rays (pallas_render_rays' ninth
+    element, one entry a bounce): its shade set, blended by ``blend``, and
+    its hit, the anchor of the backward's replay (``ops.render_op``)."""
+
+    cidx: torch.Tensor   # [R] int32 colour winner leaf, -1 = none
+    light: torch.Tensor  # [R] clamped Lambert term; [R, 3] coloured lights
+    smask: torch.Tensor  # [R] int32 shadow bits
+    sfac: Optional[torch.Tensor]   # [L, R] penumbra factors, or None
+    aofac: Optional[torch.Tensor]  # [R] occlusion factor, or None
+    p: torch.Tensor      # [R, 3] the bounce march's hit point
+    sd: torch.Tensor     # [R] SD at its pre-step point
+    done: torch.Tensor   # [R] bool: converged (done and sd < eps)
+
+
 def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for anything outside the ported slice."""
     todo = None
@@ -81,12 +100,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
         todo = "depth > 2 scenes (ROADMAP Queue 2, D8)"
     elif plan.proc:
         todo = "procedural leaves (ROADMAP Queue 1 item 10)"
-    elif cfg.reflect_strength > 0.0:
-        todo = ("mirror bounces (ROADMAP Queue 1 item 9, its open part: "
-                "bounces, depth of field, the /aovs route)")
-    elif cfg.aperture > 0.0:
-        todo = ("depth of field (ROADMAP Queue 1 item 9, its open part: "
-                "bounces, depth of field, the /aovs route)")
     elif plan.num_lights > MAX_LIGHTS:
         todo = f"more than {MAX_LIGHTS} lights"
     if todo is not None:
@@ -105,18 +118,53 @@ def render_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     points (one march whatever ``cfg.two_phase_k1`` says: this is the
     twin of the one kernel).  origin [3] or [R, 3], dirs [R, 3] ->
     RayOutputs, or with ``save_winner`` or ``save_factors`` (RayOutputs,
-    Winner if asked, Factors if asked)."""
+    Winner if asked, Factors if asked).
+
+    With mirror bounces (``shade_kernel.bounce_count``) the twin of K1's
+    bounce entries: after the primary shade, per bounce, d - (2 (d . n)) n
+    off the shade's unit normal, the origin p + n (surface_eps +
+    offset_eps), march and shade again (pallas_render._render_kernel
+    :284-309, black-lane skip off); a tuple of BounceOutputs, one a
+    bounce, comes last."""
     check_supported(plan, cfg)
     check_normal_mode(cfg, save_winner)
+    B = _check_bounces(cfg, save_winner)
     with torch.no_grad():
         sd_fn = lambda q: kernel_fold(  # noqa: E731
             plan, tables, q, collapse=collapse,
             fused=cfg.fused_generators)[0]
         hit = march(sd_fn, origin, dirs, cfg.iterations,
                     cfg.surface_precision)
-    return _ray_outputs(hit, shade_rays_plain(
-        plan, cfg, tables, hit.position, hit.sd, dirs, collapse, save_winner,
-        save_factors))
+        if not B:
+            return _ray_outputs(hit, shade_rays_plain(
+                plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
+                save_winner, save_factors))
+        sh, _, factors, n = shade_plain(plan, cfg, tables, hit.position,
+                                        hit.sd, dirs, collapse)
+        bounces = []
+        off = cfg.surface_precision + cfg.offset_precision
+        p, d = hit.position, dirs
+        for _ in range(B):
+            t = 2.0 * dot3(d, n)
+            d = d - t[:, None] * n
+            hb = march(sd_fn, p + n * off, d, cfg.iterations,
+                       cfg.surface_precision)
+            shb, _, fb, n = shade_plain(plan, cfg, tables, hb.position,
+                                        hb.sd, d, collapse)
+            bounces.append(BounceOutputs(*shb, *fb, *hb))
+            p = hb.position
+    ray = RayOutputs(hit.position, hit.sd, hit.converged, *sh)
+    return (ray, *((factors,) if save_factors else ()), tuple(bounces))
+
+
+def _check_bounces(cfg: RenderConfig, save_winner: bool) -> int:
+    """The bounce count; raises for winner residuals with bounces (the
+    replay backward owns bounce chains, as pallas_render_rays asserts)."""
+    B = bounce_count(cfg)
+    if B and save_winner:
+        raise ValueError("winner residuals are reflection-free: no "
+                         "save_winner with mirror bounces")
+    return B
 
 
 def _ray_outputs(hit: MarchResult, shaded):
@@ -167,7 +215,8 @@ def two_phase_march(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
 @functools.lru_cache(maxsize=None)
 def _library(name: str = "render_kernel") -> ctypes.CDLL:
     """One of K1's sources (render_kernel, render_ext_kernel,
-    render_raygen_kernel), built on first use, its entry point bound."""
+    render_raygen_kernel, render_bounce_kernel), built on first use, its
+    entry point bound."""
     lib = build.load_library(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     rays = [ptr, f32, f32, f32, ptr]            # org, ox, oy, oz, dirs
@@ -178,6 +227,10 @@ def _library(name: str = "render_kernel") -> ctypes.CDLL:
     elif name == "render_ext_kernel":
         fn = lib.rt_render_rays_ext
         fn.argtypes = SHADE_ARGTYPES + EXT_ARGTYPES + rays + [ptr] * 8 + tail
+    elif name == "render_bounce_kernel":
+        fn = lib.rt_render_bounce
+        fn.argtypes = (SHADE_ARGTYPES + EXT_ARGTYPES + [i32] * 5 + [f32] * 3
+                       + [ptr, ctypes.c_int64] + rays + [ptr] * 6 + tail)
     else:
         fn = lib.rt_render_raygen
         fn.argtypes = (SHADE_ARGTYPES + [i32] + EXT_ARGTYPES + [i32] * 3
@@ -210,9 +263,12 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     [R, 3]; ``tables`` is a SceneTables of tensors on the rays' device.
     -> RayOutputs, or with ``save_winner`` (analytic normals) or
     ``save_factors`` (RayOutputs, Winner if asked, Factors if asked).
-    CPU tensors take the plain twin; CUDA tensors launch K1 (its extended
-    entry when ``shade_kernel.extended``), or with ``cfg.two_phase_k1``
-    set K3, K3 and K4 (their plain twins on the CPU).  Forward only: it
+    With mirror bounces (``shade_kernel.bounce_count``) a tuple of
+    BounceOutputs, one a bounce, comes last, and winner residuals are
+    refused.  CPU tensors take the plain twin; CUDA tensors launch K1 (its
+    extended entry when ``shade_kernel.extended``, its bounce entry with
+    bounces), or with ``cfg.two_phase_k1`` set (and no bounces) K3, K3 and
+    K4 (their plain twins on the CPU).  Forward only: it
     records no autograd graph (``ops.render_op.FusedRender``
     differentiates it).  ``collapse``: the scene fold may take the exact
     Menger lattice collapse (the same bits as the leaf fold, which
@@ -220,7 +276,8 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     dev = dirs.device
     check_supported(plan, cfg)
     analytic = check_normal_mode(cfg, save_winner)
-    if 0 < cfg.two_phase_k1 < cfg.iterations:
+    B = _check_bounces(cfg, save_winner)
+    if 0 < cfg.two_phase_k1 < cfg.iterations and not B:
         hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
         return _ray_outputs(hit, shade_rays(
             plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
@@ -239,17 +296,24 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         raise ValueError(f"render_rays: dirs {tuple(dirs.shape)}, origin "
                          f"{tuple(origin.shape)}")
 
-    ext = extended(plan, cfg)
-    name = "render_ext_kernel" if ext else "render_kernel"
-    lib = _library(name)
-    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     dirs_soa = dirs.t().contiguous()
     if origin.dim() == 2:
         org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
     else:
         org_soa, o3 = None, tuple(float(v) for v in origin.tolist())
     rays = (ptr_or_none(org_soa), *o3, dirs_soa.data_ptr())
+    if B:
+        res = _bounce_launch(plan, cfg, tables, dev, R, collapse, analytic,
+                             B, (0,) * 4 + (0.0,) * 3 + (None, 0), rays)
+        if R:    # the C entry point launches nothing for zero rays
+            render_rays.launches += 1
+            render_rays.entry_launches["render_bounce_kernel"] += 1
+        return _bounce_outputs(res, save_factors)
+    ext = extended(plan, cfg)
+    name = "render_ext_kernel" if ext else "render_kernel"
+    lib = _library(name)
+    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((6, R), dtype=torch.float32, device=dev)
     iout = torch.empty((2, R), dtype=torch.int32, device=dev)
     wres, widx = winner_buffers(R, dev, save_winner)
@@ -278,10 +342,55 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                     save_winner, save_factors)
 
 
-# K1's launches, and by source (the reference and the extended entries);
-# the raygen entries count in render_raygen.launches
+# K1's launches, and by source (the reference, the extended and the bounce
+# entries); the raygen entries count in render_raygen's
 render_rays.launches = 0
-render_rays.entry_launches = {"render_kernel": 0, "render_ext_kernel": 0}
+render_rays.entry_launches = {"render_kernel": 0, "render_ext_kernel": 0,
+                              "render_bounce_kernel": 0}
+
+
+def _bounce_launch(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                   dev, R: int, collapse: bool, analytic: bool, B: int,
+                   camera: tuple, rays: tuple) -> list:
+    """Launch K1's bounce entry (csrc/render_bounce_kernel.cu) over R rays
+    with B bounces: ``camera`` is rt_render_bounce's arguments from
+    ``raygen`` to ``base`` (raygen 0: the rays are ``rays``, org to dirs).
+    -> one (RayOutputs, Factors) for the primary hit and one for each
+    bounce, views of the launch's buffers."""
+    lib = _library("render_bounce_kernel")
+    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
+    sets = 1 + B
+    ext_args, light, sfac, aofac = ext_operands(plan, cfg, R, dev, sets)
+    C, L = light.shape[0] // sets, plan.num_lights
+    out = torch.empty((5 * sets, R), dtype=torch.float32, device=dev)
+    iout = torch.empty((2 * sets, R), dtype=torch.int32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rt_render_bounce(
+            *head, *ext_args, B, *camera, *rays, out.data_ptr(),
+            iout.data_ptr(), light.data_ptr(), ptr_or_none(sfac),
+            ptr_or_none(aofac), counter.data_ptr(), R, stream)
+    build.check(lib, code, "render kernel bounce launch")
+    res = []
+    for b in range(sets):
+        o, sd = out[5 * b:5 * b + 5], out[5 * b + 3]
+        res.append((RayOutputs(
+            p=o[:3].t(), sd=sd, done=(o[4] > 0.5) & (sd < cfg.surface_precision),
+            cidx=iout[2 * b], light=light_of(light[C * b:C * (b + 1)]),
+            smask=iout[2 * b + 1]), Factors(
+                None if sfac is None else sfac[L * b:L * (b + 1)],
+                None if aofac is None else aofac[R * b:R * (b + 1)])))
+    return res
+
+
+def _bounce_outputs(res: list, save_factors: bool) -> tuple:
+    """``_bounce_launch``'s sets as render_rays returns them: RayOutputs,
+    Factors if asked, then a BounceOutputs a bounce."""
+    (ray, factors), rest = res[0], res[1:]
+    bounces = tuple(BounceOutputs(o.cidx, o.light, o.smask, *f, o.p, o.sd,
+                                  o.done) for o, f in rest)
+    return (ray, *((factors,) if save_factors else ()), bounces)
 
 
 def _outputs(cfg, out, iout, light, wres, widx, factors, save_winner,
@@ -317,12 +426,14 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     the serving path of ``api.render_tables``): no direction tensor and
     no camera pass.  Returns what ``render_rays`` returns.  CPU tensors
     take ``render_raygen_plain``; CUDA tensors launch K1's raygen entry
-    (with the shading extensions when ``shade_kernel.extended``), always
-    one kernel (``cfg.two_phase_k1`` is not taken, as in the JAX path).
-    Forward only."""
+    (with the shading extensions when ``shade_kernel.extended``; with
+    bounces the raygen form of the bounce entry), always one kernel
+    (``cfg.two_phase_k1`` is not taken, as in the JAX path).  Forward
+    only."""
     dev = tables.cam_position.device
     check_supported(plan, cfg)
     analytic = check_normal_mode(cfg, save_winner)
+    B = _check_bounces(cfg, save_winner)
     if dev.type == "cpu":
         return render_raygen_plain(plan, cfg, tables, base, n, collapse,
                                    save_winner, save_factors)
@@ -333,12 +444,21 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                          f"{dev}")
     if base < 0 or n < 0:
         raise ValueError(f"render_raygen: rays {base} + {n}")
-    ext = extended(plan, cfg)
-    lib = _library("render_raygen_kernel")
-    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
     # the kernel reads the camera rows on the device: no host copy, no wait
     rows = cam.serve_cam_rows(tables, cfg).contiguous()
     recip = [1.0 / cfg.ssaa, 1.0 / cfg.width, 1.0 / cfg.height]
+    if B:
+        res = _bounce_launch(
+            plan, cfg, tables, dev, n, collapse, analytic, B,
+            (1, cfg.width, cfg.height, cfg.ssaa, *recip, rows.data_ptr(),
+             base), (None, 0.0, 0.0, 0.0, None))
+        if n:    # the C entry point launches nothing for zero rays
+            render_raygen.launches += 1
+            render_raygen.entry_launches["render_bounce_kernel"] += 1
+        return _bounce_outputs(res, save_factors)
+    ext = extended(plan, cfg)
+    lib = _library("render_raygen_kernel")
+    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     iout = torch.empty((2, n), dtype=torch.int32, device=dev)
@@ -359,16 +479,46 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     build.check(lib, code, "render kernel raygen launch")
     if n:    # the C entry point launches nothing for zero rays
         render_raygen.launches += 1
+        render_raygen.entry_launches["render_raygen_kernel"] += 1
     return _outputs(cfg, out, iout, light_of(light), wres, widx,
                     Factors(sfac, aofac), save_winner, save_factors)
 
 
+# the raygen entries' launches, and by source (render_raygen_kernel, and
+# the raygen form of the bounce entries in render_bounce_kernel)
 render_raygen.launches = 0
+render_raygen.entry_launches = {"render_raygen_kernel": 0,
+                                "render_bounce_kernel": 0}
 
 
-def blend(cidx: torch.Tensor, light: torch.Tensor,
-          prim_color: torch.Tensor) -> torch.Tensor:
+def blend(cidx: torch.Tensor, light: torch.Tensor, prim_color: torch.Tensor,
+          bounces: tuple = (), strength: float = 0.0) -> torch.Tensor:
     """Ray colours [R, 3] = light * winner colour, misses black; ``light``
-    [R] (white lights) or [R, 3] (coloured)."""
-    lit = light[:, None] if light.dim() == 1 else light
-    return lit * gather_rows(cidx, prim_color)
+    [R] (white lights) or [R, 3] (coloured).  With mirror bounces
+    (BounceOutputs, one a bounce; pallas_render._blend_bounces) the
+    tinted-mirror blend with strength s:
+
+        c_k = colour_k ((1 - s) light_k + s c_(k+1)),   the last c plain."""
+    def lit(v):
+        return v[:, None] if v.dim() == 1 else v
+
+    def col(ci):
+        return gather_rows(ci, prim_color)
+
+    if not bounces:
+        return lit(light) * col(cidx)
+    s = strength
+    c = lit(bounces[-1].light) * col(bounces[-1].cidx)
+    for b in reversed(bounces[:-1]):
+        c = col(b.cidx) * ((1.0 - s) * lit(b.light) + s * c)
+    return col(cidx) * ((1.0 - s) * lit(light) + s * c)
+
+
+def ray_colors(cfg: RenderConfig, res, prim_color: torch.Tensor
+               ) -> torch.Tensor:
+    """Colours [R, 3] of what ``render_rays`` or ``render_raygen`` returned
+    for ``cfg`` (its bounces blended in, if any)."""
+    out, *extras = (res,) if isinstance(res, RayOutputs) else res
+    bounces = extras[-1] if bounce_count(cfg) else ()
+    return blend(out.cidx, out.light, prim_color, bounces,
+                 cfg.reflect_strength)

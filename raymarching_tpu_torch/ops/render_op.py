@@ -1,4 +1,5 @@
-"""The differentiable fused render: K1 forward, winner-algebra backward.
+"""The differentiable fused render: K1 forward, winner-algebra backward
+(with mirror bounces, an anchored replay of the bounce chain).
 
 Counterpart of ``raymarching_tpu.ops.pallas_render.fused_render_op`` with
 its ``_fused_fwd``, ``_exact_fd_bwd``, ``_exact_analytic_bwd`` and
@@ -48,8 +49,16 @@ JAX's: autograd through the Lambert replay of the FD normal of
 ``core.sdf.scene_sd_fused`` and through its implicit-function route,
 plain PyTorch as JAX's is plain jnp (no kernel launch).
 
+With mirror bounces (``cfg.reflect_strength > 0``) the forward launches
+K1's bounce entry, saves each bounce's hit, convergence, colour winner,
+shadow bits and factors, and the backward is ``reflect_bwd``
+(``_reflect_bwd`` with ``_anchored_hit``): autograd through a plain
+PyTorch replay of the whole bounce chain, each march an ``AnchoredHit``
+at its saved hit, no kernel launch.
+
 Camera gradients flow on from ``origin``/``dirs`` through
-``core.camera.generate_rays`` under ordinary autograd.
+``core.camera.generate_rays`` (or ``generate_rays_dof``) under ordinary
+autograd.
 """
 
 from __future__ import annotations
@@ -62,10 +71,12 @@ from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
 
 from ..core.march import dot3
-from ..core.sdf import scene_sd_fused
-from ..core.shading import lambert_replay, normal_fd, normalize
+from ..core.sdf import scene_sd, scene_sd_fused
+from ..core.shading import (lambert_replay, normal_analytic, normal_fd,
+                            normalize)
 from .march_op import fused_ift
 from .render_kernel import blend, render_rays
+from .shade_kernel import bounce_count
 from .scene_vjp import (fd_stencil_cotangents, fused_theta_cotangents,
                         fused_winner_eval, fused_winner_hessian_chain,
                         gather_rows, ift_ray_weights, segment_add,
@@ -93,21 +104,29 @@ class FusedRender(torch.autograd.Function):
         # black primitive would stay black under fitting).  The
         # saturation-floor skip stays: it is exact for gradients too.
         cfg = cfg.replace(shade_skip_black=False)
-        save = cfg.normal_mode == "analytic" and SAVE_WINNER
+        B = bounce_count(cfg)
+        save = cfg.normal_mode == "analytic" and SAVE_WINNER and not B
         res = render_rays(plan, cfg, tables, origin, dirs, save_winner=save,
                           save_factors=True)
         out, *extras = res
         winner = extras[0] if save else ()
+        bounces = extras.pop() if B else ()
         factors = extras[-1]
-        colors = blend(out.cidx, out.light, tables.prim_color)
+        colors = blend(out.cidx, out.light, tables.prim_color, bounces,
+                       cfg.reflect_strength)
         t = dot3(out.p - origin, dirs) / dot3(dirs, dirs)
         ctx.plan, ctx.cfg = plan, cfg
         ctx.origin_dim = origin.dim()
         ctx.n_winner = len(winner)
         ctx.factors = tuple(f is not None for f in factors)
+        # each bounce's anchors: hit, convergence, colour winner, shadow
+        # bits and factors (pallas_render._reflect_bwd's)
+        anchors = [v for b in bounces for v in (b.p, b.done, b.cidx,
+                                                b.smask, b.sfac, b.aofac)
+                   if v is not None]
         ctx.save_for_backward(out.p, out.done, out.cidx, out.smask, t, dirs,
                               *winner, *(f for f in factors if f is not None),
-                              *fields)
+                              *((origin, *anchors) if B else ()), *fields)
         return colors
 
     @staticmethod
@@ -119,6 +138,18 @@ class FusedRender(torch.autograd.Function):
         sfac = rest.pop(0) if soft else None
         aofac = rest.pop(0) if ao else None
         shadow = Shadow(smask, sfac, aofac)
+        if bounce_count(cfg):
+            origin = rest.pop(0)
+            anchors = [Anchor(p, conv, cidx, shadow)]
+            for _ in range(bounce_count(cfg)):
+                p_b, conv_b, cidx_b, smask_b = rest[:4]
+                del rest[:4]
+                anchors.append(Anchor(p_b, conv_b, cidx_b, Shadow(
+                    smask_b, rest.pop(0) if soft else None,
+                    rest.pop(0) if ao else None)))
+            o_bar, d_bar, grads = reflect_bwd(plan, cfg, SceneTables(*rest),
+                                              origin, dirs, anchors, g_out)
+            return (None, None, o_bar, d_bar, *grads)
         tables = SceneTables(*rest)
         P = tables.prim_color.shape[0]
         fused = cfg.fused_generators
@@ -184,6 +215,155 @@ class FusedRender(torch.autograd.Function):
             light_pos=light_bar, light_color=lc_bar, cam_position=None,
             cam_direction=None, cam_up=None, cam_fov=None)
         return (None, None, o_bar, d_bar, *grads)
+
+
+# Rays a slice of the mirror-bounce backward's replay: its evaluations
+# hold [rays, leaves] tensors under autograd (the demo's 428 leaves), so a
+# full-width step replays its rays a slice at a time.  The demo at 512x512
+# SSAA 2 with one bounce and FD normals, NVIDIA H100 80GB HBM3 at 700 W:
+# 5.5 s and 3.4 GiB at 16,384 rays a slice, 3.4 s and 13.1 GiB at 65,536,
+# 3.3 s and 50.5 GiB at 262,144 (two bounces: 5.0 s and 19.4 GiB at
+# 65,536; the larger slice ran out of memory).
+REPLAY_RAYS = 65536
+
+
+class Anchor(NamedTuple):
+    """One march of the bounce chain as the forward saw it: its hit (the
+    AnchoredHit primal) and convergence, its colour winner and its
+    shadow decisions."""
+
+    p: torch.Tensor
+    done: torch.Tensor
+    cidx: torch.Tensor
+    shadow: "Shadow"
+
+
+class AnchoredHit(torch.autograd.Function):
+    """p = AnchoredHit.apply(plan, cfg, tables, p_saved, done, o, d, pos,
+    aux): "march from (o, d) to the surface", anchored at a kernel-saved
+    hit (pallas_render._anchored_hit).  The forward returns the saved hit;
+    the backward applies the implicit-function rule there: t* solves
+    f(o + t* d) = eps, so dt* / d(theta, o, d) flows through grad f at the
+    hit (``ift_ray_weights``, damped by cfg.ift_damping), evaluated by
+    autograd through ``core.sdf.scene_sd`` (``scene_sd_fused`` with fused
+    generators).  Unconverged rays carry no t-cotangent; their p_bar still
+    reaches the origin.  ``pos`` and ``aux`` are the tables' prim_pos and
+    prim_aux, the fields the field reads."""
+
+    @staticmethod
+    def forward(ctx, plan, cfg, tables, p_saved, done, o, d, pos, aux):
+        ctx.plan, ctx.cfg, ctx.tables = plan, cfg, tables
+        ctx.save_for_backward(p_saved, done, o, d, pos, aux)
+        return p_saved.clone()
+
+    @staticmethod
+    def backward(ctx, p_bar):
+        p, done, o, d, pos, aux = ctx.saved_tensors
+        sdf = scene_sd_fused if ctx.cfg.fused_generators else scene_sd
+        with torch.enable_grad():
+            pos_ = pos.detach().requires_grad_()
+            aux_ = aux.detach().requires_grad_()
+            q = p.detach().requires_grad_()
+            f = sdf(ctx.plan, ctx.tables._replace(prim_pos=pos_,
+                                                  prim_aux=aux_), q)
+            (grad_p,) = torch.autograd.grad(f, q, torch.ones_like(f),
+                                            retain_graph=True)
+            t_bar = torch.where(done, dot3(p_bar, d),
+                                torch.zeros((), device=p.device))
+            w = ift_ray_weights(t_bar, dot3(grad_p, d), ctx.cfg.ift_damping)
+            pos_bar, aux_bar = torch.autograd.grad(f, (pos_, aux_), w,
+                                                   materialize_grads=True)
+        t = dot3(p - o, d) / dot3(d, d)
+        adj = p_bar + w[:, None] * grad_p
+        return (None, None, None, None, None, adj, t[:, None] * adj,
+                pos_bar, aux_bar)
+
+
+def reflect_bwd(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                origin: torch.Tensor, dirs: torch.Tensor, anchors: list,
+                g_out: torch.Tensor) -> tuple:
+    """The backward of a render with mirror bounces
+    (pallas_render._reflect_bwd): autograd through a replay of the whole
+    bounce chain (core.render.shade_rays' recursion) with every march an
+    ``AnchoredHit`` at the forward's hit.  The normals are
+    ``normal_fd`` of the field, or ``normal_analytic`` with a graph, so
+    the second-order terms through the reflected direction d - 2 (d . n) n
+    are in; the light is ``lambert_replay`` with the saved shadow
+    decisions; the colours are gathered at the saved winners.  Plain
+    PyTorch (JAX's replay is plain jnp): no kernel launch.  The rays are
+    replayed ``REPLAY_RAYS`` at a time.  -> (origin cotangent, dirs
+    cotangent, SceneTables of cotangents)."""
+    sdf = scene_sd_fused if cfg.fused_generators else scene_sd
+    s = cfg.reflect_strength
+    off = cfg.surface_precision + cfg.offset_precision
+    L, R = plan.num_lights, dirs.shape[0]
+    per_ray = origin.dim() == 2
+    o_bar = torch.zeros_like(origin)
+    d_bar = torch.empty_like(dirs)
+    sums = None
+
+    def lit(v):
+        return v[:, None] if v.dim() == 1 else v
+
+    for lo in range(0, R, REPLAY_RAYS):
+        sl = slice(lo, lo + REPLAY_RAYS)
+        with torch.enable_grad():
+            pos = tables.prim_pos.detach().requires_grad_()
+            aux = tables.prim_aux.detach().requires_grad_()
+            colr = tables.prim_color.detach().requires_grad_()
+            lp, lc = _light_leaves(plan, tables)
+            tb = tables._replace(prim_pos=pos, prim_aux=aux)
+            o0 = (origin[sl] if per_ray else origin).detach().requires_grad_()
+            d0 = dirs[sl].detach().requires_grad_()
+            o, d = o0.expand(d0.shape), d0
+            cols, lits = [], []
+            for b, a in enumerate(anchors):
+                ph = AnchoredHit.apply(plan, cfg, tables, a.p[sl], a.done[sl],
+                                       o, d, pos, aux)
+                sd_one = lambda q: sdf(plan, tb, q)  # noqa: E731
+                g = (normal_analytic(sd_one, ph, graph=True)
+                     if cfg.normal_mode == "analytic"
+                     else normal_fd(sd_one, ph, cfg.fd_h))
+                n = normalize(g)
+                sh = a.shadow
+                lits.append(lit(lambert_replay(
+                    lp, ph, n, sh.smask[sl], cfg.saturation,
+                    None if sh.sfac is None else sh.sfac[:, sl],
+                    None if sh.aofac is None else sh.aofac[sl], lc)))
+                cols.append(gather_rows(a.cidx[sl], colr))
+                if b + 1 < len(anchors):
+                    d = d - 2.0 * dot3(d, n)[:, None] * n
+                    o = ph + off * n
+            c = lits[-1] * cols[-1]
+            for b in reversed(range(len(anchors) - 1)):
+                c = cols[b] * ((1.0 - s) * lits[b] + s * c)
+            leaves = (pos, aux, colr, lp, o0, d0) + (
+                (lc,) if lc is not None else ())
+            got = torch.autograd.grad(c, leaves, g_out[sl],
+                                      allow_unused=True,
+                                      materialize_grads=True)
+        pos_b, aux_b, col_b, lp_b, ob, db, *lc_b = got
+        if per_ray:
+            o_bar[sl] = ob
+        else:
+            o_bar += ob
+        d_bar[sl] = db
+        part = (pos_b, aux_b, col_b, lp_b, *lc_b)
+        sums = part if sums is None else tuple(
+            a + b for a, b in zip(sums, part))
+    if sums is None:                    # no rays
+        sums = tuple(torch.zeros_like(v) for v in (
+            tables.prim_pos, tables.prim_aux, tables.prim_color,
+            tables.light_pos[:L], *((tables.light_color[:L],)
+                                    if plan.colored_lights else ())))
+    pos_bar, aux_bar, pc_bar, lp_bar, *lc_bar = sums
+    light_bar, lcolor_bar = _light_cotangents(tables, L, lp_bar,
+                                              lc_bar[0] if lc_bar else None)
+    grads = SceneTables(
+        prim_pos=pos_bar, prim_aux=aux_bar, prim_color=pc_bar,
+        light_pos=light_bar, light_color=lcolor_bar, cam_position=None,
+        cam_direction=None, cam_up=None, cam_fov=None)
+    return o_bar, d_bar, grads
 
 
 class Shadow(NamedTuple):

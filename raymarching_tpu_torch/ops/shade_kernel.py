@@ -101,6 +101,13 @@ def extended(plan: ScenePlan, cfg: RenderConfig) -> bool:
     return any(extensions(plan, cfg))
 
 
+def bounce_count(cfg: RenderConfig) -> int:
+    """Mirror bounces after the primary hit (pallas_render_rays'
+    ``bounces``): ``cfg.reflect_bounces`` with ``reflect_strength > 0``,
+    else none."""
+    return max(cfg.reflect_bounces, 0) if cfg.reflect_strength > 0.0 else 0
+
+
 def with_extras(out, winner, factors, save_winner: bool,
                 save_factors: bool):
     """``out`` alone, or (out, Winner if asked, Factors if asked)."""
@@ -123,9 +130,11 @@ def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
     """Leaf ids of the black-lane shadow skip, or () when it is off: the
     plan's compile-time black primitives, used only while their live
     colour rows are still black (pallas_render.black_skip_ids plus the
-    runtime gate)."""
+    runtime gate).  Off with mirror bounces, as pallas_render_rays passes
+    no black ids then: a black hit still shades its bounces' origins."""
     ids = tuple(plan.kernel.black_prims)
-    if not (ids and cfg.shade_skip_black and cfg.shadows):
+    if not (ids and cfg.shade_skip_black and cfg.shadows
+            and not bounce_count(cfg)):
         return ()
     rows = tables.prim_color[list(ids)]
     return ids if bool((rows == 0.0).all()) else ()
@@ -144,6 +153,16 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     march, the coloured sum, the per-channel clamp, the AO taps.
     p, dirs [R, 3], sd [R] -> ShadeOutputs, or with ``save_winner`` or
     ``save_factors`` (ShadeOutputs, Winner if asked, Factors if asked)."""
+    out, winner, factors, _ = shade_plain(plan, cfg, tables, p, sd, dirs,
+                                          collapse, save_winner)
+    return with_extras(out, winner, factors, save_winner, save_factors)
+
+
+def shade_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                p: torch.Tensor, sd: torch.Tensor, dirs: torch.Tensor,
+                collapse: bool = True, save_winner: bool = False) -> tuple:
+    """``shade_rays_plain``'s work -> (ShadeOutputs, Winner or None,
+    Factors, the unit normal n [R, 3]): K1's bounce twin reflects off n."""
     analytic = check_normal_mode(cfg, save_winner)
     colored, soft, ao = extensions(plan, cfg)
     eps = cfg.surface_precision
@@ -228,11 +247,10 @@ def shade_rays_plain(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
             aofac = torch.clamp(1.0 - cfg.ao_strength * occ, 0.0, 1.0)
             light = light * aofac[:, None]
         light = light if colored else light[:, 0]
-    out = ShadeOutputs(cidx, light, smask)
     factors = Factors(
         (torch.stack(sfac) if sfac else torch.zeros((0,) + sd.shape, **f32))
         if soft else None, aofac)
-    return with_extras(out, winner, factors, save_winner, save_factors)
+    return ShadeOutputs(cidx, light, smask), winner, factors, n
 
 
 def shade_operands(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
@@ -252,10 +270,14 @@ def shade_operands(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     return lights, black_t, args
 
 
-def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device):
+def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device,
+                 sets: int = 1):
     """The extended entries' arguments from ``soft_k`` to ``ao_d`` and
     their outputs: (args, light [C, R] (C = 3 with coloured lights, else
-    1), sfac [L, R] or None, aofac [R] or None)."""
+    1), sfac [L, R] or None, aofac [R] or None); with ``sets`` > 1 (K1's
+    bounce entries: one shade set for the primary hit and one a bounce)
+    that many of each, one after the other: light [sets C, R], sfac
+    [sets L, R], aofac [sets R]."""
     colored, soft, ao = extensions(plan, cfg)
     if ao and cfg.ao_samples > MAX_AO_SAMPLES:
         raise NotImplementedError(
@@ -267,9 +289,9 @@ def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device):
     args = (cfg.soft_shadow_k if soft else 0.0, int(colored),
             cfg.ao_strength if ao else 0.0, len(d), ao_d)
     f32 = dict(dtype=torch.float32, device=device)
-    return (args, torch.empty((3 if colored else 1, R), **f32),
-            torch.empty((plan.num_lights, R), **f32) if soft else None,
-            torch.empty((R,), **f32) if ao else None)
+    return (args, torch.empty((sets * (3 if colored else 1), R), **f32),
+            torch.empty((sets * plan.num_lights, R), **f32) if soft else None,
+            torch.empty((sets * R,), **f32) if ao else None)
 
 
 def light_of(light: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Render server of the port: ``GET /healthz`` and ``POST /render``.
+"""Render server of the port: ``GET /healthz``, ``POST /render`` and
+``POST /aovs``.
 
     python -m raymarching_tpu_torch.serve [--port 8000] [--device cuda]
                                           [--backend cuda|multi|ref]
@@ -6,26 +7,30 @@
 ``POST /render`` takes the scene text as its body and the query parameters
 and limits of ``raymarching_tpu.serve``: width, height, ssaa, iterations,
 gamma, shadows=0|1, soft_shadow_k and ao (the shading extensions, clamped
-non-negative; 0 is off), serve_raygen=0|1 (default 1: K1 computes the
-primary directions from the ray index, ``api.render_tables``' serving
-path; 0 takes the standard camera pass), format=png|ppm.  The extensions
-that are not ported yet (reflect and its bounces, aperture and its focus)
-answer 501 when set; ``bounces`` and ``focus`` are clamped as the JAX
-server clamps them first, so an out-of-range value gets the same answer.
-Normals are FD, as the JAX server pins them.  ``POST /aovs`` answers 501:
-the planes are ``api.render_aovs``, and what is left is the route that
-packs them into the JAX server's ZIP of PNG and .npy members (ROADMAP
-Queue 1 item 9); ``/animate`` answers 501 (item 12).
+non-negative; 0 is off), reflect (mirror strength, clamped to [0, 0.99])
+and bounces (clamped to 1-3), aperture (thin-lens radius, clamped to
+[0, 10]) and focus (clamped to [1e-3, 1e4]), serve_raygen=0|1 (default 1:
+K1 computes the primary directions from the ray index,
+``api.render_tables``' serving path; 0, and any aperture, take the camera
+pass), format=png|ppm.  Normals are FD, as the JAX server pins them.
+``POST /aovs`` takes the same parameters and answers the JAX server's ZIP
+of ``api.render_aovs``' planes: color.png, normal.png, hit.png, depth.npy,
+objid.npy, shadow.npy (pinhole, as JAX's).  ``/animate`` answers 501
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import sys
 import threading
 import urllib.parse
+import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
 
 from .config import RenderConfig
 from .io.image import to_uint8
@@ -33,7 +38,8 @@ from .io.png import encode_png
 from .scene.compile import compile_scene
 from .scene.parser import parse_scene
 
-from .api import render_tables, resolve_backend, resolve_device
+from .api import (render_aovs, render_tables, resolve_backend,
+                  resolve_device)
 
 # Limits of raymarching_tpu.serve: no request may ask for an arbitrarily
 # large frame or march.
@@ -45,14 +51,7 @@ MAX_BODY_BYTES = 1 << 20
 # The JAX server's routes that the port does not have yet: the ROADMAP item
 # each waits for.
 UNPORTED_ROUTES = {
-    "/aovs": "the route's ZIP of the api.render_aovs planes (ROADMAP "
-             "Queue 1 item 9)",
     "/animate": "animated renders (ROADMAP Queue 1 item 12)",
-}
-# Query parameters of features that are not ported yet, and their items.
-UNPORTED_PARAMS = {
-    "bounces": "mirror bounces (ROADMAP Queue 1 item 9, its open part)",
-    "focus": "depth of field (ROADMAP Queue 1 item 9, its open part)",
 }
 
 
@@ -93,12 +92,14 @@ def make_handler(device, backend: str = "cuda"):
             else:
                 self._json(404, {"error": "unknown path"})
 
-        def _render(self, q):
+        def _read_request(self, q):
+            """The request's (cfg, plan, tables), or None when a 4xx has
+            been sent."""
             length = int(self.headers.get("Content-Length", 0))
             if length > MAX_BODY_BYTES:
                 self._json(413, {"error": "scene body too large "
                                           f"(max {MAX_BODY_BYTES} B)"})
-                return
+                return None
             text = self.rfile.read(length).decode()
             limits = [("width", int(q.get("width", 512)), 1, MAX_WIDTH),
                       ("height", int(q.get("height", 384)), 1, MAX_HEIGHT),
@@ -109,7 +110,7 @@ def make_handler(device, backend: str = "cuda"):
                 if not lo <= val <= hi:
                     self._json(422, {"error": f"{name}={val} out of "
                                               f"range [{lo}, {hi}]"})
-                    return
+                    return None
             cfg = RenderConfig(
                 width=limits[0][1], height=limits[1][1], ssaa=limits[2][1],
                 iterations=limits[3][1], gamma=float(q.get("gamma", 1.0)),
@@ -123,11 +124,14 @@ def make_handler(device, backend: str = "cuda"):
                 focus_dist=min(max(float(q.get("focus", 6.0)), 1e-3), 1e4),
                 serve_raygen=q.get("serve_raygen", "1") != "0",
                 normal_mode="fd")
-            for name, what in UNPORTED_PARAMS.items():
-                if name in q:
-                    raise NotImplementedError(
-                        f"not ported yet: {name}={q[name]}: {what}")
             plan, tables = compile_scene(parse_scene(text))
+            return cfg, plan, tables
+
+        def _render(self, q):
+            parsed = self._read_request(q)
+            if parsed is None:
+                return
+            cfg, plan, tables = parsed
             with render_lock:
                 img = render_tables(plan, tables, cfg, backend=backend,
                                     device=device)
@@ -140,17 +144,44 @@ def make_handler(device, backend: str = "cuda"):
             else:
                 self._send_bytes(encode_png(data), "image/png")
 
+        def _aovs(self, q):
+            parsed = self._read_request(q)
+            if parsed is None:
+                return
+            cfg, plan, tables = parsed
+            with render_lock:
+                aovs = {k: v.cpu().numpy() for k, v in render_aovs(
+                    plan, tables, cfg, device=device).items()}
+            normal8 = np.clip((aovs["normal"] * 0.5 + 0.5) * 255.0 + 0.5,
+                              0, 255).astype(np.uint8)
+            hit8 = np.repeat(np.clip(aovs["hit"] * 255.0 + 0.5, 0, 255)
+                             .astype(np.uint8)[..., None], 3, axis=-1)
+            buf = io.BytesIO()
+            with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+                zf.writestr("color.png", encode_png(to_uint8(aovs["color"],
+                                                             cfg.gamma)))
+                zf.writestr("normal.png", encode_png(normal8))
+                zf.writestr("hit.png", encode_png(hit8))
+                for name, dtype in (("depth", np.float32),
+                                    ("objid", np.int32),
+                                    ("shadow", np.float32)):
+                    b = io.BytesIO()
+                    np.save(b, aovs[name].astype(dtype))
+                    zf.writestr(name + ".npy", b.getvalue())
+            self._send_bytes(buf.getvalue(), "application/zip")
+
         def do_POST(self):
             url = urllib.parse.urlparse(self.path)
             if url.path in UNPORTED_ROUTES:
                 self._json(501, {"error": "not ported yet: POST "
                                  f"{url.path}, {UNPORTED_ROUTES[url.path]}"})
                 return
-            if url.path != "/render":
+            routes = {"/render": self._render, "/aovs": self._aovs}
+            if url.path not in routes:
                 self._json(404, {"error": "unknown path"})
                 return
             try:
-                self._render(dict(urllib.parse.parse_qsl(url.query)))
+                routes[url.path](dict(urllib.parse.parse_qsl(url.query)))
             except NotImplementedError as e:
                 self._json(501, {"error": str(e)})
             except ValueError as e:

@@ -1,10 +1,13 @@
-"""Port entry points: the CLI, the HTTP server, and the refusals (an
-unsupported configuration raises, a missing CUDA device is an error)."""
+"""Port entry points: the CLI, the HTTP server (``/render``, ``/aovs``),
+mirror bounces and depth of field through both, and the refusals (an
+unsupported scene raises, a missing CUDA device is an error)."""
 
+import io
 import json
 import threading
 import urllib.error
 import urllib.request
+import zipfile
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from raymarching_tpu.io.png import read_png  # noqa: E402
 from raymarching_tpu_torch.scene.compile import compile_scene  # noqa: E402
 from raymarching_tpu_torch.scene.parser import parse_scene  # noqa: E402
 from raymarching_tpu_torch import cli  # noqa: E402
+from raymarching_tpu_torch.api import render_aovs  # noqa: E402
 from raymarching_tpu_torch.io.image import read_pfm  # noqa: E402
 from raymarching_tpu_torch.serve import make_server  # noqa: E402
 
@@ -30,6 +34,8 @@ Sphere 0 0 -4 2
 """
 SMALL = ["--width", "16", "--height", "12", "--ssaa", "1",
          "--iterations", "100"]
+AOV_MEMBERS = ("color.png", "normal.png", "hit.png", "depth.npy",
+               "objid.npy", "shadow.npy")
 
 
 def test_cli_writes_png_on_cpu(tmp_path, scenes_dir, capsys):
@@ -68,12 +74,18 @@ def test_render_on_missing_cuda_device_raises(scenes_dir):
     dict(reflect_strength=0.3), dict(aperture=0.2),
     dict(serve_raygen=True, aperture=0.2)])
 def test_unsupported_config_raises(change, scenes_dir):
-    """Mirror bounces and depth of field, alone or beside the ported
-    extensions, raise naming their ROADMAP item."""
+    """Mirror bounces and depth of field, alone or beside the other
+    extensions, render (they raised before they were ported): a finite
+    image that is not black, and not the image without them."""
     scene = rt.load_scene(str(scenes_dir / "config1.txt"))
-    cfg = rt.RenderConfig(width=4, height=4, ssaa=1, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        rt.render(scene, cfg, device="cpu")
+    base = rt.RenderConfig(width=8, height=6, ssaa=2, iterations=100)
+    img = rt.render(scene, base.replace(**change), device="cpu")
+    assert img.shape == (6, 8, 3) and torch.isfinite(img).all()
+    assert img.max() > 0
+    plain = {k: v for k, v in change.items()
+             if k not in ("reflect_strength", "aperture")}
+    assert not torch.equal(img, rt.render(scene, base.replace(**plain),
+                                          device="cpu"))
 
 
 @pytest.mark.parametrize("change", [
@@ -198,11 +210,18 @@ def test_render_ppm(server):
     assert len(body.split(b"255\n", 1)[1]) == 8 * 6 * 3
 
 
-@pytest.mark.parametrize("query,code", [("aperture=0.2", 501),
+@pytest.mark.parametrize("query,code", [("aperture=0.2", 200),
                                         ("width=0", 422), ("ssaa=9", 422)])
 def test_render_refusals(server, query, code):
+    """Out-of-range sizes answer 422; an aperture (refused before depth
+    of field was ported) renders."""
+    url = server + f"/render?width=8&height=6&iterations=40&{query}"
+    if code == 200:
+        with _post(url) as r:
+            assert r.status == 200 and r.headers["Content-Type"] == "image/png"
+        return
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + f"/render?width=8&height=6&iterations=40&{query}")
+        _post(url)
     assert e.value.code == code
 
 
@@ -212,29 +231,70 @@ def test_unknown_paths_404(server):
     assert e.value.code == 404
 
 
-@pytest.mark.parametrize("path,item", [("/aovs", "item 9"),
+@pytest.mark.parametrize("path,item", [("/aovs", None),
                                        ("/animate", "item 12")])
 def test_unported_routes_501(server, path, item):
-    """The JAX server's other routes answer 501 and name the ROADMAP item
-    they wait for, not 404."""
+    """``/animate`` answers 501 and names the ROADMAP item it waits for, not
+    404; ``/aovs`` (501 before it was ported) answers the JAX server's ZIP
+    of the six planes of api.render_aovs."""
+    url = server + f"{path}?width=8&height=6&iterations=40&reflect=0.3"
+    if item is None:
+        with _post(url) as r:
+            assert r.headers["Content-Type"] == "application/zip"
+            body = r.read()
+        with zipfile.ZipFile(io.BytesIO(body)) as zf:
+            assert sorted(zf.namelist()) == sorted(AOV_MEMBERS)
+            planes = {n: zf.read(n) for n in AOV_MEMBERS}
+        plan, tables = compile_scene(parse_scene(SCENE))
+        cfg = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=40,
+                              reflect_strength=0.3, serve_raygen=True)
+        want = render_aovs(plan, tables, cfg, device="cpu")
+        np.testing.assert_array_equal(
+            rt.decode_png(planes["color.png"])[..., :3],
+            rt.to_uint8(want["color"].numpy()))
+        for name in ("depth", "objid", "shadow"):
+            got = np.load(io.BytesIO(planes[f"{name}.npy"]))
+            np.testing.assert_array_equal(got, want[name].numpy())
+        assert rt.decode_png(planes["normal.png"]).shape[:2] == (6, 8)
+        assert rt.decode_png(planes["hit.png"]).shape[:2] == (6, 8)
+        return
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + f"{path}?width=8&height=6&iterations=40")
+        _post(url)
     assert e.value.code == 501
     assert item in json.loads(e.value.read())["error"]
 
 
-@pytest.mark.parametrize("query", ["bounces=2", "bounces=99", "focus=3.5",
-                                   "focus=-1", "reflect=0.3&bounces=2",
-                                   "reflect=0.3", "aperture=0.5",
-                                   "soft_shadow_k=6&reflect=0.3"])
+# The server's mirror and lens parameters and the configuration each gives,
+# clamped as the JAX server clamps them.
+MIRROR_LENS_QUERIES = {
+    "bounces=2": dict(reflect_bounces=2),
+    "bounces=99": dict(reflect_bounces=3),
+    "focus=3.5": dict(focus_dist=3.5),
+    "focus=-1": dict(focus_dist=1e-3),
+    "reflect=0.3&bounces=2": dict(reflect_strength=0.3, reflect_bounces=2),
+    "reflect=0.3": dict(reflect_strength=0.3),
+    "aperture=0.5": dict(aperture=0.5),
+    "soft_shadow_k=6&reflect=0.3": dict(soft_shadow_k=6.0,
+                                        reflect_strength=0.3)}
+
+
+@pytest.mark.parametrize("query", list(MIRROR_LENS_QUERIES))
 def test_unported_parameters_501(server, query):
-    """``bounces`` and ``focus`` reach the configuration (clamped as the
-    JAX server clamps them) and are refused with 501, their features
-    (mirror bounces, depth of field) not being ported: never dropped."""
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + f"/render?width=8&height=6&iterations=40&{query}")
-    assert e.value.code == 501
-    assert "ROADMAP Queue 1 item 9" in json.loads(e.value.read())["error"]
+    """``reflect``, ``bounces``, ``aperture`` and ``focus`` (501 before
+    mirror bounces and depth of field were ported) reach the
+    configuration, clamped as the JAX server clamps them, and answer 200
+    with the PNG of ``render_tables`` under it (K1's raygen bounce twin;
+    an aperture takes the lens camera): never dropped."""
+    with _post(server + f"/render?width=8&height=6&iterations=40&{query}"
+               ) as r:
+        assert r.status == 200
+        png = rt.decode_png(r.read())
+    plan, tables = compile_scene(parse_scene(SCENE))
+    cfg = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=40,
+                          serve_raygen=True, **MIRROR_LENS_QUERIES[query])
+    want = rt.to_uint8(rt.render_tables(plan, tables, cfg,
+                                        device="cpu").numpy())
+    np.testing.assert_array_equal(png[..., :3], want)
 
 
 def test_server_pins_fd_normals(server):
@@ -258,6 +318,23 @@ def test_cli_shading_flags(tmp_path, scenes_dir):
                      "--ao", "0.8", *SMALL]) == 0
     cfg = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=100,
                           soft_shadow_k=6.0, ao_strength=0.8)
+    want = rt.render(rt.load_scene(str(scenes_dir / "config1.txt")), cfg,
+                     device="cpu").numpy()
+    np.testing.assert_array_equal(read_pfm(str(out)), want)
+
+
+def test_cli_mirror_and_lens_flags(tmp_path, scenes_dir):
+    """``--reflect``, ``--bounces``, ``--aperture`` and ``--focus`` render
+    mirror bounces through a thin lens: the image of ``render`` with those
+    settings."""
+    out = tmp_path / "dof.pfm"
+    assert cli.main(["--scene", str(scenes_dir / "config1.txt"), "--out",
+                     str(out), "--device", "cpu", "--reflect", "0.3",
+                     "--bounces", "2", "--aperture", "0.2", "--focus", "8",
+                     *SMALL[:4], "--ssaa", "2", "--iterations", "100"]) == 0
+    cfg = rt.RenderConfig(width=16, height=12, ssaa=2, iterations=100,
+                          reflect_strength=0.3, reflect_bounces=2,
+                          aperture=0.2, focus_dist=8.0)
     want = rt.render(rt.load_scene(str(scenes_dir / "config1.txt")), cfg,
                      device="cpu").numpy()
     np.testing.assert_array_equal(read_pfm(str(out)), want)

@@ -4,8 +4,9 @@ with FD and analytic normals), the two-phase path against the one kernel,
 the multi-kernel backend against the fused one, and the differentiable
 render's gradients on the card against the CPU's, in both normal regimes;
 K1's and K4's extended-shading entries (soft shadows, AO, coloured lights)
-and K1's raygen entries against their twins, with their gradients.
-Skips without a card.
+and K1's raygen entries against their twins, with their gradients; K1's
+mirror-bounce entries against their twins, the reflect backward's
+gradients, and depth of field.  Skips without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
 is installed:
@@ -878,10 +879,11 @@ EXT_CASES = {
 
 
 def _flat(out):
-    """A render's outputs and extras (Winner, Factors) as one tuple."""
-    if isinstance(out, rk.RayOutputs) or isinstance(out, shk.ShadeOutputs):
-        return tuple(out)
-    return tuple(v for part in out for v in part)
+    """A render's outputs and extras (Winner, Factors, a tuple of
+    BounceOutputs) as one tuple."""
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        return tuple(v for part in out for v in _flat(part))
+    return tuple(out)
 
 
 @pytest.mark.cuda
@@ -997,3 +999,135 @@ def test_extended_gradients_on_card_match_cpu(cuda_device, case, normal,
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)
+
+
+# mirror bounces: (scene, configuration change) of the bounce entries'
+# cases; mirror.txt has coloured lights
+BOUNCE_CASES = {
+    "demo": ("demo", dict()),
+    "demo-soft-ao": ("demo", dict(soft_shadow_k=6.0, ao_strength=0.8)),
+    "config4": ("config4", dict()),
+    "menger4": ("menger4", dict()),
+    "mirror-soft-ao": ("mirror", dict(soft_shadow_k=6.0, ao_strength=0.8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [1, 2, 3])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("case", sorted(BOUNCE_CASES))
+def test_bounce_entry_matches_twin_on_card(cuda_device, case, normal, fused,
+                                           bounces):
+    """K1's bounce entry (csrc/render_bounce_kernel.cu) against its twin
+    bitwise on every output of every shade set, one launch; with per-ray
+    origins and on the first 37 rays the full launch's outputs."""
+    scene, change = BOUNCE_CASES[case]
+    plan, tables = compile_scene(load_scene(str(SCENES / f"{scene}.txt")))
+    if fused and not any(g.fused is not None for g in plan.kernel.groups):
+        pytest.skip("no generator to fuse")
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused,
+                      reflect_strength=0.4, reflect_bounces=bounces,
+                      **change)
+    tt = tables_to_torch(tables, cuda_device)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    n = rk.render_rays.entry_launches["render_bounce_kernel"]
+    k = rk.render_rays(plan, cfg, tt, origin, dirs, save_factors=True)
+    torch.cuda.synchronize()
+    assert rk.render_rays.entry_launches["render_bounce_kernel"] == n + 1
+    assert len(k[-1]) == bounces
+    flat = _flat(k)
+    _same(flat, _flat(rk.render_rays_plain(
+        plan, cfg, tt, origin, dirs, save_factors=True)), f"{case}: twin")
+    per_ray = rk.render_rays(plan, cfg, tt,
+                             origin.expand(dirs.shape).contiguous(), dirs,
+                             save_factors=True)
+    _same(_flat(per_ray), flat, f"{case}: per-ray origins")
+    R = dirs.shape[0]
+    part = _flat(rk.render_rays(plan, cfg, tt, origin, dirs[:37],
+                                        save_factors=True))
+    _same(part, tuple(None if v is None else
+                      v[:, :37] if v.dim() == 2 and v.shape[1] == R
+                      and v.shape[0] != R else v[:37] for v in flat),
+          f"{case}: 37 rays")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+def test_raygen_bounce_entry_matches_twin_on_card(cuda_device, normal):
+    """K1's raygen bounce entry against its twin and against the bounce
+    entry on the twin's directions, bitwise, on a frame and a chunk."""
+    plan, tables = compile_scene(load_scene(str(SCENES / "mirror.txt")))
+    cfg = CFG.replace(normal_mode=normal, ssaa=2, reflect_strength=0.4,
+                      reflect_bounces=2, soft_shadow_k=6.0)
+    tt = tables_to_torch(tables, cuda_device)
+    R = cfg.rays_per_image
+    n = rk.render_raygen.entry_launches["render_bounce_kernel"]
+    g = _flat(rk.render_raygen(plan, cfg, tt, 0, R,
+                                       save_factors=True))
+    torch.cuda.synchronize()
+    assert rk.render_raygen.entry_launches["render_bounce_kernel"] == n + 1
+    _same(g, _flat(rk.render_raygen_plain(plan, cfg, tt, 0, R,
+                                                  save_factors=True)),
+          "raygen bounce vs twin")
+    dirs = cam.raygen_dirs(cam.serve_cam_rows(tt, cfg), cfg, 0, R)
+    _same(g, _flat(rk.render_rays(plan, cfg, tt, tt.cam_position,
+                                          dirs, save_factors=True)),
+          "raygen bounce vs the bounce entry")
+    part = _flat(rk.render_raygen(plan, cfg, tt, 1001, 333,
+                                          save_factors=True))
+    _same(part, tuple(None if v is None else
+                      v[:, 1001:1334] if v.dim() == 2 and v.shape[1] == R
+                      and v.shape[0] != R else v[1001:1334] for v in g),
+          "raygen bounce chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [1, 2])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", ["demo", "mirror"])
+def test_reflect_gradients_on_card_match_cpu(cuda_device, scene, normal,
+                                             bounces):
+    """The reflect backward (the anchored replay of the bounce chain, no
+    kernel launch) on the card against the CPU twins on the same rays,
+    every field and the rays, with the lens's per-ray origins;
+    tests/test_mega.py:62's tolerance; one K1 bounce launch, no K2."""
+    plan, tables = compile_scene(load_scene(str(SCENES / f"{scene}.txt")))
+    cfg = CFG.replace(normal_mode=normal, reflect_strength=0.4,
+                      reflect_bounces=bounces, ssaa=2, aperture=0.2,
+                      focus_dist=8.0)
+    origin, dirs = cam.generate_rays_dof(tables_to_torch(tables, "cpu"), cfg)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device,
+                             requires_grad=SceneTables._fields)
+        o = origin.reshape(-1, 3).to(device).requires_grad_()
+        d = dirs.reshape(-1, 3).to(device).requires_grad_()
+        k1, k2 = (rk.render_rays.entry_launches["render_bounce_kernel"],
+                  sk.surface_eval.launches)
+        colors = FusedRender.apply(plan, cfg, o, d, *tt)
+        g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                                allow_unused=True, materialize_grads=True)
+        if device.type == "cuda":
+            assert (rk.render_rays.entry_launches["render_bounce_kernel"]
+                    - k1, sk.surface_eval.launches - k2) == (1, 0)
+        grads.append([v.cpu() for v in g])
+    for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "multi"])
+def test_dof_and_bounces_render_on_card(cuda_device, backend):
+    """A thin-lens frame with two bounces on the card against the CPU
+    twins' frame (the same backend), tests/test_reflections.py:79's 2e-3."""
+    scene = load_scene(str(SCENES / "mirror.txt"))
+    cfg = CFG.replace(ssaa=2, reflect_strength=0.4, reflect_bounces=2,
+                      aperture=0.2, focus_dist=8.0)
+    card = rt.render(scene, cfg, backend=backend, device=cuda_device)
+    cpu = rt.render(scene, cfg, backend=backend, device="cpu")
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0.0, atol=2e-3)

@@ -115,3 +115,12 @@ def test_sources_import_nothing_foreign():
     for path in files:
         bad = sorted(set(_imports(path)) & set(FOREIGN))
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_kernel_source_is_registered():
+    """ops.build.SOURCES names every csrc/*.cu (each is one library, all
+    built together by build_all and by chip_smoke.py), and nothing
+    else."""
+    from raymarching_tpu_torch.ops import build
+    assert sorted(build.SOURCES) == sorted(
+        f.stem for f in (PKG / "csrc").glob("*.cu"))
