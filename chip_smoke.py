@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times    # the kernels' device times alone
+    python3 chip_smoke.py --fused-fd-step   # the fused FD fit step alone
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
@@ -9,7 +10,8 @@ Phases, one line each, every failure an uncaught exception:
                    extended-shading, raygen and mirror-bounce entries, K2,
                    K3, K4's reference and extended-shading entries;
                    ops.build.SOURCES), in parallel; each one's ptxas
-                   registers and stack by entry;
+                   registers and stack by entry, the procedural views'
+                   entries apart;
   3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
@@ -132,7 +134,26 @@ Phases, one line each, every failure an uncaught exception:
                    at 256x256 and 512x512 SSAA 2 with raygen on and off in
                    turns, with their launches; ``[aovs]``: POST /aovs at
                    256x256 with a bounce, its ZIP of six planes, the
-                   colour plane the beauty frame's PNG.
+                   colour plane the beauty frame's PNG;
+ 14. fractal     — the procedural leaves (scenes/mandelbox.txt,
+                   mandelbulb.txt, julia.txt; julia.txt with a Menger
+                   sponge for the fused packing): every kernel's procedural
+                   view (fold.cuh's Proc<S>, csrc/proc.cuh) against its twin
+                   at 64x48 SSAA 1, 50 iterations, bitwise (K1's
+                   reference, extended, raygen and bounce entries, FD and
+                   analytic; K3; K4; K2's five modes and its stencil
+                   entry); render() of each at
+                   512x512 SSAA 2, 1000 iterations, FD and analytic, with
+                   K1's device time in turns with the demo's through the
+                   same entry, its bound (core.sdf.LeafCount with the
+                   fractals' operations) and share; julia.txt's two-phase
+                   frame (K3, K3, K4) equal to the one kernel's; K3, K4 and K2 on
+                   julia.txt's frame against their twins with their
+                   bounds; card vs CPU gradients at 32x24; 3 fit steps with
+                   each normal, split, with the analytic replay's peak
+                   memory, K2's combined mode on each of the replay's
+                   slices against its twin; mandelbox.txt's multi-kernel
+                   frame, its two K2 modes at its hits against their twins.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -313,13 +334,16 @@ def device_ms(fn, needle: str, runs: int = 5):
     """Median device time in ms of the kernels whose name contains
     ``needle`` over ``runs`` calls of fn(), from torch.profiler: the kernel
     alone, without its wrapper's host work.  The profiler now and then
-    hands back fewer kernel records than launches; such a window is taken
-    again, and the third is read as it is."""
+    hands back fewer kernel records than launches, or none; such a window
+    is taken again, and the fifth is read as it is.  With no record in
+    five windows the calls are timed by CUDA events instead, the wrapper's
+    host work included, and the line says so; the wrappers' launch counts
+    must still move."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -332,8 +356,18 @@ def device_ms(fn, needle: str, runs: int = 5):
                 times.append((e.cuda_time if t is None else t) / 1e3)
         if len(times) >= runs:
             break
-    check(len(times) > 0, f"the profiler saw no {needle} launch in {runs} "
-          "calls")
+    if not times:
+        family = needle.split("_")[0]     # every source of the kernel
+
+        def launched():
+            return sum(v for k, v in launch_counts().items()
+                       if k.startswith(family))
+        before = launched()
+        _, ms = timed(fn, runs)
+        check(launched() > before, f"no {needle} launch in {runs} calls")
+        print(f"[profiler] no {needle} record in 5 windows: {ms:.3f} ms by "
+              f"CUDA events, the wrapper's host work included")
+        return ms
     return statistics.median(times)
 
 
@@ -411,6 +445,7 @@ def entry_label(name: str) -> str:
     parts += ["extended"] if ext else []
     parts += ["bounce"] if bounce else []
     parts += ["fused"] if "Fused" in rest else []
+    parts += ["procedural"] if "Proc" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -881,6 +916,444 @@ def has_demo_objects(img: torch.Tensor) -> bool:
                 and (img.amax(dim=-1) == 0).any())
 
 
+# the fractal scenes of the [fractal] phase (procedural leaves), and the
+# Julia scene with a Menger sponge beside it (the fused packing with
+# procedural runs)
+FRACTALS = ("mandelbox", "mandelbulb", "julia")
+FRACTAL_SPONGE = "julia + sponge"
+
+
+def fractal_scene(name: str):
+    """A [fractal] scene: scenes/<name>.txt, or FRACTAL_SPONGE."""
+    from raymarching_tpu_torch.scene.parser import parse_scene
+    text = (ROOT / "scenes" / f"{'julia' if name == FRACTAL_SPONGE else name}"
+            ".txt").read_text()
+    if name == FRACTAL_SPONGE:
+        text += "\nColor 0.8 0.8 0.8\nMengerSponge 2.2 -0.8 -6.5 1.6 2\n"
+    return parse_scene(text)
+
+
+def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
+    """Every kernel's procedural view against its plain twin on the rays
+    of ``cfg``, bitwise on every output, FD and analytic normals: K1's
+    reference entry (the analytic one with its residuals), K3 with steps,
+    K4, K2's five modes at K1's hits and its stencil entry (exact packing),
+    K1's raygen entry; with ``ext`` K1's and K4's extended entries (soft
+    shadows k 6, AO 0.8), K1's bounce entry (one bounce, with them) and
+    its raygen form.  Returns the number of comparisons."""
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (
+        render_raygen, render_raygen_plain, render_rays, render_rays_plain)
+    n = 0
+    for normal in ("fd", "analytic"):
+        c = cfg.replace(normal_mode=normal, fused_generators=fused)
+        origin, dirs = rays_for(plan, tables, c)
+        sw = normal == "analytic"
+        k1 = render_rays(plan, c, tables, origin, dirs, save_winner=sw)
+        same(f"fractal K1 {normal}", flat(k1), flat(render_rays_plain(
+            plan, c, tables, origin, dirs, save_winner=sw)), "render_kernel")
+        ray = k1[0] if sw else k1
+        check(bool(ray.done.any()) and bool((ray.cidx >= 0).any()),
+              "no fractal hit")
+        res, steps = mk.march_rays(plan, c, tables, origin, dirs,
+                                   with_steps=True)
+        res_p, steps_p = mk.march_rays_plain(plan, c, tables, origin, dirs,
+                                             with_steps=True)
+        same(f"fractal K3 {normal}", (*res, steps), (*res_p, steps_p),
+             "march_kernel")
+        k4 = shk.shade_rays(plan, c, tables, ray.p, ray.sd, dirs,
+                            save_winner=sw)
+        same(f"fractal K4 {normal}", flat(k4), flat(shk.shade_rays_plain(
+            plan, c, tables, ray.p, ray.sd, dirs, save_winner=sw)),
+            "shade_kernel")
+        same(f"fractal K4 {normal} vs K1", flat(k4), flat(k1)[3:])
+        R = dirs.shape[0]
+        same(f"fractal K1 raygen {normal}", flat(render_raygen(
+            plan, c, tables, 0, R, save_winner=sw)), flat(
+                render_raygen_plain(plan, c, tables, 0, R, save_winner=sw)),
+            "render_raygen_kernel")
+        n += 5
+        if normal == "fd":
+            for mode in sk.MODES:
+                same(f"fractal K2 mode {mode}", sk.surface_eval(
+                    plan, tables, ray.p, mode=mode, fd_h=c.fd_h,
+                    fused=fused), sk.surface_eval_plain(
+                        plan, tables, ray.p, mode=mode, fd_h=c.fd_h,
+                        fused=fused), "surface_kernel")
+                n += 1
+            if not fused:
+                for center in (True, False):
+                    same("fractal K2 stencil entry", scene_vjp.stencil_eval(
+                        plan, c, tables, ray.p, center=center),
+                        sk.surface_stencil_plain(plan, tables, ray.p,
+                                                 c.fd_h, center=center),
+                        "surface_kernel")
+                    n += 1
+        if not ext:
+            continue
+        # the extended entries, and the bounce entries with the extensions
+        soft = c.replace(soft_shadow_k=6.0, ao_strength=0.8)
+        ke = render_rays(plan, soft, tables, origin, dirs, save_winner=sw,
+                         save_factors=True)
+        same(f"fractal K1 extended {normal}", flat(ke), flat(
+            render_rays_plain(plan, soft, tables, origin, dirs,
+                              save_winner=sw, save_factors=True)),
+            "render_ext_kernel")
+        same(f"fractal K4 extended {normal}", flat(shk.shade_rays(
+            plan, soft, tables, ke[0].p, ke[0].sd, dirs, save_winner=sw,
+            save_factors=True)), flat(shk.shade_rays_plain(
+                plan, soft, tables, ke[0].p, ke[0].sd, dirs,
+                save_winner=sw, save_factors=True)), "shade_ext_kernel")
+        n += 2
+        for b in (soft,):
+            b = b.replace(reflect_strength=0.4, reflect_bounces=1)
+            same(f"fractal K1 bounce {normal}", flat(render_rays(
+                plan, b, tables, origin, dirs, save_factors=True)),
+                flat(render_rays_plain(plan, b, tables, origin, dirs,
+                                       save_factors=True)),
+                "render_bounce_kernel")
+            same(f"fractal K1 raygen bounce {normal}", flat(render_raygen(
+                plan, b, tables, 0, R, save_factors=True)), flat(
+                    render_raygen_plain(plan, b, tables, 0, R,
+                                        save_factors=True)),
+                "render_bounce_kernel")
+            n += 2
+    torch.cuda.synchronize()
+    return n
+
+
+def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
+    """[fractal]: the procedural leaves (scenes/mandelbox.txt,
+    mandelbulb.txt, julia.txt) on every path.  Every kernel's procedural
+    view against its twin at 64x48 SSAA 1; render() at 512x512 SSAA 2,
+    1000 iterations, FD and analytic normals, with K1's device time in
+    turns with the demo's through the same entry, its bound and share;
+    K3, K4 and K2 on julia.txt's frame against their twins with their
+    bounds; card vs CPU gradients; 3 fit steps with each normal, their
+    split and the analytic replay's peak memory; the multi-kernel frame on
+    mandelbox.txt.  Returns each of the four kernels' procedural row of
+    the JSON table."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
+    from raymarching_tpu_torch.tables import scene_operands, tables_to_torch
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(path: str, calls: int) -> dict:
+        counts = add_counts(path, calls)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        return counts
+
+    # 1. the kernels against their twins, small (the twins' marches take a
+    # few hundred launches a step: 50 iterations keep this part short, and
+    # still end 185-1213 rays a scene on its fractal)
+    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    n_cmp = 0
+    for name in FRACTALS + (FRACTAL_SPONGE,):
+        plan, tables = rt.compile_scene(fractal_scene(name))
+        check(bool(plan.proc), f"{name}: no procedural leaf")
+        tt = tables_to_torch(tables, dev)
+        fused = name == FRACTAL_SPONGE
+        ops_ = scene_operands(plan, tt, dev, True, fused)
+        check(ops_.proc == 1, f"{name}: not the procedural view")
+        n_cmp += fractal_compare(plan, tt, small, fused,
+                                 ext=name == "julia")
+    print(f"[fractal] compare {time.perf_counter() - t_phase:.1f} s")
+    errs = {k: ERRS[k] for k in KERNELS}
+    print(f"[fractal] every kernel's procedural view = its plain twin "
+          f"bitwise ({n_cmp} comparisons at {small.width}x{small.height} "
+          f"ssaa{small.ssaa} {small.iterations} it on "
+          f"{', '.join(FRACTALS + (FRACTAL_SPONGE,))} (exact, the last "
+          f"fused): K1's reference and raygen entries, FD and analytic; K3; "
+          f"K4 FD and analytic; K2's five modes and its stencil entry; on "
+          f"julia.txt K1's and K4's extended and K1's bounce entries with "
+          f"soft shadows and AO); largest difference over this run so far "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (logf and torch.log round alike on the card)")
+
+    # 2. frames at full width, K1 in turns with the demo, bounds
+    fcfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    R = fcfg.rays_per_image
+    rows = {}
+    frame_rows = []
+    for name in FRACTALS:
+        scene = fractal_scene(name)
+        plan, tables = rt.compile_scene(scene)
+        tt = tables_to_torch(tables, dev)
+        for normal in ("fd", "analytic"):
+            c = fcfg.replace(normal_mode=normal)
+            zero_counts()
+            rt.render(scene, c, device=dev)       # warm-up at this shape
+            img, ms = timed(lambda: rt.render(scene, c, device=dev), runs=3)
+            counts = counted(f"fractal_{name}_{normal}", 4)
+            check(counts == only(render_kernel=4),
+                  f"{name} {normal} render() launched {counts}")
+            check(img.shape == (c.height, c.width, 3)
+                  and bool(torch.isfinite(img).all())
+                  and img.max().item() > 0, f"{name} image")
+            origin, dirs = rays_for(plan, tt, c)
+            d_org, d_dirs = rays_for(demo_plan, demo_tt, c)
+            turns = {"demo": [], name: []}
+            for who in ("demo", name, name, "demo"):
+                p_, t_, o_, d_ = ((demo_plan, demo_tt, d_org, d_dirs)
+                                  if who == "demo" else
+                                  (plan, tt, origin, dirs))
+                turns[who].append(device_ms(lambda: render_rays(
+                    p_, c, t_, o_, d_), "render_kernel"))
+            k1_dev = statistics.mean(turns[name])
+            demo_dev = statistics.mean(turns["demo"])
+            k1_out, k1_ms = timed(lambda: render_rays(plan, c, tt, origin,
+                                                      dirs), runs=3)
+            plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
+                plan, c, tt, origin, dirs))
+            same(f"{name} K1 {normal} at 512^2", k1_out, plain,
+                 "render_kernel")
+            del plain
+            bound = bound_ms(count, R * (12 + 32))
+            frame_rows.append(
+                f"{name} {normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms "
+                f"on the device (demo {demo_dev:.3f} in turns: "
+                f"{', '.join(f'{v:.3f}' for v in turns['demo'])} / "
+                f"{', '.join(f'{v:.3f}' for v in turns[name])}), bound "
+                f"{bound[0]:.4f} ms by {bound[1]} ({bound[5]} operations, "
+                f"{bound[2]} leaf evaluations), share "
+                f"{bound[0] / k1_dev:.1%}")
+            if name == "julia":
+                rows[("render_kernel", normal)] = {
+                    "scene": "scenes/julia.txt", "ms": k1_ms,
+                    "device_ms": k1_dev, "demo_device_ms": demo_dev,
+                    "plain_ms": plain_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1]}
+        print(f"[fractal] {name} 512x512 ssaa2 1000 it (3 frames, one K1 "
+              f"a frame): " + "; ".join(frame_rows[-2:]) + f"; {card}")
+
+    # the two-phase frame of julia.txt: K3, K3 on the tail (or again in
+    # full), K4; the one kernel's image bit for bit
+    scene = fractal_scene("julia")
+    zero_counts()
+    two = rt.render(scene, fcfg.replace(two_phase_k1=48), device=dev)
+    counts = counted("two_phase_fractal", 1)
+    check(counts["shade_kernel"] == 1 and counts["render_kernel"] == 0
+          and counts["march_kernel"] in (1, 2), f"two-phase julia frame "
+          f"launched {counts}")
+    check(torch.equal(two, rt.render(scene, fcfg, device=dev)),
+          "two-phase julia frame differs from the one kernel's")
+    print(f"[fractal] julia.txt 512x512 ssaa2 two_phase_k1=48: launches K3 "
+          f"{counts['march_kernel']}, K4 1; the one kernel's image bitwise")
+
+    # K3, K4 and K2 on julia.txt's frame (FD), against their twins, bounds
+    plan, tables = rt.compile_scene(fractal_scene("julia"))
+    tt = tables_to_torch(tables, dev)
+    origin, dirs = rays_for(plan, tt, fcfg)
+    hit, k3_ms = timed(lambda: mk.march_rays(plan, fcfg, tt, origin, dirs),
+                       runs=3)
+    k3_dev = device_ms(lambda: mk.march_rays(plan, fcfg, tt, origin, dirs),
+                       "march_kernel", 3)
+    k3_p, k3_plain, k3_count = timed_counted(lambda: mk.march_rays_plain(
+        plan, fcfg, tt, origin, dirs))
+    same("julia K3 at 512^2", hit, k3_p, "march_kernel")
+    rows["march_kernel"] = {"scene": "scenes/julia.txt", "ms": k3_ms,
+                            "device_ms": k3_dev, "plain_ms": k3_plain,
+                            "bound": bound_ms(k3_count, R * (12 + 20))}
+    k4, k4_ms = timed(lambda: shk.shade_rays(plan, fcfg, tt, hit.position,
+                                             hit.sd, dirs), runs=3)
+    k4_dev = device_ms(lambda: shk.shade_rays(plan, fcfg, tt, hit.position,
+                                              hit.sd, dirs), "shade_kernel", 3)
+    k4_p, k4_plain, k4_count = timed_counted(lambda: shk.shade_rays_plain(
+        plan, fcfg, tt, hit.position, hit.sd, dirs))
+    same("julia K4 at 512^2", k4, k4_p, "shade_kernel")
+    rows["shade_kernel"] = {"scene": "scenes/julia.txt", "ms": k4_ms,
+                            "device_ms": k4_dev, "plain_ms": k4_plain,
+                            "bound": bound_ms(k4_count, R * (28 + 12))}
+    p = hit.position
+    k2, k2_ms = timed(lambda: scene_vjp.stencil_eval(plan, fcfg, tt, p,
+                                                     center=True), runs=3)
+    k2_dev = device_ms(lambda: scene_vjp.stencil_eval(
+        plan, fcfg, tt, p, center=True), "surface_kernel", 3)
+    k2_p, k2_plain, k2_count = timed_counted(lambda: sk.surface_stencil_plain(
+        plan, tt, p, fcfg.fd_h, center=True))
+    same("julia K2 stencil entry at 512^2", k2, k2_p, "surface_kernel")
+    rows["surface_kernel"] = {"scene": "scenes/julia.txt, the 7-point "
+                              "stencils of K3's hits", "ms": k2_ms,
+                              "device_ms": k2_dev, "plain_ms": k2_plain,
+                              "bound": bound_ms(k2_count, R * (12 + 7 * 20))}
+    for kname in ("march_kernel", "shade_kernel", "surface_kernel"):
+        b = rows[kname].pop("bound")
+        rows[kname].update(bound_ms=b[0], bound_by=b[1])
+        print(f"[fractal] {kname} julia.txt 512x512 ssaa2: "
+              f"{rows[kname]['ms']:.3f} ms with its wrapper, "
+              f"{rows[kname]['device_ms']:.3f} ms on the device, plain "
+              f"{rows[kname]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by "
+              f"{b[1]} ({b[5]} operations), share "
+              f"{b[0] / rows[kname]['device_ms']:.1%}; bitwise its twin; "
+              f"{card}")
+    del hit, k4, k4_p, k2, k2_p
+
+    print(f"[fractal] frames and kernels {time.perf_counter() - t_phase:.1f} s")
+
+    # 3. gradients, card vs CPU on the same rays (julia.txt, 32x24; the CPU
+    # side's marches at 100 iterations)
+    gcfg = rt.RenderConfig(width=32, height=24, ssaa=1, iterations=100)
+    g_rows = []
+    for normal in ("fd", "analytic"):
+        c = gcfg.replace(normal_mode=normal)
+        o, d = rays_for(plan, tables_to_torch(tables, "cpu"), c)
+        got, launched = grads_of(plan, tables, c, dev, o, d)
+        want, _ = grads_of(plan, tables, c, torch.device("cpu"), o, d)
+        check(launched == (1, 1), f"julia {normal} gradients launched "
+              f"{launched}")
+        worst = grad_check(type(tables)._fields + ("origin", "dirs"), got,
+                           want, f"julia {normal}")
+        g_rows.append(f"{normal} {worst[0]:.3g} ({worst[1]})")
+    print(f"[fractal] julia.txt 32x24 gradients card vs CPU on the same rays "
+          f"(K1 1 and K2 1 a render: the FD stencil, or the analytic "
+          f"replay's combined mode), max |diff| / field scale: "
+          + ", ".join(g_rows) + f" (tolerance {GRAD_RTOL} relative, "
+          f"{GRAD_ATOL_SCALE} of the scale)")
+
+    print(f"[fractal] gradients {time.perf_counter() - t_phase:.1f} s")
+
+    # 4. fit: 3 steps on julia.txt at 512^2 with each normal
+    target = rt.render_tables(plan, tables, fcfg, device=dev)
+    (leaf, *_), = plan.proc
+    pos, aux = np.array(tables.prim_pos), np.array(tables.prim_aux)
+    pos[leaf] += (0.08, -0.05, 0.04)
+    aux[leaf, 0] *= 1.04
+    start = tables._replace(prim_pos=pos, prim_aux=aux)
+    train = ("prim_pos", "prim_aux")
+    for normal in ("fd", "analytic"):
+        c = fcfg.replace(normal_mode=normal)
+        stamps = []
+        zero_counts()
+        t0 = time.perf_counter()
+        res = rt.fit(plan, start, target, c, device=dev, steps=3, lr=1e-3,
+                     trainable=train, callback=lambda *a: stamps.append(
+                         time.perf_counter()))
+        counts = counted(f"train_fractal_{normal}", 3)
+        slices = -(-R // scene_vjp.REPLAY_RAYS)
+        check(counts == only(render_kernel=3, surface_kernel=3 * (
+            1 if normal == "fd" else slices)), f"julia {normal} fit "
+            f"launched {counts}")
+        check(all(np.isfinite(res.losses)), f"losses {res.losses}")
+        step = statistics.median(np.diff([t0] + stamps))
+        tg = tables_to_torch(res.tables, dev, requires_grad=train)
+        opt = torch.optim.Adam([tg.prim_pos, tg.prim_aux], lr=1e-3)
+        splits = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            opt.zero_grad(set_to_none=True)
+            ev[0].record()
+            img = rt.render_tables(plan, tg, c, differentiable=True,
+                                   device=dev)
+            loss = torch.mean((img - target) ** 2)
+            ev[1].record()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        fwd, bwd, opt_ms = (statistics.median(v) for v in zip(*splits))
+        # the backward's parts: K2 (the stencil entry, or the combined mode
+        # on a slice) and the parameter scatter, alone on the fit's tables
+        t_ = tables_to_torch(res.tables, dev)
+        out = render_rays(plan, c.replace(shade_skip_black=False), t_,
+                          origin, dirs)
+        if normal == "fd":
+            st, k2_fit = timed(lambda: scene_vjp.stencil_eval(
+                plan, c, t_, out.p, center=True), runs=3)
+            q7 = sk.stencil_points(out.p, c.fd_h, center=True)
+            u = torch.randn(st[0].shape, device=dev)
+            _, scatter = timed(lambda: scene_vjp.theta_cotangents(
+                plan, t_, st[1], st[2], u, st[0], q7), runs=3)
+            del st, q7
+        else:
+            # K2's combined mode as the replay launches it, one slice of
+            # the hits at a time, against its twin on every slice
+            for lo in range(0, R, scene_vjp.REPLAY_RAYS):
+                q = out.p[lo:lo + scene_vjp.REPLAY_RAYS]
+                same("julia K2 combined mode on a replay slice",
+                     scene_vjp.winner_eval(plan, t_, q),
+                     sk.surface_eval_plain(plan, t_, q, mode=sk.COMBINED),
+                     "surface_kernel")
+            sl = slice(0, scene_vjp.REPLAY_RAYS)
+            w, k2_fit = timed(lambda: scene_vjp.winner_eval(
+                plan, t_, out.p[sl]), runs=3)
+            k2_fit *= slices
+            u = torch.randn(w[0].shape, device=dev)
+            _, scatter = timed(lambda: scene_vjp.theta_cotangents(
+                plan, t_, w[1], w[2], u, w[0], out.p[sl]), runs=3)
+            scatter *= slices
+        del out
+        parts = (f"K2's stencil entry {k2_fit:.2f} ms, the scatter "
+                 f"{scatter:.2f} ms, the rest {bwd - k2_fit - scatter:.2f} ms"
+                 if normal == "fd" else
+                 f"the replay under autograd {bwd - k2_fit - scatter:.2f} "
+                 f"ms, K2's combined mode {k2_fit:.2f} ms and the scatter "
+                 f"{scatter:.2f} ms over {slices} slices of "
+                 f"{scene_vjp.REPLAY_RAYS} rays, each slice's K2 bitwise "
+                 f"its twin")
+        print(f"[fractal] fit julia.txt 512x512 ssaa2 1000 it, {normal} "
+              f"normals, 3 Adam steps on prim_pos, prim_aux: loss "
+              f"{' '.join(f'{v:.6g}' for v in res.losses)}; step median "
+              f"{step * 1e3:.1f} ms; launches a step K1 1, K2 "
+              f"{counts['surface_kernel'] // 3}; split (median of 3, CUDA "
+              f"events) forward {fwd:.2f} ms, backward {bwd:.2f} ms ("
+              f"{parts}), optimizer {opt_ms:.2f} ms; backward peak memory "
+              f"{peak:.2f} GiB above the forward's; {card}")
+
+    # 5. the multi-kernel backend: one frame on mandelbox.txt
+    scene = fractal_scene("mandelbox")
+    mplan, mtables = rt.compile_scene(scene)
+    rt.render(scene, fcfg, backend="multi", device=dev)
+    zero_counts()
+    mimg, mms = timed(lambda: rt.render(scene, fcfg, backend="multi",
+                                        device=dev))
+    counts = counted("multi_fractal", 1)
+    check(counts == only(march_kernel=1 + mplan.num_lights,
+                         surface_kernel=2), f"multi frame launched {counts}")
+    # its two K2 modes at its 1,048,576 primary hits (K3's), against their
+    # twins
+    mtt = tables_to_torch(mtables, dev)
+    mhit = mk.march_rays(mplan, fcfg, mtt, *rays_for(mplan, mtt, fcfg))
+    for mode in (sk.WINNER, sk.FD_GRAD):
+        same(f"mandelbox K2 mode {mode} at the multi frame's hits",
+             sk.surface_eval(mplan, mtt, mhit.position, mode=mode,
+                             fd_h=fcfg.fd_h),
+             sk.surface_eval_plain(mplan, mtt, mhit.position, mode=mode,
+                                   fd_h=fcfg.fd_h), "surface_kernel")
+    del mhit
+    fimg = rt.render(scene, fcfg, device=dev)
+    diff = (mimg - fimg).abs().amax(dim=-1)
+    share = (diff <= REFLECT_ATOL).double().mean().item()
+    check(share >= AGREE, f"multi vs fused: {share} of pixels agree")
+    print(f"[fractal] mandelbox.txt 512x512 ssaa2 backend=multi: "
+          f"{mms:.3f} ms, launches K3 {counts['march_kernel']}, K2 "
+          f"{counts['surface_kernel']} (K2's winner and FD-gradient modes "
+          f"at its {R} hits bitwise their twins); against backend=cuda "
+          f"{share:.5f} of pixels within {REFLECT_ATOL}, max "
+          f"{diff.max().item():.3g}; "
+          f"{card}")
+    print(f"[fractal] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches on its paths: " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()))
+    rows["launches"] = launches
+    return rows
+
+
 def kernel_times() -> int:
     """``--times``: one line with the device times (torch.profiler, median
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
@@ -989,6 +1462,69 @@ def kernel_times() -> int:
     return 0
 
 
+def fused_fd_step() -> int:
+    """``--fused-fd-step``: the fit step with fused generators and FD
+    normals, whose backward replays the normal under autograd (no kernel
+    launch), on the perturbed demo at 512x512 SSAA 2, 1000 iterations:
+    the step median of 3 ``fit`` steps after one more (host clock), its
+    split into forward, backward and optimizer (CUDA events, median of 3)
+    and the backward's peak memory above the forward's (the largest of
+    the 3).  For holding two checkouts against each other on one card:
+    copy this script into each and run it from each in one command, in
+    turns (parent, change, change, parent)."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.tables import tables_to_torch
+
+    dev = torch.device("cuda")
+    plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
+    cfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000,
+                          fused_generators=True)
+    target = rt.render_tables(plan, tables, cfg, device=dev)
+    start, _, _ = perturbed_demo(tables)
+    stamps = []
+    res = rt.fit(plan, start, target, cfg, device=dev, steps=1,
+                 trainable=TRAINABLE, optimizer=adam)
+    t0 = time.perf_counter()
+    res = rt.fit(plan, res.tables, target, cfg, device=dev, steps=3,
+                 trainable=TRAINABLE, optimizer=adam,
+                 callback=lambda *a: stamps.append(time.perf_counter()))
+    check(all(np.isfinite(res.losses)), f"losses {res.losses}")
+    step = statistics.median(np.diff([t0] + stamps))
+    tg = tables_to_torch(res.tables, dev, requires_grad=TRAINABLE)
+    opt = adam([getattr(tg, f) for f in TRAINABLE])
+    splits, peak = [], 0.0
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        img = rt.render_tables(plan, tg, cfg, differentiable=True,
+                               device=dev)
+        loss = torch.mean((img - target) ** 2)
+        ev[1].record()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        peak = max(peak, (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, opt_ms = (statistics.median(v) for v in zip(*splits))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"[fused-fd-step] {ROOT}: demo {cfg.width}x{cfg.height} ssaa"
+          f"{cfg.ssaa} {cfg.iterations} it, fused generators, FD normals, "
+          f"3 Adam steps: loss {' '.join(f'{v:.6g}' for v in res.losses)}; "
+          f"step median {step * 1e3:.1f} ms; split (median of 3, CUDA "
+          f"events) forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer "
+          f"{opt_ms:.2f} ms; backward peak memory {peak:.2f} GiB above the "
+          f"forward's; {smi.splitlines()[0]}")
+    return 0
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     # 1. device
@@ -998,9 +1534,11 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--times"]:
         return kernel_times()
+    if sys.argv[1:] == ["--fused-fd-step"]:
+        return fused_fd_step()
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; expected none "
-              "or --times", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; expected none, "
+              "--times or --fused-fd-step", file=sys.stderr)
         return 2
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.api import render_tables
@@ -1043,9 +1581,15 @@ def main() -> int:
         print(f"[build] {lib_path.name}; " + ptxas_summary(log))
         entries = ptxas_entries(log)
         check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
-        report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries)
+        # the procedural views' entries (Proc<S>) apart: the others are
+        # held to the build before they existed
+        report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
+                           if "procedural" not in e)
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
               + report)
+        print(f"[ptxas] {kname} procedural entries: " + "; ".join(
+            f"{e} {r} / {st} B" for e, r, st in entries
+            if "procedural" in e))
         if kname in SEVEN_SOURCE_PTXAS:
             same_ = report == SEVEN_SOURCE_PTXAS[kname]
             print(f"[ptxas] {kname}: the seven-source build's registers "
@@ -2377,7 +2921,6 @@ def main() -> int:
     # its device time in turns with the reference entry; the raygen bounce
     # entry likewise; the images against backend="multi"; 5 fit steps
     # with one bounce and their split; card vs CPU gradients
-    from raymarching_tpu_torch.ops import render_op
     from raymarching_tpu_torch.ops.render_kernel import render_raygen
     reflect = dict(reflect_strength=0.4)
     zero_counts()
@@ -2507,7 +3050,7 @@ def main() -> int:
           f"steps: loss {' '.join(f'{v:.6g}' for v in rres.losses)}; step "
           f"median {rstep * 1e3:.1f} ms; split (mean of 2 more, CUDA "
           f"events): forward {r_split[0]:.1f} ms, backward (the replay, "
-          f"{render_op.REPLAY_RAYS} rays a slice) {r_split[1]:.1f} ms, "
+          f"{scene_vjp.REPLAY_RAYS} rays a slice) {r_split[1]:.1f} ms, "
           f"optimizer {r_split[2]:.2f} ms; peak device memory "
           f"{r_peak:.2f} GiB (torch.cuda.max_memory_allocated over the 5 "
           f"steps); launches a step K1's bounce entry 1, K2 0; {card}")
@@ -3003,6 +3546,11 @@ def main() -> int:
         srv.server_close()
         thread.join(timeout=60)
 
+    # 14. the procedural leaves on every path
+    dplan, dtables = rt.compile_scene(demo)
+    proc_rows = fractal_phase(dev, card, add_counts, dplan,
+                              tables_to_torch(dtables, dev))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -3067,7 +3615,7 @@ def main() -> int:
               f"bound {bound[0]:.4f} ms, by {bound[1]}; with every leaf "
               f"folded {old[5]} operations ({old[2]} leaf evaluations), "
               f"bound {old[0]:.4f} ms, by {old[1]}; {card}")
-    print(json.dumps({"kernels": [
+    table = {"kernels": [
         row("render_kernel", "raymarching_tpu/ops/pallas_render.py:211",
             k1_ms, k1_plain_ms, k1_bound, analytic_row(
                 k1a_ms, dev_turns["K1 512x512 ssaa2"][1], k1a_plain_ms,
@@ -3114,7 +3662,24 @@ def main() -> int:
          "raygen": {"ms": rgb_ms, "device_ms": b_turns[
              "K1 demo bounce B 1 on the raygen directions / raygen bounce"][1],
              "bound_ms": kb_bound[0], "bound_by": kb_bound[1]}},
-    ]}))
+    ]}
+    # each kernel's procedural view ([fractal]: scenes/julia.txt at 512x512
+    # ssaa2; K1 also FD and analytic, with the demo's device time in turns),
+    # and its launches on the [fractal] paths
+    d7 = ("raymarching_tpu/ops/pallas_march.py:71, :93, :160, :288, :343, "
+          ":386 (D7, through _prim_sd :433 and _prim_sd_grad :2004)")
+    for r in table["kernels"]:
+        k = r["name"]
+        if k == "render_kernel":
+            r["procedural"] = {"replaces": d7, "scene": "scenes/julia.txt",
+                               "fd": proc_rows[("render_kernel", "fd")],
+                               "analytic": proc_rows[("render_kernel",
+                                                      "analytic")]}
+        elif k in ("march_kernel", "shade_kernel", "surface_kernel"):
+            r["procedural"] = {"replaces": d7, **proc_rows[k]}
+        if "procedural" in r:
+            r["procedural"]["launches"] = proc_rows["launches"][k]
+    print(json.dumps(table))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

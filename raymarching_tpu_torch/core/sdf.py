@@ -24,6 +24,11 @@ plan.  Two folds:
     fused FD backward and the multi-kernel backend's implicit-function
     backward differentiate.
 
+A procedural fractal leaf (``plan.proc``: Mandelbox, Mandelbulb, Julia) is
+a column of its own in the leaf matrix (``core.proc``'s DEs), and in
+``kernel_fold``'s gradient form a procedural winner's gradient is its
+forward-mode sweep, the kernels' arithmetic (no autograd).
+
 The leaf matrix is built in blocks of at most ``_LEAF_BUDGET`` elements so
 the plain path's working set stays bounded at any ray count.
 """
@@ -38,6 +43,7 @@ import torch
 
 from ..scene.compile import KIND_LEAF, MIN, KernelPlan, ScenePlan, SceneTables
 from ..scene.csg import PrimType
+from .proc import grad_ops, proc_grad, proc_sd, value_ops
 
 # Elements of one [points, P] leaf block (x3 for the per-axis offsets).
 _LEAF_BUDGET = 1 << 25
@@ -56,27 +62,45 @@ def leaf_sd(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     with ``leaves`` (an index array) of those leaves only.  Each primitive
     type is evaluated on its own leaves only (the columns are put back in
     leaf order), so a sponge's crosses cost one SDF each, under autograd
-    too."""
-    if plan.proc:
-        raise NotImplementedError(
-            "procedural leaves are not ported yet (ROADMAP Queue 1 item 10)")
+    too; a procedural leaf (``plan.proc``) is its own column
+    (``core.proc``)."""
     pos, aux = tables.prim_pos, tables.prim_aux
-    ptype = np.asarray(plan.prim_type, np.int32)
+    ids = np.arange(plan.num_primitives) if leaves is None else \
+        np.asarray(leaves, np.int64)
+    ptype = np.asarray(plan.prim_type, np.int32)[ids]
     if leaves is not None:
         rows = torch.as_tensor(leaves, device=p.device)
-        pos, aux, ptype = pos[rows], aux[rows], ptype[leaves]
+        pos, aux = pos[rows], aux[rows]
     kinds = np.unique(ptype)
-    if len(kinds) <= 1:                 # one type, or no leaves: [N, 0]
+    if len(kinds) <= 1 and not plan.proc:   # one type, or no leaves: [N, 0]
         return _prim_sd(int(kinds[0]) if len(kinds) else int(PrimType.BOX),
                         p, pos, aux)
+    specs = proc_specs(plan)
     parts, order = [], []
     for kind in kinds:
         rows_k = np.nonzero(ptype == kind)[0]
-        r = torch.as_tensor(rows_k, device=p.device)
-        parts.append(_prim_sd(int(kind), p, pos[r], aux[r]))
+        if kind >= int(PrimType.MANDELBOX):
+            parts += [proc_sd(specs[int(ids[r])], p, pos[r], aux[r, 0])[:, None]
+                      for r in rows_k]
+        else:
+            r = torch.as_tensor(rows_k, device=p.device)
+            parts.append(_prim_sd(int(kind), p, pos[r], aux[r]))
         order.append(rows_k)
     back = torch.as_tensor(np.argsort(np.concatenate(order)), device=p.device)
     return torch.cat(parts, dim=1).index_select(1, back)
+
+
+@functools.lru_cache(maxsize=64)
+def proc_specs(plan) -> dict:
+    """leaf -> its ``plan.proc`` entry (leaf, kind, param, iters)."""
+    return {int(spec[0]): spec for spec in plan.proc}
+
+
+def _proc_ops(plan: ScenePlan, lo: int, hi: int) -> int:
+    """Operations the procedural leaves lo <= leaf < hi take beyond
+    OPS_PER_LEAF each, in one value evaluation of every one of them."""
+    return sum(value_ops(kind, iters) - OPS_PER_LEAF
+               for (leaf, kind, _, iters) in plan.proc if lo <= leaf < hi)
 
 
 def _prim_sd(kind: int, p: torch.Tensor, pos: torch.Tensor,
@@ -255,7 +279,10 @@ class LeafCount:
     column (OPS_PER_WINNER_SELECT).  A fused generator group counts its
     base leaf, and where the cull keeps it its carve's operations
     (``fused_carve_ops``; one select more in the winner-and-gradient
-    fold).
+    fold).  A procedural leaf counts as a leaf plus the rest of its
+    iterated DE's operations (``core.proc.value_ops``), and in the
+    winner-and-gradient fold a point it wins adds its gradient sweep
+    (``core.proc.grad_ops``).
     The plain twin itself may evaluate more; this is the count of what
     the kernels' data needs.
 
@@ -264,7 +291,7 @@ class LeafCount:
         c.leaves, c.ops, c.points
 
     ``leaves``: leaf evaluations; ``ops``: OPS_PER_LEAF for each of them
-    plus the collapsed levels' operations.
+    plus the collapsed levels' and the procedural leaves' operations.
     """
 
     _open: list = []
@@ -581,8 +608,11 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
             cullable = is_cullable(kp, g) or gi in carves
             nb = _base_leaves(g) if cullable else g.count
             counted += n * nb
+            collapsed += n * _proc_ops(plan, g.start, g.start + nb)
             if nb < g.count:
                 kept = (-seg[:, :nb].min(dim=-1).values < running).sum()
+                collapsed += kept * _proc_ops(plan, g.start + nb,
+                                              g.start + g.count)
                 if gi in carves:
                     collapsed += kept * (carves[gi][1] + (
                         OPS_PER_WINNER_SELECT if with_grad else 0))
@@ -620,6 +650,10 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
         running = torch.where(better, v, running)
         if with_idx or with_grad:
             ridx = torch.where(better, k.to(torch.int32), ridx)
+    if with_grad and LeafCount._open:
+        # the winner's gradient: a procedural winner's sweep
+        for (leaf, kind, _, iters) in plan.proc:
+            collapsed += (ridx == leaf).sum() * grad_ops(kind, iters)
     for c in LeafCount._open:
         c._leaves.append(counted)
         c._collapsed.append(collapsed)
@@ -637,6 +671,13 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
     g = sign_eff[w][:, None] * prim_sd_grad(ptype[w], tables.prim_pos[w],
                                             tables.prim_aux[w], p)
     g = torch.where(dense[:, None], g, torch.zeros((), device=p.device))
+    # a procedural winner's gradient is its forward-mode sweep
+    for spec in plan.proc:
+        sel = (ridx == spec[0]).nonzero()[:, 0]
+        if sel.numel():
+            lg = proc_grad(spec, p[sel], tables.prim_pos[spec[0]],
+                           tables.prim_aux[spec[0], 0])
+            g = g.index_put((sel,), sign_eff[spec[0]] * lg)
     # a carve's path sign is -1: the group is max(base, -carve)
     for ext, cg in carve_grads:
         g = torch.where((ridx == ext)[:, None], -cg, g)

@@ -38,6 +38,16 @@
 // winner_grad gives its gradient (winner_carve_grad).  The plain views keep
 // kFused false, so the exact entries compile without any of it.
 //
+// Procedural fractal leaves (pallas_march's D7: the Mandelbox, Mandelbulb
+// and Julia DEs, proc.cuh) are a compile-time property of the scene view
+// too: Proc<S> is S whose plan has procedural runs, and only its folds
+// take those run types (fold_run's cases past kCross) and their gradients
+// (winner_grad).  It takes either packing (its kFused is set; an exact
+// packing has no kGroupFused group), so a fractal scene needs one view per
+// placement; every other view compiles as before.  tables.scene_operands
+// asks for it whenever the plan has a procedural leaf, so no procedural
+// run ever reaches a view without it.
+//
 // The value folds and the PathWinner fold take a Menger group's carve
 // through the exact lattice collapse (pallas_march._menger_carve_lattice,
 // _menger_carve_lattice_idx_grad) while the wrapper's flag says the live
@@ -64,6 +74,8 @@
 #include <cuda_runtime.h>
 
 #include <limits>
+
+#include "proc.cuh"
 
 // The block's dynamic shared memory: a staged scene first, then whatever
 // the kernel keeps per warp.
@@ -94,6 +106,7 @@ struct SceneArgs {
 struct DeviceScene {
   static constexpr bool kStaged = false;
   static constexpr bool kFused = false;
+  static constexpr bool kProc = false;
   const float4* tbl;
   const int4* groups;
   const int4* runs;
@@ -121,6 +134,7 @@ struct DeviceScene {
 struct SharedScene {
   static constexpr bool kStaged = true;   // sizes halved, stream resolved
   static constexpr bool kFused = false;
+  static constexpr bool kProc = false;
   unsigned tbl, groups, runs, lat, lights;
   int n_groups, root_min;
   bool collapse;
@@ -151,6 +165,15 @@ template <class S>
 struct Fused : S {
   static constexpr bool kFused = true;
   __device__ __forceinline__ explicit Fused(const S& s) : S(s) {}
+};
+
+// A scene view whose plan has procedural runs, in either packing: the folds
+// take the procedural run types (proc.cuh) and kGroupFused groups.
+template <class S>
+struct Proc : S {
+  static constexpr bool kFused = true;
+  static constexpr bool kProc = true;
+  __device__ __forceinline__ explicit Proc(const S& s) : S(s) {}
 };
 
 // SceneArgs from a C entry point's leading arguments.
@@ -193,8 +216,9 @@ __device__ __forceinline__ float3 half_size(const S& s, int i) {
 // 0 for the DeathStar's sphere; the base row; 0, so that it names no rows
 // to persist.cuh's staging; the extended winner id P + ordinal).
 constexpr int kGroupFused = 2;
-// |PathWinner.tag| - 1 of a carve winner is kCarveTag + the carve run.
-constexpr int kCarveTag = 3;
+// |PathWinner.tag| - 1 of a carve winner is kCarveTag + the carve run: past
+// every run type (a winner leaf's tag names its run type).
+constexpr int kCarveTag = kJulia + 1;
 
 // The Menger base box's full size: a staged row holds it halved (exact).
 template <class S>
@@ -271,12 +295,44 @@ __device__ __forceinline__ float fold_span(const S& s, int4 run, float px,
   return acc;
 }
 
+// The DE of procedural leaf i of run type `type` (proc.cuh).
+template <class S>
+__device__ __forceinline__ float proc_sd(const S& s, int type, int i,
+                                         float px, float py, float pz) {
+  return proc_value(type, proc_leaf(s, i), px, py, pz);
+}
+
+// min over one procedural run of scale * leaf sd, from acc.
+template <class S>
+__device__ __forceinline__ float fold_span_proc(const S& s, int4 run, float px,
+                                                float py, float pz,
+                                                float acc) {
+  const float scale = static_cast<float>(run.w);
+  for (int i = run.y; i < run.y + run.z; ++i)
+    acc = fminf(acc, scale * proc_sd(s, run.x, i, px, py, pz));
+  return acc;
+}
+
+// A run's fold by its type.  An unknown type is impossible by
+// construction: tables.pack_plan raises on any type but these six, and
+// tables.scene_operands asks for a Proc view whenever the plan has a
+// procedural run.  A view without the procedural branch sends the
+// procedural types, like the default, to the cross's code, which compiles
+// it to the registers and stack it had before the procedural types existed
+// (a default the compiler may assume unreachable moved five entries' ptxas
+// allocations).
 template <class S>
 __device__ __forceinline__ float fold_run(const S& s, int4 run, float px,
                                           float py, float pz, float acc) {
   switch (run.x) {
     case kSphere: return fold_span<kSphere>(s, run, px, py, pz, acc);
     case kBox: return fold_span<kBox>(s, run, px, py, pz, acc);
+    case kMandelbox:
+    case kMandelbulb:
+    case kJulia:
+      if constexpr (S::kProc) return fold_span_proc(s, run, px, py, pz, acc);
+      [[fallthrough]];
+    case kCross:
     default: return fold_span<kCross>(s, run, px, py, pz, acc);
   }
 }
@@ -332,12 +388,33 @@ __device__ __forceinline__ W fold_span_idx(const S& s, int4 run, float px,
   return acc;
 }
 
+// fold_span_idx over a procedural run; the tag names its run type.
+template <class W, class S>
+__device__ __forceinline__ W fold_span_idx_proc(const S& s, int4 run,
+                                                float px, float py, float pz,
+                                                W acc) {
+  const float scale = static_cast<float>(run.w);
+  for (int i = run.y; i < run.y + run.z; ++i) {
+    const float sd = scale * proc_sd(s, run.x, i, px, py, pz);
+    if (sd < acc.sd) acc = make_winner<W>(sd, i, run.w * (run.x + 1));
+  }
+  return acc;
+}
+
+// fold_run's switch for the winner folds.
 template <class W, class S>
 __device__ __forceinline__ W fold_run_idx(const S& s, int4 run, float px,
                                           float py, float pz, W acc) {
   switch (run.x) {
     case kSphere: return fold_span_idx<kSphere>(s, run, px, py, pz, acc);
     case kBox: return fold_span_idx<kBox>(s, run, px, py, pz, acc);
+    case kMandelbox:
+    case kMandelbulb:
+    case kJulia:
+      if constexpr (S::kProc)
+        return fold_span_idx_proc(s, run, px, py, pz, acc);
+      [[fallthrough]];
+    case kCross:
     default: return fold_span_idx<kCross>(s, run, px, py, pz, acc);
   }
 }
@@ -519,6 +596,22 @@ __device__ __forceinline__ void fold_span_n(const S& s, int4 run,
   }
 }
 
+// fold_span_n over a procedural run: the leaf's DE at each point.
+template <int N, class S>
+__device__ __forceinline__ void fold_span_proc_n(const S& s, int4 run,
+                                                 const Points<N>& p,
+                                                 float (&acc)[N]) {
+  const float scale = static_cast<float>(run.w);
+  for (int i = run.y; i < run.y + run.z; ++i) {
+    const ProcLeaf L = proc_leaf(s, i);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      acc[j] = fminf(acc[j],
+                     scale * proc_value(run.x, L, p.x[j], p.y[j], p.z[j]));
+  }
+}
+
+// fold_run's switch for N points.
 template <int N, class S>
 __device__ __forceinline__ void fold_run_n(const S& s, int4 run,
                                            const Points<N>& p,
@@ -526,6 +619,15 @@ __device__ __forceinline__ void fold_run_n(const S& s, int4 run,
   switch (run.x) {
     case kSphere: fold_span_n<kSphere>(s, run, p, acc); break;
     case kBox: fold_span_n<kBox>(s, run, p, acc); break;
+    case kMandelbox:
+    case kMandelbulb:
+    case kJulia:
+      if constexpr (S::kProc) {
+        fold_span_proc_n(s, run, p, acc);
+        break;
+      }
+      [[fallthrough]];
+    case kCross:
     default: fold_span_n<kCross>(s, run, p, acc); break;
   }
 }
@@ -825,10 +927,11 @@ __device__ float3 winner_carve_grad(const S& s, int4 c, float px, float py,
   return g;
 }
 
-// The winner's gradient: its tag gives the prim type (or, past kCross, the
-// run of a fused carve) and the path sign gsign * scale (the root's rsign
-// cancels in the chain rule; a carve's is -1: the group is max(base,
-// -carve)).
+// The winner's gradient: its tag gives the run type (or, from kCarveTag,
+// the run of a fused carve) and the path sign gsign * scale (the root's
+// rsign cancels in the chain rule; a carve's is -1: the group is max(base,
+// -carve)).  A procedural winner's gradient is its forward-mode sweep
+// (proc.cuh's proc_gradient).
 template <class S>
 __device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
                                               float px, float py, float pz) {
@@ -836,8 +939,13 @@ __device__ __forceinline__ float3 winner_grad(const S& s, PathWinner w,
   const float path = w.tag < 0 ? -1.0f : 1.0f;
   const int type = abs(w.tag) - 1;
   float3 lg;
-  if constexpr (S::kFused) {
-    lg = type > kCross
+  if constexpr (S::kProc) {
+    lg = type >= kCarveTag
+             ? winner_carve_grad(s, s.run(type - kCarveTag), px, py, pz)
+         : type > kCross ? proc_gradient(type, proc_leaf(s, w.idx), px, py, pz)
+                         : leaf_grad(s, type, w.idx, px, py, pz);
+  } else if constexpr (S::kFused) {
+    lg = type >= kCarveTag
              ? winner_carve_grad(s, s.run(type - kCarveTag), px, py, pz)
              : leaf_grad(s, type, w.idx, px, py, pz);
   } else {

@@ -104,13 +104,13 @@ int launch(const Params& P, cudaStream_t stream) {
 }  // namespace
 
 // Launch K3 on `stream` over R rays, the scene staged in shared memory
-// (`shared` != 0) or read from device memory, the plan packed with fused
-// generators (`fused` != 0) or exact; `counter` is one zeroed int32.
+// (`shared` != 0) or read from device memory, in scene view `view`
+// (persist.cuh's on_view); `counter` is one zeroed int32.
 // Returns a CUDA error code.
 extern "C" int rt_march_rays(const void* tbl, const void* groups,
                              const void* runs, const void* lat,
                              const void* lat_flag, int n_rows, int n_groups,
-                             int n_runs, int n_lat, int root_min, int fused,
+                             int n_runs, int n_lat, int root_min, int view,
                              int shared,
                              int iterations, float eps, const void* org,
                              float ox, float oy, float oz, const void* dirs,
@@ -134,27 +134,21 @@ extern "C" int rt_march_rays(const void* tbl, const void* groups,
   P.R = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fused)
-    return shared ? launch<Fused<SharedScene>>(P, st)
-                  : launch<Fused<DeviceScene>>(P, st);
-  return shared ? launch<SharedScene>(P, st) : launch<DeviceScene>(P, st);
+  return on_view(shared, view, [&](auto v) {
+    return launch<typename decltype(v)::type>(P, st);
+  });
 }
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
-// shared memory (`shared` != 0) or with the scene in device memory, exact
-// or fused (`fused` != 0), for reports; negative: a CUDA error code.
-extern "C" int rt_blocks_per_sm(int shared, int staged, int fused) {
+// shared memory (`shared` != 0) or with the scene in device memory, in
+// scene view `view`, for reports; negative: a CUDA error code.
+extern "C" int rt_blocks_per_sm(int shared, int staged, int view) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err =
-      fused ? (shared ? blocks_per_sm(march_kernel<Fused<SharedScene>>, smem,
-                                      &per_sm)
-                      : blocks_per_sm(march_kernel<Fused<DeviceScene>>, 0u,
-                                      &per_sm))
-            : (shared ? blocks_per_sm(march_kernel<SharedScene>, smem,
-                                      &per_sm)
-                      : blocks_per_sm(march_kernel<DeviceScene>, 0u,
-                                      &per_sm));
+  const int err = on_view(shared, view, [&](auto v) {
+    return blocks_per_sm(march_kernel<typename decltype(v)::type>, smem,
+                         &per_sm);
+  });
   return err != 0 ? -err : per_sm;
 }
 

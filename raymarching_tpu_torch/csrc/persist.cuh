@@ -111,7 +111,9 @@ __device__ __forceinline__ SharedScene stage_shared(const SceneArgs& a) {
 // The block's view of the scene: every thread of the block calls it once,
 // at the top of the kernel.  S is DeviceScene or SharedScene, or either
 // under Fused<> (a fused group's carve run names no rows, so staging
-// halves nothing of it).
+// halves nothing of it) or Proc<> (a procedural leaf's size is halved with
+// the rest of its row, and proc.cuh's proc_leaf doubles it back; its
+// iteration count and procedural row are not touched).
 template <class S>
 __device__ __forceinline__ S stage_scene(const SceneArgs& a) {
   if constexpr (S::kStaged)
@@ -173,11 +175,16 @@ struct View {
 };
 
 // f(View<S>{}) for the scene view S that `shared` (the scene staged in
-// shared memory, else read from device memory) and `fused` (the fused
-// generator packing, else exact) name; returns what f returns.
+// shared memory, else read from device memory) and `view`
+// (tables.SceneOperands.args: bit 0 the fused generator packing, else
+// exact; bit 1 a plan with procedural leaves, Proc<S>, which takes either
+// packing) name; returns what f returns.
 template <class F>
-inline int on_view(int shared, int fused, const F& f) {
-  if (fused)
+inline int on_view(int shared, int view, const F& f) {
+  if (view & 2)
+    return shared ? f(View<Proc<SharedScene>>{})
+                  : f(View<Proc<DeviceScene>>{});
+  if (view & 1)
     return shared ? f(View<Fused<SharedScene>>{})
                   : f(View<Fused<DeviceScene>>{});
   return shared ? f(View<SharedScene>{}) : f(View<DeviceScene>{});

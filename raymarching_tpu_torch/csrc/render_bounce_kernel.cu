@@ -114,7 +114,7 @@ int occupancy(int analytic, int raygen, unsigned smem, int* per_sm) {
 extern "C" int rt_render_bounce(
     const void* tbl, const void* groups, const void* runs, const void* lat,
     const void* lat_flag, int n_rows, int n_groups, int n_runs, int n_lat,
-    int root_min, int fused, const void* lights, const void* black,
+    int root_min, int view, const void* lights, const void* black,
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
@@ -157,7 +157,7 @@ extern "C" int rt_render_bounce(
     G.base = base;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, fused, [&](auto v) {
+  return on_view(shared, view, [&](auto v) {
     return launch<typename decltype(v)::type>(analytic, raygen, scene, P, E,
                                               G, bounces, st);
   });
@@ -166,10 +166,10 @@ extern "C" int rt_render_bounce(
 // Resident blocks an SM of the bounce entry for (analytic, raygen), as
 // render_kernel.cu's rt_blocks_per_sm.
 extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
-                                int fused, int raygen) {
+                                int view, int raygen) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err = on_view(shared, fused, [&](auto v) {
+  const int err = on_view(shared, view, [&](auto v) {
     return occupancy<typename decltype(v)::type>(analytic, raygen, smem,
                                                  &per_sm);
   });

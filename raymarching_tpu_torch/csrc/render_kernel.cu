@@ -5,7 +5,8 @@
 // reference shading model (its shading extensions are the entries of
 // render_ext_kernel.cu, its in-kernel raygen those of
 // render_raygen_kernel.cu, over the same loop, render.cuh), on exact tables or with fused generators (the
-// scene view Fused<S>, fold.cuh; an instantiation each): primary march; first-wins colour winner at the
+// scene view Fused<S>, fold.cuh; an instantiation each), with procedural
+// fractal leaves or without (Proc<S>): primary march; first-wins colour winner at the
 // pre-step point; 6-eval central-difference normal, or the analytic
 // normal (the winner's gradient at the hit, which can also be written out
 // as the fused backward's residuals: JAX's save_winner); one shadow march
@@ -92,8 +93,9 @@ auto entry() {
 }  // namespace
 
 // Launch K1 on `stream` over R rays, the scene staged in shared memory
-// (`shared` != 0) or read from device memory, the plan packed with fused
-// generators (`fused` != 0) or exact, with the FD normal
+// (`shared` != 0) or read from device memory, in scene view `view`
+// (persist.cuh's on_view: the fused or exact packing, procedural leaves or
+// none), with the FD normal
 // (`analytic` == 0) or the analytic one; with the analytic normal and
 // `wres` not null, also the winner residuals wres [4][R] (sd, gx, gy, gz)
 // and widx [R].  `counter` is one zeroed int32.  Returns a CUDA error
@@ -101,7 +103,7 @@ auto entry() {
 extern "C" int rt_render_rays(const void* tbl, const void* groups,
                               const void* runs, const void* lat,
                               const void* lat_flag, int n_rows, int n_groups,
-                              int n_runs, int n_lat, int root_min, int fused,
+                              int n_runs, int n_lat, int root_min, int view,
                               const void* lights, const void* black,
                               int shared, int analytic, int n_lights,
                               int n_black, int shadows, int sat_skip,
@@ -122,7 +124,7 @@ extern "C" int rt_render_rays(const void* tbl, const void* groups,
                   sat_skip, iterations, eps, off, saturation, fd_h},
       org, ox, oy, oz, dirs, out, iout, wres, widx, counter, R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, fused, [&](auto v) {
+  return on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic
                ? launch_persistent<S>(entry<kNormalAnalytic, S>(), scene, R,
@@ -133,13 +135,13 @@ extern "C" int rt_render_rays(const void* tbl, const void* groups,
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
 // shared memory (`shared` != 0) or with the scene in device memory, with
-// the FD normal (`analytic` == 0) or the analytic one, exact or fused
-// (`fused` != 0), for reports; negative: a CUDA error code.
+// the FD normal (`analytic` == 0) or the analytic one, in scene view
+// `view`, for reports; negative: a CUDA error code.
 extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
-                                int fused) {
+                                int view) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err = on_view(shared, fused, [&](auto v) {
+  const int err = on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic
                ? blocks_per_sm(entry<kNormalAnalytic, S>(), smem, &per_sm)

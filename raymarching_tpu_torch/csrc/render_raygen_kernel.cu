@@ -99,7 +99,7 @@ int occupancy(int analytic, int ext, unsigned smem, int* per_sm) {
 extern "C" int rt_render_raygen(
     const void* tbl, const void* groups, const void* runs, const void* lat,
     const void* lat_flag, int n_rows, int n_groups, int n_runs, int n_lat,
-    int root_min, int fused, const void* lights, const void* black,
+    int root_min, int view, const void* lights, const void* black,
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, int ext, float soft_k, int colored, float ao_strength,
@@ -140,7 +140,7 @@ extern "C" int rt_render_raygen(
   G.cam = static_cast<const float*>(cam);
   G.base = base;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, fused, [&](auto v) {
+  return on_view(shared, view, [&](auto v) {
     return launch<typename decltype(v)::type>(analytic, ext, scene, P, E, G,
                                               st);
   });
@@ -149,10 +149,10 @@ extern "C" int rt_render_raygen(
 // Resident blocks an SM of the raygen entry for (analytic, ext), as
 // render_kernel.cu's rt_blocks_per_sm.
 extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
-                                int fused, int ext) {
+                                int view, int ext) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err = on_view(shared, fused, [&](auto v) {
+  const int err = on_view(shared, view, [&](auto v) {
     return occupancy<typename decltype(v)::type>(analytic, ext, smem,
                                                  &per_sm);
   });

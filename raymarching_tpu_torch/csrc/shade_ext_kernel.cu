@@ -55,7 +55,7 @@ auto entry() {
 extern "C" int rt_shade_rays_ext(
     const void* tbl, const void* groups, const void* runs, const void* lat,
     const void* lat_flag, int n_rows, int n_groups, int n_runs, int n_lat,
-    int root_min, int fused, const void* lights, const void* black,
+    int root_min, int view, const void* lights, const void* black,
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
@@ -87,7 +87,7 @@ extern "C" int rt_shade_rays_ext(
   E.sfac = static_cast<float*>(sfac);
   E.aofac = static_cast<float*>(aofac);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, fused, [&](auto v) {
+  return on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic ? launch_persistent<S>(entry<kNormalAnalytic, S>(), A, R,
                                            st, A, P, B, E)
@@ -98,10 +98,10 @@ extern "C" int rt_shade_rays_ext(
 
 // shade_kernel.cu's rt_blocks_per_sm for the extended entries.
 extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
-                                int fused) {
+                                int view) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err = on_view(shared, fused, [&](auto v) {
+  const int err = on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic
                ? blocks_per_sm(entry<kNormalAnalytic, S>(), smem, &per_sm)

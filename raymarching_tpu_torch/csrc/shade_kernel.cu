@@ -70,15 +70,15 @@ auto entry() {
 
 // Launch K4 on `stream` over R rays: in [7][R] (p xyz, sd, direction xyz),
 // light [R], iout [2][R] (colour winner, shadow mask); the scene staged in
-// shared memory (`shared` != 0) or read from device memory, the plan
-// packed with fused generators (`fused` != 0) or exact; the FD normal
+// shared memory (`shared` != 0) or read from device memory, in scene
+// view `view` (persist.cuh's on_view); the FD normal
 // (`analytic` == 0) or the analytic one, and with it and `wres` not null
 // the winner residuals wres [4][R] (sd, gx, gy, gz) and widx [R];
 // `counter` is one zeroed int32.  Returns a CUDA error code.
 extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                              const void* runs, const void* lat,
                              const void* lat_flag, int n_rows, int n_groups,
-                             int n_runs, int n_lat, int root_min, int fused,
+                             int n_runs, int n_lat, int root_min, int view,
                              const void* lights, const void* black,
                              int shared, int analytic, int n_lights,
                              int n_black, int shadows, int sat_skip,
@@ -104,7 +104,7 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
                       fd_h};
   const Rays B = make_rays(in, light, iout, wres, widx, counter, R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, fused, [&](auto v) {
+  return on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic ? launch_persistent<S>(entry<kNormalAnalytic, S>(), A, R,
                                            st, A, P, B)
@@ -115,13 +115,13 @@ extern "C" int rt_shade_rays(const void* tbl, const void* groups,
 
 // Resident blocks an SM of this kernel with `staged` bytes of scene in
 // shared memory (`shared` != 0) or with the scene in device memory, with
-// the FD normal (`analytic` == 0) or the analytic one, exact or fused
-// (`fused` != 0), for reports; negative: a CUDA error code.
+// the FD normal (`analytic` == 0) or the analytic one, in scene view
+// `view`, for reports; negative: a CUDA error code.
 extern "C" int rt_blocks_per_sm(int shared, int staged, int analytic,
-                                int fused) {
+                                int view) {
   int per_sm = 0;
   const unsigned smem = shared ? static_cast<unsigned>(staged) : 0u;
-  const int err = on_view(shared, fused, [&](auto v) {
+  const int err = on_view(shared, view, [&](auto v) {
     using S = typename decltype(v)::type;
     return analytic
                ? blocks_per_sm(entry<kNormalAnalytic, S>(), smem, &per_sm)

@@ -190,13 +190,11 @@ int launch(const SurfaceParams& P, cudaStream_t stream) {
 }
 
 template <int kMode, bool kStencil>
-int launch_view(const SurfaceParams& P, int shared, int fused,
+int launch_view(const SurfaceParams& P, int shared, int view,
                 cudaStream_t stream) {
-  if (fused)
-    return shared ? launch<kMode, kStencil, Fused<SharedScene>>(P, stream)
-                  : launch<kMode, kStencil, Fused<DeviceScene>>(P, stream);
-  return shared ? launch<kMode, kStencil, SharedScene>(P, stream)
-                : launch<kMode, kStencil, DeviceScene>(P, stream);
+  return on_view(shared, view, [&](auto v) {
+    return launch<kMode, kStencil, typename decltype(v)::type>(P, stream);
+  });
 }
 
 }  // namespace
@@ -204,15 +202,15 @@ int launch_view(const SurfaceParams& P, int shared, int fused,
 // Launch K2 in `mode` on `stream` over N points q [3][N]; out [4][N] (sd,
 // gx, gy, gz) in the combined, fd and analytic modes, else [1][N]; widx
 // [N] in the combined and winner modes; the scene staged in shared memory
-// (`shared` != 0) or read from device memory, the plan packed with fused
-// generators (`fused` != 0) or exact; `counter` is one zeroed int32; h and
+// (`shared` != 0) or read from device memory, in scene view `view`
+// (persist.cuh's on_view); `counter` is one zeroed int32; h and
 // inv_2h (= 1 / 2h, rounded by the caller) and `multipoint` are read in
 // the fd mode only.  Returns a CUDA error code, cudaErrorInvalidValue for
 // an unknown mode.
 extern "C" int rt_surface_eval(const void* tbl, const void* groups,
                                const void* runs, const void* lat,
                                const void* lat_flag, int n_rows, int n_groups,
-                               int n_runs, int n_lat, int root_min, int fused,
+                               int n_runs, int n_lat, int root_min, int view,
                                int shared, int mode, int multipoint, float h,
                                float inv_2h, const void* q, void* out,
                                void* widx, void* counter, int64_t N,
@@ -234,11 +232,11 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
   if (N == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kCombined: return launch_view<kCombined, false>(P, shared, fused, st);
-    case kSdOnly: return launch_view<kSdOnly, false>(P, shared, fused, st);
-    case kWinner: return launch_view<kWinner, false>(P, shared, fused, st);
-    case kFdGrad: return launch_view<kFdGrad, false>(P, shared, fused, st);
-    default: return launch_view<kAnalytic, false>(P, shared, fused, st);
+    case kCombined: return launch_view<kCombined, false>(P, shared, view, st);
+    case kSdOnly: return launch_view<kSdOnly, false>(P, shared, view, st);
+    case kWinner: return launch_view<kWinner, false>(P, shared, view, st);
+    case kFdGrad: return launch_view<kFdGrad, false>(P, shared, view, st);
+    default: return launch_view<kAnalytic, false>(P, shared, view, st);
   }
 }
 
@@ -246,13 +244,14 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
 // p [3][R]: K = 7 rows with `center` (row 0 the hit, rows 1 + a and 4 + a
 // the hit +- h on axis a), else 6 (rows a and 3 + a); out [4][K R], widx
 // [K R], row k of hit i at column k R + i.  `shared` and `counter` as
-// rt_surface_eval takes them; exact tables only (`fused` must be 0: the
-// exact FD backward's entry).  Returns a CUDA error code.
+// rt_surface_eval takes them; the exact packing only (bit 0 of `view` must
+// be 0: the exact FD backward's entry), with procedural leaves or without.
+// Returns a CUDA error code.
 extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
                                   const void* runs, const void* lat,
                                   const void* lat_flag, int n_rows,
                                   int n_groups, int n_runs, int n_lat,
-                                  int root_min, int fused, int shared,
+                                  int root_min, int view, int shared,
                                   int center,
                                   float h, const void* p, void* out,
                                   void* widx, void* counter, int64_t R,
@@ -268,11 +267,14 @@ extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
   P.inv_2h = 0.0f;
   P.center = center;
   P.multipoint = 0;
-  if (R < 0 || R > kMaxRays || fused != 0)
+  if (R < 0 || R > kMaxRays || (view & 1) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   P.n = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (view & 2)
+    return shared ? launch<kCombined, true, Proc<SharedScene>>(P, st)
+                  : launch<kCombined, true, Proc<DeviceScene>>(P, st);
   return shared ? launch<kCombined, true, SharedScene>(P, st)
                 : launch<kCombined, true, DeviceScene>(P, st);
 }

@@ -11,7 +11,9 @@ theorem
 
 which costs ONE K2 launch at the hit points (the combined mode: SD,
 winner, winner gradient) and one scatter, instead of a walk back through
-up to ``iterations`` steps.  With fused generators grad f and f_theta come
+up to ``iterations`` steps (with procedural leaves the scatter also takes
+the hits' SDs and points, for the fractals' size columns).  With fused
+generators grad f and f_theta come
 from autograd through ``core.sdf.scene_sd_fused`` at the hit points, as
 JAX's fused march differentiates the jnp field (``bwd_impl=None``).  Rays that did not converge get zero implicit
 gradients (t is held constant).  Dropped cotangents: ``sd`` only shifts
@@ -66,10 +68,11 @@ class MarchOp(torch.autograd.Function):
                                                 dirs, t_bar)
         else:
             # K2 in its combined mode at the hit points (winner_eval)
-            _, widx, g = surface_eval(plan, tables, p_hit)
+            sd, widx, g = surface_eval(plan, tables, p_hit)
             w = ift_ray_weights(t_bar, dot3(g, dirs), cfg.ift_damping)
             # the float64 scatter only when a geometry field asks for it
-            pos_bar, aux_bar = (theta_cotangents(plan, tables, widx, g, w)
+            pos_bar, aux_bar = (theta_cotangents(plan, tables, widx, g, w,
+                                                 sd, p_hit)
                                 if need_theta else (None, None))
         o_bar = p_bar + w[:, None] * g
         d_bar = t[:, None] * o_bar

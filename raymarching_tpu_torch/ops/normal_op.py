@@ -21,8 +21,14 @@ fused-generator branches, chosen by ``cfg.normal_mode`` and
     the fused field, its carve rows landing on the generators' base
     rows); with FD normals it is autograd through the FD normal of
     ``core.sdf.scene_sd_fused``, as JAX's replay is plain jnp.
-
-The procedural branch is not ported yet (ROADMAP Queue 1 item 10).
+  * procedural fractal leaves (``plan.proc``): the forward is K2's mode
+    on the plan's procedural view.  With FD normals on exact tables the
+    backward is the stencil one, its scatter with the fractals' size
+    columns; otherwise a fractal winner has no closed-form Hessian, and
+    the backward is autograd through the normal estimator of the field
+    (``core.sdf.scene_sd``, or ``scene_sd_fused`` with fused generators),
+    JAX's ``api._normal_bwd`` replay, ``scene_vjp.replay_slice`` points
+    a slice.
 """
 
 from __future__ import annotations
@@ -30,22 +36,22 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..core.sdf import scene_sd_fused
-from ..core.shading import normal_fd
+from ..core.sdf import scene_sd, scene_sd_fused
+from ..core.shading import normal_analytic, normal_fd
 from ..scene.compile import ScenePlan, SceneTables
 from .scene_vjp import (analytic_normal_bwd, fd_stencil_cotangents,
-                        fused_analytic_normal_bwd, stencil_eval,
+                        fused_analytic_normal_bwd, replay_slice, stencil_eval,
                         stencil_theta_cotangents)
 from .shade_kernel import check_normal_mode
-from .surface_kernel import ANALYTIC, FD_GRAD, surface_eval
+from .surface_kernel import ANALYTIC, FD_GRAD, stencil_points, surface_eval
 
 
 def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for ``_normal_op``'s other branches."""
     check_normal_mode(cfg, False)
-    if plan.proc:
+    if plan.kernel is None:
         raise NotImplementedError(
-            "not ported yet: procedural leaves (ROADMAP Queue 1 item 10)")
+            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
 
 
 class NormalOp(torch.autograd.Function):
@@ -74,24 +80,29 @@ class NormalOp(torch.autograd.Function):
         need_theta = any(ctx.needs_input_grad[3:5])   # prim_pos, prim_aux
         if not (need_p or need_theta):
             return (None,) * (3 + len(fields))
-        if cfg.fused_generators and cfg.normal_mode == "analytic":
+        analytic = cfg.normal_mode == "analytic"
+        if (cfg.fused_generators and not analytic) or (analytic
+                                                       and plan.proc):
+            p_bar, pos_bar, aux_bar = _replay_normal_bwd(plan, cfg, tables,
+                                                         p, g_bar)
+        elif cfg.fused_generators:
             p_bar, pos_bar, aux_bar = fused_analytic_normal_bwd(
                 plan, tables, p, g_bar)
-        elif cfg.fused_generators:
-            p_bar, pos_bar, aux_bar = _fused_fd_normal_bwd(plan, cfg, tables,
-                                                           p, g_bar)
-        elif cfg.normal_mode == "analytic":
+        elif analytic:
             # radii and sizes do not move the winner's gradient
             p_bar, pos_bar = analytic_normal_bwd(plan, tables, p, g_bar,
                                                  need_theta)
             aux_bar = None
         else:
-            _, widx, g = stencil_eval(plan, cfg, tables, p, center=False)
+            sd, widx, g = stencil_eval(plan, cfg, tables, p, center=False)
             u = fd_stencil_cotangents(cfg, g_bar)                # [6, R]
             p_bar = (u[..., None] * g).sum(dim=0)
-            # the float64 scatter only when a geometry field asks for it
+            # the float64 scatter only when a geometry field asks for it;
+            # a fractal's size column needs the stencil SDs and points
             pos_bar, aux_bar = (
-                stencil_theta_cotangents(plan, tables, widx, g, u)
+                stencil_theta_cotangents(
+                    plan, tables, widx, g, u, *((sd, stencil_points(
+                        p, cfg.fd_h, center=False)) if plan.proc else ()))
                 if need_theta else (None, None))
         grads = SceneTables(
             prim_pos=pos_bar, prim_aux=aux_bar, prim_color=None,
@@ -100,20 +111,35 @@ class NormalOp(torch.autograd.Function):
         return (None, None, p_bar, *grads)
 
 
-def _fused_fd_normal_bwd(plan: ScenePlan, cfg: RenderConfig,
-                         tables: SceneTables, p: torch.Tensor,
-                         g_bar: torch.Tensor) -> tuple:
-    """The VJP of the FD normal of the fused field, by autograd through
-    ``core.shading.normal_fd`` of ``scene_sd_fused`` (api._normal_bwd's
-    replay) -> (p_bar, prim_pos cotangent, prim_aux cotangent)."""
-    with torch.enable_grad():
-        pos = tables.prim_pos.detach().requires_grad_()
-        aux = tables.prim_aux.detach().requires_grad_()
-        q = p.detach().requires_grad_()
-        tb = tables._replace(prim_pos=pos, prim_aux=aux)
-        g = normal_fd(lambda x: scene_sd_fused(plan, tb, x), q, cfg.fd_h)
-        return torch.autograd.grad(g, (q, pos, aux), g_bar,
-                                   materialize_grads=True)
+def _replay_normal_bwd(plan: ScenePlan, cfg: RenderConfig,
+                       tables: SceneTables, p: torch.Tensor,
+                       g_bar: torch.Tensor) -> tuple:
+    """The VJP of the normal estimator by autograd (api._normal_bwd's
+    replay): ``normal_fd`` or ``normal_analytic`` (with a graph) of
+    ``scene_sd_fused`` with fused generators, else of ``scene_sd``,
+    ``scene_vjp.replay_slice`` points a slice -> (p_bar, prim_pos
+    cotangent, prim_aux cotangent)."""
+    sdf = scene_sd_fused if cfg.fused_generators else scene_sd
+    p_bar = torch.empty_like(p)
+    pos_bar = torch.zeros_like(tables.prim_pos)
+    aux_bar = torch.zeros_like(tables.prim_aux)
+    n = replay_slice(plan, p.shape[0])
+    for lo in range(0, p.shape[0], n):
+        sl = slice(lo, lo + n)
+        with torch.enable_grad():
+            pos = tables.prim_pos.detach().requires_grad_()
+            aux = tables.prim_aux.detach().requires_grad_()
+            q = p[sl].detach().requires_grad_()
+            tb = tables._replace(prim_pos=pos, prim_aux=aux)
+            sd_one = lambda x: sdf(plan, tb, x)  # noqa: E731
+            g = (normal_analytic(sd_one, q, graph=True)
+                 if cfg.normal_mode == "analytic"
+                 else normal_fd(sd_one, q, cfg.fd_h))
+            p_bar[sl], pos_b, aux_b = torch.autograd.grad(
+                g, (q, pos, aux), g_bar[sl], materialize_grads=True)
+        pos_bar += pos_b
+        aux_bar += aux_b
+    return p_bar, pos_bar, aux_bar
 
 
 def normal_op(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,

@@ -98,8 +98,6 @@ def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     todo = None
     if plan.kernel is None:
         todo = "depth > 2 scenes (ROADMAP Queue 2, D8)"
-    elif plan.proc:
-        todo = "procedural leaves (ROADMAP Queue 1 item 10)"
     elif plan.num_lights > MAX_LIGHTS:
         todo = f"more than {MAX_LIGHTS} lights"
     if todo is not None:

@@ -49,6 +49,14 @@ JAX's: autograd through the Lambert replay of the FD normal of
 ``core.sdf.scene_sd_fused`` and through its implicit-function route,
 plain PyTorch as JAX's is plain jnp (no kernel launch).
 
+Procedural fractal leaves (``plan.proc``) take the FD backward above on
+exact tables, the stencil rows' scatter carrying the fractals' size
+columns; with analytic normals, or with fused generators, the normal is
+replayed under autograd as in the fused FD backward (``_replay_bwd``; the
+forward saves no winner residuals: a fractal winner has no closed-form
+Hessian), on exact tables with the implicit-function route through K2's
+combined mode, one launch a slice of ``REPLAY_RAYS`` rays.
+
 With mirror bounces (``cfg.reflect_strength > 0``) the forward launches
 K1's bounce entry, saves each bounce's hit, convergence, colour winner,
 shadow bits and factors, and the backward is ``reflect_bwd``
@@ -77,9 +85,11 @@ from ..core.shading import (lambert_replay, normal_analytic, normal_fd,
 from .march_op import fused_ift
 from .render_kernel import blend, render_rays
 from .shade_kernel import bounce_count
-from .scene_vjp import (fd_stencil_cotangents, fused_theta_cotangents,
-                        fused_winner_eval, fused_winner_hessian_chain,
-                        gather_rows, ift_ray_weights, segment_add,
+from .surface_kernel import stencil_points
+from .scene_vjp import (REPLAY_RAYS, fd_stencil_cotangents,
+                        fused_theta_cotangents, fused_winner_eval,
+                        fused_winner_hessian_chain, gather_rows,
+                        ift_ray_weights, replay_slice, segment_add,
                         stencil_eval, theta_cotangents, winner_eval,
                         winner_hessian_chain)
 
@@ -105,7 +115,10 @@ class FusedRender(torch.autograd.Function):
         # saturation-floor skip stays: it is exact for gradients too.
         cfg = cfg.replace(shade_skip_black=False)
         B = bounce_count(cfg)
-        save = cfg.normal_mode == "analytic" and SAVE_WINNER and not B
+        # (pallas_render._save_winner_engaged: a procedural winner's
+        # normal has no closed-form Hessian, so its backward replays)
+        save = (cfg.normal_mode == "analytic" and SAVE_WINNER and not B
+                and not plan.proc)
         res = render_rays(plan, cfg, tables, origin, dirs, save_winner=save,
                           save_factors=True)
         out, *extras = res
@@ -153,9 +166,10 @@ class FusedRender(torch.autograd.Function):
         tables = SceneTables(*rest)
         P = tables.prim_color.shape[0]
         fused = cfg.fused_generators
-        if fused and cfg.normal_mode == "fd":
-            p_bar, gp, grads = _fused_fd_bwd(plan, cfg, tables, p, conv,
-                                             cidx, shadow, dirs, g_out)
+        analytic = cfg.normal_mode == "analytic"
+        if (fused and not analytic) or (analytic and plan.proc):
+            gp, grads = _replay_bwd(plan, cfg, tables, p, conv, cidx, shadow,
+                                    dirs, g_out)
             o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
             return (None, None, o_bar, t[:, None] * gp, *grads)
         if cfg.normal_mode == "analytic":
@@ -205,8 +219,12 @@ class FusedRender(torch.autograd.Function):
             pos_bar, aux_bar = theta_cotangents(plan, tables, widx0, g0, w)
             pos_bar = pos_bar + segment_add(hidx, rows, P)
         else:
+            # a fractal leaf's size cotangent needs the stencil SDs and
+            # points (scene_vjp.theta_cotangents)
             pos_bar, aux_bar = theta_cotangents(
-                plan, tables, widx7, g7, torch.cat([w[None], u_fd]))
+                plan, tables, widx7, g7, torch.cat([w[None], u_fd]),
+                *((sd7, stencil_points(p, cfg.fd_h, center=True))
+                  if plan.proc else ()))
 
         o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
         d_bar = t[:, None] * gp
@@ -216,15 +234,6 @@ class FusedRender(torch.autograd.Function):
             cam_direction=None, cam_up=None, cam_fov=None)
         return (None, None, o_bar, d_bar, *grads)
 
-
-# Rays a slice of the mirror-bounce backward's replay: its evaluations
-# hold [rays, leaves] tensors under autograd (the demo's 428 leaves), so a
-# full-width step replays its rays a slice at a time.  The demo at 512x512
-# SSAA 2 with one bounce and FD normals, NVIDIA H100 80GB HBM3 at 700 W:
-# 5.5 s and 3.4 GiB at 16,384 rays a slice, 3.4 s and 13.1 GiB at 65,536,
-# 3.3 s and 50.5 GiB at 262,144 (two bounces: 5.0 s and 19.4 GiB at
-# 65,536; the larger slice ran out of memory).
-REPLAY_RAYS = 65536
 
 
 class Anchor(NamedTuple):
@@ -325,11 +334,10 @@ def reflect_bwd(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                      if cfg.normal_mode == "analytic"
                      else normal_fd(sd_one, ph, cfg.fd_h))
                 n = normalize(g)
-                sh = a.shadow
+                sh = a.shadow.rows(sl)
                 lits.append(lit(lambert_replay(
-                    lp, ph, n, sh.smask[sl], cfg.saturation,
-                    None if sh.sfac is None else sh.sfac[:, sl],
-                    None if sh.aofac is None else sh.aofac[sl], lc)))
+                    lp, ph, n, sh.smask, cfg.saturation, sh.sfac, sh.aofac,
+                    lc)))
                 cols.append(gather_rows(a.cidx[sl], colr))
                 if b + 1 < len(anchors):
                     d = d - 2.0 * dot3(d, n)[:, None] * n
@@ -375,6 +383,12 @@ class Shadow(NamedTuple):
     sfac: Optional[torch.Tensor]   # [L, R] or None
     aofac: Optional[torch.Tensor]  # [R] or None
 
+    def rows(self, sl: slice) -> "Shadow":
+        """The decisions of the rays in ``sl``."""
+        return Shadow(self.smask[sl],
+                      None if self.sfac is None else self.sfac[:, sl],
+                      None if self.aofac is None else self.aofac[sl])
+
 
 def _light_leaves(plan: ScenePlan, tables: SceneTables) -> tuple:
     """Leaf copies of the real lights' positions and, with coloured
@@ -406,45 +420,78 @@ def _light_cotangents(tables: SceneTables, L: int, lp_bar, lc_bar) -> tuple:
     return light_bar, color_bar
 
 
-def _fused_fd_bwd(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-                  p: torch.Tensor, conv: torch.Tensor, cidx: torch.Tensor,
-                  shadow: Shadow, dirs: torch.Tensor,
-                  g_out: torch.Tensor) -> tuple:
-    """The fused FD backward (pallas_render._fused_bwd with fused
-    generators and FD normals): autograd through the Lambert replay of
-    normalize(normal_fd(scene_sd_fused)) at the hits with the forward's
-    shadow decisions, then the implicit-function route through
-    scene_sd_fused at the hits.  -> (p_bar [R, 3], p_bar + w grad f
-    [R, 3], SceneTables of cotangents)."""
-    L = plan.num_lights
+def _replay_bwd(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                p: torch.Tensor, conv: torch.Tensor, cidx: torch.Tensor,
+                shadow: Shadow, dirs: torch.Tensor,
+                g_out: torch.Tensor) -> tuple:
+    """The backward that replays the normal under autograd (pallas_render
+    ._fused_bwd's fall-through): with fused generators and FD normals, and
+    with analytic normals on a plan with procedural leaves (whose winner
+    has no closed-form Hessian).  Autograd through the Lambert replay of
+    normalize(normal) at the hits, the normal ``normal_fd`` of the field or
+    ``normal_analytic`` with a graph, the field ``scene_sd_fused`` with
+    fused generators else ``scene_sd``, with the forward's shadow
+    decisions; then the implicit-function route at the hits: on the fused
+    field by autograd (``march_op.fused_ift``), on exact tables by K2's
+    combined mode and the winner scatter with its procedural columns
+    (scene_vjp.ift_pieces).  ``scene_vjp.replay_slice`` rays a slice.  ->
+    (p_bar + w grad f [R, 3], SceneTables of cotangents)."""
+    L, R = plan.num_lights, p.shape[0]
+    sdf = scene_sd_fused if cfg.fused_generators else scene_sd
     color_p = gather_rows(cidx, tables.prim_color)
-    with torch.enable_grad():
-        pos = tables.prim_pos.detach().requires_grad_()
-        aux = tables.prim_aux.detach().requires_grad_()
-        lp, lc = _light_leaves(plan, tables)
-        p_ = p.detach().requires_grad_()
-        col_ = color_p.detach().requires_grad_()
-        tb = tables._replace(prim_pos=pos, prim_aux=aux)
-        n = normalize(normal_fd(lambda q: scene_sd_fused(plan, tb, q), p_,
-                                cfg.fd_h))
-        shade = _shade(cfg, lp, lc, p_, n, shadow, col_)
-        leaves = (pos, aux, lp, p_, col_) + ((lc,) if lc is not None else ())
-        pos_bar, aux_bar, lp_bar, p_bar, color_bar, *lc_bar = (
-            torch.autograd.grad(shade, leaves, g_out, allow_unused=True,
-                                materialize_grads=True))
-    # the implicit-function route: grad_p f and the parameters' f_theta
-    t_bar = torch.where(conv, dot3(p_bar, dirs),
-                        torch.zeros((), device=p.device))
-    grad_p, w, pos2_bar, aux2_bar = fused_ift(plan, cfg, tables, p, dirs,
-                                              t_bar)
+    gp = torch.empty_like(p)
+    color_bar = torch.empty_like(color_p)
+    sums = None
+    n = replay_slice(plan, R)
+    for lo in range(0, R, n):
+        sl = slice(lo, lo + n)
+        with torch.enable_grad():
+            pos = tables.prim_pos.detach().requires_grad_()
+            aux = tables.prim_aux.detach().requires_grad_()
+            lp, lc = _light_leaves(plan, tables)
+            p_ = p[sl].detach().requires_grad_()
+            col_ = color_p[sl].detach().requires_grad_()
+            tb = tables._replace(prim_pos=pos, prim_aux=aux)
+            sd_one = lambda q: sdf(plan, tb, q)  # noqa: E731
+            g = (normal_analytic(sd_one, p_, graph=True)
+                 if cfg.normal_mode == "analytic"
+                 else normal_fd(sd_one, p_, cfg.fd_h))
+            shade = _shade(cfg, lp, lc, p_, normalize(g), shadow.rows(sl),
+                           col_)
+            leaves = (pos, aux, lp, p_, col_) + ((lc,) if lc is not None
+                                                 else ())
+            pos_b, aux_b, lp_b, p_bar, color_bar[sl], *lc_b = (
+                torch.autograd.grad(shade, leaves, g_out[sl],
+                                    allow_unused=True,
+                                    materialize_grads=True))
+        t_bar = torch.where(conv[sl], dot3(p_bar, dirs[sl]),
+                            torch.zeros((), device=p.device))
+        if cfg.fused_generators:
+            grad_p, w, pos2_b, aux2_b = fused_ift(plan, cfg, tables, p[sl],
+                                                  dirs[sl], t_bar)
+        else:
+            sd0, widx0, grad_p = winner_eval(plan, tables, p[sl])
+            w = ift_ray_weights(t_bar, dot3(grad_p, dirs[sl]),
+                                cfg.ift_damping)
+            pos2_b, aux2_b = theta_cotangents(plan, tables, widx0, grad_p, w,
+                                              sd0, p[sl])
+        gp[sl] = p_bar + w[:, None] * grad_p
+        part = (pos_b + pos2_b, aux_b + aux2_b, lp_b, *lc_b)
+        sums = part if sums is None else tuple(
+            a + b for a, b in zip(sums, part))
+    if sums is None:                    # no rays
+        sums = tuple(torch.zeros_like(v) for v in (
+            tables.prim_pos, tables.prim_aux, tables.light_pos[:L],
+            *((tables.light_color[:L],) if plan.colored_lights else ())))
+    pos_bar, aux_bar, lp_bar, *lc_bar = sums
     light_bar, lcolor_bar = _light_cotangents(tables, L, lp_bar,
                                               lc_bar[0] if lc_bar else None)
     grads = SceneTables(
-        prim_pos=pos_bar + pos2_bar, prim_aux=aux_bar + aux2_bar,
+        prim_pos=pos_bar, prim_aux=aux_bar,
         prim_color=segment_add(cidx, color_bar, tables.prim_color.shape[0]),
         light_pos=light_bar, light_color=lcolor_bar, cam_position=None,
         cam_direction=None, cam_up=None, cam_fov=None)
-    return p_bar, p_bar + w[:, None] * grad_p, grads
+    return gp, grads
 
 
 def _replay(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,

@@ -27,7 +27,7 @@ the card, so the order of the sum changes from run to run) and the gather
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,20 +43,44 @@ from .surface_kernel import COMBINED, surface_eval, surface_stencil
 # |grad f . d| can vanish at grazing incidence: the sign-preserving floor
 # of march_op._DENOM_EPS
 DENOM_EPS = 1e-6
+# Rays (or points) a slice of the backwards that replay the field under
+# autograd (the mirror-bounce chain, the procedural normal): their
+# evaluations hold [rays, leaves] tensors, so a full-width step replays a
+# slice at a time.  The demo at 512x512 SSAA 2 with one bounce and FD
+# normals, NVIDIA H100 80GB HBM3 at 700 W: 5.5 s and 3.4 GiB at 16,384
+# rays a slice, 3.4 s and 13.1 GiB at 65,536, 3.3 s and 50.5 GiB at
+# 262,144 (two bounces: 5.0 s and 19.4 GiB at 65,536; the larger slice
+# ran out of memory).
+REPLAY_RAYS = 65536
+
+
+def replay_slice(plan: ScenePlan, n: int) -> int:
+    """Points a slice of the normal's replay under autograd at n points:
+    ``REPLAY_RAYS`` with procedural leaves (a fractal's unrolled iterations
+    under autograd, twice over with analytic normals), else all n at once.
+    A slice pays the field's graph on the host again: the fused FD fit
+    step on the demo at 512x512 SSAA 2, NVIDIA H100 80GB HBM3 at 700 W
+    (``chip_smoke.py --fused-fd-step``), replays in 82-98 ms and 2.71 GiB
+    whole and in 1038-1278 ms and 0.22 GiB in 16 slices."""
+    return REPLAY_RAYS if plan.proc else max(n, 1)
 
 
 @functools.lru_cache(maxsize=64)
-def leaf_statics(plan: ScenePlan) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-leaf (sign_eff [P] float32, is_sphere [P] bool) of a two-level
-    plan (scene_vjp._leaf_statics); a leafless plan gets one pad row."""
+def leaf_statics(plan: ScenePlan) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+    """Per-leaf (sign_eff [P] float32, is_sphere [P] bool, is_proc [P]
+    bool) of a two-level plan (scene_vjp._leaf_statics): is_proc marks the
+    procedural fractal leaves; a leafless plan gets one pad row."""
     if plan.kernel is None:
         raise NotImplementedError(
             "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
     sign_eff = leaf_signs(plan)
+    ptype = np.asarray(plan.prim_type, np.int32)
     is_sphere = np.zeros(sign_eff.shape, bool)
-    is_sphere[:plan.num_primitives] = (np.asarray(plan.prim_type, np.int32)
-                                       == int(PrimType.SPHERE))
-    return sign_eff, is_sphere
+    is_sphere[:plan.num_primitives] = ptype == int(PrimType.SPHERE)
+    is_proc = np.zeros(sign_eff.shape, bool)
+    is_proc[:plan.num_primitives] = ptype >= int(PrimType.MANDELBOX)
+    return sign_eff, is_sphere, is_proc
 
 
 def winner_eval(plan: ScenePlan, tables: SceneTables, p: torch.Tensor
@@ -127,7 +151,9 @@ def gather_rows(idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
-                     g: torch.Tensor, u: torch.Tensor
+                     g: torch.Tensor, u: torch.Tensor,
+                     sd: Optional[torch.Tensor] = None,
+                     p: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter per-point winner cotangents onto the leaf rows.
 
@@ -137,32 +163,60 @@ def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
     [-u g, -u, -u |g| / 2] to its winner's row; sign_eff and the
     sphere/box split are applied per leaf after the sum (they are shared
     by every point that lands on a leaf, and +-1 factors commute exactly
-    with the sum)."""
+    with the sum).
+
+    A plan with procedural leaves also needs the scene SD sd [...] and the
+    points p [..., 3] (the winner pass has both): a fractal's DE is
+    homogeneous, DE(p; c, s) = s U((p - c) / s), so d scene / ds =
+    (scene - g . (p - c)) / s, two more columns -u sd and -u g.p and, per
+    leaf, (col8 - col7 - c . sum(-u g)) / s (scene_vjp.theta_cotangents'
+    procedural columns; the sums float64 like the rest)."""
     P = tables.prim_pos.shape[0]
-    sign_eff, is_sphere = leaf_statics(plan)
+    sign_eff, is_sphere, is_proc = leaf_statics(plan)
+    has_proc = bool(plan.proc)
+    if has_proc and (sd is None or p is None):
+        raise ValueError("a plan with procedural leaves needs sd and p for "
+                         "theta_cotangents")
     widx = widx.reshape(-1)
     g = g.reshape(-1, 3)
     mu = -u.reshape(-1, 1)
-    red = segment_add(widx, torch.cat([mu * g, mu, 0.5 * mu * g.abs()],
-                                      dim=1), P)
+    cols = [mu * g, mu, 0.5 * mu * g.abs()]
+    if has_proc:
+        cols += [mu * sd.reshape(-1, 1),
+                 mu * (g * p.reshape(-1, 3)).sum(dim=1, keepdim=True)]
+    red = segment_add(widx, torch.cat(cols, dim=1).double(), P)
     se = torch.as_tensor(sign_eff[:P], device=red.device)[:, None]
     sph = torch.as_tensor(is_sphere[:P], device=red.device)[:, None]
     aux_sphere = torch.cat([red[:, 3:4], torch.zeros_like(red[:, :2])], dim=1)
-    return red[:, :3], se * torch.where(sph, aux_sphere, red[:, 4:7])
+    gaux = se * torch.where(sph, aux_sphere, red[:, 4:7])
+    if has_proc:
+        proc = torch.as_tensor(is_proc[:P], device=red.device)
+        s = tables.prim_aux.detach()[:, 0].double()
+        s_safe = torch.where(proc, s, torch.ones_like(s))
+        size = (red[:, 8] - red[:, 7] - (tables.prim_pos.detach().double()
+                                         * red[:, :3]).sum(dim=1)) / s_safe
+        gaux = torch.where(proc[:, None], torch.cat(
+            [size[:, None], torch.zeros_like(red[:, :2])], dim=1), gaux)
+    return red[:, :3].to(g.dtype), gaux.to(g.dtype)
 
 
 def stencil_theta_cotangents(plan: ScenePlan, tables: SceneTables,
                              widx: torch.Tensor, g: torch.Tensor,
-                             u: torch.Tensor
+                             u: torch.Tensor,
+                             sd: Optional[torch.Tensor] = None,
+                             q: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``theta_cotangents`` over a leading stencil axis: widx, u [K, R],
-    g [K, R, 3] -> one (prim_pos, prim_aux) cotangent pair.  The scatter
-    is linear in its rows, so the stencil axis flattens in, and the K
-    rows of one point, whose cotangents of +-1 / 2 fd_h nearly cancel,
-    meet in ``segment_add``'s float64 sums."""
+    g [K, R, 3] (with procedural leaves also the stencil SDs sd [K, R] and
+    points q [K, R, 3]) -> one (prim_pos, prim_aux) cotangent pair.  The
+    scatter is linear in its rows, so the stencil axis flattens in, and
+    the K rows of one point, whose cotangents of +-1 / 2 fd_h nearly
+    cancel, meet in ``segment_add``'s float64 sums."""
     K = widx.shape[0]
     return theta_cotangents(plan, tables, widx.reshape(-1),
-                            g.reshape(K * g.shape[1], 3), u.reshape(-1))
+                            g.reshape(K * g.shape[1], 3), u.reshape(-1),
+                            None if sd is None else sd.reshape(-1),
+                            None if q is None else q.reshape(-1, 3))
 
 
 def winner_hessian_chain(plan: ScenePlan, tables: SceneTables,
@@ -182,7 +236,7 @@ def winner_hessian_chain(plan: ScenePlan, tables: SceneTables,
     idx [R]): ``segment_add(idx, rows, P)`` is the prim_pos cotangent
     (rows = -p_bar on sphere winners; idx -1 elsewhere, dropped)."""
     P = tables.prim_pos.shape[0]
-    sign_eff, is_sphere = leaf_statics(plan)
+    sign_eff, is_sphere, _ = leaf_statics(plan)
     dev = g.device
     stats = torch.stack([
         torch.as_tensor(sign_eff[:P], device=dev),
@@ -230,7 +284,7 @@ def fused_statics(plan: ScenePlan) -> tuple:
     path sign; -1 for a DeathStar carve, whose group is -carve there);
     base_row: the table row a winner row's cotangents land on (itself, or
     the generator's base leaf)."""
-    sign_eff, is_sphere = leaf_statics(plan)
+    sign_eff, is_sphere, _ = leaf_statics(plan)
     P = plan.num_primitives
     generators = fused_groups(plan.kernel)
     if generators and ext_base(plan.kernel) != P:

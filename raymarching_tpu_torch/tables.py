@@ -20,8 +20,12 @@ the kernels whether the live rows still share the lattice's coordinates.
 ``pack_plan(kp, fused=True)`` is the packing of
 ``RenderConfig.fused_generators`` (pallas_march's D6): a generator group
 keeps its base leaf and a carve descriptor, and the kernels evaluate its
-carve from the base row.  The JAX table's chunk-bound, Menger-offset and
-order rows feed culls the port does not have and are not built.
+carve from the base row.  A procedural fractal leaf's run has its own
+type (``PROC_TYPES``), and ``scene_operands`` appends one procedural row a
+leaf (its fold scale or Julia constant) that the leaf's row points to
+beside its iteration count (pallas_march's D7).  The JAX table's
+chunk-bound, Menger-offset and order rows feed culls the port does not
+have and are not built.
 """
 
 from __future__ import annotations
@@ -46,6 +50,12 @@ GROUP_FUSED = 2
 # The prim type of a fused generator's base leaf, the leaf at g.start
 # (pallas_march._FUSED_BASE_TYPE).
 FUSED_BASE_TYPE = {"menger": 1, "deathstar": 0}     # BOX, SPHERE
+
+# The run types the kernels' folds take (csrc/fold.cuh's fold_run):
+# scene.csg.PrimType's sphere, box and cross, and the procedural leaves
+# (csrc/proc.cuh), whose ScenePlan.proc kinds map to their prim types.
+DENSE_TYPES = (0, 1, 2)
+PROC_TYPES = {"mb": 3, "bulb": 4, "julia": 5}
 
 
 class PackedPlan(NamedTuple):
@@ -78,6 +88,12 @@ class PackedPlan(NamedTuple):
     flattened ``build_table`` rows) of its x, y, z coordinate and its
     three sizes, over the element of the row that represents each; M = 0
     without a lattice.
+    ``proc_leaves`` [K] int64, ``proc_iters`` [K] float32 and
+    ``proc_params`` [K, 8] float32, for ``scene_operands``: the plan's K
+    procedural leaves (``KernelPlan.proc``, whose runs have type
+    PROC_TYPES[kind]), each one's iteration count, and its procedural row:
+    the Mandelbox's fold scale, the Mandelbulb's power or the Julia
+    constant in the first four columns.
     """
 
     root_op: int
@@ -85,6 +101,9 @@ class PackedPlan(NamedTuple):
     runs: torch.Tensor
     lattice: torch.Tensor
     members: torch.Tensor
+    proc_leaves: torch.Tensor
+    proc_iters: torch.Tensor
+    proc_params: torch.Tensor
 
 
 def tables_to_torch(tables, device,
@@ -245,17 +264,27 @@ def pack_plan(kp: KernelPlan, fused: bool = False) -> PackedPlan:
                 "cullable group with a base run after a carve run")
         groups.append((g.gsign, len(runs), len(g.runs), int(cull)))
         for (ptype, start, count, scale) in g.runs:
-            if isinstance(ptype, tuple):
-                raise NotImplementedError(
-                    "procedural leaves are not ported yet (ROADMAP Queue 1 "
-                    "item 10)")
+            # a procedural run's type is (kind, param, iters): leaves with
+            # other parameters are other runs (compile._kernel_normal_form)
+            ptype = PROC_TYPES[ptype[0]] if isinstance(ptype, tuple) else ptype
+            if ptype not in DENSE_TYPES + tuple(PROC_TYPES.values()):
+                raise ValueError(f"pack_plan: run type {ptype!r} is none "
+                                 "the kernels fold")
             runs.append((int(ptype), start, count, scale))
     as_i32 = lambda rows: torch.tensor(  # noqa: E731
         np.asarray(rows, np.int32).reshape(-1, 4))
+    params = np.zeros((len(kp.proc), 8), np.float32)
+    for k, (_, kind, param, _) in enumerate(kp.proc):
+        params[k, :4] = (tuple(param) if kind == "julia"
+                         else (param, 0.0, 0.0, 0.0))
     return PackedPlan(
         int(kp.root_op), as_i32(groups), as_i32(runs),
         torch.tensor(np.asarray(lattice, np.int32)),
-        torch.tensor(np.asarray(members, np.int64).reshape(-1, 2).T.copy()))
+        torch.tensor(np.asarray(members, np.int64).reshape(-1, 2).T.copy()),
+        torch.tensor([leaf for (leaf, _, _, _) in kp.proc], dtype=torch.int64),
+        torch.tensor([float(it) for (_, _, _, it) in kp.proc],
+                     dtype=torch.float32),
+        torch.from_numpy(params))
 
 
 @functools.lru_cache(maxsize=64)
@@ -266,7 +295,8 @@ def _packed_on(kp: KernelPlan, device: torch.device,
     packed = pack_plan(kp, fused)
     return packed._replace(**{
         name: getattr(packed, name).to(device)
-        for name in ("groups", "runs", "lattice", "members")})
+        for name in ("groups", "runs", "lattice", "members", "proc_leaves",
+                     "proc_iters", "proc_params")})
 
 
 def _table_flag(kp, table: torch.Tensor, fused: bool = False
@@ -306,24 +336,32 @@ SHARED_SCENE_BYTES = 64 * 1024
 
 
 class SceneOperands(NamedTuple):
-    """What every kernel's scene argument is built from, on one device."""
+    """What every kernel's scene argument is built from, on one device.
 
-    table: torch.Tensor     # [P, 8] float32 primitive rows
+    With procedural leaves the table has K rows more, one a procedural
+    leaf (``PackedPlan.proc_params``), and such a leaf's own row holds its
+    iteration count and the index of its procedural row in its two last
+    columns (build_table's pad columns)."""
+
+    table: torch.Tensor     # [P (+ K), 8] float32 primitive rows
     groups: torch.Tensor    # [G, 4] int32
     runs: torch.Tensor      # [N, 4] int32
     lattice: torch.Tensor   # int32 collapse stream
     flag: torch.Tensor      # [1] int32: the collapse may be taken
     root_min: int           # 1 when the root folds with MIN
     fused: int = 0          # 1: the fused packing (fused generators)
+    proc: int = 0           # 1: the plan has procedural leaves
 
     def args(self) -> tuple:
         """The leading arguments of every C entry point: five pointers,
-        then the row, group, run and stream counts, root_min and fused."""
+        then the row, group, run and stream counts, root_min and the scene
+        view (csrc/persist.cuh's on_view: fused + 2 proc)."""
         return (self.table.data_ptr(), self.groups.data_ptr(),
                 self.runs.data_ptr(), self.lattice.data_ptr(),
                 self.flag.data_ptr(), self.table.shape[0],
                 self.groups.shape[0], self.runs.shape[0],
-                self.lattice.shape[0], self.root_min, self.fused)
+                self.lattice.shape[0], self.root_min,
+                self.fused + 2 * self.proc)
 
     def nbytes(self, n_lights: int = 0) -> int:
         """Bytes a block stages when the scene goes to shared memory."""
@@ -345,9 +383,17 @@ def scene_operands(plan, tables: SceneTables, device,
         table = build_table(tables)
         flag = (_table_flag(plan.kernel, table, bool(fused)) if collapse
                 else torch.zeros(1, dtype=torch.int32, device=device))
+        K = packed.proc_leaves.shape[0]
+        if K:
+            rows = table.shape[0] + torch.arange(K, dtype=torch.float32,
+                                                 device=table.device)
+            table[packed.proc_leaves, 6] = packed.proc_iters
+            table[packed.proc_leaves, 7] = rows
+            table = torch.cat([table, packed.proc_params])
         ops = SceneOperands(table, packed.groups, packed.runs,
                             packed.lattice, flag,
-                            int(packed.root_op == MIN), int(bool(fused)))
+                            int(packed.root_op == MIN), int(bool(fused)),
+                            int(K > 0))
     for name in ("groups", "runs", "lattice", "flag"):
         t = getattr(ops, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()

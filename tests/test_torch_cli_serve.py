@@ -1,6 +1,6 @@
 """Port entry points: the CLI, the HTTP server (``/render``, ``/aovs``),
-mirror bounces and depth of field through both, and the refusals (an
-unsupported scene raises, a missing CUDA device is an error)."""
+mirror bounces, depth of field and fractal scenes through both, and the
+refusals (a depth-3 scene raises, a missing CUDA device is an error)."""
 
 import io
 import json
@@ -14,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_util import one_torch_thread  # noqa: E402,F401
+from torch_util import deep_scene, one_torch_thread  # noqa: E402,F401
 
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu.io.png import read_png  # noqa: E402
@@ -119,11 +119,23 @@ def test_supported_config_renders(change, scenes_dir):
 
 
 def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
-    cfg = rt.RenderConfig(width=4, height=4, ssaa=1)
+    """The fractal scenes render (they raised before the procedural leaves
+    were ported): finite images equal to the ref oracle's.  A depth-3 tree
+    (ROADMAP Queue 2, D8) and the differentiable ref oracle (Queue 1 item
+    3) still raise."""
+    cfg = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=100)
     for name in ("mandelbox", "julia"):
-        with pytest.raises(NotImplementedError):
-            rt.render(rt.load_scene(str(scenes_dir / f"{name}.txt")), cfg,
-                      device="cpu")
+        scene = rt.load_scene(str(scenes_dir / f"{name}.txt"))
+        img = rt.render(scene, cfg, device="cpu")
+        assert img.shape == (6, 8, 3) and torch.isfinite(img).all()
+        assert img.max() > 0
+        torch.testing.assert_close(img, rt.render_ref(scene, cfg,
+                                                      device="cpu"),
+                                   rtol=0, atol=1e-3)
+    deep = deep_scene(rt.load_scene(str(scenes_dir / "config1.txt")))
+    assert compile_scene(deep)[0].kernel is None
+    with pytest.raises(NotImplementedError, match="D8"):
+        rt.render(deep, cfg, device="cpu")
     plan, tables = compile_scene(rt.load_scene(str(scenes_dir /
                                                    "config1.txt")))
     grad_tables = type(tables)(*(torch.tensor(v, requires_grad=True)
@@ -133,6 +145,20 @@ def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         rt.render_tables(plan, grad_tables, cfg, backend="ref",
                          differentiable=True, device="cpu")
+
+
+def test_cli_renders_a_fractal_scene(tmp_path, scenes_dir):
+    """The CLI renders scenes/julia.txt (a procedural leaf) on the CPU: the
+    PNG of ``render`` at the same size."""
+    out = tmp_path / "julia.png"
+    rc = cli.main(["--scene", str(scenes_dir / "julia.txt"), "--out",
+                   str(out), "--device", "cpu", *SMALL])
+    assert rc == 0
+    want = rt.to_uint8(rt.render(
+        rt.load_scene(str(scenes_dir / "julia.txt")), rt.RenderConfig(
+            width=16, height=12, ssaa=1, iterations=100),
+        device="cpu").numpy())
+    np.testing.assert_array_equal(read_png(str(out))[..., :3], want)
 
 
 def test_unknown_backend_raises():
@@ -200,6 +226,22 @@ def test_render_shading_parameters(server, query, change):
     want = rt.to_uint8(rt.render_tables(plan, tables, cfg,
                                         device="cpu").numpy())
     np.testing.assert_array_equal(png[..., :3], want)
+
+
+def test_render_fractal_scene(server, scenes_dir):
+    """A scene with a procedural leaf (scenes/mandelbox.txt) answers 200
+    with the PNG of ``render`` (the server's default raygen path)."""
+    body = (scenes_dir / "mandelbox.txt").read_text()
+    with _post(server + "/render?width=16&height=12&ssaa=1&iterations=80",
+               body) as r:
+        assert r.status == 200 and r.headers["Content-Type"] == "image/png"
+        png = rt.decode_png(r.read())
+    cfg = rt.RenderConfig(width=16, height=12, ssaa=1, iterations=80,
+                          serve_raygen=True)
+    want = rt.to_uint8(rt.render(parse_scene(body), cfg,
+                                 device="cpu").numpy())
+    np.testing.assert_array_equal(png[..., :3], want)
+    assert png.max() > 0
 
 
 def test_render_ppm(server):

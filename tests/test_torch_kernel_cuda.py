@@ -6,7 +6,9 @@ render's gradients on the card against the CPU's, in both normal regimes;
 K1's and K4's extended-shading entries (soft shadows, AO, coloured lights)
 and K1's raygen entries against their twins, with their gradients; K1's
 mirror-bounce entries against their twins, the reflect backward's
-gradients, and depth of field.  Skips without a card.
+gradients, and depth of field; the procedural views of all four kernels
+(fractal scenes) in every entry and mode, with their gradients.  Skips
+without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
 is installed:
@@ -1131,3 +1133,199 @@ def test_dof_and_bounces_render_on_card(cuda_device, backend):
     card = rt.render(scene, cfg, backend=backend, device=cuda_device)
     cpu = rt.render(scene, cfg, backend=backend, device="cpu")
     torch.testing.assert_close(card.cpu(), cpu, rtol=0.0, atol=2e-3)
+
+
+# procedural fractal leaves: scenes/mandelbox.txt, mandelbulb.txt and
+# julia.txt, and julia.txt with a Menger sponge beside it (the fused
+# generator packing with procedural runs)
+FRACTAL_SPONGE = "fractal-sponge"
+FRACTAL_SCENES = ("mandelbox", "mandelbulb", "julia", FRACTAL_SPONGE)
+
+
+def _fractal(scene, device):
+    text = (SCENES / f"{'julia' if scene == FRACTAL_SPONGE else scene}.txt"
+            ).read_text()
+    if scene == FRACTAL_SPONGE:
+        text += "\nColor 0.8 0.8 0.8\nMengerSponge 2.2 -0.8 -6.5 1.6 2\n"
+    plan, tables = compile_scene(parse_scene(text))
+    assert plan.proc
+    return plan, tables, tables_to_torch(tables, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", FRACTAL_SCENES)
+def test_fractal_kernels_match_twins_on_card(cuda_device, monkeypatch, scene,
+                                             normal, fused, placement):
+    """The procedural views of all four kernels (csrc/proc.cuh through
+    fold.cuh's Proc<S>) against their twins, bitwise: K1 (with per-ray
+    origins, and with the winner residuals of the analytic normal), K3
+    with steps, K4, K3 + K4, K2's five modes at K1's hits and its stencil
+    entry; the scene staged in shared memory and read from device
+    memory."""
+    from raymarching_tpu_torch import tables as scene_tables
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    plan, _, tt = _fractal(scene, cuda_device)
+    if fused and not any(g.fused is not None for g in plan.kernel.groups):
+        pytest.skip("no generator to fuse")
+    assert scene_tables.scene_operands(plan, tt, cuda_device, True,
+                                       fused).args()[-1] == 2 + int(fused)
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused)
+    sw = normal == "analytic"
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    n1 = rk.render_rays.launches
+    k1 = rk.render_rays(plan, cfg, tt, origin, dirs, save_winner=sw)
+    torch.cuda.synchronize()
+    assert rk.render_rays.launches == n1 + 1
+    _same(_flat(k1), _flat(rk.render_rays_plain(plan, cfg, tt, origin, dirs,
+                                                save_winner=sw)),
+          f"{scene}: K1")
+    _same(_flat(rk.render_rays(plan, cfg, tt,
+                               origin.expand(dirs.shape).contiguous(), dirs,
+                               save_winner=sw)), _flat(k1),
+          f"{scene}: K1 per-ray origins")
+    ray = k1[0] if sw else k1
+    assert ray.done.any() and (ray.cidx >= 0).any()
+    res, steps = mk.march_rays(plan, cfg, tt, origin, dirs, with_steps=True)
+    res_p, steps_p = mk.march_rays_plain(plan, cfg, tt, origin, dirs,
+                                         with_steps=True)
+    _same((*res, steps), (*res_p, steps_p), f"{scene}: K3")
+    _same(res, (ray.p, ray.sd, ray.done), f"{scene}: K3 vs K1")
+    k4 = shk.shade_rays(plan, cfg, tt, ray.p, ray.sd, dirs, save_winner=sw)
+    _same(_flat(k4), _flat(shk.shade_rays_plain(plan, cfg, tt, ray.p, ray.sd,
+                                                dirs, save_winner=sw)),
+          f"{scene}: K4")
+    _same(_flat(k4), _flat(k1)[3:], f"{scene}: K4 vs K1")
+    _same(_flat(rk.render_rays(plan, cfg.replace(two_phase_k1=8), tt, origin,
+                               dirs, save_winner=sw)), _flat(k1),
+          f"{scene}: K3 + K4 vs K1")
+    for mode in (sk.COMBINED, sk.SD, sk.WINNER, sk.FD_GRAD, sk.ANALYTIC):
+        n2 = sk.surface_eval.launches
+        k2 = sk.surface_eval(plan, tt, ray.p, mode=mode, fd_h=cfg.fd_h,
+                             fused=fused)
+        torch.cuda.synchronize()
+        assert sk.surface_eval.launches == n2 + 1
+        _same(k2, sk.surface_eval_plain(plan, tt, ray.p, mode=mode,
+                                        fd_h=cfg.fd_h, fused=fused),
+              f"{scene}: K2 mode {mode}")
+    if sw:
+        _same(sk.surface_eval(plan, tt, ray.p, fused=fused), k1[1],
+              f"{scene}: K2 combined vs K1's residuals")
+    if not fused:
+        for center in (True, False):
+            _same(scene_vjp.stencil_eval(plan, cfg, tt, ray.p, center=center),
+                  sk.surface_stencil_plain(plan, tt, ray.p, cfg.fd_h,
+                                           center=center),
+                  f"{scene}: K2 stencil entry")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", ["mandelbulb", "julia", FRACTAL_SPONGE])
+def test_fractal_extended_raygen_and_bounce_entries_on_card(cuda_device,
+                                                            scene, normal):
+    """K1's and K4's extended entries (soft shadows and AO), K1's raygen
+    entries and its bounce entries (one bounce, with and without the
+    extensions; the raygen form) on fractal scenes against their twins,
+    bitwise on every output."""
+    plan, _, tt = _fractal(scene, cuda_device)
+    fused = scene == FRACTAL_SPONGE
+    sw = normal == "analytic"
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused)
+    soft = cfg.replace(soft_shadow_k=6.0, ao_strength=0.8)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    n = dict(rk.render_rays.entry_launches)
+    k1 = rk.render_rays(plan, soft, tt, origin, dirs, save_winner=sw,
+                        save_factors=True)
+    _same(_flat(k1), _flat(rk.render_rays_plain(
+        plan, soft, tt, origin, dirs, save_winner=sw, save_factors=True)),
+        f"{scene}: K1 extended")
+    k4 = shk.shade_rays(plan, soft, tt, k1[0].p, k1[0].sd, dirs,
+                        save_winner=sw, save_factors=True)
+    _same(_flat(k4), _flat(shk.shade_rays_plain(
+        plan, soft, tt, k1[0].p, k1[0].sd, dirs, save_winner=sw,
+        save_factors=True)), f"{scene}: K4 extended")
+    for c in (cfg, soft):
+        R = c.rays_per_image
+        g = rk.render_raygen(plan, c, tt, 0, R, save_factors=True)
+        _same(_flat(g), _flat(rk.render_raygen_plain(plan, c, tt, 0, R,
+                                                     save_factors=True)),
+              f"{scene}: K1 raygen")
+        b = c.replace(reflect_strength=0.4, reflect_bounces=1)
+        kb = rk.render_rays(plan, b, tt, origin, dirs, save_factors=True)
+        _same(_flat(kb), _flat(rk.render_rays_plain(plan, b, tt, origin,
+                                                    dirs, save_factors=True)),
+              f"{scene}: K1 bounce")
+        gb = rk.render_raygen(plan, b, tt, 0, R, save_factors=True)
+        _same(_flat(gb), _flat(rk.render_raygen_plain(plan, b, tt, 0, R,
+                                                      save_factors=True)),
+              f"{scene}: K1 raygen bounce")
+    torch.cuda.synchronize()
+    got = {k: rk.render_rays.entry_launches[k] - n[k] for k in n}
+    assert got == {"render_kernel": 0, "render_ext_kernel": 1,
+                   "render_bounce_kernel": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal,fused", [("fd", False), ("analytic", False),
+                                          ("fd", True), ("analytic", True)])
+def test_fractal_gradients_on_card_match_cpu(cuda_device, normal, fused):
+    """The differentiable render of julia.txt (with the sponge when fused)
+    on the card against the CPU twins on the same rays, every field, at
+    tests/test_mega.py:62's tolerance: the exact FD backward launches K2's
+    stencil entry (the scatter's size columns), the exact analytic one
+    K2's combined mode once (the replay of the normal), the fused ones no
+    K2."""
+    scene = FRACTAL_SPONGE if fused else "julia"
+    plan, tables, _ = _fractal(scene, "cpu")
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused)
+    origin, dirs = cam.generate_rays(tables_to_torch(tables, "cpu"), cfg)
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device,
+                             requires_grad=SceneTables._fields)
+        o = origin.to(device).requires_grad_()
+        d = dirs.reshape(-1, 3).to(device).requires_grad_()
+        k1, k2 = rk.render_rays.launches, sk.surface_eval.launches
+        colors = FusedRender.apply(plan, cfg, o, d, *tt)
+        g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                                allow_unused=True, materialize_grads=True)
+        if device.type == "cuda":
+            assert (rk.render_rays.launches - k1,
+                    sk.surface_eval.launches - k2) == (1, 0 if fused else 1)
+        grads.append([v.cpu() for v in g])
+    (leaf, *_), = plan.proc
+    for name, a, b in zip(SceneTables._fields + ("origin", "dirs"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)
+        if name in ("prim_pos", "prim_aux"):
+            assert a[leaf].abs().max() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+def test_fractal_multi_backend_on_card(cuda_device, normal):
+    """scenes/mandelbox.txt through the multi-kernel backend (K3, K2 and
+    the hooks) against the fused backend, and its gradients (MarchOp's and
+    NormalOp's procedural backwards) finite with a signal on the fractal."""
+    plan, tables, tt = _fractal("mandelbox", cuda_device)
+    cfg = CFG.replace(normal_mode=normal)
+    img = rt.render_tables(plan, tt, cfg, backend="multi", device=cuda_device)
+    want = rt.render_tables(plan, tt, cfg, device=cuda_device)
+    assert ((img - want).abs().amax(-1) < 1e-3).double().mean() > 0.99
+    g = tables_to_torch(tables, cuda_device,
+                        requires_grad=("prim_pos", "prim_aux"))
+    out = rt.render_tables(plan, g, cfg, backend="multi", differentiable=True,
+                           device=cuda_device)
+    gp, ga = torch.autograd.grad(torch.mean(out * out),
+                                 (g.prim_pos, g.prim_aux))
+    (leaf, *_), = plan.proc
+    assert torch.isfinite(gp).all() and torch.isfinite(ga).all()
+    assert gp[leaf].abs().max() > 0 and ga[leaf, 0] != 0

@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_util import one_torch_thread  # noqa: E402,F401
+from torch_util import deep_scene, one_torch_thread  # noqa: E402,F401
 
 from raymarching_tpu import RenderConfig  # noqa: E402
 from raymarching_tpu.api import render_tables as jax_render_tables  # noqa: E402
@@ -244,17 +244,18 @@ def test_normal_op_matches_autograd_through_plain_scene_sd():
 
 
 def test_normal_op_refuses_unported_branches(scenes_dir):
-    # both normals on exact tables and on the fused generator field are
-    # ported; a procedural plan waits for item 10 in every one of them
-    plan, tables = compile_scene(load_scene(str(scenes_dir /
-                                                "mandelbox.txt")))
-    assert plan.proc
+    # both normals on exact tables and on the fused generator field, with
+    # procedural leaves too, are ported; a depth-3 plan waits for D8 in
+    # every one of them
+    plan, tables = rt.compile_scene(deep_scene(rt.load_scene(str(
+        scenes_dir / "config1.txt"))))
+    assert plan.kernel is None
     tt = tables_to_torch(tables, "cpu")
     p = torch.as_tensor(np.array(_points(8)))
     for change in (dict(), dict(normal_mode="analytic"),
                    dict(fused_generators=True),
                    dict(normal_mode="analytic", fused_generators=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="D8"):
             normal_op(plan, OP_CFG.replace(**change), tt, p)
 
 

@@ -91,10 +91,11 @@ def test_theta_cotangent_sums_match_jax_with_ties(world):
 
 def test_leaf_statics_match_jax(world):
     plan = world[0]
-    sign_j, sph_j, _ = jvjp._leaf_statics(plan)
-    sign_t, sph_t = tvjp.leaf_statics(plan)
+    sign_j, sph_j, proc_j = jvjp._leaf_statics(plan)
+    sign_t, sph_t, proc_t = tvjp.leaf_statics(plan)
     np.testing.assert_array_equal(sign_t, sign_j)
     np.testing.assert_array_equal(sph_t, sph_j)
+    np.testing.assert_array_equal(proc_t, proc_j)
 
 
 def test_fd_stencil_cotangents_match_jax():
