@@ -10,8 +10,8 @@ Phases, one line each, every failure an uncaught exception:
                    extended-shading, raygen and mirror-bounce entries, K2,
                    K3, K4's reference and extended-shading entries;
                    ops.build.SOURCES), in parallel; each one's ptxas
-                   registers and stack by entry, the procedural views'
-                   entries apart;
+                   registers and stack by entry, the procedural and the
+                   deep views' entries apart;
   3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
@@ -153,7 +153,21 @@ Phases, one line each, every failure an uncaught exception:
                    each normal, split, with the analytic replay's peak
                    memory, K2's combined mode on each of the replay's
                    slices against its twin; mandelbox.txt's multi-kernel
-                   frame, its two K2 modes at its hits against their twins.
+                   frame, its two K2 modes at its hits against their twins;
+ 15. deep        — trees deeper than two levels (no two-level form; JAX's
+                   generic evaluator, D8): every kernel's deep view
+                   (fold.cuh's Deep<S>) against its twin at 64x48 SSAA 1,
+                   bitwise in every entry and mode, on the demo behind a
+                   deep list (all its leaves folded: no collapse, no cull;
+                   with and without the fused flag) and on julia.txt's
+                   Julia inside an intersection; the deep demo at 512x512
+                   SSAA 2, 1000 iterations: render() FD and analytic with
+                   K1's device time in turns with the two-level demo's, K1
+                   against its twin, its bound and share; the multi and
+                   two-phase frames; K3, K4 and K2's stencil entry (the fit
+                   step's shape) against their twins with their bounds;
+                   one fit step in each normal; a served frame (raygen);
+                   the deep Julia's frame.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -176,6 +190,7 @@ import threading
 import time
 import urllib.request
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -446,6 +461,7 @@ def entry_label(name: str) -> str:
     parts += ["bounce"] if bounce else []
     parts += ["fused"] if "Fused" in rest else []
     parts += ["procedural"] if "Proc" in rest else []
+    parts += ["deep"] if "Deep" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -933,8 +949,10 @@ def fractal_scene(name: str):
     return parse_scene(text)
 
 
-def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
-    """Every kernel's procedural view against its plain twin on the rays
+def view_compare(plan, tables, cfg, fused: bool, ext: bool,
+                 what: str = "fractal") -> int:
+    """Every kernel's view of ``plan`` (the procedural one, or a deep
+    plan's) against its plain twin on the rays
     of ``cfg``, bitwise on every output, FD and analytic normals: K1's
     reference entry (the analytic one with its residuals), K3 with steps,
     K4, K2's five modes at K1's hits and its stencil entry (exact packing),
@@ -953,32 +971,32 @@ def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
         origin, dirs = rays_for(plan, tables, c)
         sw = normal == "analytic"
         k1 = render_rays(plan, c, tables, origin, dirs, save_winner=sw)
-        same(f"fractal K1 {normal}", flat(k1), flat(render_rays_plain(
+        same(f"{what} K1 {normal}", flat(k1), flat(render_rays_plain(
             plan, c, tables, origin, dirs, save_winner=sw)), "render_kernel")
         ray = k1[0] if sw else k1
         check(bool(ray.done.any()) and bool((ray.cidx >= 0).any()),
-              "no fractal hit")
+              f"{what}: no hit")
         res, steps = mk.march_rays(plan, c, tables, origin, dirs,
                                    with_steps=True)
         res_p, steps_p = mk.march_rays_plain(plan, c, tables, origin, dirs,
                                              with_steps=True)
-        same(f"fractal K3 {normal}", (*res, steps), (*res_p, steps_p),
+        same(f"{what} K3 {normal}", (*res, steps), (*res_p, steps_p),
              "march_kernel")
         k4 = shk.shade_rays(plan, c, tables, ray.p, ray.sd, dirs,
                             save_winner=sw)
-        same(f"fractal K4 {normal}", flat(k4), flat(shk.shade_rays_plain(
+        same(f"{what} K4 {normal}", flat(k4), flat(shk.shade_rays_plain(
             plan, c, tables, ray.p, ray.sd, dirs, save_winner=sw)),
             "shade_kernel")
-        same(f"fractal K4 {normal} vs K1", flat(k4), flat(k1)[3:])
+        same(f"{what} K4 {normal} vs K1", flat(k4), flat(k1)[3:])
         R = dirs.shape[0]
-        same(f"fractal K1 raygen {normal}", flat(render_raygen(
+        same(f"{what} K1 raygen {normal}", flat(render_raygen(
             plan, c, tables, 0, R, save_winner=sw)), flat(
                 render_raygen_plain(plan, c, tables, 0, R, save_winner=sw)),
             "render_raygen_kernel")
         n += 5
         if normal == "fd":
             for mode in sk.MODES:
-                same(f"fractal K2 mode {mode}", sk.surface_eval(
+                same(f"{what} K2 mode {mode}", sk.surface_eval(
                     plan, tables, ray.p, mode=mode, fd_h=c.fd_h,
                     fused=fused), sk.surface_eval_plain(
                         plan, tables, ray.p, mode=mode, fd_h=c.fd_h,
@@ -986,7 +1004,7 @@ def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
                 n += 1
             if not fused:
                 for center in (True, False):
-                    same("fractal K2 stencil entry", scene_vjp.stencil_eval(
+                    same(f"{what} K2 stencil entry", scene_vjp.stencil_eval(
                         plan, c, tables, ray.p, center=center),
                         sk.surface_stencil_plain(plan, tables, ray.p,
                                                  c.fd_h, center=center),
@@ -998,11 +1016,11 @@ def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
         soft = c.replace(soft_shadow_k=6.0, ao_strength=0.8)
         ke = render_rays(plan, soft, tables, origin, dirs, save_winner=sw,
                          save_factors=True)
-        same(f"fractal K1 extended {normal}", flat(ke), flat(
+        same(f"{what} K1 extended {normal}", flat(ke), flat(
             render_rays_plain(plan, soft, tables, origin, dirs,
                               save_winner=sw, save_factors=True)),
             "render_ext_kernel")
-        same(f"fractal K4 extended {normal}", flat(shk.shade_rays(
+        same(f"{what} K4 extended {normal}", flat(shk.shade_rays(
             plan, soft, tables, ke[0].p, ke[0].sd, dirs, save_winner=sw,
             save_factors=True)), flat(shk.shade_rays_plain(
                 plan, soft, tables, ke[0].p, ke[0].sd, dirs,
@@ -1010,12 +1028,12 @@ def fractal_compare(plan, tables, cfg, fused: bool, ext: bool) -> int:
         n += 2
         for b in (soft,):
             b = b.replace(reflect_strength=0.4, reflect_bounces=1)
-            same(f"fractal K1 bounce {normal}", flat(render_rays(
+            same(f"{what} K1 bounce {normal}", flat(render_rays(
                 plan, b, tables, origin, dirs, save_factors=True)),
                 flat(render_rays_plain(plan, b, tables, origin, dirs,
                                        save_factors=True)),
                 "render_bounce_kernel")
-            same(f"fractal K1 raygen bounce {normal}", flat(render_raygen(
+            same(f"{what} K1 raygen bounce {normal}", flat(render_raygen(
                 plan, b, tables, 0, R, save_factors=True)), flat(
                     render_raygen_plain(plan, b, tables, 0, R,
                                         save_factors=True)),
@@ -1066,8 +1084,7 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
         fused = name == FRACTAL_SPONGE
         ops_ = scene_operands(plan, tt, dev, True, fused)
         check(ops_.proc == 1, f"{name}: not the procedural view")
-        n_cmp += fractal_compare(plan, tt, small, fused,
-                                 ext=name == "julia")
+        n_cmp += view_compare(plan, tt, small, fused, ext=name == "julia")
     print(f"[fractal] compare {time.perf_counter() - t_phase:.1f} s")
     errs = {k: ERRS[k] for k in KERNELS}
     print(f"[fractal] every kernel's procedural view = its plain twin "
@@ -1354,6 +1371,294 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     return rows
 
 
+# the [deep] phase (pallas_march's D8: plans with no two-level form)
+D8 = ("raymarching_tpu/ops/pallas_march.py:1533 (_scene_generic_tile, via "
+      ":1628, :2284, :2456, :2577)")
+
+
+def deep_demo(scene):
+    """``scene`` with a depth-3 list in front of its root's children (a
+    union holding an intersection of a union and a sphere): its plan has no
+    two-level form, so every kernel takes its deep view (fold.cuh's
+    Deep<S>) and folds every leaf, with no collapse and no cull."""
+    from raymarching_tpu_torch.scene.csg import Box, ListNode, Mode, Sphere
+    inner = ListNode(Mode.UNION, [Sphere((0, 0, -4), 1.0),
+                                  Box((1, 0, -4), (1, 1, 1))])
+    mid = ListNode(Mode.INTERSECTION, [inner, Sphere((0.5, 0, -4), 1.2)])
+    return dataclasses.replace(scene, tree=ListNode(
+        scene.tree.mode, [ListNode(Mode.UNION, [mid])]
+        + list(scene.tree.children)))
+
+
+def deep_julia():
+    """scenes/julia.txt with its Julia leaf inside an intersection, three
+    lists down: union(Julia, sphere) intersected with a box, in a union."""
+    from raymarching_tpu_torch.scene.csg import (Box, Julia, ListNode, Mode,
+                                                 Sphere)
+    from raymarching_tpu_torch.scene.parser import load_scene
+    scene = load_scene(str(ROOT / "scenes" / "julia.txt"))
+    leaf = next(c for c in scene.tree.children if isinstance(c, Julia))
+    inter = ListNode(Mode.INTERSECTION, [
+        ListNode(Mode.UNION, [leaf, Sphere((0.9, 0.0, -5.0), 0.6)]),
+        Box((0.0, 0.2, -5.0), (2.4, 2.0, 2.4))])
+    rest = [c for c in scene.tree.children if c is not leaf]
+    return dataclasses.replace(scene, tree=ListNode(
+        scene.tree.mode, rest + [ListNode(Mode.UNION, [inter])]))
+
+
+def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
+    """[deep]: plans deeper than two levels on every path.  Every kernel's
+    deep view against its twin at 64x48 SSAA 1 (the demo behind a deep
+    list, with and without the fused flag; julia.txt's Julia inside an
+    intersection); the deep demo (every leaf folded: no collapse, no cull)
+    at 512x512 SSAA 2, 1000 iterations: render() with FD and analytic
+    normals, K1's device time in turns with the two-level demo's through
+    the same entry, K1 against its twin, its bound and share; the multi
+    frame and the two-phase frame; K3, K4 and K2's stencil entry on the
+    frame's hits against their twins with their bounds; one fit step in
+    each normal; a served frame (K1's raygen entry); the deep Julia's
+    frame.  Returns each of the four kernels' deep row of the JSON
+    table."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
+    from raymarching_tpu_torch.tables import scene_operands, tables_to_torch
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(path: str, calls: int) -> dict:
+        counts = add_counts(path, calls)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        return counts
+
+    demo = rt.load_scene(str(DEMO))
+    ddemo, djulia = deep_demo(demo), deep_julia()
+    plan, tables = rt.compile_scene(ddemo)
+    jplan, jtables = rt.compile_scene(djulia)
+    tt, jtt = tables_to_torch(tables, dev), tables_to_torch(jtables, dev)
+    for what, p_, t_ in (("deep demo", plan, tt), ("deep julia", jplan, jtt)):
+        ops_ = scene_operands(p_, t_, dev, True, True)
+        check(p_.kernel is None and ops_.deep == 1 and ops_.fused == 0,
+              f"{what}: not the deep view")
+
+    # 1. every deep entry against its twin, small
+    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    n_cmp = (view_compare(plan, tt, small, False, True, "deep demo")
+             + view_compare(plan, tt, small, True, False,
+                            "deep demo, fused flag")
+             + view_compare(jplan, jtt, small, False, True, "deep julia"))
+    print(f"[deep] every kernel's deep view = its plain twin bitwise "
+          f"({n_cmp} comparisons at {small.width}x{small.height} ssaa"
+          f"{small.ssaa} {small.iterations} it on the demo behind a deep "
+          f"list ({plan.num_primitives} leaves; again with the fused flag, "
+          f"which a deep plan's field ignores) and julia.txt's Julia in an "
+          f"intersection: K1's reference and raygen entries, FD and "
+          f"analytic; K3; K4 FD and analytic; K2's five modes and its "
+          f"stencil entry; K1's and K4's extended and K1's bounce entries "
+          f"with soft shadows and AO); largest difference over this run so "
+          f"far " + ", ".join(f"{k} {v:.3g}" for k, v in ERRS.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s")
+
+    # 2. the deep demo's frames at full width, K1 in turns with the demo
+    fcfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    R = fcfg.rays_per_image
+    rows = {}
+    origin, dirs = rays_for(plan, tt, fcfg)
+    d_org, d_dirs = rays_for(demo_plan, demo_tt, fcfg)
+    frame_rows = []
+    for normal in ("fd", "analytic"):
+        c = fcfg.replace(normal_mode=normal)
+        zero_counts()
+        rt.render(ddemo, c, device=dev)          # warm-up at this shape
+        img, ms = timed(lambda: rt.render(ddemo, c, device=dev), runs=3)
+        counts = counted(f"deep_{normal}", 4)
+        check(counts == only(render_kernel=4),
+              f"deep {normal} render() launched {counts}")
+        check(img.shape == (c.height, c.width, 3)
+              and bool(torch.isfinite(img).all()) and has_demo_objects(img),
+              f"deep {normal} image")
+        turns = {"demo": [], "deep": []}
+        for who in ("demo", "deep", "deep", "demo"):
+            p_, t_, o_, d_ = ((demo_plan, demo_tt, d_org, d_dirs)
+                              if who == "demo" else (plan, tt, origin, dirs))
+            turns[who].append(device_ms(lambda: render_rays(
+                p_, c, t_, o_, d_), "render_kernel"))
+        k1_dev = statistics.mean(turns["deep"])
+        demo_dev = statistics.mean(turns["demo"])
+        k1_out, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
+                              runs=3)
+        plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
+            plan, c, tt, origin, dirs))
+        same(f"deep demo K1 {normal} at 512^2", k1_out, plain,
+             "render_kernel")
+        del plain
+        bound = bound_ms(count, R * (12 + 32))
+        frame_rows.append(
+            f"{normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms on the "
+            f"device (the two-level demo {demo_dev:.3f} in turns: "
+            f"{', '.join(f'{v:.3f}' for v in turns['demo'])} / "
+            f"{', '.join(f'{v:.3f}' for v in turns['deep'])}), with its "
+            f"wrapper {k1_ms:.3f} ms, plain {plain_ms:.1f} ms (bitwise), "
+            f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[5]} operations, "
+            f"{bound[2]} leaf evaluations), share {bound[0] / k1_dev:.1%}")
+        rows[("render_kernel", normal)] = {
+            "scene": "scenes/demo.txt behind a deep list", "ms": k1_ms,
+            "device_ms": k1_dev, "demo_device_ms": demo_dev,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "share": bound[0] / k1_dev}
+    print(f"[deep] demo behind a deep list, {plan.num_primitives} leaves, "
+          f"512x512 ssaa2 1000 it (3 frames, one K1 a frame): "
+          + "; ".join(frame_rows) + f"; {card}")
+
+    # the multi frame and the two-phase frame (FD)
+    rt.render(ddemo, fcfg, backend="multi", device=dev)
+    zero_counts()
+    mimg, mms = timed(lambda: rt.render(ddemo, fcfg, backend="multi",
+                                        device=dev))
+    counts = counted("multi_deep", 1)
+    check(counts == only(march_kernel=1 + plan.num_lights, surface_kernel=2),
+          f"deep multi frame launched {counts}")
+    fimg = rt.render(ddemo, fcfg, device=dev)
+    diff = (mimg - fimg).abs().amax(dim=-1)
+    share = (diff <= REFLECT_ATOL).double().mean().item()
+    check(share >= AGREE, f"deep multi vs fused: {share} of pixels agree")
+    zero_counts()
+    two, tms = timed(lambda: rt.render(ddemo, fcfg.replace(two_phase_k1=48),
+                                       device=dev))
+    counts2 = counted("two_phase_deep", 1)
+    check(counts2["shade_kernel"] == 1 and counts2["render_kernel"] == 0
+          and counts2["march_kernel"] in (1, 2),
+          f"deep two-phase frame launched {counts2}")
+    check(torch.equal(two, fimg), "deep two-phase frame differs from the "
+          "one kernel's")
+    print(f"[deep] demo behind a deep list 512x512 ssaa2: backend=multi "
+          f"{mms:.3f} ms, launches K3 {counts['march_kernel']}, K2 "
+          f"{counts['surface_kernel']}, against backend=cuda {share:.5f} of "
+          f"pixels within {REFLECT_ATOL}, max {diff.max().item():.3g}; "
+          f"two_phase_k1=48 {tms:.3f} ms, launches K3 "
+          f"{counts2['march_kernel']}, K4 1, the one kernel's image bitwise; "
+          f"{card}")
+    del mimg, two
+
+    # K3, K4 and K2's stencil entry on the deep demo's frame (FD), bounds
+    hit, k3_ms = timed(lambda: mk.march_rays(plan, fcfg, tt, origin, dirs),
+                       runs=3)
+    k3_dev = device_ms(lambda: mk.march_rays(plan, fcfg, tt, origin, dirs),
+                       "march_kernel", 3)
+    k3_p, k3_plain, k3_count = timed_counted(lambda: mk.march_rays_plain(
+        plan, fcfg, tt, origin, dirs))
+    same("deep demo K3 at 512^2", hit, k3_p, "march_kernel")
+    rows["march_kernel"] = {"ms": k3_ms, "device_ms": k3_dev,
+                            "plain_ms": k3_plain,
+                            "bound": bound_ms(k3_count, R * (12 + 20))}
+    k4, k4_ms = timed(lambda: shk.shade_rays(plan, fcfg, tt, hit.position,
+                                             hit.sd, dirs), runs=3)
+    k4_dev = device_ms(lambda: shk.shade_rays(plan, fcfg, tt, hit.position,
+                                              hit.sd, dirs), "shade_kernel", 3)
+    k4_p, k4_plain, k4_count = timed_counted(lambda: shk.shade_rays_plain(
+        plan, fcfg, tt, hit.position, hit.sd, dirs))
+    same("deep demo K4 at 512^2", k4, k4_p, "shade_kernel")
+    rows["shade_kernel"] = {"ms": k4_ms, "device_ms": k4_dev,
+                            "plain_ms": k4_plain,
+                            "bound": bound_ms(k4_count, R * (28 + 12))}
+    p = hit.position
+    k2, k2_ms = timed(lambda: scene_vjp.stencil_eval(plan, fcfg, tt, p,
+                                                     center=True), runs=3)
+    k2_dev = device_ms(lambda: scene_vjp.stencil_eval(
+        plan, fcfg, tt, p, center=True), "surface_kernel", 3)
+    k2_p, k2_plain, k2_count = timed_counted(lambda: sk.surface_stencil_plain(
+        plan, tt, p, fcfg.fd_h, center=True))
+    same("deep demo K2 stencil entry at 512^2 (the fit step's shape)", k2,
+         k2_p, "surface_kernel")
+    rows["surface_kernel"] = {"scene": "the 7-point stencils of K3's hits",
+                              "ms": k2_ms, "device_ms": k2_dev,
+                              "plain_ms": k2_plain,
+                              "bound": bound_ms(k2_count, R * (12 + 7 * 20))}
+    for kname in ("march_kernel", "shade_kernel", "surface_kernel"):
+        b = rows[kname].pop("bound")
+        rows[kname].update(bound_ms=b[0], bound_by=b[1],
+                           share=b[0] / rows[kname]["device_ms"])
+        print(f"[deep] {kname} demo behind a deep list 512x512 ssaa2: "
+              f"{rows[kname]['ms']:.3f} ms with its wrapper, "
+              f"{rows[kname]['device_ms']:.3f} ms on the device, plain "
+              f"{rows[kname]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by "
+              f"{b[1]} ({b[5]} operations, {b[2]} leaf evaluations), share "
+              f"{rows[kname]['share']:.1%}; bitwise its twin; {card}")
+    del hit, k3_p, k4, k4_p, k2, k2_p
+
+    # one fit step in each normal (FD: K1 and K2's stencil entry; analytic:
+    # K1 with its winner residuals, no K2)
+    target = rt.render_tables(plan, tables, fcfg, device=dev)
+    start, _, _ = perturbed_demo(tables)
+    for normal in ("fd", "analytic"):
+        c = fcfg.replace(normal_mode=normal)
+        rt.fit(plan, start, target, c, device=dev, steps=1,
+               trainable=TRAINABLE, optimizer=adam)     # warm-up
+        zero_counts()
+        t0 = time.perf_counter()
+        res = rt.fit(plan, start, target, c, device=dev, steps=1,
+                     trainable=TRAINABLE, optimizer=adam)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = counted(f"train_deep_{normal}", 1)
+        check(counts == only(render_kernel=1,
+                             surface_kernel=1 if normal == "fd" else 0),
+              f"deep {normal} fit step launched {counts}")
+        check(all(np.isfinite(res.losses)), f"losses {res.losses}")
+        print(f"[deep] fit step, demo behind a deep list 512x512 ssaa2 1000 "
+              f"it, {normal} normals, Adam on {', '.join(TRAINABLE)}: "
+              f"{step_ms:.1f} ms (host clock, loss {res.losses[0]:.6g}); "
+              f"launches K1 1, K2 {counts['surface_kernel']}; {card}")
+
+    # a served frame: K1's raygen entry, no camera pass
+    rt.render(ddemo, fcfg.replace(serve_raygen=True), device=dev)
+    zero_counts()
+    simg, sms = timed(lambda: rt.render(ddemo, fcfg.replace(
+        serve_raygen=True), device=dev))
+    counts = counted("serve_deep", 1)
+    check(counts == only(render_raygen_kernel=1),
+          f"deep served frame launched {counts}")
+    sdiff = (simg - fimg).abs().amax(dim=-1)
+    s_share = (sdiff <= ANALYTIC_ATOL).double().mean().item()
+    check(s_share >= 0.995, f"deep served frame: {s_share} of pixels agree")
+    print(f"[deep] served frame (serve_raygen, K1's raygen entry 1): "
+          f"{sms:.3f} ms; {s_share:.5f} of pixels within {ANALYTIC_ATOL} of "
+          f"the standard frame's (the raygen directions round apart at "
+          f"silhouettes); {card}")
+    del simg, fimg
+
+    # the deep Julia's frame, forward
+    zero_counts()
+    rt.render(djulia, fcfg, device=dev)
+    jimg, jms = timed(lambda: rt.render(djulia, fcfg, device=dev), runs=3)
+    counts = counted("deep_julia", 4)
+    check(counts == only(render_kernel=4), f"deep julia launched {counts}")
+    check(bool(torch.isfinite(jimg).all()) and jimg.max().item() > 0,
+          "deep julia image")
+    jo, jd = rays_for(jplan, jtt, fcfg)
+    jk1 = device_ms(lambda: render_rays(jplan, fcfg, jtt, jo, jd),
+                    "render_kernel")
+    jsub = slice(0, R, BIG_STRIDE)
+    jk = render_rays(jplan, fcfg, jtt, jo, jd[jsub])
+    jp_, _, jcount = timed_counted(lambda: render_rays_plain(
+        jplan, fcfg, jtt, jo, jd[jsub]))
+    same("deep julia K1 at 512^2 (every 8th ray)", jk, jp_, "render_kernel")
+    print(f"[deep] julia.txt's Julia in an intersection, 512x512 ssaa2 1000 "
+          f"it, FD: render() {jms:.3f} ms, K1 {jk1:.3f} ms on the device; "
+          f"K1 = its twin on every {BIG_STRIDE}th ray bitwise ("
+          f"{jcount.ops} operations there); {card}")
+    print(f"[deep] phase {time.perf_counter() - t_phase:.1f} s; launches on "
+          f"its paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    rows["launches"] = launches
+    return rows
+
+
 def kernel_times() -> int:
     """``--times``: one line with the device times (torch.profiler, median
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
@@ -1574,22 +1879,30 @@ def main() -> int:
     t0 = time.perf_counter()
     check(set(KERNELS) == set(build.SOURCES),
           f"the package's sources {build.SOURCES}, this script's {KERNELS}")
-    libs = build.build_all(KERNELS)
-    for kname, lib_path in zip(KERNELS, libs):
+    def build_timed(kname):
+        t = time.perf_counter()
+        return build.build(kname), time.perf_counter() - t
+
+    # one nvcc a source, all started together (ops.build.build_all's way)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build_timed, KERNELS))
+    for kname, (lib_path, secs) in zip(KERNELS, built):
         build.load_library(kname)
         log = lib_path.with_suffix(".log").read_text()
-        print(f"[build] {lib_path.name}; " + ptxas_summary(log))
+        print(f"[build] {lib_path.name} in {secs:.1f} s; "
+              + ptxas_summary(log))
         entries = ptxas_entries(log)
         check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
-        # the procedural views' entries (Proc<S>) apart: the others are
-        # held to the build before they existed
+        # the procedural views' entries (Proc<S>) and the deep views'
+        # (Deep<S>) apart: the others are held to the build before they
+        # existed
         report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
-                           if "procedural" not in e)
+                           if "procedural" not in e and "deep" not in e)
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
               + report)
-        print(f"[ptxas] {kname} procedural entries: " + "; ".join(
-            f"{e} {r} / {st} B" for e, r, st in entries
-            if "procedural" in e))
+        for view in ("procedural", "deep"):
+            print(f"[ptxas] {kname} {view} entries: " + "; ".join(
+                f"{e} {r} / {st} B" for e, r, st in entries if view in e))
         if kname in SEVEN_SOURCE_PTXAS:
             same_ = report == SEVEN_SOURCE_PTXAS[kname]
             print(f"[ptxas] {kname}: the seven-source build's registers "
@@ -3551,6 +3864,10 @@ def main() -> int:
     proc_rows = fractal_phase(dev, card, add_counts, dplan,
                               tables_to_torch(dtables, dev))
 
+    # 15. deep trees (no two-level form) on every path
+    deep_rows = deep_phase(dev, card, add_counts, dplan,
+                           tables_to_torch(dtables, dev))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -3679,6 +3996,22 @@ def main() -> int:
             r["procedural"] = {"replaces": d7, **proc_rows[k]}
         if "procedural" in r:
             r["procedural"]["launches"] = proc_rows["launches"][k]
+    # each kernel's deep view ([deep]: the demo behind a deep list at
+    # 512x512 ssaa2; K1 FD and analytic, with the two-level demo's device
+    # time in turns; K2 its stencil entry at the fit step's shape), and its
+    # launches on the [deep] paths
+    for r in table["kernels"]:
+        k = r["name"]
+        if k == "render_kernel":
+            r["deep"] = {"replaces": D8,
+                         "scene": "scenes/demo.txt behind a deep list",
+                         "fd": deep_rows[("render_kernel", "fd")],
+                         "analytic": deep_rows[("render_kernel",
+                                                "analytic")]}
+        elif k in ("march_kernel", "shade_kernel", "surface_kernel"):
+            r["deep"] = {"replaces": D8, **deep_rows[k]}
+        if "deep" in r:
+            r["deep"]["launches"] = deep_rows["launches"][k]
     print(json.dumps(table))
     print(card)
     print(json.dumps({"ok": True, "device": {

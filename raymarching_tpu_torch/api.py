@@ -157,7 +157,7 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
         # kernel tracks them (raymarching_tpu.api.render_tables)
         backend = "cuda"
     device = resolve_device(device)
-    check_supported(plan, cfg)
+    check_supported(plan, cfg, backend)
     if differentiable and backend == "ref":
         raise NotImplementedError(
             "not ported yet: the differentiable ref oracle (ROADMAP Queue 1 "

@@ -650,19 +650,39 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
         running = torch.where(better, v, running)
         if with_idx or with_grad:
             ridx = torch.where(better, k.to(torch.int32), ridx)
-    if with_grad and LeafCount._open:
-        # the winner's gradient: a procedural winner's sweep
+    _count(plan, n, counted, collapsed, ridx if with_grad else None)
+    if not with_grad:
+        return rsign * running, ridx
+    g = _winner_gradient(plan, tables, p, ridx)
+    # a carve's path sign is -1: the group is max(base, -carve)
+    for ext, cg in carve_grads:
+        g = torch.where((ridx == ext)[:, None], -cg, g)
+    return rsign * running, ridx, g
+
+
+def _count(plan: ScenePlan, n: int, counted, collapsed, ridx) -> None:
+    """Hand one fold's leaf evaluations and further operations to every
+    open LeafCount; with the winners ``ridx`` of a gradient fold, a
+    procedural winner's gradient sweep too."""
+    if not LeafCount._open:
+        return
+    if ridx is not None:
         for (leaf, kind, _, iters) in plan.proc:
-            collapsed += (ridx == leaf).sum() * grad_ops(kind, iters)
+            collapsed = collapsed + (ridx == leaf).sum() * grad_ops(kind,
+                                                                   iters)
     for c in LeafCount._open:
         c._leaves.append(counted)
         c._collapsed.append(collapsed)
         c.points += n
-    if not with_grad:
-        return rsign * running, ridx
-    # Only the winner's gradient survives the fold's selects, and sign
-    # flips are exact: the winning leaf's gradient times its path sign
-    # gsign * scale (the root's rsign cancels) is the fold's, bitwise.
+
+
+def _winner_gradient(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
+                    ridx: torch.Tensor) -> torch.Tensor:
+    """d scene / dp [N, 3] at p [N, 3] from the fold's winning leaves ridx
+    [N] (-1, or an extended id: zero).  Only the winner's gradient survives
+    the fold's selects, and sign flips are exact: the winning leaf's
+    gradient times its path sign (``leaf_signs``) is the fold's, bitwise;
+    a procedural winner's is its forward-mode sweep."""
     sign_eff = torch.as_tensor(leaf_signs(plan), device=p.device)
     ptype = torch.zeros(sign_eff.shape, dtype=torch.int64, device=p.device)
     ptype[:plan.num_primitives] = torch.as_tensor(plan.prim_type)
@@ -678,23 +698,82 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
             lg = proc_grad(spec, p[sel], tables.prim_pos[spec[0]],
                            tables.prim_aux[spec[0], 0])
             g = g.index_put((sel,), sign_eff[spec[0]] * lg)
-    # a carve's path sign is -1: the group is max(base, -carve)
-    for ext, cg in carve_grads:
-        g = torch.where((ridx == ext)[:, None], -cg, g)
-    return rsign * running, ridx, g
+    return g
 
 
 @functools.lru_cache(maxsize=64)
 def leaf_signs(plan: ScenePlan) -> np.ndarray:
-    """[P] float32 path sign gsign * scale of every leaf of a two-level
-    plan: min/max folds select but never scale, so for the winning leaf
-    scene = sign * leaf sd (the root's rsign cancels in the chain rule).
-    A leafless plan gets one zero row, as its tables have one pad row."""
+    """[P] float32 path sign of every leaf: min/max folds select but never
+    scale, so for the winning leaf scene = sign * leaf sd.  In a two-level
+    plan it is gsign * scale (the root's rsign cancels in the chain rule);
+    in a deeper one the product of the negation flags from the root to the
+    leaf, walked top-down over the post-order lists (JAX
+    scene_vjp._leaf_statics).  A leafless plan gets one zero row, as its
+    tables have one pad row."""
     sign = np.zeros(max(plan.num_primitives, 1), np.float32)
-    for g in plan.kernel.groups:
-        for (_, start, count, scale) in g.runs:
-            sign[start:start + count] = float(g.gsign * scale)
+    if plan.kernel is not None:
+        for g in plan.kernel.groups:
+            for (_, start, count, scale) in g.runs:
+                sign[start:start + count] = float(g.gsign * scale)
+        return sign
+    ctx = [0.0] * len(plan.lists)
+    ctx[-1] = 1.0
+    for li in range(len(plan.lists) - 1, -1, -1):
+        for (kind, idx, neg) in plan.lists[li].entries:
+            s = ctx[li] * (-1.0 if neg else 1.0)
+            if kind == KIND_LEAF:
+                sign[idx] = s
+            else:
+                ctx[idx] = s
     return sign
+
+
+def _deep_fold_block(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
+                     with_idx: bool, with_grad: bool):
+    """``kernel_fold`` of a plan with no two-level form at p [N, 3]: the
+    program of ``tables.pack_deep`` walked as csrc/fold.cuh's deep folds
+    walk it, one accumulator a list open, over the leaf matrix."""
+    from ..tables import (DEEP_CLOSE, DEEP_FIRST, DEEP_MIN, DEEP_NEG,
+                          DEEP_OPEN, pack_deep)
+
+    packed = pack_deep(plan)
+    runs = packed.runs.numpy()
+    leaf = leaf_sd(plan, tables, p)
+    n, dev = leaf.shape[0], p.device
+    inf = torch.full((n,), float("inf"), device=dev)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    stack = [(inf, none)]
+    for code, first, n_runs, flags in packed.groups.numpy().tolist():
+        if code == DEEP_OPEN:
+            stack.append((inf, none))
+            continue
+        if code == DEEP_CLOSE:
+            v, k = stack.pop()
+            if flags & DEEP_NEG:
+                v = -v
+        else:
+            # one entry's runs: consecutive leaves of one scale; the min
+            # over a dim returns the first minimal index, the strict-<
+            # fold's winner, which stays -1 while nothing beats inf
+            lo = int(runs[first, 1])
+            hi = int(runs[first + n_runs - 1, 1] + runs[first + n_runs - 1, 2])
+            m, k = (leaf[:, lo:hi] * float(runs[first, 3])).min(dim=1)
+            k = torch.where(m < inf, (k + lo).to(torch.int32), none)
+            v = m if flags & DEEP_MIN else -m
+        if flags & DEEP_FIRST:
+            stack[-1] = (v, k)
+            continue
+        acc, ak = stack[-1]
+        better = v < acc if flags & DEEP_MIN else v > acc
+        stack[-1] = (torch.where(better, v, acc), torch.where(better, k, ak))
+    sd, ridx = stack[0]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    _count(plan, n, zero + n * plan.num_primitives,
+           zero + n * _proc_ops(plan, 0, plan.num_primitives),
+           ridx if with_grad else None)
+    if not with_grad:
+        return sd, ridx
+    return sd, ridx, _winner_gradient(plan, tables, p, ridx)
 
 
 def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
@@ -726,8 +805,10 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     wins reports the extended winner id P + ordinal
     (``_scene_sd_idx_grad_tile``) with the carve's gradient, negated."""
     if plan.kernel is None:
-        raise NotImplementedError(
-            "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
+        out = _blocked(lambda q: _deep_fold_block(plan, tables, q, with_idx,
+                                                  with_grad),
+                       plan.num_primitives, p)
+        return out if with_grad else (out[0], out[1] if with_idx else None)
     if collapse:
         from ..tables import lattice_ok
 
@@ -775,6 +856,22 @@ def _deathstar_carve_ad(pos, r, p: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min((d * d).sum(dim=-1), 1e-24)) - r
 
 
+def require_kernel_form(plan: ScenePlan) -> KernelPlan:
+    """``plan.kernel``, or ValueError for a plan with none: the fused
+    generator field is defined on the two-level form only.  The JAX
+    package's fused backwards assert the same (``core.sdf.scene_sd_fused``:
+    "fused evaluation requires kernel normal form"); its kernels render
+    such a plan's exact field, and so do the port's."""
+    if plan.kernel is None:
+        raise ValueError(
+            "fused generators differentiate on the two-level kernel form "
+            "only; this plan has lists nested deeper (its fused render is "
+            "the exact field, as in the JAX package, whose fused backward "
+            "asserts 'fused evaluation requires kernel normal form'): "
+            "differentiate with fused_generators=False")
+    return plan.kernel
+
+
 def scene_sd_fused(plan: ScenePlan, tables: SceneTables,
                    p: torch.Tensor) -> torch.Tensor:
     """The fused generator field at p [..., 3] as JAX's
@@ -788,10 +885,7 @@ def scene_sd_fused(plan: ScenePlan, tables: SceneTables,
     keeps JAX's floor under the DeathStar's square root)."""
     from ..tables import fused_groups
 
-    kp: KernelPlan = plan.kernel
-    if kp is None:
-        raise NotImplementedError(
-            "depth > 2 scenes are not ported yet (ROADMAP Queue 2, D8)")
+    kp: KernelPlan = require_kernel_form(plan)
     fused_groups(kp)                    # the form the kernels take
     rsign = 1.0 if kp.root_op == MIN else -1.0
     flat = p.reshape(-1, 3)

@@ -48,6 +48,12 @@
 // asks for it whenever the plan has a procedural leaf, so no procedural
 // run ever reaches a view without it.
 //
+// Plans deeper than two levels (pallas_march's D8, _scene_generic_tile)
+// take the view Deep<S> alone: their groups are tables.pack_deep's
+// post-order program, which deep_sd, deep_sd_n and deep_sd_idx walk with
+// one accumulator a list open (see deep_sd); the two-level folds above
+// compile for the other views only, so no other entry changes.
+//
 // The value folds and the PathWinner fold take a Menger group's carve
 // through the exact lattice collapse (pallas_march._menger_carve_lattice,
 // _menger_carve_lattice_idx_grad) while the wrapper's flag says the live
@@ -107,6 +113,7 @@ struct DeviceScene {
   static constexpr bool kStaged = false;
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
+  static constexpr bool kDeep = false;
   const float4* tbl;
   const int4* groups;
   const int4* runs;
@@ -135,6 +142,7 @@ struct SharedScene {
   static constexpr bool kStaged = true;   // sizes halved, stream resolved
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
+  static constexpr bool kDeep = false;
   unsigned tbl, groups, runs, lat, lights;
   int n_groups, root_min;
   bool collapse;
@@ -174,6 +182,18 @@ struct Proc : S {
   static constexpr bool kFused = true;
   static constexpr bool kProc = true;
   __device__ __forceinline__ explicit Proc(const S& s) : S(s) {}
+};
+
+// A scene view whose plan has no two-level form (tables.pack_deep): the
+// groups are the deep program and the folds walk it (deep_sd and its
+// forms).  It takes procedural runs, which deep trees may hold, and no
+// fused group (the deep program has none: a deep plan's field is exact).
+template <class S>
+struct Deep : S {
+  static constexpr bool kFused = false;
+  static constexpr bool kProc = true;
+  static constexpr bool kDeep = true;
+  __device__ __forceinline__ explicit Deep(const S& s) : S(s) {}
 };
 
 // SceneArgs from a C entry point's leading arguments.
@@ -675,6 +695,136 @@ __device__ __forceinline__ void lattice_carve_n(const S& s, int off,
   }
 }
 
+// Deep plans (pallas_march's D8, _scene_generic_tile): a tree of any depth
+// as the program of tables.pack_deep, one int4 an instruction in the
+// group descriptors' place.  A list's entries fold left to right: an entry
+// of leaf runs is the min over its runs of scale * leaf sd, negated under
+// a MAX list (MAX is -min(-x), its scale the entry sign's opposite); a
+// sub-list opens an accumulator of its own, and when it closes its value
+// (negated when the entry is) folds into its parent's.  The first entry is
+// taken as it is; each later one with strict first-wins comparisons, v <
+// acc under MIN and v > acc under MAX.  The parent's earlier entries are
+// folded by then, so the combines run in the order of JAX's post-order
+// unroll and give its bits.  Live state: one accumulator a list open, in
+// a per-thread stack of kDeepLevels (dynamically indexed, so in local
+// memory: only the Deep views have it).  No cull, no collapse.
+constexpr int kDeepLevels = 16;   // tables.DEEP_LEVELS
+constexpr int kDeepOpen = 1, kDeepClose = 2;   // tables.DEEP_OPEN, _CLOSE
+constexpr int kDeepMin = 1, kDeepFirst = 2, kDeepNeg = 4;   // entry flags
+
+// Whether entry value v replaces the accumulator acc of its list.
+__device__ __forceinline__ bool deep_takes(int flags, float v, float acc) {
+  if (flags & kDeepFirst) return true;
+  return (flags & kDeepMin) ? v < acc : v > acc;
+}
+
+template <class S>
+__device__ __forceinline__ float deep_sd(const S& s, float px, float py,
+                                         float pz) {
+  float acc[kDeepLevels];
+  int d = 0;
+  acc[0] = kInf;
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      acc[++d] = kInf;
+      continue;
+    }
+    float v;
+    if (ins.x == kDeepClose) {
+      v = acc[d--];
+      if (ins.w & kDeepNeg) v = -v;
+    } else {
+      float m = kInf;
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        m = fold_run(s, s.run(r), px, py, pz, m);
+      v = (ins.w & kDeepMin) ? m : -m;
+    }
+    if (deep_takes(ins.w, v, acc[d])) acc[d] = v;
+  }
+  return acc[0];
+}
+
+// deep_sd at N points in one walk of the program.
+template <int N, class S>
+__device__ __forceinline__ void deep_sd_n(const S& s, const Points<N>& p,
+                                          float (&out)[N]) {
+  float acc[kDeepLevels][N];
+  int d = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[0][j] = kInf;
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      ++d;
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[d][j] = kInf;
+      continue;
+    }
+    float v[N];
+    if (ins.x == kDeepClose) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        v[j] = (ins.w & kDeepNeg) ? -acc[d][j] : acc[d][j];
+      --d;
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = kInf;
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        fold_run_n(s, s.run(r), p, v);
+      if (!(ins.w & kDeepMin)) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) v[j] = -v[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (deep_takes(ins.w, v[j], acc[d][j])) acc[d][j] = v[j];
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = acc[0][j];
+}
+
+// A winner negated: its value and, for a PathWinner, its path sign flip;
+// its leaf stays.
+__device__ __forceinline__ Winner deep_negate(Winner w) {
+  return Winner{-w.sd, w.idx};
+}
+__device__ __forceinline__ PathWinner deep_negate(PathWinner w) {
+  return PathWinner{-w.sd, w.idx, -w.tag};
+}
+
+// deep_sd with the first-wins winner leaf (-1: none).  A PathWinner's tag
+// carries the winner's path sign, the product of the negations from the
+// root to the leaf (JAX scene_vjp._leaf_statics' sign_eff), for
+// winner_grad.
+template <class W, class S>
+__device__ __forceinline__ W deep_sd_idx(const S& s, float px, float py,
+                                         float pz) {
+  W acc[kDeepLevels];
+  int d = 0;
+  acc[0] = make_winner<W>(kInf, -1, 0);
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      acc[++d] = make_winner<W>(kInf, -1, 0);
+      continue;
+    }
+    W v;
+    if (ins.x == kDeepClose) {
+      v = acc[d--];
+      if (ins.w & kDeepNeg) v = deep_negate(v);
+    } else {
+      v = make_winner<W>(kInf, -1, 0);
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        v = fold_run_idx(s, s.run(r), px, py, pz, v);
+      if (!(ins.w & kDeepMin)) v = deep_negate(v);
+    }
+    if (deep_takes(ins.w, v.sd, acc[d].sd)) acc[d] = v;
+  }
+  return acc[0];
+}
+
 // Scene SDF: the two-level fold of pallas_march._scene_sd_tile.  A cullable
 // (DIFFERENCE) group first folds its base runs (scale -1, always leading);
 // its value max(base, -carve...) is at least -gmin of the base, so when that
@@ -685,34 +835,38 @@ __device__ __forceinline__ void lattice_carve_n(const S& s, int off,
 template <class S>
 __device__ __noinline__ float scene_sd(const S s, float px, float py,
                                        float pz) {
-  const float rsign = s.root_min ? 1.0f : -1.0f;
-  float running = kInf;
-  for (int gi = 0; gi < s.n_groups; ++gi) {
-    const int4 g = s.group(gi);
-    const int end = g.y + g.z;
-    int k = g.y;
-    float gmin = kInf;
-    if (g.w) {
-      for (; k < end; ++k) {
-        const int4 run = s.run(k);
-        if (run.w != -1) break;
-        gmin = fold_run(s, run, px, py, pz, gmin);
+  if constexpr (S::kDeep) {
+    return deep_sd(s, px, py, pz);
+  } else {
+    const float rsign = s.root_min ? 1.0f : -1.0f;
+    float running = kInf;
+    for (int gi = 0; gi < s.n_groups; ++gi) {
+      const int4 g = s.group(gi);
+      const int end = g.y + g.z;
+      int k = g.y;
+      float gmin = kInf;
+      if (g.w) {
+        for (; k < end; ++k) {
+          const int4 run = s.run(k);
+          if (run.w != -1) break;
+          gmin = fold_run(s, run, px, py, pz, gmin);
+        }
+        if (-gmin >= running) continue;
+        if constexpr (S::kFused) {
+          if (g.w == kGroupFused)
+            gmin = fminf(gmin, fused_carve(s, s.run(end), px, py, pz));
+        }
+        const int block = s.collapse ? s.stream(gi) : 0;
+        if (block != 0) {
+          gmin = fminf(gmin, lattice_carve(s, block, px, py, pz));
+          k = end;
+        }
       }
-      if (-gmin >= running) continue;
-      if constexpr (S::kFused) {
-        if (g.w == kGroupFused)
-          gmin = fminf(gmin, fused_carve(s, s.run(end), px, py, pz));
-      }
-      const int block = s.collapse ? s.stream(gi) : 0;
-      if (block != 0) {
-        gmin = fminf(gmin, lattice_carve(s, block, px, py, pz));
-        k = end;
-      }
+      for (; k < end; ++k) gmin = fold_run(s, s.run(k), px, py, pz, gmin);
+      running = fminf(running, rsign * (static_cast<float>(g.x) * gmin));
     }
-    for (; k < end; ++k) gmin = fold_run(s, s.run(k), px, py, pz, gmin);
-    running = fminf(running, rsign * (static_cast<float>(g.x) * gmin));
+    return rsign * running;
   }
-  return rsign * running;
 }
 
 // scene_sd at the N points of `p` in one walk: out[j] is scene_sd's value
@@ -730,59 +884,65 @@ struct Fold {
 
 template <int N, class S>
 __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
-  const float rsign = s.root_min ? 1.0f : -1.0f;
-  float running[N];
+  if constexpr (S::kDeep) {
+    Fold<N> out;
+    deep_sd_n(s, p, out.v);
+    return out;
+  } else {
+    const float rsign = s.root_min ? 1.0f : -1.0f;
+    float running[N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) running[j] = kInf;
-  for (int gi = 0; gi < s.n_groups; ++gi) {
-    const int4 g = s.group(gi);
-    const int end = g.y + g.z;
-    int k = g.y;
-    float gmin[N];
-    bool keep[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      gmin[j] = kInf;
-      keep[j] = true;
-    }
-    if (g.w) {
-      for (; k < end; ++k) {
-        const int4 run = s.run(k);
-        if (run.w != -1) break;
-        fold_run_n(s, run, p, gmin);
-      }
-      bool any = false;
+    for (int j = 0; j < N; ++j) running[j] = kInf;
+    for (int gi = 0; gi < s.n_groups; ++gi) {
+      const int4 g = s.group(gi);
+      const int end = g.y + g.z;
+      int k = g.y;
+      float gmin[N];
+      bool keep[N];
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        keep[j] = !(-gmin[j] >= running[j]);
-        any = any || keep[j];
+        gmin[j] = kInf;
+        keep[j] = true;
       }
-      if (!any) continue;
-      if constexpr (S::kFused) {
-        if (g.w == kGroupFused) {
-          const int4 c = s.run(end);
+      if (g.w) {
+        for (; k < end; ++k) {
+          const int4 run = s.run(k);
+          if (run.w != -1) break;
+          fold_run_n(s, run, p, gmin);
+        }
+        bool any = false;
 #pragma unroll
-          for (int j = 0; j < N; ++j)
-            gmin[j] = fminf(gmin[j],
-                            fused_carve(s, c, p.x[j], p.y[j], p.z[j]));
+        for (int j = 0; j < N; ++j) {
+          keep[j] = !(-gmin[j] >= running[j]);
+          any = any || keep[j];
+        }
+        if (!any) continue;
+        if constexpr (S::kFused) {
+          if (g.w == kGroupFused) {
+            const int4 c = s.run(end);
+#pragma unroll
+            for (int j = 0; j < N; ++j)
+              gmin[j] = fminf(gmin[j],
+                              fused_carve(s, c, p.x[j], p.y[j], p.z[j]));
+          }
+        }
+        const int block = s.collapse ? s.stream(gi) : 0;
+        if (block != 0) {
+          lattice_carve_n(s, block, p, gmin);
+          k = end;
         }
       }
-      const int block = s.collapse ? s.stream(gi) : 0;
-      if (block != 0) {
-        lattice_carve_n(s, block, p, gmin);
-        k = end;
-      }
+      for (; k < end; ++k) fold_run_n(s, s.run(k), p, gmin);
+      const float gs = static_cast<float>(g.x);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (keep[j]) running[j] = fminf(running[j], rsign * (gs * gmin[j]));
     }
-    for (; k < end; ++k) fold_run_n(s, s.run(k), p, gmin);
-    const float gs = static_cast<float>(g.x);
+    Fold<N> out;
 #pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (keep[j]) running[j] = fminf(running[j], rsign * (gs * gmin[j]));
+    for (int j = 0; j < N; ++j) out.v[j] = rsign * running[j];
+    return out;
   }
-  Fold<N> out;
-#pragma unroll
-  for (int j = 0; j < N; ++j) out.v[j] = rsign * running[j];
-  return out;
 }
 
 // Scene SDF and winner leaf (-1: none), pallas_march._scene_sd_idx_tile
@@ -796,47 +956,51 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
 template <class W, class S>
 __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
                                        float pz) {
-  const float rsign = s.root_min ? 1.0f : -1.0f;
-  W root = make_winner<W>(kInf, -1, 0);
-  for (int gi = 0; gi < s.n_groups; ++gi) {
-    const int4 g = s.group(gi);
-    const int end = g.y + g.z;
-    int k = g.y;
-    W w = make_winner<W>(kInf, -1, 0);
-    if (g.w) {
-      for (; k < end; ++k) {
-        const int4 run = s.run(k);
-        if (run.w != -1) break;
-        w = fold_run_idx(s, run, px, py, pz, w);
-      }
-      if (-w.sd >= root.sd) continue;
-      if constexpr (S::kFused) {
-        if (g.w == kGroupFused) {
-          // the base wins ties (take_base = base >= -carve); the colour
-          // winner stays the base leaf, the PathWinner names the carve
-          const int4 c = s.run(end);
-          const float cv = fused_carve(s, c, px, py, pz);
-          if (cv < w.sd) {
-            if constexpr (W::kPath)
-              w = make_winner<W>(cv, c.w, kCarveTag + 1 + end);
-            else
-              w.sd = cv;
+  if constexpr (S::kDeep) {
+    return deep_sd_idx<W>(s, px, py, pz);
+  } else {
+    const float rsign = s.root_min ? 1.0f : -1.0f;
+    W root = make_winner<W>(kInf, -1, 0);
+    for (int gi = 0; gi < s.n_groups; ++gi) {
+      const int4 g = s.group(gi);
+      const int end = g.y + g.z;
+      int k = g.y;
+      W w = make_winner<W>(kInf, -1, 0);
+      if (g.w) {
+        for (; k < end; ++k) {
+          const int4 run = s.run(k);
+          if (run.w != -1) break;
+          w = fold_run_idx(s, run, px, py, pz, w);
+        }
+        if (-w.sd >= root.sd) continue;
+        if constexpr (S::kFused) {
+          if (g.w == kGroupFused) {
+            // the base wins ties (take_base = base >= -carve); the colour
+            // winner stays the base leaf, the PathWinner names the carve
+            const int4 c = s.run(end);
+            const float cv = fused_carve(s, c, px, py, pz);
+            if (cv < w.sd) {
+              if constexpr (W::kPath)
+                w = make_winner<W>(cv, c.w, kCarveTag + 1 + end);
+              else
+                w.sd = cv;
+            }
           }
         }
+        const int block = W::kPath && s.collapse ? s.stream(gi) : 0;
+        if (block != 0) {
+          const Winner c = lattice_carve_idx(s, block, px, py, pz);
+          if (c.sd < w.sd) w = make_winner<W>(c.sd, c.idx, kCross + 1);
+          k = end;
+        }
       }
-      const int block = W::kPath && s.collapse ? s.stream(gi) : 0;
-      if (block != 0) {
-        const Winner c = lattice_carve_idx(s, block, px, py, pz);
-        if (c.sd < w.sd) w = make_winner<W>(c.sd, c.idx, kCross + 1);
-        k = end;
-      }
+      for (; k < end; ++k) w = fold_run_idx(s, s.run(k), px, py, pz, w);
+      const float v = rsign * (static_cast<float>(g.x) * w.sd);
+      if (v < root.sd) root = at_root(w, v, g.x);
     }
-    for (; k < end; ++k) w = fold_run_idx(s, s.run(k), px, py, pz, w);
-    const float v = rsign * (static_cast<float>(g.x) * w.sd);
-    if (v < root.sd) root = at_root(w, v, g.x);
+    root.sd = rsign * root.sd;
+    return root;
   }
-  root.sd = rsign * root.sd;
-  return root;
 }
 
 // The winner's gradient, d scene / dp = gsign * scale * d leaf / dp, as

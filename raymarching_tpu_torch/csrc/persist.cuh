@@ -111,9 +111,11 @@ __device__ __forceinline__ SharedScene stage_shared(const SceneArgs& a) {
 // The block's view of the scene: every thread of the block calls it once,
 // at the top of the kernel.  S is DeviceScene or SharedScene, or either
 // under Fused<> (a fused group's carve run names no rows, so staging
-// halves nothing of it) or Proc<> (a procedural leaf's size is halved with
+// halves nothing of it), Proc<> (a procedural leaf's size is halved with
 // the rest of its row, and proc.cuh's proc_leaf doubles it back; its
-// iteration count and procedural row are not touched).
+// iteration count and procedural row are not touched) or Deep<> (the
+// deep program is staged as the group descriptors are; its stream is one
+// 0 an instruction, so nothing of it is resolved).
 template <class S>
 __device__ __forceinline__ S stage_scene(const SceneArgs& a) {
   if constexpr (S::kStaged)
@@ -178,9 +180,13 @@ struct View {
 // shared memory, else read from device memory) and `view`
 // (tables.SceneOperands.args: bit 0 the fused generator packing, else
 // exact; bit 1 a plan with procedural leaves, Proc<S>, which takes either
-// packing) name; returns what f returns.
+// packing; bit 2 a plan with no two-level form, Deep<S>, whatever the
+// other bits say) name; returns what f returns.
 template <class F>
 inline int on_view(int shared, int view, const F& f) {
+  if (view & 4)
+    return shared ? f(View<Deep<SharedScene>>{})
+                  : f(View<Deep<DeviceScene>>{});
   if (view & 2)
     return shared ? f(View<Proc<SharedScene>>{})
                   : f(View<Proc<DeviceScene>>{});

@@ -105,8 +105,13 @@ constexpr int kNormalAnalytic = 1;
 // 1.41 left alone (FD: K1 10.0 and 2.2 ms, K4 1.67).
 constexpr int kAnalyticBlocks = 10;
 
-// AO taps an extended entry takes (ops/shade_kernel.py MAX_AO_SAMPLES).
-constexpr int kMaxAoSamples = 32;
+// AO taps an extended entry takes (ops/shade_kernel.py MAX_AO_SAMPLES): the
+// distances travel by value in the launch's parameters, read by tap index.
+// Their count changes no entry's registers or stack (256 and 32 build the
+// same ptxas report with nvcc of CUDA 12.8 for sm_90a); a device pointer in
+// their place moved the stack frames of most extended and bounce entries
+// by 8-48 bytes and some registers by 8-16.
+constexpr int kMaxAoSamples = 256;
 
 // The extensions of an extended entry: switches and constants, the same
 // for every ray (pallas_render._shade_body's soft_k, colored, ao_*).

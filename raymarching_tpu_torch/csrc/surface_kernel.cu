@@ -245,7 +245,8 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
 // the hit +- h on axis a), else 6 (rows a and 3 + a); out [4][K R], widx
 // [K R], row k of hit i at column k R + i.  `shared` and `counter` as
 // rt_surface_eval takes them; the exact packing only (bit 0 of `view` must
-// be 0: the exact FD backward's entry), with procedural leaves or without.
+// be 0: the exact FD backward's entry), with procedural leaves or without,
+// or a deep plan's program (bit 2).
 // Returns a CUDA error code.
 extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
                                   const void* runs, const void* lat,
@@ -272,6 +273,9 @@ extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
   P.n = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (view & 4)
+    return shared ? launch<kCombined, true, Deep<SharedScene>>(P, st)
+                  : launch<kCombined, true, Deep<DeviceScene>>(P, st);
   if (view & 2)
     return shared ? launch<kCombined, true, Proc<SharedScene>>(P, st)
                   : launch<kCombined, true, Proc<DeviceScene>>(P, st);

@@ -78,9 +78,6 @@ def march_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                                 with_steps=with_steps, collapse=collapse)
     if dev.type != "cuda":
         raise ValueError(f"march_rays: unsupported device {dev}")
-    if plan.kernel is None:
-        raise NotImplementedError(
-            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
     its = cfg.iterations if iterations is None else int(iterations)
     R = dirs.shape[0]
     tensors = [origin, dirs, *tables] + ([tmax] if tmax is not None else [])

@@ -27,7 +27,7 @@ import torch
 
 from ..config import RenderConfig
 from ..core.march import MarchResult, dot3
-from ..core.sdf import scene_sd_fused
+from ..core.sdf import require_kernel_form, scene_sd_fused
 from ..scene.compile import ScenePlan, SceneTables
 from .march_kernel import march_rays
 from .scene_vjp import ift_ray_weights, theta_cotangents
@@ -54,6 +54,8 @@ class MarchOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, p_bar, _sd_bar, _conv_bar):
         plan, cfg = ctx.plan, ctx.cfg
+        if cfg.fused_generators:
+            require_kernel_form(plan)   # a deep plan's fused backward
         p_hit, converged, t, dirs, *fields = ctx.saved_tensors
         tables = SceneTables(*fields)
         # inputs: plan, cfg, origin, dirs, then the fields in order

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..core.sdf import scene_sd, scene_sd_fused
+from ..core.sdf import require_kernel_form, scene_sd, scene_sd_fused
 from ..core.shading import normal_analytic, normal_fd
 from ..scene.compile import ScenePlan, SceneTables
 from .scene_vjp import (analytic_normal_bwd, fd_stencil_cotangents,
@@ -49,9 +49,6 @@ from .surface_kernel import ANALYTIC, FD_GRAD, stencil_points, surface_eval
 def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for ``_normal_op``'s other branches."""
     check_normal_mode(cfg, False)
-    if plan.kernel is None:
-        raise NotImplementedError(
-            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
 
 
 class NormalOp(torch.autograd.Function):
@@ -73,6 +70,8 @@ class NormalOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_bar):
         plan, cfg = ctx.plan, ctx.cfg
+        if cfg.fused_generators:
+            require_kernel_form(plan)   # a deep plan's fused backward
         p, *fields = ctx.saved_tensors
         tables = SceneTables(*fields)
         # inputs: plan, cfg, p, then the fields in order

@@ -55,8 +55,9 @@ from ..tables import fused_groups
 from . import build
 from .march_kernel import march_rays
 from .scene_vjp import gather_rows
-from .shade_kernel import (EXT_ARGTYPES, ShadeOutputs, MAX_LIGHTS, SHADE_ARGTYPES, Factors,
-                           bounce_count, check_normal_mode, ext_operands,
+from .shade_kernel import (EXT_ARGTYPES, ShadeOutputs, SHADE_ARGTYPES, Factors,
+                           bounce_count, check_lights, check_normal_mode,
+                           ext_operands,
                            extended, light_of, ptr_or_none, shade_operands,
                            shade_plain, shade_rays, shade_rays_plain,
                            winner_buffers, winner_of, with_extras)
@@ -93,17 +94,17 @@ class BounceOutputs(NamedTuple):
     done: torch.Tensor   # [R] bool: converged (done and sd < eps)
 
 
-def check_supported(plan: ScenePlan, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for anything outside the ported slice."""
-    todo = None
-    if plan.kernel is None:
-        todo = "depth > 2 scenes (ROADMAP Queue 2, D8)"
-    elif plan.num_lights > MAX_LIGHTS:
-        todo = f"more than {MAX_LIGHTS} lights"
-    if todo is not None:
-        raise NotImplementedError(f"not ported yet: {todo}")
+def check_supported(plan: ScenePlan, cfg: RenderConfig,
+                    backend: str = "cuda") -> None:
+    """Raise NotImplementedError for anything outside the ported slice, and
+    ValueError for more lights than the fused path (``backend`` "cuda")
+    holds.  A plan with no two-level form (depth > 2) renders in every
+    regime: the kernels' deep view, which evaluates its exact field with
+    fused generators too, as the JAX kernels' generic evaluator does."""
+    if backend == "cuda":
+        check_lights(plan)
     check_normal_mode(cfg, False)
-    if cfg.fused_generators:
+    if cfg.fused_generators and plan.kernel is not None:
         fused_groups(plan.kernel)       # the generator form the kernels take
 
 

@@ -79,7 +79,7 @@ from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
 
 from ..core.march import dot3
-from ..core.sdf import scene_sd, scene_sd_fused
+from ..core.sdf import require_kernel_form, scene_sd, scene_sd_fused
 from ..core.shading import (lambert_replay, normal_analytic, normal_fd,
                             normalize)
 from .march_op import fused_ift
@@ -145,6 +145,8 @@ class FusedRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out):
         plan, cfg = ctx.plan, ctx.cfg
+        if cfg.fused_generators:
+            require_kernel_form(plan)   # a deep plan's fused backward
         p, conv, cidx, smask, t, dirs, *rest = ctx.saved_tensors
         winner, rest = rest[:ctx.n_winner], rest[ctx.n_winner:]
         soft, ao = ctx.factors

@@ -36,7 +36,7 @@ from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
 from ..scene.csg import PrimType
 
-from ..core.sdf import leaf_signs
+from ..core.sdf import leaf_signs, require_kernel_form
 from ..tables import ext_base, fused_groups
 from .surface_kernel import COMBINED, surface_eval, surface_stencil
 
@@ -69,11 +69,9 @@ def replay_slice(plan: ScenePlan, n: int) -> int:
 def leaf_statics(plan: ScenePlan) -> Tuple[np.ndarray, np.ndarray,
                                            np.ndarray]:
     """Per-leaf (sign_eff [P] float32, is_sphere [P] bool, is_proc [P]
-    bool) of a two-level plan (scene_vjp._leaf_statics): is_proc marks the
-    procedural fractal leaves; a leafless plan gets one pad row."""
-    if plan.kernel is None:
-        raise NotImplementedError(
-            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
+    bool) of a plan of any depth (scene_vjp._leaf_statics): sign_eff is
+    ``core.sdf.leaf_signs``' path sign, is_proc marks the procedural
+    fractal leaves; a leafless plan gets one pad row."""
     sign_eff = leaf_signs(plan)
     ptype = np.asarray(plan.prim_type, np.int32)
     is_sphere = np.zeros(sign_eff.shape, bool)
@@ -284,10 +282,11 @@ def fused_statics(plan: ScenePlan) -> tuple:
     path sign; -1 for a DeathStar carve, whose group is -carve there);
     base_row: the table row a winner row's cotangents land on (itself, or
     the generator's base leaf)."""
+    kp = require_kernel_form(plan)
     sign_eff, is_sphere, _ = leaf_statics(plan)
     P = plan.num_primitives
-    generators = fused_groups(plan.kernel)
-    if generators and ext_base(plan.kernel) != P:
+    generators = fused_groups(kp)
+    if generators and ext_base(kp) != P:
         raise ValueError("the fused plan's extended ids do not start at P")
     F = len(generators)
     kind = np.zeros(P + F, np.int32)

@@ -39,10 +39,15 @@ from .. import tables as scene_tables
 from ..tables import light_rows
 from . import build
 
-# Shadow outcomes travel as bits of an int32 mask.
+# Shadow outcomes travel as bits of an int32 mask, in K1 and K4 as in the
+# JAX kernels (pallas_render._shade_body's smask), so the fused path takes
+# at most 32 lights (JAX's mega kernel: 31, the bit 1 << 31 overflows its
+# int32 constant).  The multi and ref paths keep no mask and take any count,
+# as the JAX package's pallas and ref backends do.
 MAX_LIGHTS = 32
-# AO taps the extended entries take (csrc/shade.cuh kMaxAoSamples)
-MAX_AO_SAMPLES = 32
+# AO taps the extended entries take (csrc/shade.cuh kMaxAoSamples); the
+# plain twins take any count, as the JAX kernels do
+MAX_AO_SAMPLES = 256
 
 
 class ShadeOutputs(NamedTuple):
@@ -72,6 +77,17 @@ class Winner(NamedTuple):
     sd: torch.Tensor     # [R] scene SD at the hit
     widx: torch.Tensor   # [R] int32 winning leaf, -1 = none
     g: torch.Tensor      # [R, 3] d scene / dp: the analytic normal's primal
+
+
+def check_lights(plan: ScenePlan) -> None:
+    """Raise ValueError for more lights than the fused kernels' shadow
+    mask holds (MAX_LIGHTS)."""
+    if plan.num_lights > MAX_LIGHTS:
+        raise ValueError(
+            f"{plan.num_lights} lights: the fused kernels (K1, K4) keep a "
+            f"light's shadow in a bit of an int32, so they take at most "
+            f"{MAX_LIGHTS}, as the JAX package's mega kernel does; render "
+            "with backend='multi' or 'ref', which take any count")
 
 
 def check_normal_mode(cfg: RenderConfig, save_winner: bool) -> bool:
@@ -132,7 +148,9 @@ def black_skip_ids(plan: ScenePlan, cfg: RenderConfig,
     colour rows are still black (pallas_render.black_skip_ids plus the
     runtime gate).  Off with mirror bounces, as pallas_render_rays passes
     no black ids then: a black hit still shades its bounces' origins."""
-    ids = tuple(plan.kernel.black_prims)
+    # a plan with no two-level form has none (pallas_render
+    # .black_skip_ids: getattr(kernel_key(plan), "black_prims", ()))
+    ids = tuple(getattr(plan.kernel, "black_prims", ()))
     if not (ids and cfg.shade_skip_black and cfg.shadows
             and not bounce_count(cfg)):
         return ()
@@ -281,7 +299,8 @@ def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device,
     colored, soft, ao = extensions(plan, cfg)
     if ao and cfg.ao_samples > MAX_AO_SAMPLES:
         raise NotImplementedError(
-            f"not ported yet: more than {MAX_AO_SAMPLES} AO samples")
+            f"not ported yet: more than {MAX_AO_SAMPLES} AO samples on the "
+            "card (ROADMAP Queue 3, fault 5)")
     d, _ = ao_taps(cfg) if ao else ([], [])
     ao_d = (ctypes.c_float * max(len(d), 1))(*d)
     # no lights, no penumbra to track
@@ -369,9 +388,7 @@ def shade_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     if dirs.shape != (R, 3) or p.shape != (R, 3) or sd.shape != (R,):
         raise ValueError(f"shade_rays: p {tuple(p.shape)}, sd "
                          f"{tuple(sd.shape)}, dirs {tuple(dirs.shape)}")
-    if plan.num_lights > MAX_LIGHTS:
-        raise NotImplementedError(f"not ported yet: more than {MAX_LIGHTS} "
-                                  "lights")
+    check_lights(plan)
     analytic = check_normal_mode(cfg, save_winner)
 
     ext = extended(plan, cfg)

@@ -141,13 +141,10 @@ def _library() -> ctypes.CDLL:
 def _check_inputs(what: str, plan: ScenePlan, tables: SceneTables,
                   q: torch.Tensor) -> None:
     """Raise on what K2 does not take: q float32 [N, 3] on a CUDA device
-    that also holds float32 tables of a two-level plan."""
+    that also holds float32 tables."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if plan.kernel is None:
-        raise NotImplementedError(
-            "not ported yet: depth > 2 scenes (ROADMAP Queue 2, D8)")
     if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3:
         raise ValueError(f"{what}: points must be float32 [N, 3], got "
                          f"{q.dtype} {tuple(q.shape)}")

@@ -36,7 +36,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .scene.compile import MIN, KernelPlan, SceneTables
+from .scene.compile import KIND_LIST, MIN, KernelPlan, ScenePlan, SceneTables
 
 # DIFFERENCE groups at least this large get the base-bound cull
 # (the rule of pallas_march._scene_sd_tile, _CULL_MIN_GROUP).
@@ -271,28 +271,143 @@ def pack_plan(kp: KernelPlan, fused: bool = False) -> PackedPlan:
                 raise ValueError(f"pack_plan: run type {ptype!r} is none "
                                  "the kernels fold")
             runs.append((int(ptype), start, count, scale))
-    as_i32 = lambda rows: torch.tensor(  # noqa: E731
-        np.asarray(rows, np.int32).reshape(-1, 4))
-    params = np.zeros((len(kp.proc), 8), np.float32)
-    for k, (_, kind, param, _) in enumerate(kp.proc):
-        params[k, :4] = (tuple(param) if kind == "julia"
-                         else (param, 0.0, 0.0, 0.0))
     return PackedPlan(
-        int(kp.root_op), as_i32(groups), as_i32(runs),
+        int(kp.root_op), _as_i32(groups), _as_i32(runs),
         torch.tensor(np.asarray(lattice, np.int32)),
         torch.tensor(np.asarray(members, np.int64).reshape(-1, 2).T.copy()),
-        torch.tensor([leaf for (leaf, _, _, _) in kp.proc], dtype=torch.int64),
-        torch.tensor([float(it) for (_, _, _, it) in kp.proc],
-                     dtype=torch.float32),
-        torch.from_numpy(params))
+        *_proc_fields(kp.proc))
+
+
+def _as_i32(rows) -> torch.Tensor:
+    """[n, 4] int32 descriptors."""
+    return torch.tensor(np.asarray(rows, np.int32).reshape(-1, 4))
+
+
+def _proc_fields(proc) -> tuple:
+    """``PackedPlan``'s proc_leaves, proc_iters and proc_params of a plan's
+    ``proc`` entries."""
+    params = np.zeros((len(proc), 8), np.float32)
+    for k, (_, kind, param, _) in enumerate(proc):
+        params[k, :4] = (tuple(param) if kind == "julia"
+                         else (param, 0.0, 0.0, 0.0))
+    return (torch.tensor([leaf for (leaf, _, _, _) in proc],
+                         dtype=torch.int64),
+            torch.tensor([float(it) for (_, _, _, it) in proc],
+                         dtype=torch.float32),
+            torch.from_numpy(params))
+
+
+# The deep program's instructions (csrc/fold.cuh's deep folds): an entry
+# of one or more leaf runs, the opening of a sub-list, its closing.
+DEEP_RUNS, DEEP_OPEN, DEEP_CLOSE = 0, 1, 2
+# An entry's flags: its list folds with MIN (else MAX), it is the list's
+# first entry (taken as it is), it is negated (a closed sub-list's value).
+DEEP_MIN, DEEP_FIRST, DEEP_NEG = 1, 2, 4
+# Lists open at once in the deep fold, the root's included: the size of
+# its per-thread stack (csrc/fold.cuh's kDeepLevels).
+DEEP_LEVELS = 16
+
+
+_RUN = 2  # a coalesced run of leaves
+
+
+@functools.lru_cache(maxsize=None)
+def _coalesced_entries(lp) -> tuple:
+    """A list's entries with consecutive same-negation leaves merged into
+    (_RUN, first leaf, count, neg) items; a sub-list is (KIND_LIST, its
+    index, 0, neg) (core.sdf._coalesced_entries of the JAX package).
+    Entry order, and so the first-wins winner, is kept."""
+    items = []
+    for kind, idx, neg in lp.entries:
+        if (kind != KIND_LIST and items and items[-1][0] == _RUN
+                and items[-1][3] == neg
+                and items[-1][1] + items[-1][2] == idx):
+            items[-1] = (_RUN, items[-1][1], items[-1][2] + 1, neg)
+        elif kind != KIND_LIST:
+            items.append((_RUN, idx, 1, neg))
+        else:
+            items.append((KIND_LIST, idx, 0, neg))
+    return tuple(items)
+
+
+def _deep_depth(plan: ScenePlan) -> int:
+    """Lists open at once when the deep fold walks ``plan``: 1 for a root
+    of leaves, 3 for a depth-3 tree."""
+    depth = [1] * len(plan.lists)
+    for li, lp in enumerate(plan.lists):    # post-order: children first
+        for kind, idx, _ in lp.entries:
+            if kind == KIND_LIST:
+                depth[li] = max(depth[li], 1 + depth[idx])
+    return depth[-1] if depth else 1
 
 
 @functools.lru_cache(maxsize=64)
-def _packed_on(kp: KernelPlan, device: torch.device,
+def pack_deep(plan: ScenePlan) -> PackedPlan:
+    """The descriptor tensors of a plan with no two-level form
+    (``plan.kernel is None``; pallas_march's D8, ``_scene_generic_tile``),
+    cached per plan like ``pack_plan``'s.
+
+    ``groups`` [I, 4] is a program, walked depth first from the root's
+    entries: per entry of a list, in entry order (``_coalesced_entries``:
+    consecutive leaves of one negation are one entry), either
+    (DEEP_RUNS, first run, number of runs, flags), the entry's leaves
+    split into runs of one kernel run type (pallas_march._type_segments),
+    or (DEEP_OPEN, 0, 0, 0), the sub-list's own entries, and (DEEP_CLOSE,
+    0, 0, flags).  Flags: DEEP_MIN when the list that holds the entry
+    folds with MIN, DEEP_FIRST on its first entry, DEEP_NEG on a negated
+    sub-list.  ``runs`` [N, 4] are (run type, first leaf, leaf count,
+    scale): scale is the entry's sign under a MIN list and its opposite
+    under a MAX one, which the fold takes as -min(-x).  ``lattice`` is one
+    0 an instruction (no collapse: the kernels' staging reads an entry a
+    descriptor), ``members`` empty; the procedural fields are
+    ``pack_plan``'s.  Raises ValueError for a plan whose lists nest deeper
+    than DEEP_LEVELS."""
+    depth = _deep_depth(plan)
+    if depth > DEEP_LEVELS:
+        raise ValueError(
+            f"the deep fold holds {DEEP_LEVELS} nested lists; this plan "
+            f"nests {depth} (ROADMAP Queue 3, the deep fold's stack)")
+    prog, runs = [], []
+    proc = {int(leaf): PROC_TYPES[kind] for (leaf, kind, _, _) in plan.proc}
+
+    def emit(li: int) -> None:
+        lp = plan.lists[li]
+        for e, (kind, idx, count, neg) in enumerate(_coalesced_entries(lp)):
+            flags = ((DEEP_MIN if lp.op == MIN else 0)
+                     | (DEEP_FIRST if e == 0 else 0))
+            if kind == KIND_LIST:
+                prog.append((DEEP_OPEN, 0, 0, 0))
+                emit(idx)
+                prog.append((DEEP_CLOSE, 0, 0,
+                             flags | (DEEP_NEG if neg else 0)))
+                continue
+            sign = -1 if neg else 1
+            scale = sign if lp.op == MIN else -sign
+            first = len(runs)
+            for leaf in range(idx, idx + count):
+                t = proc.get(leaf, int(plan.prim_type[leaf]))
+                if len(runs) > first and runs[-1][0] == t:
+                    runs[-1] = (t, runs[-1][1], runs[-1][2] + 1, scale)
+                else:
+                    runs.append((t, leaf, 1, scale))
+            prog.append((DEEP_RUNS, first, len(runs) - first, flags))
+
+    if plan.lists:
+        emit(len(plan.lists) - 1)
+    root = plan.lists[-1].op if plan.lists else MIN
+    return PackedPlan(
+        int(root), _as_i32(prog), _as_i32(runs),
+        torch.zeros(max(len(prog), 1), dtype=torch.int32),
+        torch.zeros((2, 0), dtype=torch.int64), *_proc_fields(plan.proc))
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_on(kp, device: torch.device,
                fused: bool = False) -> PackedPlan:
     """``pack_plan(kp, fused)`` with its tensors on ``device`` (cached,
-    shared)."""
-    packed = pack_plan(kp, fused)
+    shared); for a ScenePlan with no two-level form ``pack_deep(kp)``."""
+    packed = (pack_deep(kp) if getattr(kp, "groups", None) is None
+              else pack_plan(kp, fused))
     return packed._replace(**{
         name: getattr(packed, name).to(device)
         for name in ("groups", "runs", "lattice", "members", "proc_leaves",
@@ -351,17 +466,18 @@ class SceneOperands(NamedTuple):
     root_min: int           # 1 when the root folds with MIN
     fused: int = 0          # 1: the fused packing (fused generators)
     proc: int = 0           # 1: the plan has procedural leaves
+    deep: int = 0           # 1: pack_deep's program (no two-level form)
 
     def args(self) -> tuple:
         """The leading arguments of every C entry point: five pointers,
         then the row, group, run and stream counts, root_min and the scene
-        view (csrc/persist.cuh's on_view: fused + 2 proc)."""
+        view (csrc/persist.cuh's on_view: fused + 2 proc + 4 deep)."""
         return (self.table.data_ptr(), self.groups.data_ptr(),
                 self.runs.data_ptr(), self.lattice.data_ptr(),
                 self.flag.data_ptr(), self.table.shape[0],
                 self.groups.shape[0], self.runs.shape[0],
                 self.lattice.shape[0], self.root_min,
-                self.fused + 2 * self.proc)
+                self.fused + 2 * self.proc + 4 * self.deep)
 
     def nbytes(self, n_lights: int = 0) -> int:
         """Bytes a block stages when the scene goes to shared memory."""
@@ -376,12 +492,17 @@ def scene_operands(plan, tables: SceneTables, device,
     """The scene as the kernels read it, on ``device``: the exact packing,
     or with ``fused`` the fused one (``RenderConfig.fused_generators``).
     With ``collapse`` the flag is ``lattice_ok`` of the live tables, else 0
-    (the plain leaf fold).  The caller keeps the tensors alive across its
-    launch."""
-    packed = _packed_on(plan.kernel, torch.device(device), bool(fused))
+    (the plain leaf fold).  A plan with no two-level form takes
+    ``pack_deep``'s program whatever ``fused`` says (the JAX kernels
+    evaluate such a plan's exact field, fused generators or not), with the
+    flag 0.  The caller keeps the tensors alive across its launch."""
+    deep = plan.kernel is None
+    fused = bool(fused) and not deep
+    kp = plan if deep else plan.kernel
+    packed = _packed_on(kp, torch.device(device), fused)
     with torch.no_grad():
         table = build_table(tables)
-        flag = (_table_flag(plan.kernel, table, bool(fused)) if collapse
+        flag = (_table_flag(kp, table, fused) if collapse
                 else torch.zeros(1, dtype=torch.int32, device=device))
         K = packed.proc_leaves.shape[0]
         if K:
@@ -392,8 +513,8 @@ def scene_operands(plan, tables: SceneTables, device,
             table = torch.cat([table, packed.proc_params])
         ops = SceneOperands(table, packed.groups, packed.runs,
                             packed.lattice, flag,
-                            int(packed.root_op == MIN), int(bool(fused)),
-                            int(K > 0))
+                            int(packed.root_op == MIN), int(fused),
+                            int(K > 0), int(deep))
     for name in ("groups", "runs", "lattice", "flag"):
         t = getattr(ops, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()

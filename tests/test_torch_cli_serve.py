@@ -120,9 +120,9 @@ def test_supported_config_renders(change, scenes_dir):
 
 def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
     """The fractal scenes render (they raised before the procedural leaves
-    were ported): finite images equal to the ref oracle's.  A depth-3 tree
-    (ROADMAP Queue 2, D8) and the differentiable ref oracle (Queue 1 item
-    3) still raise."""
+    were ported), and so does a depth-3 tree (it raised before the deep
+    fold was ported): finite images equal to the ref oracle's.  The
+    differentiable ref oracle (ROADMAP Queue 1 item 3) still raises."""
     cfg = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=100)
     for name in ("mandelbox", "julia"):
         scene = rt.load_scene(str(scenes_dir / f"{name}.txt"))
@@ -134,8 +134,11 @@ def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
                                    rtol=0, atol=1e-3)
     deep = deep_scene(rt.load_scene(str(scenes_dir / "config1.txt")))
     assert compile_scene(deep)[0].kernel is None
-    with pytest.raises(NotImplementedError, match="D8"):
-        rt.render(deep, cfg, device="cpu")
+    img = rt.render(deep, cfg, device="cpu")
+    assert img.shape == (6, 8, 3) and torch.isfinite(img).all()
+    assert img.max() > 0
+    torch.testing.assert_close(img, rt.render_ref(deep, cfg, device="cpu"),
+                               rtol=0, atol=1e-3)
     plan, tables = compile_scene(rt.load_scene(str(scenes_dir /
                                                    "config1.txt")))
     grad_tables = type(tables)(*(torch.tensor(v, requires_grad=True)

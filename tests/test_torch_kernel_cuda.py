@@ -7,8 +7,9 @@ K1's and K4's extended-shading entries (soft shadows, AO, coloured lights)
 and K1's raygen entries against their twins, with their gradients; K1's
 mirror-bounce entries against their twins, the reflect backward's
 gradients, and depth of field; the procedural views of all four kernels
-(fractal scenes) in every entry and mode, with their gradients.  Skips
-without a card.
+(fractal scenes) in every entry and mode, with their gradients; the deep
+views (trees deeper than two levels, a fractal inside) in every entry
+and mode, with their gradients.  Skips without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
 is installed:
@@ -16,13 +17,15 @@ is installed:
     python -m pytest tests/test_torch_kernel_cuda.py --noconftest -q
 """
 
+import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_util import one_torch_thread  # noqa: E402,F401
+from torch_util import deep_scene, one_torch_thread, random_scene  # noqa: E402,F401
 
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu_torch.config import RenderConfig  # noqa: E402
@@ -33,7 +36,10 @@ from raymarching_tpu_torch.ops import march_kernel as mk  # noqa: E402
 from raymarching_tpu_torch.ops import render_kernel as rk  # noqa: E402
 from raymarching_tpu_torch.ops import shade_kernel as shk  # noqa: E402
 from raymarching_tpu_torch.scene.compile import (SceneTables,  # noqa: E402
-                                                 compile_scene)
+                                                 compile_scene, compile_tree)
+from raymarching_tpu_torch.scene.csg import (Box, Julia, ListNode,  # noqa: E402
+                                             Mode, Sphere, bounds)
+from raymarching_tpu_torch.scene.objects import Camera, Light  # noqa: E402
 from raymarching_tpu_torch.scene.parser import (load_scene,  # noqa: E402
                                                 parse_scene)
 from raymarching_tpu_torch.ops.render_op import FusedRender  # noqa: E402
@@ -1329,3 +1335,179 @@ def test_fractal_multi_backend_on_card(cuda_device, normal):
     (leaf, *_), = plan.proc
     assert torch.isfinite(gp).all() and torch.isfinite(ga).all()
     assert gp[leaf].abs().max() > 0 and ga[leaf, 0] != 0
+
+
+# deep plans (no two-level form: fold.cuh's Deep<S> view over
+# tables.pack_deep's program): tests/test_fuzz.py's depth-3 tree of seed 12
+# (fractal leaves in nested lists) in a lit room, the demo behind a deep
+# list (every leaf unculled) and julia.txt's Julia inside an intersection
+DEEP_SCENES = ("deep-fuzz", "deep-demo", "deep-julia")
+
+
+def _deep(scene, device):
+    if scene == "deep-fuzz":
+        tree = random_scene(np.random.default_rng(1012), 3)
+        plan, tables = compile_tree(
+            ListNode(Mode.UNION, [bounds(60.0), tree]),
+            [Light((8.0, 12.0, 10.0)), Light((-9.0, 6.0, 4.0))],
+            Camera(position=(0.0, 3.0, 16.0), direction=(0.0, -0.2, -1.0),
+                   fov=70.0))
+    elif scene == "deep-demo":
+        plan, tables = compile_scene(deep_scene(load_scene(str(
+            SCENES / "demo.txt"))))
+    else:
+        julia = load_scene(str(SCENES / "julia.txt"))
+        leaf = next(c for c in julia.tree.children if isinstance(c, Julia))
+        inter = ListNode(Mode.INTERSECTION, [
+            ListNode(Mode.UNION, [leaf, Sphere((0.9, 0.0, -5.0), 0.6)]),
+            Box((0.0, 0.2, -5.0), (2.4, 2.0, 2.4))])
+        rest = [c for c in julia.tree.children if c is not leaf]
+        plan, tables = compile_scene(dataclasses.replace(julia, tree=ListNode(
+            julia.tree.mode, rest + [ListNode(Mode.UNION, [inter])])))
+    assert plan.kernel is None
+    return plan, tables, tables_to_torch(tables, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", DEEP_SCENES)
+def test_deep_kernels_match_twins_on_card(cuda_device, monkeypatch, scene,
+                                          normal, fused, placement):
+    """The deep views of all four kernels (fold.cuh's Deep<S>) against
+    their twins (core.sdf.kernel_fold's deep form), bitwise: K1 (with
+    per-ray origins, and with the winner residuals of the analytic
+    normal), K3 with steps, K4, K3 + K4, K2's five modes at K1's hits and
+    its stencil entry; the scene staged in shared memory and read from
+    device memory; with fused generators the same exact field."""
+    from raymarching_tpu_torch import tables as scene_tables
+    if placement == "device":
+        monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
+    plan, _, tt = _deep(scene, cuda_device)
+    ops = scene_tables.scene_operands(plan, tt, cuda_device, True, fused)
+    assert ops.args()[-1] == 4 + 2 * int(bool(plan.proc))
+    cfg = CFG.replace(normal_mode=normal, fused_generators=fused)
+    sw = normal == "analytic"
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    n1 = rk.render_rays.launches
+    k1 = rk.render_rays(plan, cfg, tt, origin, dirs, save_winner=sw)
+    torch.cuda.synchronize()
+    assert rk.render_rays.launches == n1 + 1
+    _same(_flat(k1), _flat(rk.render_rays_plain(plan, cfg, tt, origin, dirs,
+                                                save_winner=sw)),
+          f"{scene}: K1")
+    _same(_flat(rk.render_rays(plan, cfg, tt,
+                               origin.expand(dirs.shape).contiguous(), dirs,
+                               save_winner=sw)), _flat(k1),
+          f"{scene}: K1 per-ray origins")
+    ray = k1[0] if sw else k1
+    assert ray.done.any() and (ray.cidx >= 0).any()
+    res, steps = mk.march_rays(plan, cfg, tt, origin, dirs, with_steps=True)
+    res_p, steps_p = mk.march_rays_plain(plan, cfg, tt, origin, dirs,
+                                         with_steps=True)
+    _same((*res, steps), (*res_p, steps_p), f"{scene}: K3")
+    _same(res, (ray.p, ray.sd, ray.done), f"{scene}: K3 vs K1")
+    k4 = shk.shade_rays(plan, cfg, tt, ray.p, ray.sd, dirs, save_winner=sw)
+    _same(_flat(k4), _flat(shk.shade_rays_plain(plan, cfg, tt, ray.p, ray.sd,
+                                                dirs, save_winner=sw)),
+          f"{scene}: K4")
+    _same(_flat(k4), _flat(k1)[3:], f"{scene}: K4 vs K1")
+    _same(_flat(rk.render_rays(plan, cfg.replace(two_phase_k1=8), tt, origin,
+                               dirs, save_winner=sw)), _flat(k1),
+          f"{scene}: K3 + K4 vs K1")
+    for mode in (sk.COMBINED, sk.SD, sk.WINNER, sk.FD_GRAD, sk.ANALYTIC):
+        n2 = sk.surface_eval.launches
+        k2 = sk.surface_eval(plan, tt, ray.p, mode=mode, fd_h=cfg.fd_h,
+                             fused=fused)
+        torch.cuda.synchronize()
+        assert sk.surface_eval.launches == n2 + 1
+        _same(k2, sk.surface_eval_plain(plan, tt, ray.p, mode=mode,
+                                        fd_h=cfg.fd_h, fused=fused),
+              f"{scene}: K2 mode {mode}")
+    if sw:
+        _same(sk.surface_eval(plan, tt, ray.p), k1[1],
+              f"{scene}: K2 combined vs K1's residuals")
+    for center in (True, False):
+        _same(scene_vjp.stencil_eval(plan, cfg, tt, ray.p, center=center),
+              sk.surface_stencil_plain(plan, tt, ray.p, cfg.fd_h,
+                                       center=center),
+              f"{scene}: K2 stencil entry")
+    if not fused:
+        # the fused flag changes nothing of a deep plan's field
+        _same(_flat(rk.render_rays(plan, cfg.replace(fused_generators=True),
+                                   tt, origin, dirs, save_winner=sw)),
+              _flat(k1), f"{scene}: K1 fused flag")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", ["deep-fuzz", "deep-julia"])
+def test_deep_extended_raygen_and_bounce_entries_on_card(cuda_device, scene,
+                                                         normal):
+    """K1's and K4's extended entries (soft shadows and 40 AO taps), K1's
+    raygen entries and its bounce entries on deep plans against their
+    twins, bitwise on every output."""
+    plan, _, tt = _deep(scene, cuda_device)
+    sw = normal == "analytic"
+    cfg = CFG.replace(normal_mode=normal)
+    soft = cfg.replace(soft_shadow_k=6.0, ao_strength=0.8, ao_samples=40)
+    origin, dirs = cam.generate_rays(tt, cfg)
+    dirs = dirs.reshape(-1, 3)
+    n = dict(rk.render_rays.entry_launches)
+    k1 = rk.render_rays(plan, soft, tt, origin, dirs, save_winner=sw,
+                        save_factors=True)
+    _same(_flat(k1), _flat(rk.render_rays_plain(
+        plan, soft, tt, origin, dirs, save_winner=sw, save_factors=True)),
+        f"{scene}: K1 extended")
+    k4 = shk.shade_rays(plan, soft, tt, k1[0].p, k1[0].sd, dirs,
+                        save_winner=sw, save_factors=True)
+    _same(_flat(k4), _flat(shk.shade_rays_plain(
+        plan, soft, tt, k1[0].p, k1[0].sd, dirs, save_winner=sw,
+        save_factors=True)), f"{scene}: K4 extended")
+    for c in (cfg, soft):
+        R = c.rays_per_image
+        g = rk.render_raygen(plan, c, tt, 0, R, save_factors=True)
+        _same(_flat(g), _flat(rk.render_raygen_plain(plan, c, tt, 0, R,
+                                                     save_factors=True)),
+              f"{scene}: K1 raygen")
+        b = c.replace(reflect_strength=0.4, reflect_bounces=1)
+        kb = rk.render_rays(plan, b, tt, origin, dirs, save_factors=True)
+        _same(_flat(kb), _flat(rk.render_rays_plain(plan, b, tt, origin,
+                                                    dirs, save_factors=True)),
+              f"{scene}: K1 bounce")
+    torch.cuda.synchronize()
+    got = {k: rk.render_rays.entry_launches[k] - n[k] for k in n}
+    assert got == {"render_kernel": 0, "render_ext_kernel": 1,
+                   "render_bounce_kernel": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "multi"])
+@pytest.mark.parametrize("normal", ["fd", "analytic"])
+@pytest.mark.parametrize("scene", ["deep-julia", "deep-demo"])
+def test_deep_gradients_on_card_match_cpu(cuda_device, scene, normal,
+                                          backend):
+    """The differentiable render of a deep plan on the card against the
+    CPU twins, every geometry and colour field, at tests/test_mega.py:62's
+    tolerance: the exact FD backward launches K2's stencil entry on the
+    deep view, the analytic one K2 not at all (K1's residuals; a fractal
+    winner's replay launches K2's combined mode once)."""
+    plan, tables, _ = _deep(scene, "cpu")
+    cfg = CFG.replace(normal_mode=normal)
+    fields = ("prim_pos", "prim_aux", "prim_color", "light_pos")
+    grads = []
+    for device in (cuda_device, torch.device("cpu")):
+        tt = tables_to_torch(tables, device, requires_grad=fields)
+        img = rt.render_tables(plan, tt, cfg, backend=backend,
+                               differentiable=True, device=device)
+        g = torch.autograd.grad(torch.mean((img - 0.25) ** 2),
+                                [getattr(tt, f) for f in fields],
+                                materialize_grads=True)
+        grads.append([v.cpu() for v in g])
+    for name, a, b in zip(fields, *grads):
+        assert bool(torch.isfinite(a).all()) and a.abs().max() > 0, name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
+                                   msg=name)

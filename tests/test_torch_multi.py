@@ -245,18 +245,29 @@ def test_normal_op_matches_autograd_through_plain_scene_sd():
 
 def test_normal_op_refuses_unported_branches(scenes_dir):
     # both normals on exact tables and on the fused generator field, with
-    # procedural leaves too, are ported; a depth-3 plan waits for D8 in
-    # every one of them
+    # procedural leaves too, are ported, and so is a depth-3 plan (D8) in
+    # every one of them: K2's twin on the deep fold, the field's exact
+    # normal whatever fused_generators says (as the JAX kernels' generic
+    # evaluator has no fused branch)
     plan, tables = rt.compile_scene(deep_scene(rt.load_scene(str(
         scenes_dir / "config1.txt"))))
     assert plan.kernel is None
     tt = tables_to_torch(tables, "cpu")
     p = torch.as_tensor(np.array(_points(8)))
+    want = {"fd": shading.normal_fd(lambda q: scene_sd(plan, tt, q), p,
+                                    OP_CFG.fd_h),
+            "analytic": shading.normal_analytic(
+                lambda q: scene_sd(plan, tt, q), p)}
     for change in (dict(), dict(normal_mode="analytic"),
                    dict(fused_generators=True),
                    dict(normal_mode="analytic", fused_generators=True)):
-        with pytest.raises(NotImplementedError, match="D8"):
-            normal_op(plan, OP_CFG.replace(**change), tt, p)
+        cfg = OP_CFG.replace(**change)
+        g = normal_op(plan, cfg, tt, p)
+        assert g.shape == p.shape and torch.isfinite(g).all()
+        torch.testing.assert_close(g, want[cfg.normal_mode], rtol=0,
+                                   atol=2e-3)
+        torch.testing.assert_close(g, normal_op(plan, cfg.replace(
+            fused_generators=False), tt, p), rtol=0, atol=0)
 
 
 def test_march_op_matches_ift_through_plain_scene_sd():
