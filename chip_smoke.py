@@ -190,7 +190,6 @@ import threading
 import time
 import urllib.request
 import zipfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1413,19 +1412,21 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     intersection); the deep demo (every leaf folded: no collapse, no cull)
     at 512x512 SSAA 2, 1000 iterations: render() with FD and analytic
     normals, K1's device time in turns with the two-level demo's through
-    the same entry, K1 against its twin, its bound and share; the multi
+    the same entry, K1 against its twin (also as the fit step launches it,
+    with the winner residuals in analytic), its bound and share; the multi
     frame and the two-phase frame; K3, K4 and K2's stencil entry on the
-    frame's hits against their twins with their bounds; one fit step in
-    each normal; a served frame (K1's raygen entry); the deep Julia's
-    frame.  Returns each of the four kernels' deep row of the JSON
+    frame's hits against their twins with their bounds, and K2's winner
+    and FD-gradient modes (the multi frame's) there; one fit step in each
+    normal; a served frame, whose raygen launch is held to its twin; the
+    deep Julia's frame.  Returns each of the four kernels' deep row of the JSON
     table."""
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops import shade_kernel as shk
     from raymarching_tpu_torch.ops import surface_kernel as sk
-    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
-                                                         render_rays_plain)
+    from raymarching_tpu_torch.ops.render_kernel import (
+        render_raygen, render_raygen_plain, render_rays, render_rays_plain)
     from raymarching_tpu_torch.tables import scene_operands, tables_to_torch
 
     t_phase = time.perf_counter()
@@ -1498,13 +1499,26 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
         same(f"deep demo K1 {normal} at 512^2", k1_out, plain,
              "render_kernel")
         del plain
+        # K1 as the fit step launches it (render_op.FusedRender: no
+        # black-lane skip, the shading factors and, with analytic normals,
+        # the winner residuals), against its twin
+        fc = c.replace(shade_skip_black=False)
+        sw = normal == "analytic"
+        same(f"deep demo K1 {normal} at 512^2 as the fit step launches it",
+             flat(render_rays(plan, fc, tt, origin, dirs, save_winner=sw,
+                              save_factors=True)),
+             flat(render_rays_plain(plan, fc, tt, origin, dirs,
+                                    save_winner=sw, save_factors=True)),
+             "render_kernel")
         bound = bound_ms(count, R * (12 + 32))
         frame_rows.append(
             f"{normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms on the "
             f"device (the two-level demo {demo_dev:.3f} in turns: "
             f"{', '.join(f'{v:.3f}' for v in turns['demo'])} / "
             f"{', '.join(f'{v:.3f}' for v in turns['deep'])}), with its "
-            f"wrapper {k1_ms:.3f} ms, plain {plain_ms:.1f} ms (bitwise), "
+            f"wrapper {k1_ms:.3f} ms, plain {plain_ms:.1f} ms (bitwise; "
+            f"so is the fit step's launch, with its factors"
+            f"{' and winner residuals' if normal == 'analytic' else ''}), "
             f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[5]} operations, "
             f"{bound[2]} leaf evaluations), share {bound[0] / k1_dev:.1%}")
         rows[("render_kernel", normal)] = {
@@ -1554,6 +1568,14 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     k3_p, k3_plain, k3_count = timed_counted(lambda: mk.march_rays_plain(
         plan, fcfg, tt, origin, dirs))
     same("deep demo K3 at 512^2", hit, k3_p, "march_kernel")
+    # the multi frame's two K2 modes at its 1,048,576 primary hits (K3's),
+    # against their twins
+    for mode in (sk.WINNER, sk.FD_GRAD):
+        same(f"deep demo K2 mode {mode} at the multi frame's hits",
+             sk.surface_eval(plan, tt, hit.position, mode=mode,
+                             fd_h=fcfg.fd_h),
+             sk.surface_eval_plain(plan, tt, hit.position, mode=mode,
+                                   fd_h=fcfg.fd_h), "surface_kernel")
     rows["march_kernel"] = {"ms": k3_ms, "device_ms": k3_dev,
                             "plain_ms": k3_plain,
                             "bound": bound_ms(k3_count, R * (12 + 20))}
@@ -1590,6 +1612,8 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
               f"{rows[kname]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by "
               f"{b[1]} ({b[5]} operations, {b[2]} leaf evaluations), share "
               f"{rows[kname]['share']:.1%}; bitwise its twin; {card}")
+    print(f"[deep] K2's winner and FD-gradient modes (the multi frame's) "
+          f"at the deep demo's {R} primary hits: bitwise their twins")
     del hit, k3_p, k4, k4_p, k2, k2_p
 
     # one fit step in each normal (FD: K1 and K2's stencil entry; analytic:
@@ -1617,17 +1641,22 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
               f"launches K1 1, K2 {counts['surface_kernel']}; {card}")
 
     # a served frame: K1's raygen entry, no camera pass
-    rt.render(ddemo, fcfg.replace(serve_raygen=True), device=dev)
+    scfg = fcfg.replace(serve_raygen=True)
+    rt.render(ddemo, scfg, device=dev)
     zero_counts()
-    simg, sms = timed(lambda: rt.render(ddemo, fcfg.replace(
-        serve_raygen=True), device=dev))
+    simg, sms = timed(lambda: rt.render(ddemo, scfg, device=dev))
     counts = counted("serve_deep", 1)
     check(counts == only(render_raygen_kernel=1),
           f"deep served frame launched {counts}")
+    # the raygen entry's launch of that frame, every ray, against its twin
+    same("deep demo K1 raygen entry at 512^2 (the served frame's launch)",
+         render_raygen(plan, scfg, tt, 0, R),
+         render_raygen_plain(plan, scfg, tt, 0, R), "render_raygen_kernel")
     sdiff = (simg - fimg).abs().amax(dim=-1)
     s_share = (sdiff <= ANALYTIC_ATOL).double().mean().item()
     check(s_share >= 0.995, f"deep served frame: {s_share} of pixels agree")
-    print(f"[deep] served frame (serve_raygen, K1's raygen entry 1): "
+    print(f"[deep] served frame (serve_raygen, K1's raygen entry 1, its "
+          f"{R} rays bitwise the twin's): "
           f"{sms:.3f} ms; {s_share:.5f} of pixels within {ANALYTIC_ATOL} of "
           f"the standard frame's (the raygen directions round apart at "
           f"silhouettes); {card}")
@@ -1879,14 +1908,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check(set(KERNELS) == set(build.SOURCES),
           f"the package's sources {build.SOURCES}, this script's {KERNELS}")
-    def build_timed(kname):
-        t = time.perf_counter()
-        return build.build(kname), time.perf_counter() - t
-
-    # one nvcc a source, all started together (ops.build.build_all's way)
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(build_timed, KERNELS))
-    for kname, (lib_path, secs) in zip(KERNELS, built):
+    for kname, (lib_path, secs) in zip(KERNELS, build.build_all(KERNELS)):
         build.load_library(kname)
         log = lib_path.with_suffix(".log").read_text()
         print(f"[build] {lib_path.name} in {secs:.1f} s; "

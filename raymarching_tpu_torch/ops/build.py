@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -102,9 +103,14 @@ def build(name: str) -> Path:
 
 def build_all(names=SOURCES) -> list:
     """Build every named kernel that is not built yet, one ``nvcc`` a
-    source, all started together; returns their library paths."""
+    source, all started together; returns (library path, seconds its
+    build took) for each, in the order of ``names``."""
+    def timed(name):
+        t = time.perf_counter()
+        return build(name), time.perf_counter() - t
+
     with ThreadPoolExecutor(max(len(names), 1)) as pool:
-        return list(pool.map(build, names))
+        return list(pool.map(timed, names))
 
 
 @functools.lru_cache(maxsize=None)

@@ -401,17 +401,26 @@ def pack_deep(plan: ScenePlan) -> PackedPlan:
         torch.zeros((2, 0), dtype=torch.int64), *_proc_fields(plan.proc))
 
 
-@functools.lru_cache(maxsize=64)
-def _packed_on(kp, device: torch.device,
-               fused: bool = False) -> PackedPlan:
-    """``pack_plan(kp, fused)`` with its tensors on ``device`` (cached,
-    shared); for a ScenePlan with no two-level form ``pack_deep(kp)``."""
-    packed = (pack_deep(kp) if getattr(kp, "groups", None) is None
-              else pack_plan(kp, fused))
+def _moved(packed: PackedPlan, device: torch.device) -> PackedPlan:
     return packed._replace(**{
         name: getattr(packed, name).to(device)
         for name in ("groups", "runs", "lattice", "members", "proc_leaves",
                      "proc_iters", "proc_params")})
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_on(kp: KernelPlan, device: torch.device,
+               fused: bool = False) -> PackedPlan:
+    """``pack_plan(kp, fused)`` with its tensors on ``device`` (cached,
+    shared)."""
+    return _moved(pack_plan(kp, fused), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _deep_on(plan: ScenePlan, device: torch.device) -> PackedPlan:
+    """``pack_deep(plan)`` with its tensors on ``device`` (cached,
+    shared)."""
+    return _moved(pack_deep(plan), device)
 
 
 def _table_flag(kp, table: torch.Tensor, fused: bool = False
@@ -498,11 +507,11 @@ def scene_operands(plan, tables: SceneTables, device,
     flag 0.  The caller keeps the tensors alive across its launch."""
     deep = plan.kernel is None
     fused = bool(fused) and not deep
-    kp = plan if deep else plan.kernel
-    packed = _packed_on(kp, torch.device(device), fused)
+    packed = (_deep_on(plan, torch.device(device)) if deep else
+              _packed_on(plan.kernel, torch.device(device), fused))
     with torch.no_grad():
         table = build_table(tables)
-        flag = (_table_flag(kp, table, fused) if collapse
+        flag = (_table_flag(plan.kernel, table, fused) if collapse and not deep
                 else torch.zeros(1, dtype=torch.int32, device=device))
         K = packed.proc_leaves.shape[0]
         if K:

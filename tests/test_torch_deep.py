@@ -74,11 +74,12 @@ def _fuzz_pair(seed):
             compile_tree(tree, [], Camera()), pts)
 
 
-# The seed whose gradients are held to JAX's combined mode, the deep tree
-# with the fewest fractal leaves (2): JAX's interpret-mode compile of a
-# fractal leaf's jet costs seconds a leaf, and the other deep seeds hold 5
-# to 13 of them (10-30 s a seed; 13 and 19 are two-level trees).  The
-# others are held to its winner mode.
+# The seed whose gradients are also held to JAX's combined mode, the deep
+# tree with the fewest fractal leaves (2): JAX's interpret-mode compile of
+# a fractal leaf's jet costs seconds a leaf, and the other deep seeds hold
+# 5 to 13 of them (10-30 s a seed; 13 and 19 are two-level trees).  Every
+# seed's gradients are held to the autograd gradient of the port's
+# post-order fold, and its values and winners to JAX's winner mode.
 GRAD_SEEDS = (16,)
 
 
@@ -87,8 +88,8 @@ def test_deep_fold_matches_jax_generic_evaluator(seed):
     """The twin of ``test_fuzz_all_layers_agree`` at depth 3: kernel_fold's
     value, winner, gradient and winner-and-gradient forms against JAX's
     surface kernel (interpret) in its combined mode (GRAD_SEEDS) or its
-    winner mode, and against the port's post-order fold (scene_sd,
-    scene_surface)."""
+    winner mode, and against the port's post-order fold (scene_sd, its
+    autograd gradient where the winners agree, scene_surface)."""
     (jplan, jtables), (plan, tables), pts = _fuzz_pair(seed)
     assert (plan.kernel is None) == (jplan.kernel is None)
     np.testing.assert_array_equal(tables.prim_pos, jtables.prim_pos)
@@ -111,12 +112,17 @@ def test_deep_fold_matches_jax_generic_evaluator(seed):
     assert torch.equal(w_g, w) and w.dtype == torch.int32
     same = w.numpy() == w_j
     assert same.mean() >= WINNER_SHARE, f"{(~same).sum()} winners differ"
-    if grads:
-        proc = np.isin(w.numpy(), [leaf for leaf, *_ in plan.proc])
-        dense = same & ~proc
-        np.testing.assert_allclose(g.numpy()[dense], g_j[dense], rtol=0,
-                                   atol=G_ATOL)
-        np.testing.assert_allclose(g.numpy()[same & proc], g_j[same & proc],
+    # the gradient where the winners agree: against the autograd gradient
+    # of the port's post-order fold on every seed (path signs through
+    # negated lists, fractal winners' sweeps), and against JAX's combined
+    # mode on GRAD_SEEDS
+    qg = q.clone().requires_grad_(True)
+    g_post, = torch.autograd.grad(scene_sd(plan, tt, qg).sum(), qg)
+    proc = np.isin(w.numpy(), [leaf for leaf, *_ in plan.proc])
+    for want in (g_post.numpy(),) + ((g_j,) if grads else ()):
+        np.testing.assert_allclose(g.numpy()[same & ~proc],
+                                   want[same & ~proc], rtol=0, atol=G_ATOL)
+        np.testing.assert_allclose(g.numpy()[same & proc], want[same & proc],
                                    rtol=PROC_G_RTOL, atol=PROC_G_RTOL)
     # the post-order fold: the same field, and the same colour winner
     np.testing.assert_allclose(scene_sd(plan, tt, q).numpy(), sd.numpy(),
