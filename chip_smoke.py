@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --times    # the kernels' device times alone
     python3 chip_smoke.py --fused-fd-step   # the fused FD fit step alone
+    python3 chip_smoke.py --ptxas    # every entry's registers and stack
 
 Phases, one line each, every failure an uncaught exception:
   1. device      — a CUDA device is required; its name and power limit;
@@ -11,7 +12,7 @@ Phases, one line each, every failure an uncaught exception:
                    K3, K4's reference and extended-shading entries;
                    ops.build.SOURCES), in parallel; each one's ptxas
                    registers and stack by entry, the procedural and the
-                   deep views' entries apart;
+                   deep views' entries and the far-tap entries apart;
   3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
@@ -167,7 +168,22 @@ Phases, one line each, every failure an uncaught exception:
                    two-phase frames; K3, K4 and K2's stencil entry (the fit
                    step's shape) against their twins with their bounds;
                    one fit step in each normal; a served frame (raygen);
-                   the deep Julia's frame.
+                   the deep Julia's frame;
+ 16. cli         — what the CLI and the server reach past one frame: the
+                   demo turntable (24 frames at 512x512 SSAA 2, 8 poses a
+                   render_frames call, one K1 launch each), each frame of a
+                   batch bitwise render_tables at its pose and K1 on every
+                   8th ray of the batch bitwise its twin; render_tiled at
+                   1024x768 SSAA 3 (6 blocks of 128 rows) bitwise the whole
+                   frame, block by block, both peaks of device memory, and
+                   a 4096x4096 SSAA 3 tiled frame with its peak; the demo's
+                   mesh at --mesh-res 128: K2's SD mode on 2,097,152 points
+                   bitwise its twin, its times and bound (a JSON row of its
+                   own), 8 launches a grid, marching tetrahedra apart;
+                   POST /animate as a GIF in process and the encoder alone;
+                   --selfcheck through the CLI; chains of 17 and 40 nested
+                   lists (the DeepSpill view) and the demo with 300 AO taps
+                   (the far-tap entries), every entry bitwise its twin.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -461,6 +477,8 @@ def entry_label(name: str) -> str:
     parts += ["fused"] if "Fused" in rest else []
     parts += ["procedural"] if "Proc" in rest else []
     parts += ["deep"] if "Deep" in rest else []
+    parts += ["spill"] if "DeepSpill" in rest else []
+    parts += ["far taps"] if "Far" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -949,7 +967,7 @@ def fractal_scene(name: str):
 
 
 def view_compare(plan, tables, cfg, fused: bool, ext: bool,
-                 what: str = "fractal") -> int:
+                 what: str = "fractal", taps: int | None = None) -> int:
     """Every kernel's view of ``plan`` (the procedural one, or a deep
     plan's) against its plain twin on the rays
     of ``cfg``, bitwise on every output, FD and analytic normals: K1's
@@ -957,7 +975,8 @@ def view_compare(plan, tables, cfg, fused: bool, ext: bool,
     K4, K2's five modes at K1's hits and its stencil entry (exact packing),
     K1's raygen entry; with ``ext`` K1's and K4's extended entries (soft
     shadows k 6, AO 0.8), K1's bounce entry (one bounce, with them) and
-    its raygen form.  Returns the number of comparisons."""
+    its raygen form; ``taps`` AO taps there when given.  Returns the
+    number of comparisons."""
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops import shade_kernel as shk
@@ -1013,6 +1032,8 @@ def view_compare(plan, tables, cfg, fused: bool, ext: bool,
             continue
         # the extended entries, and the bounce entries with the extensions
         soft = c.replace(soft_shadow_k=6.0, ao_strength=0.8)
+        if taps is not None:
+            soft = soft.replace(ao_samples=taps)
         ke = render_rays(plan, soft, tables, origin, dirs, save_winner=sw,
                          save_factors=True)
         same(f"{what} K1 extended {normal}", flat(ke), flat(
@@ -1688,6 +1709,258 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     return rows
 
 
+def chain_world(levels: int):
+    """A scene whose lists nest ``levels`` deep (tests/torch_util.py's
+    chain_tree in a lit room): past the kernels' per-thread stack of
+    tables.DEEP_LEVELS (16) it takes the DeepSpill view."""
+    import math
+    from raymarching_tpu_torch.scene import csg
+    from raymarching_tpu_torch.scene.compile import compile_tree
+    from raymarching_tpu_torch.scene.objects import Camera, Light
+    node = csg.Sphere((0.0, -1.0, -6.0), 0.6, (0.9, 0.3, 0.2))
+    for i in range(1, levels):
+        if i % 2:
+            a = 0.55 * i
+            node = csg.ListNode(csg.Mode.UNION, [node, csg.Sphere(
+                (1.8 * math.cos(a), 0.12 * i - 1.0, -6.0 + 1.8 * math.sin(a)),
+                0.45, (0.2, 0.4 + 0.02 * i, 0.9))])
+        else:
+            node = csg.ListNode(csg.Mode.INTERSECTION, [node, csg.Box(
+                (0.0, 0.0, -6.0), (8.0, 8.0, 8.0), (0.8, 0.8, 0.8))])
+    tree = csg.ListNode(csg.Mode.UNION, [
+        csg.bounds(40.0), csg.Box((0.0, -2.5, -6.0), (12.0, 0.5, 12.0),
+                                  (0.9, 0.9, 0.9)), node])
+    return compile_tree(tree, [Light((5.0, 8.0, 4.0)),
+                               Light((-6.0, 5.0, 0.0))],
+                        Camera(position=(0.0, 1.5, 3.0),
+                               direction=(0.0, -0.3, -1.0)))
+
+
+def cli_phase(dev, card: str, add_counts) -> dict:
+    """[cli]: what the CLI and the server reach past one render, at full
+    width, each path with the counts zeroed before it and read after it:
+    the demo turntable (24 frames at 512x512 SSAA 2, 1000 iterations, 8
+    poses a render_frames call), each frame of one batch bitwise
+    render_tables at its pose and K1 on every 8th ray of the batch bitwise
+    its twin; the demo through render_tiled at 1024x768 SSAA 3 (six
+    blocks of 128 rows) bitwise the whole frame, block by block, with both
+    peaks of device memory, and a 4096x4096 SSAA 3 tiled frame with its
+    peak; the demo's mesh at --mesh-res 128 (2,097,152 points: K2's SD
+    mode bitwise its twin, its times and bound, the marching tetrahedra
+    apart); POST /animate as a GIF in process and the GIF encoder alone;
+    --selfcheck through the CLI; the deep fold past its stack (chains of
+    17 and 40 lists) and 300 AO taps, every entry bitwise its twin.
+    Returns K2's SD row of the JSON table."""
+    import tempfile
+
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch import cli
+    from raymarching_tpu_torch.api import (render_frames, render_tiled,
+                                           turntable_frames, turntable_poses)
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.io import mesh as M
+    from raymarching_tpu_torch.io.gif import encode_gif
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
+    from raymarching_tpu_torch.serve import make_server
+    from raymarching_tpu_torch.tables import (scene_operands, spill_levels,
+                                              tables_to_torch)
+
+    t_phase = time.perf_counter()
+    demo = rt.load_scene(str(DEMO))
+    plan, tables = rt.compile_scene(demo)
+    tt = tables_to_torch(tables, dev)
+
+    # 1. the turntable: 3 render_frames calls of 8 poses, one K1 each
+    cfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    list(turntable_frames(plan, tt, cfg, 8, device=dev))    # warm-up
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = list(turntable_frames(plan, tt, cfg, 24, device=dev))
+    turn_s = time.perf_counter() - t0
+    counts = add_counts("turntable", 3)
+    check(counts == only(render_kernel=3), f"the turntable launched {counts}")
+    check(len(frames) == 24 and all(np.isfinite(f).all() for f in frames),
+          "turntable frames")
+    ps, ds = (np.stack(x) for x in zip(*turntable_poses(tt, 24)[:8]))
+    batch, batch_ms = timed(lambda: render_frames(plan, tt, cfg, ps, ds,
+                                                  device=dev), runs=3)
+    f32 = dict(dtype=torch.float32, device=dev)
+    origins, dirs = [], []
+    for i in range(8):
+        pose = tt._replace(cam_position=torch.as_tensor(ps[i], **f32),
+                           cam_direction=torch.as_tensor(ds[i], **f32))
+        check(torch.equal(batch[i], rt.render_tables(plan, pose, cfg,
+                                                     device=dev)),
+              f"render_frames frame {i} differs from render_tables")
+        check(np.array_equal(frames[i], batch[i].cpu().numpy()),
+              f"turntable frame {i} differs from its batch")
+        o, d = cam.generate_rays(pose, cfg)
+        origins.append(o.expand(cfg.rays_per_image, 3)[::BIG_STRIDE])
+        dirs.append(d.reshape(-1, 3)[::BIG_STRIDE])
+    o8, d8 = torch.cat(origins).contiguous(), torch.cat(dirs).contiguous()
+    same("K1 on every 8th ray of a render_frames batch",
+         tuple(render_rays(plan, cfg, tt, o8, d8)),
+         tuple(render_rays_plain(plan, cfg, tt, o8, d8)), "render_kernel")
+    del batch, o8, d8, origins, dirs
+    print(f"[cli] turntable: demo 24 frames 512x512 ssaa2 1000 it, 8 poses "
+          f"({8 * cfg.rays_per_image} rays) a render_frames call: "
+          f"{turn_s:.3f} s with the frames' copies to the host "
+          f"({24 * cfg.rays_per_image / turn_s / 1e6:.1f} Mrays/s); one "
+          f"8-pose render_frames call {batch_ms:.3f} ms; launches K1 3 "
+          f"(one a call); each frame of a batch = render_tables at its pose "
+          f"bitwise, K1 on every {BIG_STRIDE}th ray of the batch "
+          f"({8 * cfg.rays_per_image // BIG_STRIDE} rays, an origin a ray) "
+          f"= its twin bitwise; {card}")
+
+    # 2. tiled: the reference frame in six blocks of 128 rows, then 4096^2
+    big = rt.RenderConfig()
+    peaks = {}
+
+    def peak_of(what, fn, path, launches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        out, ms = timed(fn)
+        counts = add_counts(path, 1)
+        check(counts == only(render_kernel=launches),
+              f"{what} launched {counts}")
+        peaks[what] = (torch.cuda.max_memory_allocated() - base, ms)
+        return out
+
+    tiled = peak_of("tiled 1024x768 ssaa3", lambda: render_tiled(
+        plan, tt, big, row_block=128, device=dev), "tiled", 6)
+    whole = peak_of("whole 1024x768 ssaa3", lambda: rt.render_tables(
+        plan, tt, big, device=dev).cpu().numpy(), "whole", 1)
+    for r in range(0, big.height, 128):
+        check(np.array_equal(tiled[r:r + 128], whole[r:r + 128]),
+              f"tiled block of rows {r}..{r + 127} differs from the frame")
+    huge = big.replace(width=4096, height=4096)
+    img = peak_of("tiled 4096x4096 ssaa3", lambda: render_tiled(
+        plan, tt, huge, row_block=128, device=dev), "tiled_4096", 32)
+    check(img.shape == (4096, 4096, 3) and bool(np.isfinite(img).all())
+          and has_demo_objects(torch.from_numpy(img)), "4096^2 tiled frame")
+    del img, tiled, whole
+    print("[cli] tiled: demo 1024x768 ssaa3 in 6 blocks of 128 rows = the "
+          "whole frame bitwise, block by block (max_abs_err 0.0); "
+          + "; ".join(f"{k} {ms:.1f} ms, peak {b / 2**20:.1f} MiB"
+                      for k, (b, ms) in peaks.items())
+          + f" ({huge.rays_per_image} rays, K1 32 launches); {card}")
+
+    # 3. the mesh at --mesh-res 128: K2's SD mode on 2,097,152 points
+    lo, hi = M.default_bounds(plan, tables)
+    res = 128
+    pts = torch.from_numpy(M.grid_points(lo, hi, res)).to(dev)
+    N = pts.shape[0]
+    k2 = sk.surface_eval(plan, tt, pts, mode=sk.SD)
+    plain, plain_ms, count = timed_counted(
+        lambda: sk.surface_eval_plain(plan, tt, pts, mode=sk.SD))
+    same("K2 SD mode on the mesh grid", k2, plain, "surface_kernel")
+    del plain
+    sd_ms = timed(lambda: sk.surface_eval(plan, tt, pts, mode=sk.SD),
+                  runs=5)[1]
+    sd_dev = device_ms(lambda: sk.surface_eval(plan, tt, pts, mode=sk.SD),
+                       "surface_kernel")
+    sd_bound = bound_ms(count, 16 * N)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = M.sample_sdf_grid(plan, tt, lo, hi, res, device=dev)
+    grid_s = time.perf_counter() - t0
+    counts = add_counts("mesh", 1)
+    check(counts == only(surface_kernel=8), f"the mesh grid launched "
+          f"{counts}")
+    check(np.array_equal(grid.reshape(-1), k2[0].cpu().numpy()),
+          "the chunked grid differs from one launch")
+    t0 = time.perf_counter()
+    verts, faces = M.marching_tetrahedra(grid, lo, (hi - lo) / (res - 1))
+    mt_s = time.perf_counter() - t0
+    check(len(faces) > 10000 and bool(np.isfinite(verts).all()),
+          "the demo's mesh")
+    print(f"[cli] mesh: demo --mesh-res {res} ({N} points): K2's SD mode = "
+          f"its twin bitwise, {sd_ms:.3f} ms with its wrapper, device "
+          f"{sd_dev:.4f} ms, twin {plain_ms:.1f} ms, bound {sd_bound[0]:.4f}"
+          f" ms by {sd_bound[1]} ({sd_bound[5]} operations, {16 * N} bytes);"
+          f" sample_sdf_grid {grid_s * 1e3:.1f} ms in 8 launches of 2^18 "
+          f"points (host copies included); marching tetrahedra "
+          f"{mt_s * 1e3:.1f} ms on the host ({len(verts)} vertices, "
+          f"{len(faces)} triangles); {card}")
+    del pts, k2
+
+    # 4. POST /animate as a GIF in process, and the encoder alone
+    srv = make_server("127.0.0.1", 0, dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = (f"http://127.0.0.1:{srv.server_address[1]}/animate?width=256"
+               "&height=256&ssaa=2&frames=24&format=gif")
+        body = DEMO.read_bytes()
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            r.read()                                     # warm-up
+        zero_counts()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            gif = r.read()
+        animate_s = time.perf_counter() - t0
+        counts = add_counts("animate", 1)
+        check(counts == only(render_kernel=3), f"/animate launched {counts}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    acfg = rt.RenderConfig(width=256, height=256, ssaa=2,
+                           serve_raygen=True)
+    u8 = [rt.to_uint8(f) for f in turntable_frames(plan, tt, acfg, 24,
+                                                   device=dev)]
+    t0 = time.perf_counter()
+    data = encode_gif(u8, delay_cs=4)
+    gif_s = time.perf_counter() - t0
+    check(gif == data and gif[:6] == b"GIF89a", "/animate's GIF differs "
+          "from the encoder's on the turntable's frames")
+    print(f"[cli] /animate: demo 24 frames 256x256 ssaa2 as a GIF "
+          f"({len(gif)} bytes) in {animate_s:.3f} s in process, K1 3 "
+          f"launches; the GIF encoder alone {gif_s:.3f} s on the host "
+          f"({24 * 256 * 256 / gif_s / 1e6:.2f} Mpx/s, pure Python); "
+          f"{card}")
+
+    # 5. --selfcheck through the CLI on the card
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = cli.main(["--scene", str(DEMO), "--selfcheck", "--out",
+                       str(Path(tmp) / "selfcheck.png"), "--width", "256",
+                       "--height", "192", "--ssaa", "1", "--device", "cuda"])
+    check(rc == 0, f"--selfcheck exited {rc}")
+    counts = add_counts("selfcheck", 1)
+    check(counts == only(render_kernel=4), f"--selfcheck launched {counts}")
+
+    # 6. the deep fold past its stack, and 300 AO taps ([deep]'s shape)
+    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    n_cmp = 0
+    for levels in (17, 40):
+        cplan, ctables = chain_world(levels)
+        ctt = tables_to_torch(ctables, dev)
+        ops = scene_operands(cplan, ctt, dev)
+        check(ops.spill == 1 and spill_levels(cplan) == levels - 16,
+              f"the {levels}-list chain is not the spill view")
+        n_cmp += view_compare(cplan, ctt, small, False, True,
+                              f"chain of {levels} lists")
+    n_cmp += view_compare(plan, tt, small, False, True, "demo 300 AO taps",
+                          taps=300)
+    print(f"[cli] --selfcheck on the card: exit 0, K1 4 launches (rerun x2, "
+          f"oracle, the frame); chains of 17 and 40 nested lists (the "
+          f"DeepSpill view, 1 and 24 levels past the stack) and the demo "
+          f"with 300 AO taps: every entry = its twin bitwise ({n_cmp} "
+          f"comparisons at 64x48); phase {time.perf_counter() - t_phase:.1f}"
+          f" s; {card}")
+    return {"ms": sd_ms, "device_ms": sd_dev, "plain_ms": plain_ms,
+            "bound": sd_bound, "points": N}
+
+
 def kernel_times() -> int:
     """``--times``: one line with the device times (torch.profiler, median
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
@@ -1764,6 +2037,44 @@ def kernel_times() -> int:
         plan, scfg, tt, hit.position, hit.sd, dirs), "shade_kernel")
     out["K1 512x512 ssaa2 raygen"] = device_ms(lambda: render_raygen(
         plan, cfg, tt, 0, dirs.shape[0]), "render_kernel")
+    # every extended entry with AO, the scene in shared and in device
+    # memory: K1's extended (exact and fused), raygen and bounce entries,
+    # K4's extended entry in both normals
+    limit = scene_tables.SHARED_SCENE_BYTES
+    bcfg = scfg.replace(reflect_strength=0.4, reflect_bounces=1)
+    for where, nbytes in (("", limit), (", device memory", 0)):
+        scene_tables.SHARED_SCENE_BYTES = nbytes
+        try:
+            out[f"K1 512x512 ssaa2 soft + AO fused{where}"] = device_ms(
+                lambda: render_rays(plan, scfg.replace(
+                    fused_generators=True), tt, origin, dirs),
+                "render_kernel")
+            out[f"K1 512x512 ssaa2 raygen soft + AO{where}"] = device_ms(
+                lambda: render_raygen(plan, scfg, tt, 0, dirs.shape[0]),
+                "render_kernel")
+            out[f"K1 512x512 ssaa2 bounce soft + AO{where}"] = device_ms(
+                lambda: render_rays(plan, bcfg, tt, origin, dirs),
+                "render_kernel")
+            out[f"K4 analytic soft + AO{where}"] = device_ms(
+                lambda: shk.shade_rays(plan, scfg.replace(
+                    normal_mode="analytic"), tt, hit.position, hit.sd,
+                    dirs), "shade_kernel")
+            if nbytes == 0:
+                out[f"K1 512x512 ssaa2 soft + AO{where}"] = device_ms(
+                    lambda: render_rays(plan, scfg, tt, origin, dirs),
+                    "render_kernel")
+                out[f"K4 soft + AO{where}"] = device_ms(
+                    lambda: shk.shade_rays(plan, scfg, tt, hit.position,
+                                           hit.sd, dirs), "shade_kernel")
+        finally:
+            scene_tables.SHARED_SCENE_BYTES = limit
+    # a deep plan of the Deep view (three lists, the per-thread stack)
+    dplan, dtables = rt.compile_scene(deep_demo(rt.load_scene(str(DEMO))))
+    dtt = scene_tables.tables_to_torch(dtables, dev)
+    d_org, d_dirs = rays_for(dplan, dtt, cfg)
+    out["K1 512x512 ssaa2 deep demo"] = device_ms(lambda: render_rays(
+        dplan, cfg, dtt, d_org, d_dirs), "render_kernel")
+    del d_dirs
     mplan, mtables = rt.compile_scene(rt.load_scene(str(
         ROOT / "scenes" / "mirror.txt")))
     mtt = scene_tables.tables_to_torch(mtables, dev)
@@ -1793,6 +2104,19 @@ def kernel_times() -> int:
     print(f"[times] {ROOT}: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in out.items())
           + f"; {smi.splitlines()[0]}")
+    return 0
+
+
+def ptxas_table() -> int:
+    """``--ptxas``: build every source and print one tab-separated line an
+    entry (source, entry as entry_label gives it, registers, stack frame
+    bytes), for holding two checkouts' builds against each other entry for
+    entry."""
+    from raymarching_tpu_torch.ops import build
+    for kname, (lib_path, _) in zip(KERNELS, build.build_all(KERNELS)):
+        log = lib_path.with_suffix(".log").read_text()
+        for e, r, st in ptxas_entries(log):
+            print(f"{kname}\t{e}\t{r}\t{st}")
     return 0
 
 
@@ -1870,9 +2194,11 @@ def main() -> int:
         return kernel_times()
     if sys.argv[1:] == ["--fused-fd-step"]:
         return fused_fd_step()
+    if sys.argv[1:] == ["--ptxas"]:
+        return ptxas_table()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; expected none, "
-              "--times or --fused-fd-step", file=sys.stderr)
+              "--times, --fused-fd-step or --ptxas", file=sys.stderr)
         return 2
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.api import render_tables
@@ -1915,18 +2241,22 @@ def main() -> int:
               + ptxas_summary(log))
         entries = ptxas_entries(log)
         check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
-        # the procedural views' entries (Proc<S>) and the deep views'
-        # (Deep<S>) apart: the others are held to the build before they
-        # existed
+        # the procedural views' entries (Proc<S>), the deep views' (Deep<S>,
+        # DeepSpill<S>) and the extended entries for more than 256 AO taps
+        # apart: the others are held to the build before they existed
         report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
-                           if "procedural" not in e and "deep" not in e)
+                           if not any(v in e for v in ("procedural", "deep",
+                                                       "far taps")))
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
               + report)
-        for view in ("procedural", "deep"):
+        for view in ("procedural", "deep", "far taps"):
             print(f"[ptxas] {kname} {view} entries: " + "; ".join(
                 f"{e} {r} / {st} B" for e, r, st in entries if view in e))
         if kname in SEVEN_SOURCE_PTXAS:
-            same_ = report == SEVEN_SOURCE_PTXAS[kname]
+            # entry for entry, in any order (new instantiations reorder the
+            # report)
+            same_ = (sorted(report.split("; "))
+                     == sorted(SEVEN_SOURCE_PTXAS[kname].split("; ")))
             print(f"[ptxas] {kname}: the seven-source build's registers "
                   f"and stack, entry for entry: "
                   f"{'the same' if same_ else 'CHANGED'}")
@@ -3890,6 +4220,9 @@ def main() -> int:
     deep_rows = deep_phase(dev, card, add_counts, dplan,
                            tables_to_torch(dtables, dev))
 
+    # 16. the CLI's and the server's paths past one render
+    sd_row = cli_phase(dev, card, add_counts)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -4034,6 +4367,17 @@ def main() -> int:
             r["deep"] = {"replaces": D8, **deep_rows[k]}
         if "deep" in r:
             r["deep"]["launches"] = deep_rows["launches"][k]
+    # K2's SD mode on the demo's mesh grid ([cli]), a row of its own
+    table["kernels"].append({
+        "name": "surface_kernel (SD mode, mesh grid)", "route": "cuda",
+        "source": f"{csrc}surface_kernel.cu",
+        "replaces": "raymarching_tpu/ops/pallas_march.py:2656 (SD mode: "
+                    "with_color=False, with_normal=False; io/mesh.py:262)",
+        "launches": paths["mesh"][1]["surface_kernel"],
+        "max_abs_err": ERRS["surface_kernel"], "ms": sd_row["ms"],
+        "device_ms": sd_row["device_ms"], "plain_ms": sd_row["plain_ms"],
+        "bound_ms": sd_row["bound"][0], "bound_by": sd_row["bound"][1],
+        "library_ms": None, "points": sd_row["points"]})
     print(json.dumps(table))
     print(card)
     print(json.dumps({"ok": True, "device": {

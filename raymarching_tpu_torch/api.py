@@ -51,13 +51,21 @@ each frame as a bundle of per-ray lens origins, through ``render_rays`` on
 ``cuda`` and the hooks elsewhere.  ``render_rays`` renders any bundle of
 rays on the fused path.
 
+Frames past one render: ``render_tiled`` streams a frame through the
+device a block of rows at a time into host memory, ``render_frames``
+renders a batch of camera poses in one stream of rays, and
+``turntable_frames`` yields an orbit of the scene (the server's
+``/animate`` and the CLI's ``--animate``).
+
 Every entry point takes an explicit device; nothing picks one by itself.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
 from .config import RenderConfig
@@ -140,6 +148,17 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
             "surface_fn": surface_fn, "normal_fn": normal_fn}
 
 
+def route_backend(cfg: RenderConfig, backend: str) -> str:
+    """``backend`` validated, and ``multi`` with soft shadows or AO routed
+    to ``cuda``: the hooks carry no penumbra or occlusion factor, the
+    fused kernel tracks them (raymarching_tpu.api.render_tables)."""
+    backend = resolve_backend(backend)
+    if backend == "multi" and (cfg.soft_shadow_k > 0.0
+                               or cfg.ao_strength > 0.0):
+        return "cuda"
+    return backend
+
+
 def render_tables(plan: ScenePlan, tables: SceneTables,
                   cfg: Optional[RenderConfig] = None, *,
                   backend: str = "cuda", differentiable: bool = False,
@@ -150,12 +169,7 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
     the fields of ``tables`` that are tensors requiring grad (see
     ``tables.tables_to_torch``); otherwise nothing is recorded."""
     cfg = cfg or RenderConfig()
-    backend = resolve_backend(backend)
-    if backend == "multi" and (cfg.soft_shadow_k > 0.0
-                               or cfg.ao_strength > 0.0):
-        # the hooks carry no penumbra or occlusion factor; the fused
-        # kernel tracks them (raymarching_tpu.api.render_tables)
-        backend = "cuda"
+    backend = route_backend(cfg, backend)
     device = resolve_device(device)
     check_supported(plan, cfg, backend)
     if differentiable and backend == "ref":
@@ -180,14 +194,8 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
             return _render_serve(plan, tables, cfg).reshape(
                 cfg.height, cfg.width, S, 3).mean(dim=2)
         origin, dirs = cam.generate_rays(tables, cfg)
-        dirs = dirs.reshape(-1, 3)
-        R = dirs.shape[0]
-        chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
-        colors = torch.cat([
-            _fused_colors(plan, cfg, tables,
-                          origin if origin.dim() == 1 else origin[i:i + chunk],
-                          dirs[i:i + chunk], differentiable)
-            for i in range(0, R, chunk)])
+        colors = _colors(plan, tables, cfg, origin, dirs.reshape(-1, 3),
+                         differentiable=differentiable)
         return colors.reshape(cfg.height, cfg.width, S, 3).mean(dim=2)
 
 
@@ -218,12 +226,8 @@ def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     if backend == "cuda":
         colors = render_rays(plan, tables, o, d, cfg, device=device)
     else:
-        hooks = make_render_hooks(plan, tables, cfg, backend)
-        R = d.shape[0]
-        chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
-        colors = torch.cat([
-            shade_rays(plan, tables, cfg, o[i:i + chunk], d[i:i + chunk],
-                       **hooks) for i in range(0, R, chunk)])
+        colors = _colors(plan, tables, cfg, o, d, make_render_hooks(
+            plan, tables, cfg, backend))
     return colors.reshape(H, W, S, 3).mean(dim=2)
 
 
@@ -250,12 +254,8 @@ def render_rays(plan: ScenePlan, tables: SceneTables, origins, dirs,
                          f"{tuple(origins.shape)}")
     diff = torch.is_grad_enabled() and any(
         t.requires_grad for t in (origins, dirs, *tables))
-    chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else max(R, 1)
-    return torch.cat([
-        _fused_colors(plan, cfg, tables,
-                      origins if origins.dim() == 1 else origins[i:i + chunk],
-                      dirs[i:i + chunk], diff)
-        for i in range(0, R, chunk)]) if R else dirs.new_zeros((0, 3))
+    return (_colors(plan, tables, cfg, origins, dirs, differentiable=diff)
+            if R else dirs.new_zeros((0, 3)))
 
 
 def _render_serve(plan: ScenePlan, tables: SceneTables,
@@ -280,6 +280,179 @@ def _fused_colors(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         return FusedRender.apply(plan, cfg, origin, dirs, *tables)
     return ray_colors(cfg, render_kernel_rays(plan, cfg, tables, origin,
                                               dirs), tables.prim_color)
+
+
+def render_tiled(plan: ScenePlan, tables: SceneTables,
+                 cfg: Optional[RenderConfig] = None, *, row_block: int = 128,
+                 backend: str = "cuda", row_start: int = 0,
+                 num_rows: Optional[int] = None, device) -> np.ndarray:
+    """Stream a frame through ``device`` ``row_block`` rows at a time ->
+    host float32 [H, W, 3] (raymarching_tpu.api.render_tiled), or the
+    band of ``num_rows`` rows from ``row_start`` -> [num_rows, W, 3].
+
+    Only one block's rays and outputs live on the device at once, so a
+    frame whose rays would not fit renders; rows land in host memory as
+    each block finishes.  A block's rays are the whole frame's rows
+    bitwise (``core.camera.generate_rays``' ``row_range``), thin-lens
+    rays included, and each goes the way ``render_tables`` sends the
+    frame's: K1 (``cuda``, ``cfg.ray_chunk`` rays a launch; per-ray lens
+    origins with an aperture) or the hooks (``multi``, ``ref``);
+    ``multi`` with soft shadows or AO goes to ``cuda``.  The port has no
+    block ray order (ROADMAP Queue 1 item 2) and no in-kernel raygen
+    here: ``cfg.serve_raygen`` is not read.  Forward only."""
+    cfg = cfg or RenderConfig()
+    backend = route_backend(cfg, backend)
+    device = resolve_device(device)
+    check_supported(plan, cfg, backend)
+    span = cfg.height if num_rows is None else num_rows
+    if not (0 <= row_start and row_start + span <= cfg.height):
+        raise ValueError(f"row band [{row_start}, {row_start + span}) "
+                         f"outside frame height {cfg.height}")
+    if row_block < 1:
+        raise ValueError(f"row_block must be >= 1, got {row_block}")
+    W, S = cfg.width, cfg.samples_per_pixel
+    out = np.empty((span, W, 3), np.float32)
+    with torch.no_grad():
+        tables = tables_to_torch(tables, device)
+        hooks = (make_render_hooks(plan, tables, cfg, backend)
+                 if backend != "cuda" else None)
+        for r in range(row_start, row_start + span, row_block):
+            n = min(row_block, row_start + span - r)
+            if cfg.aperture > 0.0:
+                o, d = cam.generate_rays_dof(tables, cfg, (r, n))
+                o = o.reshape(-1, 3)
+            else:
+                o, d = cam.generate_rays(tables, cfg, (r, n))
+            colors = _colors(plan, tables, cfg, o, d.reshape(-1, 3), hooks)
+            out[r - row_start:r - row_start + n] = colors.reshape(
+                n, W, S, 3).mean(dim=2).cpu().numpy()
+    return out
+
+
+def _colors(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+            origin: torch.Tensor, dirs: torch.Tensor,
+            hooks: Optional[dict] = None, *,
+            differentiable: bool = False) -> torch.Tensor:
+    """Colours [R, 3] of rays ``dirs`` [R, 3] (R > 0) from ``origin``
+    [3] or [R, 3], ``cfg.ray_chunk`` rays at a time: the fused path
+    (``FusedRender`` with ``differentiable``) when ``hooks`` is None, else
+    ``core.render.shade_rays`` with them."""
+    R = dirs.shape[0]
+    chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
+    parts = []
+    for i in range(0, R, chunk):
+        o = origin if origin.dim() == 1 else origin[i:i + chunk]
+        parts.append(
+            _fused_colors(plan, cfg, tables, o, dirs[i:i + chunk],
+                          differentiable)
+            if hooks is None else
+            shade_rays(plan, tables, cfg, o, dirs[i:i + chunk], **hooks))
+    return torch.cat(parts)
+
+
+def render_frames(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+                  positions, directions, *, device) -> torch.Tensor:
+    """F camera poses -> [F, H, W, 3] on ``device``
+    (raymarching_tpu.api.render_frames): every frame's rays in one stream
+    through ``render_rays`` (K1 with an origin a ray, ``cfg.ray_chunk``
+    rays a launch), so a batch of poses costs one launch, not F.
+    ``positions`` and ``directions`` are [F, 3]; the other camera fields
+    (up, fov) come from ``tables``.  Frame i is ``render_tables`` at pose
+    i, bitwise (pinhole rays: ``generate_rays``)."""
+    device = resolve_device(device)
+    tables = tables_to_torch(tables, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    positions = torch.as_tensor(positions, **f32)
+    directions = torch.as_tensor(directions, **f32)
+    F = positions.shape[0]
+    if positions.shape != (F, 3) or directions.shape != (F, 3):
+        raise ValueError(f"render_frames: positions {tuple(positions.shape)}"
+                         f", directions {tuple(directions.shape)}")
+    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
+    R = H * W * S
+    origins, dirs = [], []
+    for i in range(F):
+        o, d = cam.generate_rays(tables._replace(
+            cam_position=positions[i], cam_direction=directions[i]), cfg)
+        origins.append(o.expand(R, 3))
+        dirs.append(d.reshape(R, 3))
+    colors = render_rays(plan, tables, torch.cat(origins), torch.cat(dirs),
+                         cfg, device=device)
+    return colors.reshape(F, H, W, S, 3).mean(dim=3)
+
+
+def _host(x) -> np.ndarray:
+    """A tables field as a host float32 array (tensor or array)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def turntable_poses(tables: SceneTables, frames: int, *,
+                    orbit: Optional[float] = None, center=None) -> list:
+    """The (position, direction) float32 [3] pairs of a turntable orbit
+    (raymarching_tpu.api.turntable_frames' pose math, line by line): the
+    camera circles in the xz plane about ``center`` (default the mean
+    primitive position) at its starting radius and height, looking at
+    the centre; ``orbit`` is the swept angle in radians (default a full
+    turn).  A full loop leaves out its endpoint (frame N would be frame
+    0); a partial sweep ends exactly at ``orbit``."""
+    if orbit is None:
+        orbit = 2.0 * math.pi
+    prim_pos = _host(tables.prim_pos)
+    if center is not None:
+        center = np.asarray(center, np.float32)
+    else:
+        center = (prim_pos.mean(0) if prim_pos.shape[0]
+                  else np.zeros(3, np.float32))
+    p0 = _host(tables.cam_position) - center
+    radius = float(np.hypot(p0[0], p0[2]))
+    phi0 = math.atan2(float(p0[2]), float(p0[0]))
+    two_pi = 2.0 * math.pi
+    denom = (max(frames, 1) if abs(orbit) >= two_pi - 1e-9
+             else max(frames - 1, 1))
+
+    def pose(i):
+        phi = phi0 + orbit * i / denom
+        pos = center + np.array([radius * math.cos(phi), float(p0[1]),
+                                 radius * math.sin(phi)], np.float32)
+        look = center - pos
+        nrm = float(np.linalg.norm(look))
+        return pos, ((look / nrm) if nrm > 1e-6
+                     else _host(tables.cam_direction))
+
+    return [pose(i) for i in range(frames)]
+
+
+def turntable_frames(plan: ScenePlan, tables: SceneTables,
+                     cfg: RenderConfig, frames: int, *,
+                     orbit: Optional[float] = None, center=None,
+                     backend: str = "cuda", batch: int = 8,
+                     device) -> Iterator[np.ndarray]:
+    """Yield ``frames`` host float32 [H, W, 3] frames of a turntable orbit
+    (raymarching_tpu.api.turntable_frames; the poses of
+    ``turntable_poses``): behind the server's ``/animate`` and the CLI's
+    ``--animate``.  On ``cuda``, ``batch`` poses at a time through
+    ``render_frames`` (one stream of rays, K1); on ``multi`` and ``ref``
+    one ``render_tables`` a frame."""
+    backend = resolve_backend(backend)
+    device = resolve_device(device)
+    poses = turntable_poses(tables, frames, orbit=orbit, center=center)
+    with torch.no_grad():
+        tables = tables_to_torch(tables, device)
+        if backend == "cuda":
+            for b0 in range(0, frames, batch):
+                ps, ds = zip(*poses[b0:b0 + batch])
+                imgs = render_frames(plan, tables, cfg, np.stack(ps),
+                                     np.stack(ds), device=device)
+                yield from imgs.cpu().numpy()
+        else:
+            f32 = dict(dtype=torch.float32, device=device)
+            for pos, d in poses:
+                yield render_tables(plan, tables._replace(
+                    cam_position=torch.as_tensor(pos, **f32),
+                    cam_direction=torch.as_tensor(d, **f32)), cfg,
+                    backend=backend, device=device).cpu().numpy()
 
 
 def render(scene: Scene, cfg: Optional[RenderConfig] = None, *,

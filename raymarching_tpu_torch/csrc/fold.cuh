@@ -79,6 +79,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
 #include <limits>
 
 #include "proc.cuh"
@@ -114,6 +115,7 @@ struct DeviceScene {
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
   static constexpr bool kDeep = false;
+  static constexpr bool kSpill = false;
   const float4* tbl;
   const int4* groups;
   const int4* runs;
@@ -143,6 +145,7 @@ struct SharedScene {
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
   static constexpr bool kDeep = false;
+  static constexpr bool kSpill = false;
   unsigned tbl, groups, runs, lat, lights;
   int n_groups, root_min;
   bool collapse;
@@ -194,6 +197,28 @@ struct Deep : S {
   static constexpr bool kProc = true;
   static constexpr bool kDeep = true;
   __device__ __forceinline__ explicit Deep(const S& s) : S(s) {}
+};
+
+// Words of device memory before the spill area in the buffer a DeepSpill
+// view reads (tables.SPILL_HEADER): the first is the collapse flag, 0;
+// the rest keep the area aligned to 128 bytes.
+constexpr int kSpillHeader = 32;
+
+// A deep view whose plan nests more lists than the folds' per-thread stack
+// holds (kDeepLevels, below): the same walk, with the stack's deeper
+// levels in a device buffer the wrapper allocates (tables.scene_operands),
+// passed as SceneArgs.lat_flag: one slot a thread of the grid (see
+// SpillStack).  Only such plans take it, so every other view compiles as
+// before.
+template <class S>
+struct DeepSpill : Deep<S> {
+  using Base = S;
+  static constexpr bool kSpill = true;
+  unsigned* spill;
+  __device__ __forceinline__ DeepSpill(const S& s, const int* buf)
+      : Deep<S>(s),
+        spill(reinterpret_cast<unsigned*>(const_cast<int*>(buf)) +
+              kSpillHeader) {}
 };
 
 // SceneArgs from a C entry point's leading arguments.
@@ -707,7 +732,8 @@ __device__ __forceinline__ void lattice_carve_n(const S& s, int off,
 // folded by then, so the combines run in the order of JAX's post-order
 // unroll and give its bits.  Live state: one accumulator a list open, in
 // a per-thread stack of kDeepLevels (dynamically indexed, so in local
-// memory: only the Deep views have it).  No cull, no collapse.
+// memory: only the Deep views have it) and, for a plan that nests more
+// lists, the DeepSpill view's buffer.  No cull, no collapse.
 constexpr int kDeepLevels = 16;   // tables.DEEP_LEVELS
 constexpr int kDeepOpen = 1, kDeepClose = 2;   // tables.DEEP_OPEN, _CLOSE
 constexpr int kDeepMin = 1, kDeepFirst = 2, kDeepNeg = 4;   // entry flags
@@ -717,6 +743,58 @@ __device__ __forceinline__ bool deep_takes(int flags, float v, float acc) {
   if (flags & kDeepFirst) return true;
   return (flags & kDeepMin) ? v < acc : v > acc;
 }
+
+// Words a level of SpillStack takes in a thread's slot: the most of N
+// floats (deep_sd_n's N <= 7, K2's stencil) and of a PathWinner's three.
+constexpr int kSpillWords = 8;
+
+// The DeepSpill view's stack of open lists: N values of T a level (T a
+// float or a winner; N > 1 for deep_sd_n's points), value j of level d
+// read with get(d, j) and written with set(d, j, x).  The first
+// kDeepLevels levels sit in the thread's local memory, as the Deep view's
+// stack does; word w of value j of a level d past them in the view's
+// buffer, at spill[((d - kDeepLevels) kSpillWords + j W + w) stride +
+// thread], W the words of a T and stride the grid's threads, so that a
+// warp's 32 threads touch 32 consecutive words.  The wrapper sizes the
+// buffer for the most threads a grid of the card holds at once.
+template <class T, int N>
+struct SpillStack {
+  static constexpr int kWords = sizeof(T) / 4;
+  static_assert(sizeof(T) % 4 == 0 && N * kWords <= kSpillWords,
+                "a level of the spilled stack is kSpillWords words");
+  T low[kDeepLevels][N];
+  unsigned* slot;
+  size_t stride;
+  template <class V>
+  __device__ __forceinline__ explicit SpillStack(const V& s)
+      : slot(s.spill + blockIdx.x * blockDim.x + threadIdx.x),
+        stride(static_cast<size_t>(gridDim.x) * blockDim.x) {}
+  __device__ __forceinline__ unsigned* at(int d, int j) const {
+    return slot + (static_cast<size_t>(d - kDeepLevels) * kSpillWords +
+                   j * kWords) * stride;
+  }
+  __device__ __forceinline__ T get(int d, int j) const {
+    if (d < kDeepLevels) return low[d][j];
+    const unsigned* a = at(d, j);
+    unsigned w[kWords];
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = a[i * stride];
+    T x;
+    memcpy(&x, w, sizeof(T));
+    return x;
+  }
+  __device__ __forceinline__ void set(int d, int j, T x) {
+    if (d < kDeepLevels) {
+      low[d][j] = x;
+      return;
+    }
+    unsigned* a = at(d, j);
+    unsigned w[kWords];
+    memcpy(w, &x, sizeof(T));
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) a[i * stride] = w[i];
+  }
+};
 
 template <class S>
 __device__ __forceinline__ float deep_sd(const S& s, float px, float py,
@@ -825,6 +903,103 @@ __device__ __forceinline__ W deep_sd_idx(const S& s, float px, float py,
   return acc[0];
 }
 
+// deep_sd over the DeepSpill view's stack (SpillStack): the same walk.
+template <class S>
+__device__ __forceinline__ float deep_sd_spill(const S& s, float px,
+                                               float py, float pz) {
+  SpillStack<float, 1> acc(s);
+  int d = 0;
+  acc.set(0, 0, kInf);
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      acc.set(++d, 0, kInf);
+      continue;
+    }
+    float v;
+    if (ins.x == kDeepClose) {
+      v = acc.get(d--, 0);
+      if (ins.w & kDeepNeg) v = -v;
+    } else {
+      float m = kInf;
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        m = fold_run(s, s.run(r), px, py, pz, m);
+      v = (ins.w & kDeepMin) ? m : -m;
+    }
+    if (deep_takes(ins.w, v, acc.get(d, 0))) acc.set(d, 0, v);
+  }
+  return acc.get(0, 0);
+}
+
+// deep_sd_n over the DeepSpill view's stack.
+template <int N, class S>
+__device__ __forceinline__ void deep_sd_n_spill(const S& s,
+                                                const Points<N>& p,
+                                                float (&out)[N]) {
+  SpillStack<float, N> acc(s);
+  int d = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc.set(0, j, kInf);
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      ++d;
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc.set(d, j, kInf);
+      continue;
+    }
+    float v[N];
+    if (ins.x == kDeepClose) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        v[j] = (ins.w & kDeepNeg) ? -acc.get(d, j) : acc.get(d, j);
+      --d;
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = kInf;
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        fold_run_n(s, s.run(r), p, v);
+      if (!(ins.w & kDeepMin)) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) v[j] = -v[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (deep_takes(ins.w, v[j], acc.get(d, j))) acc.set(d, j, v[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = acc.get(0, j);
+}
+
+// deep_sd_idx over the DeepSpill view's stack.
+template <class W, class S>
+__device__ __forceinline__ W deep_sd_idx_spill(const S& s, float px,
+                                               float py, float pz) {
+  SpillStack<W, 1> acc(s);
+  int d = 0;
+  acc.set(0, 0, make_winner<W>(kInf, -1, 0));
+  for (int k = 0; k < s.n_groups; ++k) {
+    const int4 ins = s.group(k);
+    if (ins.x == kDeepOpen) {
+      acc.set(++d, 0, make_winner<W>(kInf, -1, 0));
+      continue;
+    }
+    W v;
+    if (ins.x == kDeepClose) {
+      v = acc.get(d--, 0);
+      if (ins.w & kDeepNeg) v = deep_negate(v);
+    } else {
+      v = make_winner<W>(kInf, -1, 0);
+      for (int r = ins.y; r < ins.y + ins.z; ++r)
+        v = fold_run_idx(s, s.run(r), px, py, pz, v);
+      if (!(ins.w & kDeepMin)) v = deep_negate(v);
+    }
+    if (deep_takes(ins.w, v.sd, acc.get(d, 0).sd)) acc.set(d, 0, v);
+  }
+  return acc.get(0, 0);
+}
+
 // Scene SDF: the two-level fold of pallas_march._scene_sd_tile.  A cullable
 // (DIFFERENCE) group first folds its base runs (scale -1, always leading);
 // its value max(base, -carve...) is at least -gmin of the base, so when that
@@ -835,7 +1010,9 @@ __device__ __forceinline__ W deep_sd_idx(const S& s, float px, float py,
 template <class S>
 __device__ __noinline__ float scene_sd(const S s, float px, float py,
                                        float pz) {
-  if constexpr (S::kDeep) {
+  if constexpr (S::kSpill) {
+    return deep_sd_spill(s, px, py, pz);
+  } else if constexpr (S::kDeep) {
     return deep_sd(s, px, py, pz);
   } else {
     const float rsign = s.root_min ? 1.0f : -1.0f;
@@ -884,7 +1061,11 @@ struct Fold {
 
 template <int N, class S>
 __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
-  if constexpr (S::kDeep) {
+  if constexpr (S::kSpill) {
+    Fold<N> out;
+    deep_sd_n_spill(s, p, out.v);
+    return out;
+  } else if constexpr (S::kDeep) {
     Fold<N> out;
     deep_sd_n(s, p, out.v);
     return out;
@@ -956,7 +1137,9 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
 template <class W, class S>
 __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
                                        float pz) {
-  if constexpr (S::kDeep) {
+  if constexpr (S::kSpill) {
+    return deep_sd_idx_spill<W>(s, px, py, pz);
+  } else if constexpr (S::kDeep) {
     return deep_sd_idx<W>(s, px, py, pz);
   } else {
     const float rsign = s.root_min ? 1.0f : -1.0f;

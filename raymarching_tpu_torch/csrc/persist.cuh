@@ -113,12 +113,16 @@ __device__ __forceinline__ SharedScene stage_shared(const SceneArgs& a) {
 // under Fused<> (a fused group's carve run names no rows, so staging
 // halves nothing of it), Proc<> (a procedural leaf's size is halved with
 // the rest of its row, and proc.cuh's proc_leaf doubles it back; its
-// iteration count and procedural row are not touched) or Deep<> (the
+// iteration count and procedural row are not touched), Deep<> (the
 // deep program is staged as the group descriptors are; its stream is one
-// 0 an instruction, so nothing of it is resolved).
+// 0 an instruction, so nothing of it is resolved) or DeepSpill<> (Deep<>
+// with its stack's spill buffer, the tensor behind a.lat_flag, whose
+// first word, the collapse flag, is 0).
 template <class S>
 __device__ __forceinline__ S stage_scene(const SceneArgs& a) {
-  if constexpr (S::kStaged)
+  if constexpr (S::kSpill)
+    return S(stage_scene<typename S::Base>(a), a.lat_flag);
+  else if constexpr (S::kStaged)
     return S(stage_shared(a));
   else
     return S(device_scene(a));
@@ -181,9 +185,13 @@ struct View {
 // (tables.SceneOperands.args: bit 0 the fused generator packing, else
 // exact; bit 1 a plan with procedural leaves, Proc<S>, which takes either
 // packing; bit 2 a plan with no two-level form, Deep<S>, whatever the
-// other bits say) name; returns what f returns.
+// other bits say; bit 3 with bit 2 such a plan nesting more lists than
+// kDeepLevels, DeepSpill<S>) name; returns what f returns.
 template <class F>
 inline int on_view(int shared, int view, const F& f) {
+  if (view & 8)
+    return shared ? f(View<DeepSpill<SharedScene>>{})
+                  : f(View<DeepSpill<DeviceScene>>{});
   if (view & 4)
     return shared ? f(View<Deep<SharedScene>>{})
                   : f(View<Deep<DeviceScene>>{});

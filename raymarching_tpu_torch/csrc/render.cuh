@@ -50,6 +50,14 @@ struct RenderExt {
   float* aofac;
 };
 
+// RenderExt of the entries for more than kMaxAoSamples AO taps.
+struct FarRenderExt {
+  FarShadeExt x;
+  float* light;
+  float* sfac;
+  float* aofac;
+};
+
 // The raygen entries' camera: ray `base + i` of the frame is SSAA sample
 // s = r % k^2 of pixel r / k^2 in scan order, at sub-pixel ((s / k + 1) /
 // k, (s % k + 1) / k); 1/k, 1/W and 1/H are doubles rounded once to
@@ -103,9 +111,9 @@ __device__ __forceinline__ float3 raygen_dir(const Raygen& G, unsigned i) {
 // save_winner is reflection-free), and the host turns the black-lane skip
 // off (JAX passes black_ids = () with bounces).  One march and one shade
 // in the code, whatever the count: nothing is kept per bounce.
-template <int kNormal, class S>
+template <int kNormal, class S, class E>
 __device__ __forceinline__ void bounce_ray(const S& s, const Params& P,
-                                           const RenderExt& ext, int bounces,
+                                           const E& ext, int bounces,
                                            unsigned i, float ox, float oy,
                                            float oz, float dx, float dy,
                                            float dz) {

@@ -38,52 +38,49 @@
 
 namespace {
 
-template <class S>
+// X is RenderExt, or FarRenderExt for more than kMaxAoSamples AO taps.
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads)
-    render_kernel_bounce(const Params P, const RenderExt E, const int B) {
-  render_loop<kNormalFd, true, false, S, RenderExt, NoExt, true>(P, E,
-                                                                 NoExt{}, B);
+    render_kernel_bounce(const Params P, const X E, const int B) {
+  render_loop<kNormalFd, true, false, S, X, NoExt, true>(P, E, NoExt{}, B);
 }
 
-template <class S>
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
-    render_kernel_bounce_analytic(const Params P, const RenderExt E,
-                                  const int B) {
-  render_loop<kNormalAnalytic, true, false, S, RenderExt, NoExt, true>(
+    render_kernel_bounce_analytic(const Params P, const X E, const int B) {
+  render_loop<kNormalAnalytic, true, false, S, X, NoExt, true>(
       P, E, NoExt{}, B);
 }
 
-template <class S>
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads)
-    render_kernel_raygen_bounce(const Params P, const RenderExt E,
-                                const Raygen G, const int B) {
-  render_loop<kNormalFd, true, true, S, RenderExt, Raygen, true>(P, E, G,
-                                                                 B);
+    render_kernel_raygen_bounce(const Params P, const X E, const Raygen G,
+                                const int B) {
+  render_loop<kNormalFd, true, true, S, X, Raygen, true>(P, E, G, B);
 }
 
-template <class S>
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
-    render_kernel_raygen_bounce_analytic(const Params P, const RenderExt E,
+    render_kernel_raygen_bounce_analytic(const Params P, const X E,
                                          const Raygen G, const int B) {
-  render_loop<kNormalAnalytic, true, true, S, RenderExt, Raygen, true>(
-      P, E, G, B);
+  render_loop<kNormalAnalytic, true, true, S, X, Raygen, true>(P, E, G, B);
 }
 
-// Launch the entry for (analytic, raygen) over view S.
-template <class S>
+// Launch the entry for (analytic, raygen) over view S; X is E's type.
+template <class S, class X>
 int launch(int analytic, int raygen, const SceneArgs& scene, const Params& P,
-           const RenderExt& E, const Raygen& G, int B, cudaStream_t st) {
+           const X& E, const Raygen& G, int B, cudaStream_t st) {
   const int64_t R = P.R;
   if (raygen)
     return analytic ? launch_persistent<S>(
-                          render_kernel_raygen_bounce_analytic<S>, scene, R,
-                          st, P, E, G, B)
-                    : launch_persistent<S>(render_kernel_raygen_bounce<S>,
+                          render_kernel_raygen_bounce_analytic<S, X>, scene,
+                          R, st, P, E, G, B)
+                    : launch_persistent<S>(render_kernel_raygen_bounce<S, X>,
                                            scene, R, st, P, E, G, B);
-  return analytic ? launch_persistent<S>(render_kernel_bounce_analytic<S>,
+  return analytic ? launch_persistent<S>(render_kernel_bounce_analytic<S, X>,
                                          scene, R, st, P, E, B)
-                  : launch_persistent<S>(render_kernel_bounce<S>, scene, R,
-                                         st, P, E, B);
+                  : launch_persistent<S>(render_kernel_bounce<S, X>, scene,
+                                         R, st, P, E, B);
 }
 
 template <class S>
@@ -101,7 +98,7 @@ int occupancy(int analytic, int raygen, unsigned smem, int* per_sm) {
 }  // namespace
 
 // Launch K1's bounce entry on `stream` over R rays with `bounces` >= 0
-// mirror bounces: rt_render_rays_ext's arguments up to ao_d, then the
+// mirror bounces: rt_render_rays_ext's arguments up to ao_delta, then the
 // bounce count, then `raygen`: nonzero takes rays base..base + R - 1 of a
 // W x H frame at SSAA k x k with rt_render_raygen's camera arguments (rk,
 // rW, rH, cam) and ignores org, ox, oy, oz and dirs; zero takes those
@@ -118,13 +115,14 @@ extern "C" int rt_render_bounce(
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
-    const float* ao_d, int bounces, int raygen, int W, int H, int k,
+    const float* ao_d, double ao_delta, int bounces, int raygen, int W,
+    int H, int k,
     float rk, float rW, float rH, const void* cam, int64_t base,
     const void* org, float ox, float oy, float oz, const void* dirs,
     void* out, void* iout, void* light, void* sfac, void* aofac,
     void* counter, int64_t R, void* stream) {
   if (!valid_launch(R, analytic, nullptr) || bounces < 0 ||
-      ao_samples < 0 || ao_samples > kMaxAoSamples || light == nullptr ||
+      ao_samples < 0 || light == nullptr ||
       (soft_k > 0.0f && sfac == nullptr) ||
       (ao_strength > 0.0f && aofac == nullptr) ||
       (raygen && (W < 1 || H < 1 || k < 1 || base < 0 || cam == nullptr)) ||
@@ -140,11 +138,6 @@ extern "C" int rt_render_bounce(
                   sat_skip, iterations, eps, off, saturation, fd_h},
       raygen ? nullptr : org, ox, oy, oz, raygen ? nullptr : dirs, out, iout,
       nullptr, nullptr, counter, R);
-  RenderExt E{};
-  E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
-  E.light = static_cast<float*>(light);
-  E.sfac = static_cast<float*>(sfac);
-  E.aofac = static_cast<float*>(aofac);
   Raygen G{};
   if (raygen) {
     G.W = W;
@@ -157,10 +150,25 @@ extern "C" int rt_render_bounce(
     G.base = base;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, view, [&](auto v) {
-    return launch<typename decltype(v)::type>(analytic, raygen, scene, P, E,
-                                              G, bounces, st);
-  });
+  const auto run = [&](const auto& E) {
+    return on_view(shared, view, [&](auto v) {
+      return launch<typename decltype(v)::type>(analytic, raygen, scene, P,
+                                                E, G, bounces, st);
+    });
+  };
+  float* const lt = static_cast<float*>(light);
+  float* const sf = static_cast<float*>(sfac);
+  float* const ao = static_cast<float*>(aofac);
+  if (ao_samples > kMaxAoSamples)
+    return run(FarRenderExt{far_shade_ext(soft_k, colored, ao_strength,
+                                          ao_samples, ao_delta),
+                            lt, sf, ao});
+  RenderExt E{};
+  E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
+  E.light = lt;
+  E.sfac = sf;
+  E.aofac = ao;
+  return run(E);
 }
 
 // Resident blocks an SM of the bounce entry for (analytic, raygen), as

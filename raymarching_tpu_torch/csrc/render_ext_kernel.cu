@@ -24,27 +24,29 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "render.cuh"
 
 namespace {
 
-template <class S>
+// X is RenderExt, or FarRenderExt for more than kMaxAoSamples AO taps.
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads)
-    render_kernel_ext(const Params P, const RenderExt E) {
+    render_kernel_ext(const Params P, const X E) {
   render_loop<kNormalFd, true, false, S>(P, E);
 }
 
-template <class S>
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
-    render_kernel_ext_analytic(const Params P, const RenderExt E) {
+    render_kernel_ext_analytic(const Params P, const X E) {
   render_loop<kNormalAnalytic, true, false, S>(P, E);
 }
 
-template <int kNormal, class S>
+template <int kNormal, class S, class X = RenderExt>
 auto entry() {
-  return kNormal == kNormalAnalytic ? render_kernel_ext_analytic<S>
-                                    : render_kernel_ext<S>;
+  return kNormal == kNormalAnalytic ? render_kernel_ext_analytic<S, X>
+                                    : render_kernel_ext<S, X>;
 }
 
 }  // namespace
@@ -52,7 +54,8 @@ auto entry() {
 // Launch K1's extended entry on `stream` over R rays: rt_render_rays'
 // arguments (out [5][R] here: px, py, pz, sd, done), then the extensions'
 // switches (soft_k > 0: soft shadows; colored != 0; ao_strength > 0 with
-// ao_samples taps at the host array ao_d's distances) and their outputs:
+// ao_samples taps at the host array ao_d's distances, or past
+// kMaxAoSamples taps at (k + 1) ao_delta) and their outputs:
 // light [3][R] or [R], sfac [L][R] and aofac [R] (null when off).
 // Returns a CUDA error code.
 extern "C" int rt_render_rays_ext(
@@ -62,12 +65,13 @@ extern "C" int rt_render_rays_ext(
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
-    const float* ao_d, const void* org, float ox, float oy, float oz,
+    const float* ao_d, double ao_delta, const void* org, float ox, float oy,
+    float oz,
     const void* dirs, void* out, void* iout, void* wres, void* widx,
     void* light, void* sfac, void* aofac, void* counter, int64_t R,
     void* stream) {
   if (!valid_launch(R, analytic, wres) || ao_samples < 0 ||
-      ao_samples > kMaxAoSamples || (soft_k > 0.0f && sfac == nullptr) ||
+      (soft_k > 0.0f && sfac == nullptr) ||
       (ao_strength > 0.0f && aofac == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
@@ -79,19 +83,31 @@ extern "C" int rt_render_rays_ext(
       ShadeParams{static_cast<const int*>(black), n_lights, n_black, shadows,
                   sat_skip, iterations, eps, off, saturation, fd_h},
       org, ox, oy, oz, dirs, out, iout, wres, widx, counter, R);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = [&](const auto& E) {
+    using X = std::decay_t<decltype(E)>;
+    return on_view(shared, view, [&](auto v) {
+      using S = typename decltype(v)::type;
+      return analytic
+                 ? launch_persistent<S>(entry<kNormalAnalytic, S, X>(),
+                                        scene, R, st, P, E)
+                 : launch_persistent<S>(entry<kNormalFd, S, X>(), scene, R,
+                                        st, P, E);
+    });
+  };
+  float* const lt = static_cast<float*>(light);
+  float* const sf = static_cast<float*>(sfac);
+  float* const ao = static_cast<float*>(aofac);
+  if (ao_samples > kMaxAoSamples)
+    return run(FarRenderExt{far_shade_ext(soft_k, colored, ao_strength,
+                                          ao_samples, ao_delta),
+                            lt, sf, ao});
   RenderExt E{};
   E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
-  E.light = static_cast<float*>(light);
-  E.sfac = static_cast<float*>(sfac);
-  E.aofac = static_cast<float*>(aofac);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, view, [&](auto v) {
-    using S = typename decltype(v)::type;
-    return analytic ? launch_persistent<S>(entry<kNormalAnalytic, S>(), scene,
-                                           R, st, P, E)
-                    : launch_persistent<S>(entry<kNormalFd, S>(), scene, R,
-                                           st, P, E);
-  });
+  E.light = lt;
+  E.sfac = sf;
+  E.aofac = ao;
+  return run(E);
 }
 
 // render_kernel.cu's rt_blocks_per_sm for the extended entries.

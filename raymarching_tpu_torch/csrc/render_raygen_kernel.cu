@@ -43,30 +43,30 @@ __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
   render_loop<kNormalAnalytic, false, true, S>(P, NoExt{}, G);
 }
 
-template <class S>
+// X is RenderExt, or FarRenderExt for more than kMaxAoSamples AO taps.
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads)
-    render_kernel_raygen_ext(const Params P, const RenderExt E,
-                             const Raygen G) {
+    render_kernel_raygen_ext(const Params P, const X E, const Raygen G) {
   render_loop<kNormalFd, true, true, S>(P, E, G);
 }
 
-template <class S>
+template <class S, class X = RenderExt>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
-    render_kernel_raygen_ext_analytic(const Params P, const RenderExt E,
+    render_kernel_raygen_ext_analytic(const Params P, const X E,
                                       const Raygen G) {
   render_loop<kNormalAnalytic, true, true, S>(P, E, G);
 }
 
-// Launch the entry for (analytic, ext) over view S.
-template <class S>
+// Launch the entry for (analytic, ext) over view S; X is E's type.
+template <class S, class X>
 int launch(int analytic, int ext, const SceneArgs& scene, const Params& P,
-           const RenderExt& E, const Raygen& G, cudaStream_t st) {
+           const X& E, const Raygen& G, cudaStream_t st) {
   const int64_t R = P.R;
   if (ext)
     return analytic ? launch_persistent<S>(
-                          render_kernel_raygen_ext_analytic<S>, scene, R, st,
-                          P, E, G)
-                    : launch_persistent<S>(render_kernel_raygen_ext<S>,
+                          render_kernel_raygen_ext_analytic<S, X>, scene, R,
+                          st, P, E, G)
+                    : launch_persistent<S>(render_kernel_raygen_ext<S, X>,
                                            scene, R, st, P, E, G);
   return analytic ? launch_persistent<S>(render_kernel_raygen_analytic<S>,
                                          scene, R, st, P, G)
@@ -103,14 +103,15 @@ extern "C" int rt_render_raygen(
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, int ext, float soft_k, int colored, float ao_strength,
-    int ao_samples, const float* ao_d, int W, int H, int k, float rk,
+    int ao_samples, const float* ao_d, double ao_delta, int W, int H, int k,
+    float rk,
     float rW, float rH, const void* cam, int64_t base, void* out,
     void* iout, void* wres, void* widx, void* light,
     void* sfac, void* aofac, void* counter, int64_t R, void* stream) {
   if (!valid_launch(R, analytic, wres) || W < 1 || H < 1 || k < 1 ||
       base < 0 || cam == nullptr ||
-      (ext && (ao_samples < 0 || ao_samples > kMaxAoSamples ||
-               light == nullptr || (soft_k > 0.0f && sfac == nullptr) ||
+      (ext && (ao_samples < 0 || light == nullptr ||
+               (soft_k > 0.0f && sfac == nullptr) ||
                (ao_strength > 0.0f && aofac == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
@@ -123,13 +124,6 @@ extern "C" int rt_render_raygen(
                   sat_skip, iterations, eps, off, saturation, fd_h},
       nullptr, 0.0f, 0.0f, 0.0f, nullptr, out, iout, wres, widx, counter,
       R);
-  RenderExt E{};
-  if (ext) {
-    E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
-    E.light = static_cast<float*>(light);
-    E.sfac = static_cast<float*>(sfac);
-    E.aofac = static_cast<float*>(aofac);
-  }
   Raygen G{};
   G.W = W;
   G.H = H;
@@ -140,10 +134,27 @@ extern "C" int rt_render_raygen(
   G.cam = static_cast<const float*>(cam);
   G.base = base;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, view, [&](auto v) {
-    return launch<typename decltype(v)::type>(analytic, ext, scene, P, E, G,
-                                              st);
-  });
+  const auto run = [&](const auto& E) {
+    return on_view(shared, view, [&](auto v) {
+      return launch<typename decltype(v)::type>(analytic, ext, scene, P, E,
+                                                G, st);
+    });
+  };
+  float* const lt = static_cast<float*>(light);
+  float* const sf = static_cast<float*>(sfac);
+  float* const ao = static_cast<float*>(aofac);
+  if (ext && ao_samples > kMaxAoSamples)
+    return run(FarRenderExt{far_shade_ext(soft_k, colored, ao_strength,
+                                          ao_samples, ao_delta),
+                            lt, sf, ao});
+  RenderExt E{};
+  if (ext) {
+    E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
+    E.light = lt;
+    E.sfac = sf;
+    E.aofac = ao;
+  }
+  return run(E);
 }
 
 // Resident blocks an SM of the raygen entry for (analytic, ext), as

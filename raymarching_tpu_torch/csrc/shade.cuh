@@ -105,22 +105,39 @@ constexpr int kNormalAnalytic = 1;
 // 1.41 left alone (FD: K1 10.0 and 2.2 ms, K4 1.67).
 constexpr int kAnalyticBlocks = 10;
 
-// AO taps an extended entry takes (ops/shade_kernel.py MAX_AO_SAMPLES): the
-// distances travel by value in the launch's parameters, read by tap index.
-// Their count changes no entry's registers or stack (256 and 32 build the
-// same ptxas report with nvcc of CUDA 12.8 for sm_90a); a device pointer in
-// their place moved the stack frames of most extended and bounce entries
-// by 8-48 bytes and some registers by 8-16.
+// AO taps whose distances travel by value in the launch's parameters, read
+// by tap index (ops/shade_kernel.py MAX_AO_SAMPLES).  Their count changes no
+// entry's registers or stack (256 and 32 build the same ptxas report with
+// nvcc of CUDA 12.8 for sm_90a); a device pointer in their place moved the
+// stack frames of most extended and bounce entries by 8-48 bytes and some
+// registers by 8-16, and a double ao_delta in their place moved them too
+// and slowed two entries (PERF.md §5).  More taps take the FarShadeExt
+// entries.
 constexpr int kMaxAoSamples = 256;
 
 // The extensions of an extended entry: switches and constants, the same
 // for every ray (pallas_render._shade_body's soft_k, colored, ao_*).
 struct ShadeExt {
+  static constexpr bool kFar = false;
   float soft_k;        // > 0: soft shadows (the host passes 0 without shadows)
   int colored;         // != 0: coloured lights, light rows' columns 4-6
   float ao_strength;   // > 0: ambient occlusion
   int ao_samples;
   float ao_d[kMaxAoSamples];   // tap i's distance (i + 1) ao_delta
+};
+
+// ShadeExt for more than kMaxAoSamples AO taps: tap k's distance formed in
+// the kernel as the host forms the others, (k + 1) ao_delta in double
+// rounded once to float (ops/shade_kernel.ao_taps), so any count gives the
+// twin's bits.  Separate entries take it, so those of up to kMaxAoSamples
+// taps keep their code.
+struct FarShadeExt {
+  static constexpr bool kFar = true;
+  float soft_k;
+  int colored;
+  float ao_strength;
+  int ao_samples;
+  double ao_delta;
 };
 
 // Where ray i of R writes the extended outputs: light [3][R] (coloured) or
@@ -147,6 +164,13 @@ inline ShadeExt shade_ext(float soft_k, int colored, float ao_strength,
   x.ao_samples = ao_samples;
   for (int k = 0; k < ao_samples; ++k) x.ao_d[k] = ao_d[k];
   return x;
+}
+
+// FarShadeExt from a C entry point's arguments (ao_delta the
+// configuration's double, RenderConfig.ao_delta).
+inline FarShadeExt far_shade_ext(float soft_k, int colored, float ao_strength,
+                                 int ao_samples, double ao_delta) {
+  return FarShadeExt{soft_k, colored, ao_strength, ao_samples, ao_delta};
 }
 
 // Where the analytic normal's winner residuals of ray i of R go: (sd, gx,
@@ -311,7 +335,11 @@ __device__ __forceinline__ Shade shade(const S& s, const ShadeParams P,
     if (ext.ao_strength > 0.0f) {
       float occ = 0.0f;
       for (int k = 0; k < ext.ao_samples; ++k) {
-        const float d = ext.ao_d[k];
+        float d;
+        if constexpr (X::kFar)
+          d = __double2float_rn(static_cast<double>(k + 1) * ext.ao_delta);
+        else
+          d = ext.ao_d[k];
         const float sdo = scene_sd(s, px + d * nx, py + d * ny, pz + d * nz);
         occ = occ + ldexpf(1.0f, -(k + 1)) * (d - sdo);
       }

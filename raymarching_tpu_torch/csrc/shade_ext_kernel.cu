@@ -19,29 +19,31 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "shade_loop.cuh"
 
 namespace {
 
-template <class S>
+// X is ShadeRaysExt, or FarShadeRaysExt for more than kMaxAoSamples AO taps.
+template <class S, class X = ShadeRaysExt>
 __global__ void __launch_bounds__(kThreads)
     shade_kernel_ext(const SceneArgs A, const ShadeParams P, const Rays B,
-                     const ShadeRaysExt E) {
+                     const X E) {
   shade_loop<kNormalFd, true, S>(A, P, B, E);
 }
 
-template <class S>
+template <class S, class X = ShadeRaysExt>
 __global__ void __launch_bounds__(kThreads, kAnalyticBlocks)
     shade_kernel_ext_analytic(const SceneArgs A, const ShadeParams P,
-                              const Rays B, const ShadeRaysExt E) {
+                              const Rays B, const X E) {
   shade_loop<kNormalAnalytic, true, S>(A, P, B, E);
 }
 
-template <int kNormal, class S>
+template <int kNormal, class S, class X = ShadeRaysExt>
 auto entry() {
-  return kNormal == kNormalAnalytic ? shade_kernel_ext_analytic<S>
-                                    : shade_kernel_ext<S>;
+  return kNormal == kNormalAnalytic ? shade_kernel_ext_analytic<S, X>
+                                    : shade_kernel_ext<S, X>;
 }
 
 }  // namespace
@@ -49,7 +51,8 @@ auto entry() {
 // Launch K4's extended entry on `stream` over R rays: rt_shade_rays'
 // arguments (light [3][R] with coloured lights, else [R]), then the
 // extensions' switches (soft_k > 0: soft shadows; colored != 0;
-// ao_strength > 0 with ao_samples taps at the host array ao_d's distances)
+// ao_strength > 0 with ao_samples taps at the host array ao_d's distances,
+// or past kMaxAoSamples taps at (k + 1) ao_delta)
 // and their factor outputs sfac [L][R] and aofac [R] (null when off).
 // Returns a CUDA error code.
 extern "C" int rt_shade_rays_ext(
@@ -59,11 +62,12 @@ extern "C" int rt_shade_rays_ext(
     int shared, int analytic, int n_lights, int n_black, int shadows,
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
-    const float* ao_d, const void* in, void* light, void* iout, void* wres,
+    const float* ao_d, double ao_delta, const void* in, void* light,
+    void* iout, void* wres,
     void* widx, void* sfac, void* aofac, void* counter, int64_t R,
     void* stream) {
   if (R < 0 || R > kMaxRays || (analytic == 0 && wres != nullptr) ||
-      ao_samples < 0 || ao_samples > kMaxAoSamples ||
+      ao_samples < 0 ||
       (soft_k > 0.0f && sfac == nullptr) ||
       (ao_strength > 0.0f && aofac == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -82,18 +86,29 @@ extern "C" int rt_shade_rays_ext(
                       saturation,
                       fd_h};
   const Rays B = make_rays(in, light, iout, wres, widx, counter, R);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = [&](const auto& E) {
+    using X = std::decay_t<decltype(E)>;
+    return on_view(shared, view, [&](auto v) {
+      using S = typename decltype(v)::type;
+      return analytic
+                 ? launch_persistent<S>(entry<kNormalAnalytic, S, X>(), A, R,
+                                        st, A, P, B, E)
+                 : launch_persistent<S>(entry<kNormalFd, S, X>(), A, R, st,
+                                        A, P, B, E);
+    });
+  };
+  float* const sf = static_cast<float*>(sfac);
+  float* const ao = static_cast<float*>(aofac);
+  if (ao_samples > kMaxAoSamples)
+    return run(FarShadeRaysExt{far_shade_ext(soft_k, colored, ao_strength,
+                                             ao_samples, ao_delta),
+                               sf, ao});
   ShadeRaysExt E{};
   E.x = shade_ext(soft_k, colored, ao_strength, ao_samples, ao_d);
-  E.sfac = static_cast<float*>(sfac);
-  E.aofac = static_cast<float*>(aofac);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_view(shared, view, [&](auto v) {
-    using S = typename decltype(v)::type;
-    return analytic ? launch_persistent<S>(entry<kNormalAnalytic, S>(), A, R,
-                                           st, A, P, B, E)
-                    : launch_persistent<S>(entry<kNormalFd, S>(), A, R, st,
-                                           A, P, B, E);
-  });
+  E.sfac = sf;
+  E.aofac = ao;
+  return run(E);
 }
 
 // shade_kernel.cu's rt_blocks_per_sm for the extended entries.

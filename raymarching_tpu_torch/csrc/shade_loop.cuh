@@ -34,6 +34,13 @@ struct ShadeRaysExt {
   float* aofac;
 };
 
+// ShadeRaysExt of the entries for more than kMaxAoSamples AO taps.
+struct FarShadeRaysExt {
+  FarShadeExt x;
+  float* sfac;
+  float* aofac;
+};
+
 // The rays of one thread, the body of every K4 entry; E is ShadeRaysExt
 // with kExt, else NoExt.
 template <int kNormal, bool kExt, class S, class E = NoExt>

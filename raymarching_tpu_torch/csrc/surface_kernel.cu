@@ -273,6 +273,9 @@ extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
   P.n = static_cast<unsigned>(R);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (view & 8)
+    return shared ? launch<kCombined, true, DeepSpill<SharedScene>>(P, st)
+                  : launch<kCombined, true, DeepSpill<DeviceScene>>(P, st);
   if (view & 4)
     return shared ? launch<kCombined, true, Deep<SharedScene>>(P, st)
                   : launch<kCombined, true, Deep<DeviceScene>>(P, st);

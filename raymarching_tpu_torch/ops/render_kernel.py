@@ -465,7 +465,7 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     if ext:
         ext_args, light, sfac, aofac = ext_operands(plan, cfg, n, dev)
     else:
-        ext_args = (0.0, 0, 0.0, 0, (ctypes.c_float * 1)())
+        ext_args = (0.0, 0, 0.0, 0, (ctypes.c_float * 1)(), 0.0)
         light, sfac, aofac = out[5:6], None, None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

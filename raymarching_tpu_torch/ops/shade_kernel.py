@@ -45,8 +45,10 @@ from . import build
 # int32 constant).  The multi and ref paths keep no mask and take any count,
 # as the JAX package's pallas and ref backends do.
 MAX_LIGHTS = 32
-# AO taps the extended entries take (csrc/shade.cuh kMaxAoSamples); the
-# plain twins take any count, as the JAX kernels do
+# AO taps whose distances the extended entries take by value
+# (csrc/shade.cuh kMaxAoSamples); past it their FarShadeExt instantiations
+# form each distance from ao_delta.  Every count renders, on the card as in
+# the plain twins, as the JAX kernels loop over any count.
 MAX_AO_SAMPLES = 256
 
 
@@ -135,7 +137,8 @@ def with_extras(out, winner, factors, save_winner: bool,
 def ao_taps(cfg: RenderConfig) -> Tuple[list, list]:
     """AO tap distances i ao_delta and weights 2^-i, i = 1..ao_samples:
     doubles, which the kernels and the twin round once to float32 as the
-    JAX kernel rounds its Python constants."""
+    JAX kernel rounds its Python constants (past MAX_AO_SAMPLES taps the
+    kernels form the same distances from ``ao_delta``)."""
     n = cfg.ao_samples
     return ([i * cfg.ao_delta for i in range(1, n + 1)],
             [2.0 ** -i for i in range(1, n + 1)])
@@ -290,23 +293,22 @@ def shade_operands(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
 
 def ext_operands(plan: ScenePlan, cfg: RenderConfig, R: int, device,
                  sets: int = 1):
-    """The extended entries' arguments from ``soft_k`` to ``ao_d`` and
+    """The extended entries' arguments from ``soft_k`` to ``ao_delta`` and
     their outputs: (args, light [C, R] (C = 3 with coloured lights, else
     1), sfac [L, R] or None, aofac [R] or None); with ``sets`` > 1 (K1's
     bounce entries: one shade set for the primary hit and one a bounce)
     that many of each, one after the other: light [sets C, R], sfac
     [sets L, R], aofac [sets R]."""
     colored, soft, ao = extensions(plan, cfg)
-    if ao and cfg.ao_samples > MAX_AO_SAMPLES:
-        raise NotImplementedError(
-            f"not ported yet: more than {MAX_AO_SAMPLES} AO samples on the "
-            "card (ROADMAP Queue 3, fault 5)")
     d, _ = ao_taps(cfg) if ao else ([], [])
-    ao_d = (ctypes.c_float * max(len(d), 1))(*d)
+    # the distances by value up to MAX_AO_SAMPLES taps, else ao_delta alone
+    ao_d = (ctypes.c_float * max(len(d), 1))(
+        *(d if len(d) <= MAX_AO_SAMPLES else ()))
     # no lights, no penumbra to track
     soft = soft and plan.num_lights > 0
     args = (cfg.soft_shadow_k if soft else 0.0, int(colored),
-            cfg.ao_strength if ao else 0.0, len(d), ao_d)
+            cfg.ao_strength if ao else 0.0, len(d), ao_d,
+            float(cfg.ao_delta))
     f32 = dict(dtype=torch.float32, device=device)
     return (args, torch.empty((sets * (3 if colored else 1), R), **f32),
             torch.empty((sets * plan.num_lights, R), **f32) if soft else None,
@@ -339,10 +341,11 @@ def ptr_or_none(t: Optional[torch.Tensor]):
 
 
 # ctypes argument types of ShadeParams' C arguments, from ``tbl`` to
-# ``fd_h``, and of the extensions' from ``soft_k`` to ``ao_d``
+# ``fd_h``, and of the extensions' from ``soft_k`` to ``ao_delta``
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SHADE_ARGTYPES = [_PTR] * 5 + [_I32] * 6 + [_PTR] * 2 + [_I32] * 7 + [_F32] * 4
-EXT_ARGTYPES = [_F32, _I32, _F32, _I32, ctypes.POINTER(_F32)]
+EXT_ARGTYPES = [_F32, _I32, _F32, _I32, ctypes.POINTER(_F32),
+                ctypes.c_double]
 
 
 @functools.lru_cache(maxsize=None)

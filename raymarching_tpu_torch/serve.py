@@ -1,5 +1,5 @@
-"""Render server of the port: ``GET /healthz``, ``POST /render`` and
-``POST /aovs``.
+"""Render server of the port: ``GET /healthz``, ``POST /render``,
+``POST /aovs`` and ``POST /animate``.
 
     python -m raymarching_tpu_torch.serve [--port 8000] [--device cuda]
                                           [--backend cuda|multi|ref]
@@ -15,8 +15,16 @@ K1 computes the primary directions from the ray index,
 pass), format=png|ppm.  Normals are FD, as the JAX server pins them.
 ``POST /aovs`` takes the same parameters and answers the JAX server's ZIP
 of ``api.render_aovs``' planes: color.png, normal.png, hit.png, depth.npy,
-objid.npy, shadow.npy (pinhole, as JAX's).  ``/animate`` answers 501
-(ROADMAP Queue 1 item 12).
+objid.npy, shadow.npy (pinhole, as JAX's).  ``POST /animate`` takes the
+same parameters and answers a turntable orbit of the scene
+(``api.turntable_frames``: FRAME_BATCH poses a ``render_frames`` call on
+the fused backend, one K1 launch a batch): format=zip (the default) a ZIP
+of frame_000.png ...; format=gif a looping GIF; frames (default 24, at
+most MAX_FRAMES), orbit (degrees swept, default 360), center=x,y,z
+(default the primitives' mean), delay_cs (the GIF's frame delay,
+clamped to 1-1000).  Frames times rays above MAX_ANIMATE_SAMPLES, and for
+a GIF frames times pixels above MAX_GIF_PIXELS (the encoder is pure
+Python, about a million pixels a second), answer 422.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import sys
 import threading
 import urllib.parse
@@ -33,13 +42,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .config import RenderConfig
+from .io.gif import encode_gif
 from .io.image import to_uint8
 from .io.png import encode_png
 from .scene.compile import compile_scene
 from .scene.parser import parse_scene
 
 from .api import (render_aovs, render_tables, resolve_backend,
-                  resolve_device)
+                  resolve_device, turntable_frames)
 
 # Limits of raymarching_tpu.serve: no request may ask for an arbitrarily
 # large frame or march.
@@ -47,12 +57,11 @@ MAX_WIDTH = 4096
 MAX_HEIGHT = 4096
 MAX_SSAA = 4
 MAX_ITERATIONS = 10_000
+MAX_FRAMES = 600
+MAX_ANIMATE_SAMPLES = 1 << 28     # rays of all an animation's frames
+MAX_GIF_PIXELS = 1 << 24          # pixels of all a GIF's frames
 MAX_BODY_BYTES = 1 << 20
-# The JAX server's routes that the port does not have yet: the ROADMAP item
-# each waits for.
-UNPORTED_ROUTES = {
-    "/animate": "animated renders (ROADMAP Queue 1 item 12)",
-}
+FRAME_BATCH = 8                   # poses a render_frames call on /animate
 
 
 def make_handler(device, backend: str = "cuda"):
@@ -93,8 +102,8 @@ def make_handler(device, backend: str = "cuda"):
                 self._json(404, {"error": "unknown path"})
 
         def _read_request(self, q):
-            """The request's (cfg, plan, tables), or None when a 4xx has
-            been sent."""
+            """The request's (cfg, plan, tables, frames), or None when a
+            4xx has been sent."""
             length = int(self.headers.get("Content-Length", 0))
             if length > MAX_BODY_BYTES:
                 self._json(413, {"error": "scene body too large "
@@ -105,7 +114,8 @@ def make_handler(device, backend: str = "cuda"):
                       ("height", int(q.get("height", 384)), 1, MAX_HEIGHT),
                       ("ssaa", int(q.get("ssaa", 1)), 1, MAX_SSAA),
                       ("iterations", int(q.get("iterations", 1000)), 1,
-                       MAX_ITERATIONS)]
+                       MAX_ITERATIONS),
+                      ("frames", int(q.get("frames", 24)), 1, MAX_FRAMES)]
             for name, val, lo, hi in limits:
                 if not lo <= val <= hi:
                     self._json(422, {"error": f"{name}={val} out of "
@@ -125,13 +135,13 @@ def make_handler(device, backend: str = "cuda"):
                 serve_raygen=q.get("serve_raygen", "1") != "0",
                 normal_mode="fd")
             plan, tables = compile_scene(parse_scene(text))
-            return cfg, plan, tables
+            return cfg, plan, tables, limits[4][1]
 
         def _render(self, q):
             parsed = self._read_request(q)
             if parsed is None:
                 return
-            cfg, plan, tables = parsed
+            cfg, plan, tables, _ = parsed
             with render_lock:
                 img = render_tables(plan, tables, cfg, backend=backend,
                                     device=device)
@@ -148,7 +158,7 @@ def make_handler(device, backend: str = "cuda"):
             parsed = self._read_request(q)
             if parsed is None:
                 return
-            cfg, plan, tables = parsed
+            cfg, plan, tables, _ = parsed
             with render_lock:
                 aovs = {k: v.cpu().numpy() for k, v in render_aovs(
                     plan, tables, cfg, device=device).items()}
@@ -170,13 +180,51 @@ def make_handler(device, backend: str = "cuda"):
                     zf.writestr(name + ".npy", b.getvalue())
             self._send_bytes(buf.getvalue(), "application/zip")
 
+        def _animate(self, q):
+            parsed = self._read_request(q)
+            if parsed is None:
+                return
+            cfg, plan, tables, frames = parsed
+            total = frames * cfg.rays_per_image
+            if total > MAX_ANIMATE_SAMPLES:
+                self._json(422, {"error": f"frames x rays = {total} over "
+                                          f"cap {MAX_ANIMATE_SAMPLES}"})
+                return
+            gif = q.get("format", "zip").lower() == "gif"
+            px = frames * cfg.width * cfg.height
+            if gif and px > MAX_GIF_PIXELS:
+                self._json(422, {"error": f"frames x pixels = {px} over "
+                                          f"GIF encode cap {MAX_GIF_PIXELS}"
+                                          "; use format=zip"})
+                return
+            orbit = math.radians(float(q.get("orbit", 360.0)))
+            center = None
+            if "center" in q:
+                center = np.array([float(v) for v in q["center"].split(",")],
+                                  np.float32)
+                if center.shape != (3,):
+                    raise ValueError("center must be x,y,z")
+            with render_lock:
+                images = [to_uint8(img, cfg.gamma) for img in
+                          turntable_frames(plan, tables, cfg, frames,
+                                           orbit=orbit, center=center,
+                                           backend=backend,
+                                           batch=FRAME_BATCH, device=device)]
+            if gif:
+                delay = max(1, min(int(q.get("delay_cs", 4)), 1000))
+                self._send_bytes(encode_gif(images, delay_cs=delay),
+                                 "image/gif")
+                return
+            buf = io.BytesIO()
+            with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+                for i, data in enumerate(images):
+                    zf.writestr(f"frame_{i:03d}.png", encode_png(data))
+            self._send_bytes(buf.getvalue(), "application/zip")
+
         def do_POST(self):
             url = urllib.parse.urlparse(self.path)
-            if url.path in UNPORTED_ROUTES:
-                self._json(501, {"error": "not ported yet: POST "
-                                 f"{url.path}, {UNPORTED_ROUTES[url.path]}"})
-                return
-            routes = {"/render": self._render, "/aovs": self._aovs}
+            routes = {"/render": self._render, "/aovs": self._aovs,
+                      "/animate": self._animate}
             if url.path not in routes:
                 self._json(404, {"error": "unknown path"})
                 return

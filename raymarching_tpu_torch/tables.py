@@ -303,9 +303,13 @@ DEEP_RUNS, DEEP_OPEN, DEEP_CLOSE = 0, 1, 2
 # An entry's flags: its list folds with MIN (else MAX), it is the list's
 # first entry (taken as it is), it is negated (a closed sub-list's value).
 DEEP_MIN, DEEP_FIRST, DEEP_NEG = 1, 2, 4
-# Lists open at once in the deep fold, the root's included: the size of
-# its per-thread stack (csrc/fold.cuh's kDeepLevels).
+# Lists open at once in the deep fold, the root's included, that its
+# per-thread stack holds (csrc/fold.cuh's kDeepLevels); a plan that nests
+# more takes the kernels' DeepSpill view, whose deeper levels live in a
+# device buffer of SPILL_WORDS words a level and a thread after
+# SPILL_HEADER words (the first of them the collapse flag, 0).
 DEEP_LEVELS = 16
+SPILL_HEADER, SPILL_WORDS = 32, 8
 
 
 _RUN = 2  # a coalesced run of leaves
@@ -360,13 +364,7 @@ def pack_deep(plan: ScenePlan) -> PackedPlan:
     under a MAX one, which the fold takes as -min(-x).  ``lattice`` is one
     0 an instruction (no collapse: the kernels' staging reads an entry a
     descriptor), ``members`` empty; the procedural fields are
-    ``pack_plan``'s.  Raises ValueError for a plan whose lists nest deeper
-    than DEEP_LEVELS."""
-    depth = _deep_depth(plan)
-    if depth > DEEP_LEVELS:
-        raise ValueError(
-            f"the deep fold holds {DEEP_LEVELS} nested lists; this plan "
-            f"nests {depth} (ROADMAP Queue 3, the deep fold's stack)")
+    ``pack_plan``'s.  Lists may nest to any depth (``spill_levels``)."""
     prog, runs = [], []
     proc = {int(leaf): PROC_TYPES[kind] for (leaf, kind, _, _) in plan.proc}
 
@@ -399,6 +397,28 @@ def pack_deep(plan: ScenePlan) -> PackedPlan:
         int(root), _as_i32(prog), _as_i32(runs),
         torch.zeros(max(len(prog), 1), dtype=torch.int32),
         torch.zeros((2, 0), dtype=torch.int64), *_proc_fields(plan.proc))
+
+
+def spill_levels(plan: ScenePlan) -> int:
+    """Levels of the deep fold's stack past DEEP_LEVELS that ``plan``
+    needs: 0 for a two-level plan and a deep one nesting at most
+    DEEP_LEVELS lists."""
+    return 0 if plan.kernel is not None else max(
+        _deep_depth(plan) - DEEP_LEVELS, 0)
+
+
+def _spill_buffer(levels: int, device: torch.device) -> torch.Tensor:
+    """The DeepSpill view's buffer on a CUDA device: SPILL_HEADER words,
+    the first 0 (the collapse flag the kernels read from it), then
+    ``levels`` levels of SPILL_WORDS words for each thread the card holds
+    at once (a persistent grid has no more)."""
+    props = torch.cuda.get_device_properties(device)
+    threads = props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+    buf = torch.empty(SPILL_HEADER + levels * SPILL_WORDS * threads,
+                      dtype=torch.int32, device=device)
+    buf[:SPILL_HEADER].zero_()
+    return buf
 
 
 def _moved(packed: PackedPlan, device: torch.device) -> PackedPlan:
@@ -476,17 +496,19 @@ class SceneOperands(NamedTuple):
     fused: int = 0          # 1: the fused packing (fused generators)
     proc: int = 0           # 1: the plan has procedural leaves
     deep: int = 0           # 1: pack_deep's program (no two-level form)
+    spill: int = 0          # 1: a deep plan past DEEP_LEVELS (DeepSpill)
 
     def args(self) -> tuple:
         """The leading arguments of every C entry point: five pointers,
         then the row, group, run and stream counts, root_min and the scene
-        view (csrc/persist.cuh's on_view: fused + 2 proc + 4 deep)."""
+        view (csrc/persist.cuh's on_view: fused + 2 proc + 4 deep + 8
+        spill)."""
         return (self.table.data_ptr(), self.groups.data_ptr(),
                 self.runs.data_ptr(), self.lattice.data_ptr(),
                 self.flag.data_ptr(), self.table.shape[0],
                 self.groups.shape[0], self.runs.shape[0],
                 self.lattice.shape[0], self.root_min,
-                self.fused + 2 * self.proc + 4 * self.deep)
+                self.fused + 2 * self.proc + 4 * self.deep + 8 * self.spill)
 
     def nbytes(self, n_lights: int = 0) -> int:
         """Bytes a block stages when the scene goes to shared memory."""
@@ -504,14 +526,19 @@ def scene_operands(plan, tables: SceneTables, device,
     (the plain leaf fold).  A plan with no two-level form takes
     ``pack_deep``'s program whatever ``fused`` says (the JAX kernels
     evaluate such a plan's exact field, fused generators or not), with the
-    flag 0.  The caller keeps the tensors alive across its launch."""
+    flag 0; on a CUDA device, a deep plan nesting more than DEEP_LEVELS
+    lists has its flag at the head of its stack's spill buffer
+    (``_spill_buffer``), and ``spill`` 1.  The caller keeps the tensors
+    alive across its launch."""
     deep = plan.kernel is None
     fused = bool(fused) and not deep
     packed = (_deep_on(plan, torch.device(device)) if deep else
               _packed_on(plan.kernel, torch.device(device), fused))
     with torch.no_grad():
         table = build_table(tables)
+        levels = spill_levels(plan) if table.device.type == "cuda" else 0
         flag = (_table_flag(plan.kernel, table, fused) if collapse and not deep
+                else _spill_buffer(levels, table.device) if levels
                 else torch.zeros(1, dtype=torch.int32, device=device))
         K = packed.proc_leaves.shape[0]
         if K:
@@ -523,7 +550,7 @@ def scene_operands(plan, tables: SceneTables, device,
         ops = SceneOperands(table, packed.groups, packed.runs,
                             packed.lattice, flag,
                             int(packed.root_op == MIN), int(fused),
-                            int(K > 0), int(deep))
+                            int(K > 0), int(deep), int(levels > 0))
     for name in ("groups", "runs", "lattice", "flag"):
         t = getattr(ops, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()

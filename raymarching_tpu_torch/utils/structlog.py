@@ -93,6 +93,15 @@ def configure(path: Optional[str] = None,
     return _default
 
 
+def reset() -> None:
+    """Remove the default logger, closing its file: structured logging is
+    off again."""
+    global _default
+    if _default is not None:
+        _default.close()
+    _default = None
+
+
 def get_logger() -> Optional[StructuredLogger]:
     """The default logger, or None when structured logging is off."""
     return _default

@@ -4,10 +4,12 @@ as JAX's mega kernel does (which fails from 32 lights on, its constant
 1 << 31 overflowing), so the port's ``cuda`` backend takes at most 32 and
 raises ValueError above; ``multi`` and ``ref`` keep no mask and render 33
 lights as JAX's pallas and ref backends do.  AO taps: JAX's kernels loop
-over any count; the port's twins do too, and its extended entries take
-up to 256 (``shade_kernel.MAX_AO_SAMPLES``, 32 before); 40 taps in K1's
-twin against JAX's mega kernel (interpret mode).  The entries themselves
-are held to the twin on the card by tests/test_torch_kernel_cuda.py."""
+over any count, and so do the port's twins and its extended entries (up
+to 256, ``shade_kernel.MAX_AO_SAMPLES``, by value; past it, entries that
+form each tap's distance from ``ao_delta``); 40 taps in K1's twin against
+JAX's mega kernel (interpret mode), 300 against JAX's ref backend.  The
+entries themselves are held to the twin on the card by
+tests/test_torch_kernel_cuda.py."""
 
 import numpy as np
 import pytest
@@ -71,3 +73,18 @@ def test_40_ao_taps_match_jax_mega():
     np.testing.assert_allclose(img.numpy(), want, rtol=0, atol=IMG_ATOL)
     assert (img.sum(-1) > 0).float().mean() > 0.3
     assert cfg.ao_samples <= shk.MAX_AO_SAMPLES == 256
+
+
+def test_300_ao_taps_match_jax_ref():
+    """300 AO taps (past the 256 the entries take by value) through K1's
+    extended twin against JAX's ref backend."""
+    plan, tables = _world([Light((5.0, 5.0, 0.0))])
+    cfg = RenderConfig(width=12, height=8, ssaa=1, iterations=60,
+                       ao_strength=0.8, ao_samples=300, ao_delta=0.05)
+    want = np.asarray(jax_render(plan, tables, cfg, backend="ref"))
+    img = rt.render_tables(plan, tables, _port_cfg(cfg), device="cpu")
+    np.testing.assert_allclose(img.numpy(), want, rtol=0, atol=IMG_ATOL)
+    assert (img.sum(-1) > 0).float().mean() > 0.3
+    # past MAX_AO_SAMPLES the entries take the count and ao_delta alone
+    args = shk.ext_operands(plan, _port_cfg(cfg), 1, "cpu")[0]
+    assert args[3] == 300 > shk.MAX_AO_SAMPLES and args[5] == 0.05

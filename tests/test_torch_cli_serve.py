@@ -279,10 +279,20 @@ def test_unknown_paths_404(server):
 @pytest.mark.parametrize("path,item", [("/aovs", None),
                                        ("/animate", "item 12")])
 def test_unported_routes_501(server, path, item):
-    """``/animate`` answers 501 and names the ROADMAP item it waits for, not
-    404; ``/aovs`` (501 before it was ported) answers the JAX server's ZIP
-    of the six planes of api.render_aovs."""
+    """No route answers 501 any more: ``/aovs`` (501 before it was ported)
+    answers the JAX server's ZIP of the six planes of api.render_aovs, and
+    ``/animate`` (501 before ROADMAP Queue 1 ``item`` 12 ported it) a ZIP
+    of turntable PNGs."""
     url = server + f"{path}?width=8&height=6&iterations=40&reflect=0.3"
+    if path == "/animate":
+        with _post(url + "&frames=2") as r:
+            assert r.status == 200
+            assert r.headers["Content-Type"] == "application/zip"
+            body = r.read()
+        with zipfile.ZipFile(io.BytesIO(body)) as zf:
+            assert zf.namelist() == ["frame_000.png", "frame_001.png"]
+            assert rt.decode_png(zf.read("frame_001.png")).shape[:2] == (6, 8)
+        return
     if item is None:
         with _post(url) as r:
             assert r.headers["Content-Type"] == "application/zip"
@@ -302,11 +312,6 @@ def test_unported_routes_501(server, path, item):
             np.testing.assert_array_equal(got, want[name].numpy())
         assert rt.decode_png(planes["normal.png"]).shape[:2] == (6, 8)
         assert rt.decode_png(planes["hit.png"]).shape[:2] == (6, 8)
-        return
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(url)
-    assert e.value.code == 501
-    assert item in json.loads(e.value.read())["error"]
 
 
 # The server's mirror and lens parameters and the configuration each gives,
@@ -405,3 +410,31 @@ def test_cli_normal_mode_flag(tmp_path, scenes_dir, capsys):
     assert (diff < 5e-3).mean() > 0.99
     with pytest.raises(SystemExit):
         cli.main(["--scene", "x", "--normal-mode", "sobel"])
+
+
+# dests of the JAX package's CLI the port names otherwise, and why
+PARSER_EXCEPTIONS = {
+    # --no-shadows: the port's --shadows / --no-shadows pair (dest shadows)
+    "no_shadows": "shadows",
+}
+# dests only the port's CLI has: the torch device (the JAX package picks
+# its platform outside the CLI)
+PORT_ONLY = {"device", "shadows"}
+
+
+def test_cli_parser_has_every_jax_option():
+    """Every option of raymarching_tpu/cli.py's parser has its counterpart
+    in the port's, but those PARSER_EXCEPTIONS names; --backend is there
+    with the port's value names (cuda, multi, ref for mega, pallas, ref;
+    the JAX package's jnp and auto have none: ROADMAP Queue 1 item 11)."""
+    from raymarching_tpu import cli as jcli
+    jax_dests = {a.dest for a in jcli.build_parser()._actions
+                 if a.dest != "help"}
+    port_dests = {a.dest for a in cli.build_parser()._actions
+                  if a.dest != "help"}
+    want = {PARSER_EXCEPTIONS.get(d, d) for d in jax_dests}
+    assert want <= port_dests, sorted(want - port_dests)
+    assert port_dests - want <= PORT_ONLY
+    assert len(jax_dests) == 29
+    with pytest.raises(ValueError, match="backend"):
+        rt.render_tables(None, None, backend="jnp", device="cpu")

@@ -21,7 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_util import deep_scene, one_torch_thread, random_scene  # noqa: E402,F401
+from torch_util import (chain_tree, deep_scene,  # noqa: E402,F401
+                        one_torch_thread, random_scene)
 
 from raymarching_tpu import RenderConfig as JaxConfig  # noqa: E402
 from raymarching_tpu.api import render_tables as jax_render  # noqa: E402
@@ -41,7 +42,8 @@ from raymarching_tpu_torch.scene import csg as tcsg  # noqa: E402
 from raymarching_tpu_torch.scene.compile import SceneTables, compile_tree  # noqa: E402
 from raymarching_tpu_torch.scene.objects import Camera, Light  # noqa: E402
 from raymarching_tpu_torch.tables import (DEEP_LEVELS, pack_deep,  # noqa: E402
-                                          scene_operands, tables_to_torch)
+                                          scene_operands, spill_levels,
+                                          tables_to_torch)
 
 FIELDS = SceneTables._fields
 # tests/test_fuzz.py:96-98: the kernel fold against the post-order fold
@@ -183,7 +185,8 @@ def test_deep_packing_signs_and_leaf_count():
     """pack_deep's program on a known tree, the path signs of the
     backward (products of the negations root to leaf, as JAX's
     scene_vjp._leaf_statics walks them) and LeafCount's every-leaf count;
-    the stack bound raises a ValueError."""
+    chains that nest more lists than the kernels' stack holds render and
+    give gradients as JAX's do."""
     from raymarching_tpu.ops.scene_vjp import _leaf_statics
 
     (jplan, _), (plan, tables), _ = _fuzz_pair(12)
@@ -202,14 +205,44 @@ def test_deep_packing_signs_and_leaf_count():
     with LeafCount() as count:
         kernel_fold(plan, tt, torch.zeros((5, 3)))
     assert count.leaves == 5 * plan.num_primitives and count.points == 5
-    # a chain of DEEP_LEVELS + 1 lists
-    node = tcsg.Sphere((0.0, 0.0, -5.0), 1.0)
-    for _ in range(DEEP_LEVELS + 1):
-        node = tcsg.ListNode(tcsg.Mode.UNION, [node, tcsg.Sphere(
-            (0.0, 0.0, -5.0), 1.0)])
-    deep, _ = compile_tree(node, [], Camera())
-    with pytest.raises(ValueError, match="nested lists"):
-        pack_deep(deep)
+    # chains of DEEP_LEVELS + 1 and 40 nested lists, past the kernels'
+    # per-thread stack (they raised ValueError before the DeepSpill view):
+    # the cuda twin's image and gradients of mean(img^2) against JAX's jnp
+    # backend (tests/test_mega.py:62's tolerance; the shadow skip off, its
+    # parity configuration)
+    cam = dict(position=(0.0, 1.5, 3.0), direction=(0.0, -0.3, -1.0))
+    cfg = CFG.replace(width=12, height=8, iterations=60,
+                      shade_skip_black=False)
+    for levels in (DEEP_LEVELS + 1, 40):
+        jplan, jtables = jax_compile(chain_tree(levels, jcsg),
+                                     [JaxLight((5.0, 8.0, 4.0))],
+                                     JaxCamera(**cam))
+        deep, dtables = compile_tree(chain_tree(levels),
+                                     [Light((5.0, 8.0, 4.0))], Camera(**cam))
+        assert deep.kernel is None and pack_deep(deep).groups.shape[0] > 0
+        assert spill_levels(deep) == levels - DEEP_LEVELS
+        assert scene_operands(deep, tables_to_torch(dtables, "cpu"),
+                              "cpu").spill == 0    # the twins keep no stack
+        img, vjp = jax.vjp(lambda t: jax_render(
+            jplan, t, cfg, backend="jnp", differentiable=True), jtables)
+        (want,) = vjp(2.0 * img / img.size)
+        tt = tables_to_torch(dtables, "cpu", requires_grad=FIELDS)
+        got = rt.render_tables(deep, tt, _port_cfg(cfg), differentiable=True,
+                               device="cpu")
+        assert (got.sum(-1) > 0).float().mean() > 0.3
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(img),
+                                   rtol=0, atol=IMG_ATOL)
+        grads = torch.autograd.grad(torch.mean(got * got), list(tt),
+                                    allow_unused=True, materialize_grads=True)
+        for field, a in zip(FIELDS, grads):
+            if field not in ("prim_pos", "prim_aux", "prim_color",
+                             "light_pos"):
+                continue
+            b = np.asarray(getattr(want, field), np.float64)
+            scale = max(np.abs(b).max(), 1e-8)
+            np.testing.assert_allclose(a.numpy(), b, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL_SCALE * scale,
+                                       err_msg=f"{levels} lists: {field}")
 
 
 def _depth3_world(package):

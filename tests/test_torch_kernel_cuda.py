@@ -25,7 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_util import deep_scene, one_torch_thread, random_scene  # noqa: E402,F401
+from torch_util import (chain_tree, deep_scene,  # noqa: E402,F401
+                        one_torch_thread, random_scene)
 
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu_torch.config import RenderConfig  # noqa: E402
@@ -880,6 +881,8 @@ EXT_CASES = {
     "demo-soft-ao": ("demo", dict(soft_shadow_k=6.0, ao_strength=0.8)),
     "demo-soft": ("demo", dict(soft_shadow_k=6.0)),
     "config4-ao": ("config4", dict(ao_strength=0.8)),
+    # past the 256 taps the entries once held in their launch parameters
+    "config4-ao300": ("config4", dict(ao_strength=0.8, ao_samples=300)),
     "mirror-coloured": ("mirror", dict()),
     "mirror-coloured-soft-ao": ("mirror", dict(soft_shadow_k=6.0,
                                                ao_strength=0.8)),
@@ -944,7 +947,7 @@ def test_extended_kernels_match_twins_on_card(cuda_device, monkeypatch, case,
 @pytest.mark.cuda
 @pytest.mark.parametrize("normal", ["fd", "analytic"])
 @pytest.mark.parametrize("case", ["reference", "demo-soft-ao",
-                                  "mirror-coloured-soft-ao"])
+                                  "mirror-coloured-soft-ao", "config4-ao300"])
 def test_raygen_entry_matches_k1_on_twin_directions_on_card(cuda_device,
                                                             case, normal):
     """K1's raygen entries (reference and extended shading) against K1 on
@@ -1340,12 +1343,20 @@ def test_fractal_multi_backend_on_card(cuda_device, normal):
 # deep plans (no two-level form: fold.cuh's Deep<S> view over
 # tables.pack_deep's program): tests/test_fuzz.py's depth-3 tree of seed 12
 # (fractal leaves in nested lists) in a lit room, the demo behind a deep
-# list (every leaf unculled) and julia.txt's Julia inside an intersection
-DEEP_SCENES = ("deep-fuzz", "deep-demo", "deep-julia")
+# list (every leaf unculled) and julia.txt's Julia inside an intersection;
+# chains of 17 and 40 nested lists, past the fold's per-thread stack of
+# tables.DEEP_LEVELS (16): the DeepSpill view
+DEEP_SCENES = ("deep-fuzz", "deep-demo", "deep-julia", "deep-chain17",
+               "deep-chain40")
 
 
 def _deep(scene, device):
-    if scene == "deep-fuzz":
+    if scene.startswith("deep-chain"):
+        plan, tables = compile_tree(
+            chain_tree(int(scene[len("deep-chain"):])),
+            [Light((5.0, 8.0, 4.0)), Light((-6.0, 5.0, 0.0))],
+            Camera(position=(0.0, 1.5, 3.0), direction=(0.0, -0.3, -1.0)))
+    elif scene == "deep-fuzz":
         tree = random_scene(np.random.default_rng(1012), 3)
         plan, tables = compile_tree(
             ListNode(Mode.UNION, [bounds(60.0), tree]),
@@ -1386,7 +1397,9 @@ def test_deep_kernels_match_twins_on_card(cuda_device, monkeypatch, scene,
         monkeypatch.setattr(scene_tables, "SHARED_SCENE_BYTES", 0)
     plan, _, tt = _deep(scene, cuda_device)
     ops = scene_tables.scene_operands(plan, tt, cuda_device, True, fused)
-    assert ops.args()[-1] == 4 + 2 * int(bool(plan.proc))
+    spill = scene_tables.spill_levels(plan) > 0
+    assert spill == scene.startswith("deep-chain")
+    assert ops.args()[-1] == 4 + 2 * int(bool(plan.proc)) + 8 * int(spill)
     cfg = CFG.replace(normal_mode=normal, fused_generators=fused)
     sw = normal == "analytic"
     origin, dirs = cam.generate_rays(tt, cfg)
@@ -1443,7 +1456,8 @@ def test_deep_kernels_match_twins_on_card(cuda_device, monkeypatch, scene,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normal", ["fd", "analytic"])
-@pytest.mark.parametrize("scene", ["deep-fuzz", "deep-julia"])
+@pytest.mark.parametrize("scene", ["deep-fuzz", "deep-julia",
+                                   "deep-chain40"])
 def test_deep_extended_raygen_and_bounce_entries_on_card(cuda_device, scene,
                                                          normal):
     """K1's and K4's extended entries (soft shadows and 40 AO taps), K1's
@@ -1486,7 +1500,8 @@ def test_deep_extended_raygen_and_bounce_entries_on_card(cuda_device, scene,
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["cuda", "multi"])
 @pytest.mark.parametrize("normal", ["fd", "analytic"])
-@pytest.mark.parametrize("scene", ["deep-julia", "deep-demo"])
+@pytest.mark.parametrize("scene", ["deep-julia", "deep-demo",
+                                   "deep-chain40"])
 def test_deep_gradients_on_card_match_cpu(cuda_device, scene, normal,
                                           backend):
     """The differentiable render of a deep plan on the card against the

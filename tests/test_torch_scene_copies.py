@@ -18,6 +18,8 @@ from torch_util import one_torch_thread  # noqa: E402,F401
 
 import raymarching_tpu as jrt  # noqa: E402
 from raymarching_tpu.io import checkpoint as jckpt  # noqa: E402
+from raymarching_tpu.io import gif as jgif  # noqa: E402
+from raymarching_tpu.io import mesh as jmesh  # noqa: E402
 from raymarching_tpu.io import jpeg as jjpeg  # noqa: E402
 from raymarching_tpu.io import png as jpng  # noqa: E402
 from raymarching_tpu.scene import compile as jcompile  # noqa: E402
@@ -27,6 +29,8 @@ from raymarching_tpu.utils import gatecheck as jgate  # noqa: E402
 from raymarching_tpu.utils import structlog as jlog  # noqa: E402
 import raymarching_tpu_torch as rt  # noqa: E402
 from raymarching_tpu_torch.io import checkpoint as tckpt  # noqa: E402
+from raymarching_tpu_torch.io import gif as tgif  # noqa: E402
+from raymarching_tpu_torch.io import mesh as tmesh  # noqa: E402
 from raymarching_tpu_torch.io import image as timage  # noqa: E402
 from raymarching_tpu_torch.io import jpeg as tjpeg  # noqa: E402
 from raymarching_tpu_torch.io import png as tpng  # noqa: E402
@@ -227,3 +231,21 @@ def test_gatecheck_equals_jax_package(planes):
     assert got == jgate.classify_offenders(diff, 5e-3, objid, depth, hit,
                                            **kw)
     assert got["offenders"] > 0
+
+
+@pytest.mark.parametrize("name", SCENE_FILES)
+def test_mesh_bounds_and_gif_copies_equal_jax_package(name):
+    """io/mesh.py's default_bounds on every scene file and io/gif.py's
+    bytes on a frame of its grid's signs: the copies give the originals'
+    results."""
+    path = str(SCENES_DIR / name)
+    jplan, jtables = jcompile.compile_scene(jparser.load_scene(path))
+    tplan, ttables = tcompile.compile_scene(tparser.load_scene(path))
+    lo, hi = tmesh.default_bounds(tplan, ttables)
+    jlo, jhi = jmesh.default_bounds(jplan, jtables)
+    np.testing.assert_array_equal(lo, jlo)
+    np.testing.assert_array_equal(hi, jhi)
+    pts = tmesh.grid_points(lo, hi, 5)
+    frame = (np.abs(pts.reshape(25, 5, 3)) * 40 % 256).astype(np.uint8)
+    assert tgif.encode_gif([frame, frame[::-1]]) == jgif.encode_gif(
+        [frame, frame[::-1]])

@@ -46,7 +46,8 @@ def test_package_has_its_own_copies():
                  "scene.objects", "scene.generators", "scene.writer",
                  "io.image", "io.png", "io.jpeg", "io.checkpoint",
                  "utils.structlog", "utils.timing", "ops.march_kernel",
-                 "ops.shade_kernel", "ops.march_op", "ops.normal_op"):
+                 "ops.shade_kernel", "ops.march_op", "ops.normal_op",
+                 "io.gif", "io.mesh", "utils.debug", "utils.selfcheck"):
         assert f"raymarching_tpu_torch.{want}" in names
 
 

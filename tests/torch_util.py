@@ -83,3 +83,28 @@ def random_scene(rng, depth: int = 1, csg=None):
         else:
             root.append(lst(depth - 1))
     return root
+
+
+def chain_tree(levels: int, csg=None):
+    """A root union of a Bounds box, a floor and a chain of ``levels`` - 1
+    nested lists, so that ``levels`` lists are open at once when the deep
+    fold walks it: list i holds list i - 1 and one leaf, a union adding a
+    small sphere on a helix and an intersection a box that holds every
+    sphere.  Built from ``csg``, a module with the scene classes (the
+    port's ``scene.csg`` by default)."""
+    import math
+    if csg is None:
+        from raymarching_tpu_torch.scene import csg
+    node = csg.Sphere((0.0, -1.0, -6.0), 0.6, (0.9, 0.3, 0.2))
+    for i in range(1, levels):
+        if i % 2:
+            a = 0.55 * i
+            node = csg.ListNode(csg.Mode.UNION, [node, csg.Sphere(
+                (1.8 * math.cos(a), 0.12 * i - 1.0, -6.0 + 1.8 * math.sin(a)),
+                0.45, (0.2, 0.4 + 0.02 * i, 0.9))])
+        else:
+            node = csg.ListNode(csg.Mode.INTERSECTION, [node, csg.Box(
+                (0.0, 0.0, -6.0), (8.0, 8.0, 8.0), (0.8, 0.8, 0.8))])
+    return csg.ListNode(csg.Mode.UNION, [
+        csg.bounds(40.0), csg.Box((0.0, -2.5, -6.0), (12.0, 0.5, 12.0),
+                                  (0.9, 0.9, 0.9)), node])
