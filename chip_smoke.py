@@ -183,7 +183,29 @@ Phases, one line each, every failure an uncaught exception:
                    POST /animate as a GIF in process and the encoder alone;
                    --selfcheck through the CLI; chains of 17 and 40 nested
                    lists (the DeepSpill view) and the demo with 300 AO taps
-                   (the far-tap entries), every entry bitwise its twin.
+                   (the far-tap entries), every entry bitwise its twin;
+ 17. oracle      — the port's plain gradient oracles on the demo at 64x48
+                   SSAA 1, 200 iterations: render_tables(backend="ref",
+                   differentiable=True) (the unrolled march) and
+                   backend="torch" (the plain implicit-function march)
+                   give the forward ref image bitwise; ref's gradients
+                   against the cuda backend's and torch's against ref's at
+                   tests/test_grad.py:55's tolerance; the card's ref
+                   gradients against the CPU's on the same rays;
+ 18. shard       — the demo at 512x512 SSAA 2, 1000 iterations, backend
+                   cuda, its rows split over a torch.distributed process
+                   group (parallel.sharded): world 1 over NCCL in this
+                   process, then world 2 over gloo in two processes on the
+                   one card (spawned after the build, loading its
+                   libraries): the gathered bands bitwise the
+                   single-process frame, the steps' gradients against one
+                   process's (bitwise at world 1), train_step, three
+                   fit(mesh=) Adam steps (the ranks' tables bitwise equal;
+                   at world 1 fit()'s), render_tiled_multihost at 1024x768
+                   SSAA 3 and render_rays_sharded on an odd bundle of three
+                   posed views bitwise their single-process forms; one K1
+                   a frame and one K1 and one K2 a step on every rank;
+                   per-rank frame and step times and the all-reduce's.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -901,15 +923,17 @@ def grads_of(plan, tables, cfg, device, origin, dirs):
             (render_rays.launches - k1, surface_eval.launches - k2))
 
 
-def grad_check(fields, got, want, what: str):
+def grad_check(fields, got, want, what: str, rtol: float = GRAD_RTOL,
+               atol_scale: float = GRAD_ATOL_SCALE):
     """Hold gradients ``got`` to ``want`` field by field at tests/test_mega
-    .py:62's tolerance; returns (worst |diff| / field scale, its field)."""
+    .py:62's tolerance (or ``rtol`` and ``atol_scale`` x the field's
+    largest |want|); returns (worst |diff| / field scale, its field)."""
     worst = (0.0, "")
     for field, a, b in zip(fields, got, want):
         check(bool(torch.isfinite(a).all()), f"{field} gradient not finite")
         scale = max(b.abs().max().item(), 1e-8)
-        excess = ((a - b).abs() - GRAD_RTOL * b.abs()
-                  - GRAD_ATOL_SCALE * scale).max().item()
+        excess = ((a - b).abs() - rtol * b.abs()
+                  - atol_scale * scale).max().item()
         check(excess <= 0, f"{field} gradient: {what} over tolerance by "
               f"{excess}")
         worst = max(worst, ((a - b).abs().max().item() / scale, field))
@@ -1961,6 +1985,333 @@ def cli_phase(dev, card: str, add_counts) -> dict:
             "bound": sd_bound, "points": N}
 
 
+# [oracle]: the demo at this footprint through the differentiable ref oracle
+ORACLE_CFG = dict(width=64, height=48, ssaa=1, iterations=200)
+# implicit-function against unrolled gradients: tests/test_grad.py:55
+IFT_RTOL, IFT_ATOL_SCALE = 0.08, 0.02
+# [shard] world 2 against one process: the same per-ray terms, their
+# float32 partial sums added in the all-reduce
+SHARD_RTOL, SHARD_ATOL_SCALE = 1e-4, 1e-5
+# [shard]: the bundle of three posed views for render_rays_sharded (an odd
+# number of rays, 3 x 211 x 97), and the world-2 spawn's time limit, all
+# its ranks together
+SHARD_RAYS_CFG = dict(width=211, height=97, ssaa=1, iterations=1000)
+SHARD_WORLD_TIMEOUT_S = 300
+
+
+def oracle_grads(plan, tables, cfg, backend: str, device):
+    """(image, gradients of the MSE against grey for every field) of
+    ``render_tables(backend=..., differentiable=True)`` on ``device``."""
+    from raymarching_tpu_torch.api import render_tables
+    from raymarching_tpu_torch.tables import tables_to_torch
+    tt = tables_to_torch(tables, device, requires_grad=type(tables)._fields)
+    img = render_tables(plan, tt, cfg, backend=backend, differentiable=True,
+                        device=device)
+    g = torch.autograd.grad(torch.mean((img - 0.25) ** 2), list(tt),
+                            allow_unused=True, materialize_grads=True)
+    return img.detach(), [v.cpu() for v in g]
+
+
+def ref_ray_grads(plan, tables, cfg, device, origin, dirs):
+    """Gradients of the MSE against grey of the unrolled ref oracle's
+    colours of rays (origin, dirs) made once on the CPU, for every field
+    and the rays (``core.render.shade_rays(differentiable=True)``)."""
+    from raymarching_tpu_torch.core.render import shade_rays
+    from raymarching_tpu_torch.tables import tables_to_torch
+    tt = tables_to_torch(tables, device, requires_grad=type(tables)._fields)
+    o = origin.to(device).requires_grad_()
+    d = dirs.to(device).requires_grad_()
+    colors = shade_rays(plan, tt, cfg, o, d, differentiable=True)
+    g = torch.autograd.grad(torch.mean((colors - 0.25) ** 2), [*tt, o, d],
+                            allow_unused=True, materialize_grads=True)
+    return [v.cpu() for v in g]
+
+
+def oracle_phase(dev, card: str) -> None:
+    """[oracle]: the port's two plain gradient oracles on the card (the
+    unrolled ``ref`` with ``differentiable=True`` and the ``torch``
+    backend's implicit-function march) against each other, the fused
+    backend and the CPU."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.api import render_tables
+    from raymarching_tpu_torch.tables import tables_to_torch
+    t0 = time.perf_counter()
+    plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
+    fields = type(tables)._fields
+    cfg = rt.RenderConfig(**ORACLE_CFG)
+    fwd = render_tables(plan, tables, cfg, backend="ref", device=dev)
+    ms = {}
+    g = {}
+    for backend in ("ref", "cuda", "torch"):
+        (img, g[backend]), ms[backend] = timed(lambda: oracle_grads(
+            plan, tables, cfg, backend, dev))
+        if backend != "cuda":
+            check(torch.equal(img, fwd), f"the differentiable {backend} "
+                  "image differs from the forward ref image")
+    w_cuda = grad_check(fields, g["ref"], g["cuda"], "ref vs cuda",
+                        IFT_RTOL, IFT_ATOL_SCALE)
+    w_torch = grad_check(fields, g["torch"], g["ref"], "torch vs ref",
+                         IFT_RTOL, IFT_ATOL_SCALE)
+    # the same rays on both sides (compare-bwd's note)
+    rays = rays_for(plan, tables_to_torch(tables, "cpu"), cfg)
+    g_card = ref_ray_grads(plan, tables, cfg, dev, *rays)
+    c0 = time.perf_counter()
+    g_cpu = ref_ray_grads(plan, tables, cfg, torch.device("cpu"), *rays)
+    cpu_s = time.perf_counter() - c0
+    w_cpu = grad_check(fields + ("origin", "dirs"), g_card, g_cpu,
+                       "ref card vs CPU")
+    print(f"[oracle] demo {cfg.width}x{cfg.height} ssaa{cfg.ssaa} "
+          f"{cfg.iterations} it: render_tables(backend='ref', "
+          f"differentiable=True) image = the forward ref image bitwise, "
+          f"and so is backend='torch''s; gradients of the MSE against grey, "
+          f"every field: ref vs cuda max |diff| / field scale "
+          f"{w_cuda[0]:.3g} ({w_cuda[1]}), torch vs ref {w_torch[0]:.3g} "
+          f"({w_torch[1]}) (tolerance rtol {IFT_RTOL}, atol "
+          f"{IFT_ATOL_SCALE} x scale); ref card vs CPU on the same rays, "
+          f"every field and the rays, {w_cpu[0]:.3g} ({w_cpu[1]}; rtol "
+          f"{GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x scale); forward + "
+          f"backward ms on the card: ref {ms['ref']:.1f}, torch "
+          f"{ms['torch']:.1f}, cuda {ms['cuda']:.1f}; ref on the CPU "
+          f"{cpu_s:.1f} s; phase {time.perf_counter() - t0:.1f} s; {card}")
+
+
+def shard_world(world: int, dev) -> dict:
+    """Every [shard] check one rank of a process group of ``world`` ranks
+    makes at the bench footprint (the demo at 512x512 SSAA 2, 1000
+    iterations, backend cuda, FD normals), each path's launches counted
+    from 0 just before it and read just after it; one process's results
+    are computed on the same rank outside those windows.  Returns what the
+    rank saw, for the cross-rank checks and the report."""
+    import torch.distributed as dist
+
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.api import (render_rays, render_tables,
+                                           render_tiled,
+                                           render_tiled_multihost,
+                                           turntable_poses)
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.parallel import distributed as D
+    from raymarching_tpu_torch.parallel import sharded as S
+    from raymarching_tpu_torch.tables import tables_to_torch
+    plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
+    fields = type(tables)._fields
+    cfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    big = rt.RenderConfig()
+    target = render_tables(plan, tables, cfg, device=dev)
+    start = perturbed_demo(tables)[0]
+    mesh = S.make_mesh()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "paths": {}}
+
+    def counted(path: str, calls: int):
+        out["paths"][path] = (calls, launch_counts())
+
+    # frames: one K1 launch a band
+    zero_counts()
+    band = S.render_sharded(plan, tables, cfg, mesh, backend="cuda")
+    band, out["frame_ms"] = timed(lambda: S.render_sharded(
+        plan, tables, cfg, mesh, backend="cuda"), runs=3)
+    counted("frame", 4)
+    check(out["paths"]["frame"][1] == only(render_kernel=4),
+          f"4 sharded frames launched {out['paths']['frame'][1]}")
+    frame = D.gather_image(band, mesh)
+    whole = render_tables(plan, tables, cfg, device=dev).cpu().numpy()
+    check(np.array_equal(frame, whole), "the gathered bands differ from "
+          "the single-process frame")
+    # steps: one K1 and one K2 launch a step, one all-reduce a backward
+    zero_counts()
+    calls0 = S.all_reduce_grads.calls
+    S.loss_and_grads(plan, start, target, cfg, mesh, "cuda")
+    (loss, grads), out["step_ms"] = timed(lambda: S.loss_and_grads(
+        plan, start, target, cfg, mesh, "cuda"), runs=3)
+    counted("step", 4)
+    check(out["paths"]["step"][1] == only(render_kernel=4, surface_kernel=4),
+          f"4 sharded steps launched {out['paths']['step'][1]}")
+    check(S.all_reduce_grads.calls - calls0 == 4,
+          f"{S.all_reduce_grads.calls - calls0} all-reduces in 4 steps")
+    out["bytes"] = S.all_reduce_grads.bytes
+    check(out["bytes"] == 4 * sum(np.asarray(v).size for v in tables),
+          f"the all-reduce carried {out['bytes']} bytes")
+    tt = tables_to_torch(start, dev, requires_grad=fields)
+    img = render_tables(plan, tt, cfg, differentiable=True, device=dev)
+    want = torch.autograd.grad(torch.mean((img - target) ** 2), list(tt),
+                               allow_unused=True, materialize_grads=True)
+    got = [v.cpu() for v in grads]
+    want = [v.cpu() for v in want]
+    if world == 1:
+        for f, a, b in zip(fields, got, want):
+            check(torch.equal(a, b), f"world 1: the {f} gradient differs "
+                  "from the single-process step's")
+        out["grad_err"] = (0.0, "")
+    else:
+        out["grad_err"] = grad_check(fields, got, want,
+                                     f"world {world} vs one process",
+                                     SHARD_RTOL, SHARD_ATOL_SCALE)
+    lr = 1e-2
+    zero_counts()
+    _, stepped = S.train_step(plan, start, target, cfg, mesh, lr=lr,
+                              backend="cuda")
+    counted("train_step", 1)
+    st = tables_to_torch(start, dev)
+    for f, a, b, gg in zip(fields, stepped, st, grads):
+        check(torch.equal(a, b - lr * gg), f"train_step's {f} is not "
+              "tables - lr x its gradient")
+    buf = torch.zeros(out["bytes"] // 4, device=dev)
+    _, out["allreduce_ms"] = timed(lambda: dist.all_reduce(buf), runs=21)
+    # three Adam steps of fit(mesh=)
+    zero_counts()
+    res = rt.fit(plan, start, target, cfg, device=dev, steps=3,
+                 trainable=TRAINABLE, optimizer=adam, mesh=mesh)
+    counted("fit", 3)
+    check(out["paths"]["fit"][1] == only(render_kernel=3, surface_kernel=3),
+          f"3 fit(mesh=) steps launched {out['paths']['fit'][1]}")
+    out["fit"] = [np.asarray(getattr(res.tables, f).cpu()) for f in fields]
+    out["fit_losses"] = res.losses
+    if world == 1:
+        one = rt.fit(plan, start, target, cfg, device=dev, steps=3,
+                     trainable=TRAINABLE, optimizer=adam)
+        for f, a in zip(fields, out["fit"]):
+            check(np.array_equal(a, np.asarray(getattr(one.tables, f).cpu())),
+                  f"world 1: fit(mesh=)'s {f} differs from fit()'s")
+    # the tiled frame, each rank its band of rows (6 blocks of 128 in all)
+    zero_counts()
+    tiled, out["tiled_ms"] = timed(lambda: render_tiled_multihost(
+        plan, tables, big, device=dev))
+    counted("tiled", 1)
+    check(out["paths"]["tiled"][1] == only(render_kernel=6 // world),
+          f"render_tiled_multihost launched {out['paths']['tiled'][1]}")
+    check(np.array_equal(tiled, render_tiled(plan, tables, big, device=dev)),
+          "render_tiled_multihost differs from render_tiled")
+    # an odd-sized bundle of three posed views
+    rcfg = rt.RenderConfig(**SHARD_RAYS_CFG)
+    tt0 = tables_to_torch(tables, dev)
+    origins, dirs = [], []
+    for pos, d in turntable_poses(tables, 3):
+        o, dd = cam.generate_rays(tt0._replace(
+            cam_position=torch.as_tensor(pos, device=dev),
+            cam_direction=torch.as_tensor(d, device=dev)), rcfg)
+        dirs.append(dd.reshape(-1, 3))
+        origins.append(o.expand(dirs[-1].shape))
+    origins, dirs = torch.cat(origins), torch.cat(dirs)
+    check(dirs.shape[0] % 2 == 1, "the bundle is not odd-sized")
+    zero_counts()
+    colors = S.render_rays_sharded(plan, tables, origins, dirs, rcfg, mesh)
+    counted("rays", 1)
+    check(out["paths"]["rays"][1] == only(render_kernel=1),
+          f"render_rays_sharded launched {out['paths']['rays'][1]}")
+    check(torch.equal(colors, render_rays(plan, tables, origins, dirs, rcfg,
+                                          device=dev)),
+          "render_rays_sharded differs from render_rays")
+    out["rays"] = dirs.shape[0]
+    out["frame"] = frame
+    return out
+
+
+def shard_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One spawned rank of the [shard] phase's gloo world: joins the group
+    on the one card and writes ``shard_world``'s results; any failure is
+    an uncaught exception and a non-zero exit."""
+    import os
+
+    import torch.distributed as dist
+
+    from raymarching_tpu_torch.parallel import distributed as D
+    # a share of the host's cores each: the ranks' plain references would
+    # otherwise spin against each other
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    D.initialize(init, world, rank, backend="gloo", device="cuda")
+    try:
+        res = shard_world(world, torch.device("cuda",
+                                              torch.cuda.current_device()))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, str(Path(out_dir) / f"rank{rank}.pt"))
+
+
+def shard_phase(dev, card: str, add_counts) -> dict:
+    """[shard]: the demo rendered and fitted with its rows split over a
+    torch.distributed process group, world 1 over NCCL in this process,
+    then world 2 over gloo in two spawned processes on the one card.
+    Returns K1's and K2's launches on its paths, by world and rank."""
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+
+    from raymarching_tpu_torch.parallel import distributed as D
+    t0 = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize(f"file://{tmp}/rendezvous-1", 1, 0, backend="nccl",
+                     device="cuda")
+        try:
+            check(dist.get_backend() == "nccl", "world 1 is not on NCCL")
+            w1 = shard_world(1, dev)
+        finally:
+            dist.destroy_process_group()
+        for path, (calls, counts) in w1["paths"].items():
+            add_counts(f"shard_w1_{path}", calls, counts)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=shard_rank, args=(
+            r, 2, f"file://{tmp}/rendezvous-2", tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_WORLD_TIMEOUT_S
+        try:
+            for r, p in enumerate(procs):
+                p.join(max(deadline - time.monotonic(), 0.0))
+                check(p.exitcode == 0, f"[shard] world 2 rank {r} ended with "
+                      f"exit code {p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        w2 = [torch.load(str(Path(tmp) / f"rank{r}.pt"), weights_only=False)
+              for r in range(2)]
+    for r, res in enumerate(w2):
+        check(res["backend"] == "gloo" and res["rank"] == r,
+              f"world 2 rank {r}: {res['backend']}, rank {res['rank']}")
+        check(np.array_equal(res["frame"], w1["frame"]),
+              f"world 2 rank {r}'s gathered frame differs from world 1's")
+        for a, b in zip(res["fit"], w2[0]["fit"]):
+            check(np.array_equal(a, b), "world 2: the ranks' tables differ "
+                  "after fit(mesh=)")
+        check(res["fit_losses"] == w2[0]["fit_losses"],
+              "world 2: the ranks' fit losses differ")
+    for world, ranks in ((1, [w1]), (2, w2)):
+        for res in ranks:
+            per = "; ".join(
+                f"{k} {res['paths'][k][1]['render_kernel']} K1, "
+                f"{res['paths'][k][1]['surface_kernel']} K2 in "
+                f"{res['paths'][k][0]}" for k in res["paths"])
+            print(f"[shard] world {world} ({res['backend']}) rank "
+                  f"{res['rank']}: demo 512x512 ssaa2 1000 it, backend cuda, "
+                  f"FD: band of {512 // world} rows {res['frame_ms']:.3f} ms, "
+                  f"step (fwd + bwd + all-reduce) {res['step_ms']:.3f} ms, "
+                  f"the all-reduce {res['allreduce_ms']:.3f} ms for "
+                  f"{res['bytes']} bytes (CUDA events); gradients against "
+                  f"one process's: "
+                  + ("bitwise" if world == 1 else
+                     f"max |diff| / field scale {res['grad_err'][0]:.3g} "
+                     f"({res['grad_err'][1]}; rtol {SHARD_RTOL}, atol "
+                     f"{SHARD_ATOL_SCALE} x scale)")
+                  + f"; tiled 1024x768 ssaa3 {res['tiled_ms']:.1f} ms; "
+                  f"launches: {per}; {card}")
+    print(f"[shard] gathered bands = the single-process frame bitwise in "
+          f"both worlds; 3 fit(mesh=) Adam steps: ranks' tables bitwise "
+          f"equal (world 1: = fit()'s); render_tiled_multihost 1024x768 "
+          f"ssaa3 = render_tiled; render_rays_sharded on {w1['rays']} rays "
+          f"of three posed views = render_rays, bitwise; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in ("render_kernel", "surface_kernel"):
+        report[k] = {f"world_{world}_{res['backend']}_rank_{res['rank']}": {
+            path: c[k] for path, (_, c) in res["paths"].items()}
+            for world, ranks in ((1, [w1]), (2, w2)) for res in ranks}
+    return report
+
+
 def kernel_times() -> int:
     """``--times``: one line with the device times (torch.profiler, median
     of five launches) of K1 at 512x512 SSAA 2 and 1024x768 SSAA 3, of K3
@@ -2415,8 +2766,10 @@ def main() -> int:
     # reading, each kernel's launches in them)
     paths = {}
 
-    def add_counts(path: str, calls: int):
-        counts = launch_counts()
+    def add_counts(path: str, calls: int, counts=None):
+        # the launches since zero_counts(), or ``counts`` read by a path
+        # that zeroed and read them itself
+        counts = launch_counts() if counts is None else counts
         paths[path] = (calls, counts)
         return counts
 
@@ -4223,6 +4576,12 @@ def main() -> int:
     # 16. the CLI's and the server's paths past one render
     sd_row = cli_phase(dev, card, add_counts)
 
+    # 17. the port's plain gradient oracles on the card
+    oracle_phase(dev, card)
+
+    # 18. the demo's rows sharded over a torch.distributed process group
+    shard_rows = shard_phase(dev, card, add_counts)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -4367,6 +4726,12 @@ def main() -> int:
             r["deep"] = {"replaces": D8, **deep_rows[k]}
         if "deep" in r:
             r["deep"]["launches"] = deep_rows["launches"][k]
+    # K1's and K2's launches on the [shard] paths, by world and rank (a
+    # band's frame, a step, train_step, fit(mesh=), the tiled frame, the
+    # bundle of rays)
+    for r in table["kernels"]:
+        if r["name"] in shard_rows:
+            r["shard"] = {"launches": shard_rows[r["name"]]}
     # K2's SD mode on the demo's mesh grid ([cli]), a row of its own
     table["kernels"].append({
         "name": "surface_kernel (SD mode, mesh grid)", "route": "cuda",

@@ -24,8 +24,19 @@ Backends (the JAX package's names in brackets):
     normals its gradient-only analytic mode); light and colour arithmetic
     is plain PyTorch under autograd.  Differentiable on every field.
   * ``"ref"`` [``ref``] — the plain PyTorch oracle
-    ``core.render.render_image`` (analytic normals by autograd), forward
-    only.
+    ``core.render.render_image`` (analytic normals by autograd).  With
+    ``differentiable=True`` it is the unrolled autodiff oracle: the
+    primary march is ``core.march.march_scan`` (autograd through every
+    step, checkpointed every ``core.march.REMAT_CHUNK`` steps) and each
+    ``cfg.ray_chunk`` chunk is checkpointed; the shadow marches stay the
+    early-exit ones (constants under autograd, as JAX stops their
+    gradients, and the same bits).  Its image is bitwise the forward one,
+    and gradients reach every field.
+  * ``"torch"`` [``jnp``] — the same plain pipeline with one hook, the
+    plain implicit-function march ``ops.march_op.PlainMarchOp`` (the
+    early-exit forward; the backward autograd through ``core.sdf
+    .scene_sd`` at the hit points); the shading is plain PyTorch under
+    autograd.  Its image is bitwise ``ref``'s.
 
 The shading extensions of the JAX package render on every backend and
 train on ``cuda`` (and ``multi``): coloured lights (``LightColor``; the
@@ -52,7 +63,10 @@ each frame as a bundle of per-ray lens origins, through ``render_rays`` on
 rays on the fused path.
 
 Frames past one render: ``render_tiled`` streams a frame through the
-device a block of rows at a time into host memory, ``render_frames``
+device a block of rows at a time into host memory,
+``render_tiled_multihost`` gives each rank of a ``torch.distributed``
+process group its own band of rows and gathers the frame once,
+``render_frames``
 renders a batch of camera poses in one stream of rays, and
 ``turntable_frames`` yields an orbit of the scene (the server's
 ``/animate`` and the CLI's ``--animate``).
@@ -74,10 +88,10 @@ from .scene.parser import Scene
 
 from .core import camera as cam
 from .core.march import dot3
-from .core.render import render_image, shade_rays
+from .core.render import render_image, shade_chunks
 from .core.shading import TINY
 from .ops.march_kernel import march_rays
-from .ops.march_op import march_op
+from .ops.march_op import march_op, plain_march_op
 from .ops.normal_op import normal_op
 from .ops.render_kernel import (check_supported, ray_colors, render_raygen,
                                 render_rays as render_kernel_rays)
@@ -87,11 +101,11 @@ from .ops.shade_kernel import bounce_count
 from .ops.surface_kernel import WINNER, surface_eval
 from .tables import tables_to_torch
 
-BACKENDS = ("cuda", "multi", "ref")
+BACKENDS = ("cuda", "multi", "ref", "torch")
 
 
 def resolve_backend(backend: str) -> str:
-    """Validate a backend name ("cuda" | "multi" | "ref")."""
+    """Validate a backend name ("cuda" | "multi" | "ref" | "torch")."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{', '.join(BACKENDS)}")
@@ -110,7 +124,8 @@ def resolve_device(device) -> torch.device:
 def make_render_hooks(plan: ScenePlan, tables: SceneTables,
                       cfg: RenderConfig, backend: str) -> dict:
     """The hooks of ``core.render.render_image`` for ``backend``: none for
-    ``"ref"``, the four kernel hooks for ``"multi"``
+    ``"ref"``, the plain implicit-function march alone for ``"torch"``
+    (JAX's ``jnp`` hooks), the four kernel hooks for ``"multi"``
     (raymarching_tpu.api.make_render_hooks), each on the fused generator
     field when ``cfg.fused_generators`` is set (``MarchOp`` then takes
     the implicit-function route through ``core.sdf.scene_sd_fused``).
@@ -118,6 +133,9 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
     backend = resolve_backend(backend)
     if backend == "ref":
         return {}
+    if backend == "torch":
+        return {"march_fn": lambda origin, dirs: plain_march_op(
+            plan, cfg, tables, origin, dirs)}
     if backend != "multi":
         raise ValueError(f"backend {backend!r} renders through "
                          "ops.render_kernel, not through hooks")
@@ -172,10 +190,6 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
     backend = route_backend(cfg, backend)
     device = resolve_device(device)
     check_supported(plan, cfg, backend)
-    if differentiable and backend == "ref":
-        raise NotImplementedError(
-            "not ported yet: the differentiable ref oracle (ROADMAP Queue 1 "
-            "item 3); use backend='cuda'")
     serve = serves_in_kernel(cfg, backend)
     if serve and differentiable:
         raise ValueError(
@@ -184,19 +198,47 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
             "with serve_raygen=False to differentiate")
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         tables = tables_to_torch(tables, device)
-        if cfg.aperture > 0.0:
-            return _render_dof(plan, tables, cfg, backend, device)
-        if backend != "cuda":
-            return render_image(plan, tables, cfg, **make_render_hooks(
-                plan, tables, cfg, backend))
-        S = cfg.samples_per_pixel
-        if serve:
-            return _render_serve(plan, tables, cfg).reshape(
-                cfg.height, cfg.width, S, 3).mean(dim=2)
-        origin, dirs = cam.generate_rays(tables, cfg)
+        return _render_rows(plan, tables, cfg, backend,
+                            differentiable=differentiable, serve=serve)
+
+
+def _render_rows(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+                 backend: str, *, differentiable: bool = False,
+                 row_range=None, serve: bool = False) -> torch.Tensor:
+    """The frame [H, W, 3], or its rows ``row_range=(r0, n)`` [n, W, 3],
+    on the device of ``tables`` (tensors), by ``backend`` (routed):
+    ``render_tables``' path, and each rank's band in
+    ``parallel.sharded.render_sharded``.  A band's rays are bitwise the
+    whole frame's rows (``core.camera.generate_rays``), thin-lens rays
+    included; ``serve`` (whole frames only) takes K1's raygen entry.
+    ``differentiable``: the fused backward on ``cuda``, the unrolled
+    oracle on ``ref``; ``multi`` and ``torch`` differentiate through
+    their hooks whenever grad is enabled."""
+    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
+    rows = H if row_range is None else row_range[1]
+    oracle = differentiable and backend == "ref"
+    hooks = (make_render_hooks(plan, tables, cfg, backend)
+             if backend != "cuda" else None)
+    if cfg.aperture > 0.0:
+        # thin-lens depth of field (api._render_dof): one bundle of per-ray
+        # lens origins, the SSAA mean the lens integral; K1 with per-ray
+        # origins on cuda, the hooks (whose marches take per-ray origins)
+        # elsewhere
+        o, d = cam.generate_rays_dof(tables, cfg, row_range)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        diff = (oracle if hooks is not None else torch.is_grad_enabled()
+                and any(t.requires_grad for t in (o, d, *tables)))
+        colors = _colors(plan, tables, cfg, o, d, hooks, differentiable=diff)
+    elif hooks is not None:
+        return render_image(plan, tables, cfg, differentiable=oracle,
+                            row_range=row_range, **hooks)
+    elif serve:
+        colors = _render_serve(plan, tables, cfg)
+    else:
+        origin, dirs = cam.generate_rays(tables, cfg, row_range)
         colors = _colors(plan, tables, cfg, origin, dirs.reshape(-1, 3),
                          differentiable=differentiable)
-        return colors.reshape(cfg.height, cfg.width, S, 3).mean(dim=2)
+    return colors.reshape(rows, W, S, 3).mean(dim=2)
 
 
 def serves_in_kernel(cfg: RenderConfig, backend: str) -> bool:
@@ -208,27 +250,6 @@ def serves_in_kernel(cfg: RenderConfig, backend: str) -> bool:
     the JAX envelope's other bound.  Mirror bounces serve in the kernel
     too (K1's raygen bounce entry), as JAX's serve_render_chunk does."""
     return cfg.serve_raygen and backend == "cuda" and cfg.aperture == 0.0
-
-
-def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
-                backend: str, device) -> torch.Tensor:
-    """Thin-lens depth of field (``cfg.aperture > 0``; api._render_dof):
-    the frame is one bundle of per-ray origins and directions
-    (``core.camera.generate_rays_dof``), and the SSAA mean integrates over
-    the lens.  ``cuda`` renders it through ``render_rays`` (K1 with per-ray
-    origins, chunked by ``cfg.ray_chunk``, differentiable through
-    ``FusedRender``); ``multi`` and ``ref`` through the hooks, whose
-    marches take per-ray origins (the reflection recursion relies on it),
-    chunked the same way.  ``tables`` are tensors on ``device``."""
-    o, d = cam.generate_rays_dof(tables, cfg)
-    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    if backend == "cuda":
-        colors = render_rays(plan, tables, o, d, cfg, device=device)
-    else:
-        colors = _colors(plan, tables, cfg, o, d, make_render_hooks(
-            plan, tables, cfg, backend))
-    return colors.reshape(H, W, S, 3).mean(dim=2)
 
 
 def render_rays(plan: ScenePlan, tables: SceneTables, origins, dirs,
@@ -296,10 +317,10 @@ def render_tiled(plan: ScenePlan, tables: SceneTables,
     bitwise (``core.camera.generate_rays``' ``row_range``), thin-lens
     rays included, and each goes the way ``render_tables`` sends the
     frame's: K1 (``cuda``, ``cfg.ray_chunk`` rays a launch; per-ray lens
-    origins with an aperture) or the hooks (``multi``, ``ref``);
-    ``multi`` with soft shadows or AO goes to ``cuda``.  The port has no
-    block ray order (ROADMAP Queue 1 item 2) and no in-kernel raygen
-    here: ``cfg.serve_raygen`` is not read.  Forward only."""
+    origins with an aperture) or the hooks (``multi``, ``ref``,
+    ``torch``); ``multi`` with soft shadows or AO goes to ``cuda``.  The
+    port has no block ray order (ROADMAP Queue 1 item 2) and no in-kernel
+    raygen here: ``cfg.serve_raygen`` is not read.  Forward only."""
     cfg = cfg or RenderConfig()
     backend = route_backend(cfg, backend)
     device = resolve_device(device)
@@ -310,23 +331,49 @@ def render_tiled(plan: ScenePlan, tables: SceneTables,
                          f"outside frame height {cfg.height}")
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
-    W, S = cfg.width, cfg.samples_per_pixel
-    out = np.empty((span, W, 3), np.float32)
+    out = np.empty((span, cfg.width, 3), np.float32)
     with torch.no_grad():
         tables = tables_to_torch(tables, device)
-        hooks = (make_render_hooks(plan, tables, cfg, backend)
-                 if backend != "cuda" else None)
         for r in range(row_start, row_start + span, row_block):
             n = min(row_block, row_start + span - r)
-            if cfg.aperture > 0.0:
-                o, d = cam.generate_rays_dof(tables, cfg, (r, n))
-                o = o.reshape(-1, 3)
-            else:
-                o, d = cam.generate_rays(tables, cfg, (r, n))
-            colors = _colors(plan, tables, cfg, o, d.reshape(-1, 3), hooks)
-            out[r - row_start:r - row_start + n] = colors.reshape(
-                n, W, S, 3).mean(dim=2).cpu().numpy()
+            out[r - row_start:r - row_start + n] = _render_rows(
+                plan, tables, cfg, backend, row_range=(r, n)).cpu().numpy()
     return out
+
+
+def render_tiled_multihost(plan: ScenePlan, tables: SceneTables,
+                           cfg: Optional[RenderConfig] = None, *,
+                           row_block: int = 128, backend: str = "cuda",
+                           device) -> np.ndarray:
+    """Each rank of the default ``torch.distributed`` process group
+    streams its own contiguous band of rows through ``render_tiled``, then
+    one all-gather gives every rank the frame -> host float32 [H, W, 3]
+    (raymarching_tpu.api.render_tiled_multihost).  Rank p of P takes
+    H // P rows, one more while p < H % P.  Under NCCL the bands are
+    gathered on ``device``, under gloo on the host
+    (``parallel.distributed.gather_rows``).  With no process group, or
+    one rank, it is ``render_tiled``."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import gather_rows
+    cfg = cfg or RenderConfig()
+    P = dist.get_world_size() if dist.is_initialized() else 1
+    if P == 1:
+        return render_tiled(plan, tables, cfg, row_block=row_block,
+                            backend=backend, device=device)
+    p = dist.get_rank()
+    base, rem = divmod(cfg.height, P)
+    n = base + (1 if p < rem else 0)
+    mine = render_tiled(plan, tables, cfg, row_block=row_block,
+                        backend=backend, row_start=p * base + min(p, rem),
+                        num_rows=n, device=device)
+    # the short bands padded by one row for the gather, trimmed after it
+    band = torch.zeros((base + (1 if rem else 0), cfg.width, 3),
+                       dtype=torch.float32, device=resolve_device(device))
+    band[:n] = torch.from_numpy(mine)
+    stacked = gather_rows(band[None]).cpu().numpy()
+    return np.concatenate([stacked[q, :base + (1 if q < rem else 0)]
+                           for q in range(P)], axis=0)
 
 
 def _colors(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
@@ -336,18 +383,17 @@ def _colors(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     """Colours [R, 3] of rays ``dirs`` [R, 3] (R > 0) from ``origin``
     [3] or [R, 3], ``cfg.ray_chunk`` rays at a time: the fused path
     (``FusedRender`` with ``differentiable``) when ``hooks`` is None, else
-    ``core.render.shade_rays`` with them."""
+    ``core.render.shade_chunks`` with them (with ``differentiable`` the
+    unrolled oracle)."""
+    if hooks is not None:
+        return shade_chunks(plan, tables, cfg, origin, dirs,
+                            differentiable=differentiable, **hooks)
     R = dirs.shape[0]
     chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
-    parts = []
-    for i in range(0, R, chunk):
-        o = origin if origin.dim() == 1 else origin[i:i + chunk]
-        parts.append(
-            _fused_colors(plan, cfg, tables, o, dirs[i:i + chunk],
-                          differentiable)
-            if hooks is None else
-            shade_rays(plan, tables, cfg, o, dirs[i:i + chunk], **hooks))
-    return torch.cat(parts)
+    return torch.cat([_fused_colors(
+        plan, cfg, tables, origin if origin.dim() == 1 else
+        origin[i:i + chunk], dirs[i:i + chunk], differentiable)
+        for i in range(0, R, chunk)])
 
 
 def render_frames(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,

@@ -2,7 +2,8 @@
 
     python -m raymarching_tpu_torch --scene scenes/demo.txt --out out.png
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
-        --backend ref,multi,cuda --width 128 --height 96 --ssaa 1 --compare
+        --backend ref,torch,multi,cuda --width 128 --height 96 --ssaa 1 \
+        --compare
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
         --normal-mode analytic --out analytic.png
     python -m raymarching_tpu_torch --scene scenes/demo.txt \
@@ -90,8 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference parity), analytic = the SDF's exact "
                         "gradient, one evaluation")
     p.add_argument("--backend", default="cuda",
-                   help="comma list of cuda|multi|ref (fused kernel, "
-                        "multi-kernel, plain oracle); the last one is saved")
+                   help="comma list of cuda|multi|ref|torch (fused "
+                        "kernel, multi-kernel, plain oracle, plain with the "
+                        "implicit-function march); the last one is saved")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:N, cpu)")
     p.add_argument("--ray-chunk", type=int, default=0,

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
@@ -28,6 +29,7 @@ from .sdf import scene_sd, scene_surface
 
 def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                origin: torch.Tensor, dirs: torch.Tensor, *,
+               differentiable: bool = False,
                march_fn: Optional[Callable] = None,
                shadow_fn: Optional[Callable] = None,
                surface_fn: Optional[Callable] = None,
@@ -50,7 +52,7 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     sd_fn = lambda q: scene_sd(plan, tables, q)  # noqa: E731
     if march_fn is None:
         res = march(sd_fn, origin, dirs, cfg.iterations,
-                    cfg.surface_precision)
+                    cfg.surface_precision, differentiable=differentiable)
     else:
         res = march_fn(origin.expand(dirs.shape), dirs)
     p_hit = res.position
@@ -62,7 +64,9 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     if normal_fn is not None:
         g = normal_fn(p_hit)
     elif cfg.normal_mode == "analytic":
-        g = shading.normal_analytic(sd_fn, p_hit)
+        graph = torch.is_grad_enabled() and (p_hit.requires_grad or any(
+            t.requires_grad for t in tables))
+        g = shading.normal_analytic(sd_fn, p_hit, graph=graph)
     else:
         g = shading.normal_fd(sd_fn, p_hit, cfg.fd_h)
     n = shading.normalize(g)
@@ -84,19 +88,50 @@ def shade_rays(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
         off = cfg.surface_precision + cfg.offset_precision
         rdir = dirs - 2.0 * dot3(dirs, n)[:, None] * n
         c_ref = shade_rays(plan, tables, cfg, p_hit + off * n, rdir,
-                           march_fn=march_fn, shadow_fn=shadow_fn,
-                           surface_fn=surface_fn, normal_fn=normal_fn,
+                           differentiable=differentiable, march_fn=march_fn,
+                           shadow_fn=shadow_fn, surface_fn=surface_fn,
+                           normal_fn=normal_fn,
                            _bounces=bounces - 1)
         return (1.0 - s) * base + s * color * c_ref
     return base
 
 
+def shade_chunks(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+                 origin: torch.Tensor, dirs: torch.Tensor, *,
+                 differentiable: bool = False, **hooks) -> torch.Tensor:
+    """``shade_rays`` over rays ``dirs`` [R, 3] (R > 0) from ``origin``
+    [3] or [R, 3], ``cfg.ray_chunk`` > 0 rays at a time (the same bits);
+    with ``differentiable`` and grad enabled each chunk runs under
+    ``torch.utils.checkpoint`` (JAX's ``lax.map(jax.checkpoint(...))``),
+    so the backward holds one chunk's activations at a time and
+    recomputes each chunk's forward, its march included, when it reaches
+    it."""
+    R = dirs.shape[0]
+    chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
+    remat = differentiable and chunk < R and torch.is_grad_enabled()
+
+    def shade(o, d):
+        return shade_rays(plan, tables, cfg, o, d,
+                          differentiable=differentiable, **hooks)
+
+    parts = []
+    for i in range(0, R, chunk):
+        o = origin if origin.dim() == 1 else origin[i:i + chunk]
+        parts.append(checkpoint(shade, o, dirs[i:i + chunk],
+                                use_reentrant=False, preserve_rng_state=False)
+                     if remat else shade(o, dirs[i:i + chunk]))
+    return torch.cat(parts)
+
+
 def render_image(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
+                 *, differentiable: bool = False, row_range=None,
                  **hooks) -> torch.Tensor:
-    """Render the full frame -> [H, W, 3] float32 (linear, unclamped);
-    ``hooks`` are ``shade_rays``'s four."""
-    origin, dirs = cam.generate_rays(tables, cfg)
-    S = cfg.samples_per_pixel
-    colors = shade_rays(plan, tables, cfg, origin, dirs.reshape(-1, 3),
-                        **hooks)
-    return colors.reshape(cfg.height, cfg.width, S, 3).mean(dim=2)
+    """Render the full frame -> [H, W, 3] float32 (linear, unclamped), or
+    the rows ``row_range=(r0, n)`` of it -> [n, W, 3], their rays bitwise
+    the whole frame's (``core.camera.generate_rays``); ``hooks`` are
+    ``shade_rays``'s four, the rays shaded by ``shade_chunks``."""
+    origin, dirs = cam.generate_rays(tables, cfg, row_range)
+    colors = shade_chunks(plan, tables, cfg, origin, dirs.reshape(-1, 3),
+                          differentiable=differentiable, **hooks)
+    return colors.reshape(dirs.shape[0], cfg.width, cfg.samples_per_pixel,
+                          3).mean(dim=2)

@@ -46,15 +46,18 @@ def normal_analytic(scene_sd: Callable, p: torch.Tensor,
     """Exact SDF gradient (not normalised) by one reverse-mode sweep,
     p [N, 3] -> [N, 3] (core.shading.normal_analytic): autograd through
     the fold's minima and maxima, which give a tie to the first operand
-    where JAX splits it.  Forward only (the ref oracle's): p is detached,
-    and the result carries no graph.  With ``graph`` the gradient is a
-    function of p (which must require grad) and of what ``scene_sd``
-    reads, for a second sweep (the mirror-bounce replay, which
-    differentiates the reflected direction)."""
+    where JAX splits it.  Forward only by default (the ref oracle's
+    forward): p is detached, and the result carries no graph.  With
+    ``graph`` the gradient is a function of p and of what ``scene_sd``
+    reads, for a second sweep (the differentiable ref render, the
+    mirror-bounce replay, which differentiates the reflected direction);
+    a p that does not require grad is taken as a constant."""
     if graph:
-        sd = scene_sd(p)
-        (g,) = torch.autograd.grad(sd, p, torch.ones_like(sd),
-                                   create_graph=True)
+        q = p if p.requires_grad else p.detach().requires_grad_()
+        with torch.enable_grad():
+            sd = scene_sd(q)
+            (g,) = torch.autograd.grad(sd, q, torch.ones_like(sd),
+                                       create_graph=True)
         return g
     with torch.enable_grad():
         q = p.detach().requires_grad_()

@@ -1,4 +1,5 @@
-"""The differentiable march: K3 forward, implicit-function backward.
+"""The differentiable march: K3 forward, implicit-function backward; and
+its plain twin, the ``torch`` backend's march.
 
 Counterpart of ``raymarching_tpu.ops.march_op.march_op`` with
 ``pallas_march.make_pallas_march`` as its forward and
@@ -19,6 +20,13 @@ JAX's fused march differentiates the jnp field (``bwd_impl=None``).  Rays that d
 gradients (t is held constant).  Dropped cotangents: ``sd`` only shifts
 the colour-lookup point, and the colour gather is piecewise constant in
 position; ``converged`` is boolean.
+
+``PlainMarchOp`` is ``make_march_fn`` with ``forward_impl=None`` and
+``bwd_impl=None`` (raymarching_tpu.ops.march_op, the JAX ``jnp``
+backend's march): the forward is ``core.march.march`` under no_grad, and
+the backward is JAX's ``_march_bwd``, autograd through
+``core.sdf.scene_sd`` at the hit points (``ift_pieces``, which
+``MarchOp``'s fused route shares).
 """
 
 from __future__ import annotations
@@ -26,8 +34,8 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..core.march import MarchResult, dot3
-from ..core.sdf import require_kernel_form, scene_sd_fused
+from ..core.march import MarchResult, dot3, march
+from ..core.sdf import require_kernel_form, scene_sd, scene_sd_fused
 from ..scene.compile import ScenePlan, SceneTables
 from .march_kernel import march_rays
 from .scene_vjp import ift_ray_weights, theta_cotangents
@@ -85,25 +93,78 @@ class MarchOp(torch.autograd.Function):
         return (None, None, o_bar, d_bar, *grads)
 
 
-def fused_ift(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
-               p_hit: torch.Tensor, dirs: torch.Tensor, t_bar: torch.Tensor
-               ) -> tuple:
-    """The implicit-function pieces on the fused field, by autograd through
-    ``scene_sd_fused`` at the hits -> (grad f [R, 3], w [R], prim_pos and
-    prim_aux cotangents w f_theta): ``MarchOp``'s fused backward and the
-    IFT route of ``FusedRender``'s fused FD backward."""
+def ift_pieces(sd_of, plan: ScenePlan, cfg: RenderConfig,
+               tables: SceneTables, p_hit: torch.Tensor, dirs: torch.Tensor,
+               t_bar: torch.Tensor) -> tuple:
+    """The implicit-function pieces by autograd through the field
+    ``sd_of(plan, tables, p)`` at the hits (raymarching_tpu.ops.march_op
+    ._march_bwd) -> (grad f [R, 3], w [R], prim_pos and prim_aux
+    cotangents w f_theta; every field's fold reads only these two)."""
     with torch.enable_grad():
         pos = tables.prim_pos.detach().requires_grad_()
         aux = tables.prim_aux.detach().requires_grad_()
         q = p_hit.detach().requires_grad_()
-        f = scene_sd_fused(plan, tables._replace(prim_pos=pos, prim_aux=aux),
-                           q)
+        f = sd_of(plan, tables._replace(prim_pos=pos, prim_aux=aux), q)
         (g,) = torch.autograd.grad(f, q, torch.ones_like(f),
                                    retain_graph=True)
         w = ift_ray_weights(t_bar, dot3(g, dirs), cfg.ift_damping)
         pos_bar, aux_bar = torch.autograd.grad(f, (pos, aux), w,
                                                materialize_grads=True)
     return g, w, pos_bar, aux_bar
+
+
+def fused_ift(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+              p_hit: torch.Tensor, dirs: torch.Tensor, t_bar: torch.Tensor
+              ) -> tuple:
+    """``ift_pieces`` on the fused field (``scene_sd_fused``):
+    ``MarchOp``'s fused backward and the IFT route of ``FusedRender``'s
+    fused FD backward."""
+    return ift_pieces(scene_sd_fused, plan, cfg, tables, p_hit, dirs, t_bar)
+
+
+class PlainMarchOp(torch.autograd.Function):
+    """position [R, 3], sd [R], converged [R] = PlainMarchOp.apply(plan,
+    cfg, origin, dirs, *tables): ``MarchOp``'s plain twin.  The forward is
+    the early-exit ``core.march.march`` over ``core.sdf.scene_sd`` (so its
+    hits are bitwise the ``ref`` backend's), with no graph; the backward
+    is the implicit-function one through ``scene_sd`` (``ift_pieces``),
+    with ``cfg.ift_damping``."""
+
+    @staticmethod
+    def forward(ctx, plan: ScenePlan, cfg: RenderConfig, origin, dirs,
+                *fields):
+        tables = SceneTables(*fields)
+        res = march(lambda q: scene_sd(plan, tables, q), origin, dirs,
+                    cfg.iterations, cfg.surface_precision)
+        t = dot3(res.position - origin, dirs) / dot3(dirs, dirs)
+        ctx.plan, ctx.cfg = plan, cfg
+        ctx.save_for_backward(res.position, res.converged, t, dirs, *fields)
+        ctx.mark_non_differentiable(res.sd, res.converged)
+        return res.position, res.sd, res.converged
+
+    @staticmethod
+    def backward(ctx, p_bar, _sd_bar, _conv_bar):
+        p_hit, converged, t, dirs, *fields = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[2:6]):
+            return (None,) * (4 + len(fields))
+        t_bar = torch.where(converged, dot3(p_bar, dirs),
+                            torch.zeros((), device=p_bar.device))
+        g, w, pos_bar, aux_bar = ift_pieces(
+            scene_sd, ctx.plan, ctx.cfg, SceneTables(*fields), p_hit, dirs,
+            t_bar)
+        o_bar = p_bar + w[:, None] * g
+        grads = SceneTables(
+            prim_pos=pos_bar, prim_aux=aux_bar, prim_color=None,
+            light_pos=None, light_color=None, cam_position=None,
+            cam_direction=None, cam_up=None, cam_fov=None)
+        return (None, None, o_bar, t[:, None] * o_bar, *grads)
+
+
+def plain_march_op(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
+                   origin: torch.Tensor, dirs: torch.Tensor) -> MarchResult:
+    """``PlainMarchOp`` as a function of tables: the ``torch`` backend's
+    ``march_fn`` hook (raymarching_tpu.api.make_render_hooks' ``jnp``)."""
+    return MarchResult(*PlainMarchOp.apply(plan, cfg, origin, dirs, *tables))
 
 
 def march_op(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,

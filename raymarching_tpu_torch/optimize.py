@@ -1,7 +1,8 @@
 """Scene fitting: gradient descent on SceneTables against a target image.
 
-Counterpart of ``raymarching_tpu.optimize.fit`` on one device, with
-``torch.optim`` in place of optax.  Each step renders through
+Counterpart of ``raymarching_tpu.optimize.fit``, on one device or with
+the rays sharded over a ``torch.distributed`` mesh, with ``torch.optim``
+in place of optax.  Each step renders through
 ``render_tables(differentiable=True)`` (by default K1 forward, exact-FD
 backward over K2 on a CUDA device; their plain twins on the CPU), takes the mean squared
 error against the target, and steps the optimizer on the trainable fields.
@@ -50,22 +51,33 @@ def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
     """Minimise the mean squared error of the render against ``target``
     [H, W, 3] for ``steps`` steps in all.
 
-    ``backend``: the differentiable render path, ``"cuda"`` (fused) or
-    ``"multi"`` (multi-kernel); see ``api``.  ``trainable``: SceneTables field names to optimise (None: all); the
+    ``backend``: the differentiable render path, ``"cuda"`` (fused),
+    ``"multi"`` (multi-kernel), ``"torch"`` (plain, implicit-function
+    march) or ``"ref"`` (the unrolled oracle); see ``api``.
+    ``trainable``: SceneTables field names to optimise (None: all); the
     other fields are never updated.  ``optimizer``: a callable that takes
     the list of trainable tensors and returns a ``torch.optim.Optimizer``
     (default ``torch.optim.Adam`` at ``lr``).  ``callback(step, loss,
     tables)`` runs after each step; the trainable fields' ``.grad`` then
     hold that step's gradients.  With ``resume`` and an existing
     checkpoint, the tables, step and optimizer state come from it (a fresh
-    optimizer when the saved state does not fit this one).  ``mesh``, the
-    JAX package's ray sharding, must be None here.
+    optimizer when the saved state does not fit this one).
+
+    ``mesh`` (``parallel.sharded.make_mesh``): every rank of the mesh
+    calls ``fit`` alike; each renders its band of rows
+    (``parallel.sharded.mse_loss``, ``backend`` on every rank), the
+    gradients are summed over the mesh in one all-reduce a step, and each
+    rank's optimizer takes the same sums, so the ranks' tables stay
+    bitwise equal.  ``device`` is the rank's device (the mesh's).  The
+    ``fit_step`` and ``checkpoint`` events and the checkpoint file come
+    from rank 0 only; ``resume`` loads the checkpoint on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: fitting over several devices (ROADMAP Queue 1 "
-            "item 13)")
     device = resolve_device(device)
+    primary = True
+    if mesh is not None:
+        from .parallel.distributed import is_primary
+        from .parallel.sharded import mse_loss
+        primary = is_primary()
     names = tuple(SceneTables._fields if trainable is None else trainable)
     make_opt = optimizer or (lambda ps: torch.optim.Adam(ps, lr=lr))
 
@@ -82,22 +94,28 @@ def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
         save_checkpoint(checkpoint_path, tables_to_numpy(tables), step=step,
                         extra=_opt_state_extra(opt, names))
 
+    def loss_fn():
+        if mesh is not None:
+            return mse_loss(plan, tables, target, cfg, mesh, backend=backend)
+        img = render_tables(plan, tables, cfg, backend=backend,
+                            differentiable=True, device=device)
+        return torch.mean((img - target) ** 2)
+
     losses = []
     for step in range(start_step, steps):
         opt.zero_grad(set_to_none=True)
-        img = render_tables(plan, tables, cfg, backend=backend,
-                            differentiable=True, device=device)
-        loss = torch.mean((img - target) ** 2)
+        loss = loss_fn()
         loss.backward()
         opt.step()
         losses.append(loss.item())
-        emit("fit_step", step=step, loss=losses[-1])
+        if primary:
+            emit("fit_step", step=step, loss=losses[-1])
         if callback is not None:
             callback(step, losses[-1], tables)
-        if checkpoint_path and (step + 1) % checkpoint_every == 0:
+        if primary and checkpoint_path and (step + 1) % checkpoint_every == 0:
             save(step + 1)
             emit("checkpoint", step=step + 1, path=checkpoint_path)
-    if checkpoint_path:
+    if primary and checkpoint_path:
         save(steps)
     return FitResult(tables=SceneTables(*(v.detach() for v in tables)),
                      losses=losses, steps=steps - start_step)

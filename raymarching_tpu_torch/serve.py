@@ -2,7 +2,7 @@
 ``POST /aovs`` and ``POST /animate``.
 
     python -m raymarching_tpu_torch.serve [--port 8000] [--device cuda]
-                                          [--backend cuda|multi|ref]
+                                          [--backend cuda|multi|ref|torch]
 
 ``POST /render`` takes the scene text as its body and the query parameters
 and limits of ``raymarching_tpu.serve``: width, height, ssaa, iterations,
@@ -252,7 +252,9 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="cuda",
-                    help="cuda (fused kernel), multi (multi-kernel) or ref")
+                    help="cuda (fused kernel), multi (multi-kernel), ref "
+                         "(plain oracle) or torch (plain, implicit-function "
+                         "march)")
     args = ap.parse_args(argv)
     server = make_server(args.host, args.port, args.device, args.backend)
     print(f"raymarching_tpu_torch serving on http://{args.host}:"

@@ -49,6 +49,45 @@ def test_cli_writes_png_on_cpu(tmp_path, scenes_dir, capsys):
     assert "max |cuda - ref|" in capsys.readouterr().out
 
 
+def test_cli_backend_torch_compares(tmp_path, scenes_dir, capsys):
+    """``--backend torch`` (JAX's jnp: the plain pipeline with the
+    implicit-function march) renders, and ``--compare`` reports it beside
+    the others: its image is the ref oracle's, bitwise."""
+    out = tmp_path / "torch.png"
+    rc = cli.main(["--scene", str(scenes_dir / "config1.txt"), "--out",
+                   str(out), "--device", "cpu", "--backend",
+                   "ref,torch,cuda", "--compare", *SMALL])
+    assert rc == 0
+    text = capsys.readouterr().out
+    assert "max |torch - ref| = 0.00e+00" in text
+    assert "max |cuda - ref|" in text
+    assert read_png(str(out)).max() > 0
+
+
+def test_server_backend_torch(scenes_dir):
+    """``--backend torch`` serves: /healthz names it and /render answers
+    the image of ``render_tables(backend="torch")``."""
+    srv = make_server("127.0.0.1", 0, "cpu", "torch")
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz") as r:
+            assert json.loads(r.read())["backend"] == "torch"
+        with _post(url + "/render?width=16&height=12&ssaa=1&iterations=80"
+                   "&serve_raygen=0") as r:
+            png = rt.decode_png(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=10)
+    plan, tables = compile_scene(parse_scene(SCENE))
+    want = rt.to_uint8(rt.render_tables(plan, tables, rt.RenderConfig(
+        width=16, height=12, ssaa=1, iterations=80), backend="torch",
+        device="cpu").numpy())
+    np.testing.assert_array_equal(png[..., :3], want)
+
+
 def test_cli_without_gpu_refuses_cuda(tmp_path, scenes_dir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -122,7 +161,8 @@ def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
     """The fractal scenes render (they raised before the procedural leaves
     were ported), and so does a depth-3 tree (it raised before the deep
     fold was ported): finite images equal to the ref oracle's.  The
-    differentiable ref oracle (ROADMAP Queue 1 item 3) still raises."""
+    differentiable ref oracle (it raised before it was ported) renders
+    the forward image bitwise and gives finite gradients."""
     cfg = rt.RenderConfig(width=8, height=6, ssaa=1, iterations=100)
     for name in ("mandelbox", "julia"):
         scene = rt.load_scene(str(scenes_dir / f"{name}.txt"))
@@ -143,11 +183,14 @@ def test_unsupported_scenes_and_grad_tables_raise(scenes_dir):
                                                    "config1.txt")))
     grad_tables = type(tables)(*(torch.tensor(v, requires_grad=True)
                                  for v in tables))
-    # gradients run on the cuda backend; the differentiable ref oracle is
-    # not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        rt.render_tables(plan, grad_tables, cfg, backend="ref",
-                         differentiable=True, device="cpu")
+    img = rt.render_tables(plan, grad_tables, cfg, backend="ref",
+                           differentiable=True, device="cpu")
+    assert torch.equal(img.detach(), rt.render_tables(
+        plan, tables, cfg, backend="ref", device="cpu"))
+    grads = torch.autograd.grad(img.mean(), list(grad_tables),
+                                allow_unused=True, materialize_grads=True)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert grad_tables._fields[0] == "prim_pos" and grads[0].abs().max() > 0
 
 
 def test_cli_renders_a_fractal_scene(tmp_path, scenes_dir):
@@ -425,8 +468,8 @@ PORT_ONLY = {"device", "shadows"}
 def test_cli_parser_has_every_jax_option():
     """Every option of raymarching_tpu/cli.py's parser has its counterpart
     in the port's, but those PARSER_EXCEPTIONS names; --backend is there
-    with the port's value names (cuda, multi, ref for mega, pallas, ref;
-    the JAX package's jnp and auto have none: ROADMAP Queue 1 item 11)."""
+    with the port's value names (cuda, multi, ref, torch for mega,
+    pallas, ref, jnp; the JAX package's auto has none)."""
     from raymarching_tpu import cli as jcli
     jax_dests = {a.dest for a in jcli.build_parser()._actions
                  if a.dest != "help"}

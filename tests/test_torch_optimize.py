@@ -112,8 +112,34 @@ def test_fit_updates_only_trainable_fields(problem, tmp_path):
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
 
 
-def test_fit_over_a_mesh_raises(problem):
+def test_fit_over_a_mesh_raises(problem, tmp_path):
+    """``fit(mesh=)`` (it raised before the sharded path was ported): with
+    no process group a mesh cannot be made (RuntimeError, never a hidden
+    group of one); over the one-process group ``initialize`` forms with an
+    ``init_method`` it gives ``fit()``'s tables and losses bitwise (one
+    rank's band is the frame, its all-reduce the identity); a mesh of more
+    devices than processes raises ValueError."""
+    from raymarching_tpu_torch.parallel import distributed, sharded
     plan, tables0, target = problem
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        rt.fit(plan, tables0, target, CFG, device="cpu", steps=1,
-               mesh=object())
+    cfg = rt.RenderConfig(**{f: getattr(CFG, f)
+                             for f in CFG.__dataclass_fields__})
+    kw = dict(device="cpu", steps=2, trainable=("prim_pos", "prim_color"))
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="initialize"):
+        sharded.make_mesh(device_type="cpu")
+    with pytest.raises(RuntimeError, match="initialize"):
+        sharded.make_mesh_2d(1, 1, device_type="cpu")
+    assert not torch.distributed.is_initialized()
+    distributed.initialize(f"file://{tmp_path}/rendezvous", 1, 0,
+                           device="cpu")
+    try:
+        mesh = sharded.make_mesh(device_type="cpu")
+        got = rt.fit(plan, tables0, target, cfg, mesh=mesh, **kw)
+        with pytest.raises(ValueError, match="need 2 devices"):
+            sharded.make_mesh(2, device_type="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    want = rt.fit(plan, tables0, target, cfg, **kw)
+    assert got.losses == want.losses
+    for a, b in zip(got.tables, want.tables):
+        assert torch.equal(a, b)

@@ -47,7 +47,8 @@ def test_package_has_its_own_copies():
                  "io.image", "io.png", "io.jpeg", "io.checkpoint",
                  "utils.structlog", "utils.timing", "ops.march_kernel",
                  "ops.shade_kernel", "ops.march_op", "ops.normal_op",
-                 "io.gif", "io.mesh", "utils.debug", "utils.selfcheck"):
+                 "io.gif", "io.mesh", "utils.debug", "utils.selfcheck",
+                 "parallel.distributed", "parallel.sharded"):
         assert f"raymarching_tpu_torch.{want}" in names
 
 
@@ -55,6 +56,18 @@ def test_importing_every_submodule_loads_nothing_foreign():
     code = "import importlib\n" + "\n".join(
         f"importlib.import_module({m!r})" for m in _submodules())
     assert _fresh("import raymarching_tpu_torch\n" + code) == "[]"
+
+
+def test_importing_every_submodule_forms_no_process_group():
+    """Importing every module, ``parallel`` included, joins no
+    ``torch.distributed`` process group (only ``parallel.distributed
+    .initialize`` and a mesh do)."""
+    code = "import importlib\n" + "\n".join(
+        f"importlib.import_module({m!r})" for m in _submodules())
+    code += ("\nimport torch.distributed as dist\n"
+             "assert 'raymarching_tpu_torch.parallel.sharded' in sys.modules\n"
+             "assert not dist.is_initialized()")
+    assert _fresh("import sys\nimport raymarching_tpu_torch\n" + code) == "[]"
 
 
 def test_cli_run_loads_nothing_foreign(tmp_path):
