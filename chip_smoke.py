@@ -11,9 +11,10 @@ Phases, one line each, every failure an uncaught exception:
                    extended-shading, raygen and mirror-bounce entries, K2,
                    K3, K4's reference and extended-shading entries;
                    ops.build.SOURCES), in parallel; each one's ptxas
-                   registers and stack by entry, the procedural and the
-                   deep views' entries and the far-tap entries apart;
-  3. compare     — on demo, config1-4 and menger4: K1 (ops.render_kernel
+                   registers and stack by entry, the procedural, deep
+                   and cull views' entries and the far-tap entries apart;
+  3. compare     — on demo, config1-4 (64x48 SSAA 2) and menger4 (32x24),
+                   400 iterations: K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
                    primary rays, with the step counter, and on shadow rays
@@ -205,7 +206,26 @@ Phases, one line each, every failure an uncaught exception:
                    SSAA 3 and render_rays_sharded on an odd bundle of three
                    posed views bitwise their single-process forms; one K1
                    a frame and one K1 and one K2 a step on every rank;
-                   per-rank frame and step times and the all-reduce's.
+                   per-rank frame and step times and the all-reduce's;
+ 19. cull        — the culls of the four kernels' folds (pallas_march's
+                   D5, the wide-UNION chunk cull, and D4, the deep-sponge
+                   walks; fold.cuh's Cull<S>): every kernel's Cull view
+                   against both plain twins, the culled fold and the
+                   unculled one, bitwise, at SSAA 1, 200 iterations, on
+                   scatter1k.txt
+                   (64x48; also its extended, bounce and fused forms),
+                   menger4.txt (32x24; the value-bound winner walk) and an
+                   iters-5 sponge (16x12; the margin walk); scatter1k and
+                   menger4 at 512x512 SSAA 2, 1000 iterations: render()
+                   and a fit step in each normal, the multi and two-phase
+                   frames, the device times of K1, K3, K4 and K2's stencil
+                   entry, each held to the culled twin on every 8th ray
+                   and to the unculled one on every 16th, with
+                   the culled twin's bound and skip shares; block ray
+                   order: the demo's standard and served frames in block
+                   and scan order in turns, bitwise equal, K3's lane
+                   efficiency in each order (also at 1024x768 SSAA 3),
+                   K1's raygen block arm against its twin.
 Then each kernel's launches in one call of each path, and the kernel table
 as JSON (each kernel's largest difference from its plain twin over every
 output of every comparison above, its time beside its plain twin's and its
@@ -501,6 +521,7 @@ def entry_label(name: str) -> str:
     parts += ["deep"] if "Deep" in rest else []
     parts += ["spill"] if "DeepSpill" in rest else []
     parts += ["far taps"] if "Far" in rest else []
+    parts += ["cull"] if "Cull" in rest else []
     if kern in ("render_kernel", "shade_kernel"):
         parts.append("analytic" if analytic else "FD")
     elif kern == "surface_kernel" and ints:
@@ -832,17 +853,19 @@ def timed_counted(plain_fn):
     return out, ms, count
 
 
-def bound_ms(count, n_bytes: int):
+def bound_ms(count, n_bytes: int, stride: int = 1):
     """The least time the card could take for the work of one kernel
     launch: (ms, "bytes" or "operations", leaf evaluations, the
     operations' ms, the bytes' ms, the operations), from a plain twin's
-    ``count`` of the operations on this run's data and the bytes the
-    kernel must move."""
-    t_ops = count.ops / FP32_OPS_S
+    ``count`` of the operations on this run's data (on every ``stride``-th
+    ray of the launch, times ``stride``) and the bytes the kernel must
+    move."""
+    ops = count.ops * stride
+    t_ops = ops / FP32_OPS_S
     t_bytes = n_bytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", count.leaves,
-            t_ops * 1e3, t_bytes * 1e3, count.ops)
+            "operations" if t_ops >= t_bytes else "bytes",
+            count.leaves * stride, t_ops * 1e3, t_bytes * 1e3, ops)
 
 
 def launch_counts():
@@ -991,7 +1014,8 @@ def fractal_scene(name: str):
 
 
 def view_compare(plan, tables, cfg, fused: bool, ext: bool,
-                 what: str = "fractal", taps: int | None = None) -> int:
+                 what: str = "fractal", taps: int | None = None,
+                 normals=("fd", "analytic")) -> int:
     """Every kernel's view of ``plan`` (the procedural one, or a deep
     plan's) against its plain twin on the rays
     of ``cfg``, bitwise on every output, FD and analytic normals: K1's
@@ -999,8 +1023,8 @@ def view_compare(plan, tables, cfg, fused: bool, ext: bool,
     K4, K2's five modes at K1's hits and its stencil entry (exact packing),
     K1's raygen entry; with ``ext`` K1's and K4's extended entries (soft
     shadows k 6, AO 0.8), K1's bounce entry (one bounce, with them) and
-    its raygen form; ``taps`` AO taps there when given.  Returns the
-    number of comparisons."""
+    its raygen form; ``taps`` AO taps there when given; ``normals`` the
+    normals to take.  Returns the number of comparisons."""
     from raymarching_tpu_torch.ops import march_kernel as mk
     from raymarching_tpu_torch.ops import scene_vjp
     from raymarching_tpu_torch.ops import shade_kernel as shk
@@ -1008,7 +1032,7 @@ def view_compare(plan, tables, cfg, fused: bool, ext: bool,
     from raymarching_tpu_torch.ops.render_kernel import (
         render_raygen, render_raygen_plain, render_rays, render_rays_plain)
     n = 0
-    for normal in ("fd", "analytic"):
+    for normal in normals:
         c = cfg.replace(normal_mode=normal, fused_generators=fused)
         origin, dirs = rays_for(plan, tables, c)
         sw = normal == "analytic"
@@ -1173,14 +1197,18 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
                     p_, c, t_, o_, d_), "render_kernel"))
             k1_dev = statistics.mean(turns[name])
             demo_dev = statistics.mean(turns["demo"])
-            k1_out, k1_ms = timed(lambda: render_rays(plan, c, tt, origin,
-                                                      dirs), runs=3)
+            _, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
+                             runs=3)
+            # the twin on every BIG_STRIDE-th ray (the fractals' DEs make
+            # it the phase's longest part), the bound from its count
+            sub = dirs[::BIG_STRIDE]
             plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
-                plan, c, tt, origin, dirs))
-            same(f"{name} K1 {normal} at 512^2", k1_out, plain,
+                plan, c, tt, origin, sub))
+            same(f"{name} K1 {normal} at 512^2 (every {BIG_STRIDE}th ray)",
+                 render_rays(plan, c, tt, origin, sub), plain,
                  "render_kernel")
             del plain
-            bound = bound_ms(count, R * (12 + 32))
+            bound = bound_ms(count, R * (12 + 32), BIG_STRIDE)
             frame_rows.append(
                 f"{name} {normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms "
                 f"on the device (demo {demo_dev:.3f} in turns: "
@@ -1537,25 +1565,28 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
                 p_, c, t_, o_, d_), "render_kernel"))
         k1_dev = statistics.mean(turns["deep"])
         demo_dev = statistics.mean(turns["demo"])
-        k1_out, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
-                              runs=3)
+        _, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
+                         runs=3)
+        # the twins on every BIG_STRIDE-th ray, the bound from the count
+        sub = dirs[::BIG_STRIDE]
         plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
-            plan, c, tt, origin, dirs))
-        same(f"deep demo K1 {normal} at 512^2", k1_out, plain,
-             "render_kernel")
+            plan, c, tt, origin, sub))
+        same(f"deep demo K1 {normal} at 512^2 (every {BIG_STRIDE}th ray)",
+             render_rays(plan, c, tt, origin, sub), plain, "render_kernel")
         del plain
         # K1 as the fit step launches it (render_op.FusedRender: no
         # black-lane skip, the shading factors and, with analytic normals,
         # the winner residuals), against its twin
         fc = c.replace(shade_skip_black=False)
         sw = normal == "analytic"
-        same(f"deep demo K1 {normal} at 512^2 as the fit step launches it",
-             flat(render_rays(plan, fc, tt, origin, dirs, save_winner=sw,
+        same(f"deep demo K1 {normal} at 512^2 as the fit step launches it "
+             f"(every {BIG_STRIDE}th ray)",
+             flat(render_rays(plan, fc, tt, origin, sub, save_winner=sw,
                               save_factors=True)),
-             flat(render_rays_plain(plan, fc, tt, origin, dirs,
+             flat(render_rays_plain(plan, fc, tt, origin, sub,
                                     save_winner=sw, save_factors=True)),
              "render_kernel")
-        bound = bound_ms(count, R * (12 + 32))
+        bound = bound_ms(count, R * (12 + 32), BIG_STRIDE)
         frame_rows.append(
             f"{normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms on the "
             f"device (the two-level demo {demo_dev:.3f} in turns: "
@@ -1729,6 +1760,346 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
           f"{jcount.ops} operations there); {card}")
     print(f"[deep] phase {time.perf_counter() - t_phase:.1f} s; launches on "
           f"its paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    rows["launches"] = launches
+    return rows
+
+
+# the culls of the four kernels' folds (pallas_march's D5 and D4) and the
+# block ray order, [cull]
+CULL_SCENES = ("scatter1k", "menger4")
+D5_D4 = ("raymarching_tpu/ops/pallas_march.py:598 (D5: _bvh_group_fold), "
+         ":844-1190 (D4: _menger_subtree_fold :844, _menger_level2_walk "
+         ":913, _menger_carve_subtree_culled :946, _subtree_collapse_eval "
+         ":1006, _menger_subtree_collapsed :1075, "
+         "_menger_subtree_vbound_fold :1102, _subtree_carve_fold :1174)")
+
+
+def sponge5():
+    """The iters-5 sponge of tests/test_pallas.py's _menger_plan (168,422
+    leaves: no lattice, so every fold of it takes D4's margin walk)."""
+    from raymarching_tpu_torch.scene.compile import compile_tree
+    from raymarching_tpu_torch.scene.csg import ListNode, Mode, bounds
+    from raymarching_tpu_torch.scene.generators import menger_sponge
+    from raymarching_tpu_torch.scene.objects import Camera
+    return compile_tree(ListNode(Mode.UNION, [
+        bounds(60.0), menger_sponge((0, 0, -8), 9.0, 5)]), [], Camera())
+
+
+class unculled:
+    """Within it the plain twins fold every leaf (core.sdf.CULL off)."""
+
+    def __enter__(self):
+        from raymarching_tpu_torch.core import sdf
+        self.was, sdf.CULL = sdf.CULL, False
+
+    def __exit__(self, *exc):
+        from raymarching_tpu_torch.core import sdf
+        sdf.CULL = self.was
+        return False
+
+
+def lane_efficiency(st) -> float:
+    """Sum of steps over 32 x the sum of each warp's slowest ray; warps
+    are 32 consecutive rays."""
+    st = torch.nn.functional.pad(st.double(), (0, -st.numel() % 32))
+    w = st.reshape(-1, 32)
+    return (w.sum() / (32 * w.max(dim=1).values.sum())).item()
+
+
+def skip_shares(count) -> str:
+    """The culls' skip shares in a twin's LeafCount."""
+    out = []
+    for what, tested, skipped in (
+            ("chunks", count.chunks_tested, count.chunks_skipped),
+            ("cells", count.cells_tested, count.cells_skipped)):
+        if tested:
+            out.append(f"{what} {skipped}/{tested} skipped "
+                       f"({skipped / tested:.4f})")
+    return ", ".join(out) or "no test"
+
+
+def cull_phase(dev, card: str, add_counts) -> dict:
+    """[cull]: the culls of pallas_march's D5 (the wide-UNION chunk cull,
+    scenes/scatter1k.txt) and D4 (the deep-sponge walks: menger4.txt's
+    value-bound winner walk, an iters-5 sponge's margin walk) and the block
+    ray order.  Every kernel's Cull view against both plain twins (the
+    culled and the unculled fold) bitwise, small (the unculled twin with FD
+    normals) and at the paths' shapes (the culled twin on every 8th ray,
+    the unculled on every 16th); scatter1k and menger4 at 512x512 SSAA 2,
+    1000 iterations: render() in FD and analytic, one fit step in each, the
+    multi frame and the two-phase frame, the device times of K1, K2's
+    stencil entry, K3 and K4 with the culled twins' bounds and skip
+    shares; the demo's standard and served frames in block and scan order
+    in turns, bitwise equal, with the warps' lane efficiency under each
+    (also at 1024x768 SSAA 3); K1's raygen block arm against its twin.
+    Returns each of the four kernels' cull row of the JSON table."""
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.core.order import block_dims, to_blocked
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops import shade_kernel as shk
+    from raymarching_tpu_torch.ops import surface_kernel as sk
+    from raymarching_tpu_torch.ops.render_kernel import (
+        render_raygen, render_raygen_plain, render_rays, render_rays_plain)
+    from raymarching_tpu_torch.tables import scene_operands, tables_to_torch
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(path: str, calls: int) -> dict:
+        counts = add_counts(path, calls)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        return counts
+
+    # 1. every kernel's Cull view against both twins, small
+    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=200)
+    worlds = {name: rt.compile_scene(rt.load_scene(
+        str(ROOT / "scenes" / f"{name}.txt"))) for name in CULL_SCENES}
+    worlds["iters 5"] = sponge5()
+    # the twins fold [rays, leaves] at every step, and take a few launches
+    # a step until their slowest ray ends: each world takes the frame its
+    # twin can fold in seconds, scatter1k's 1,002 leaves at 64x48, menger4's
+    # 8,424 at 32x24, the iters-5 sponge's 168,422 at 16x12, at most 200
+    # steps (150 on the sponge)
+    sizes = {"scatter1k": small, "menger4": small.replace(width=32,
+                                                          height=24),
+             "iters 5": small.replace(width=16, height=12, iterations=150)}
+    n_cmp, took = 0, []
+    for name, (plan, tables) in worlds.items():
+        t_w = time.perf_counter()
+        tt = tables_to_torch(tables, dev)
+        ops_ = scene_operands(plan, tt, dev)
+        check(ops_.cull == 1, f"{name}: not the Cull view")
+        c = sizes[name]
+        ext = name == "scatter1k"
+        n_cmp += view_compare(plan, tt, c, False, ext, f"cull {name}")
+        with unculled():
+            n_cmp += view_compare(plan, tt, c, False, False,
+                                  f"cull {name} (unculled twin)",
+                                  normals=("fd",))
+        took.append(f"{name} {c.width}x{c.height} {c.iterations} it "
+                    f"{time.perf_counter() - t_w:.1f} s")
+    # scatter1k's chunks in the fused packing (test_bvh_cull.py:218)
+    plan, tables = worlds["scatter1k"]
+    n_cmp += view_compare(plan, tables_to_torch(tables, dev),
+                          small.replace(width=32, height=24), True, False,
+                          "cull scatter1k fused")
+    print(f"[cull] every kernel's Cull view = both plain twins (the culled "
+          f"and the unculled fold) bitwise ({n_cmp} comparisons, ssaa1: "
+          + "; ".join(took) + " (scatter1k also with the extended and "
+          f"bounce entries against the culled twin, and in the fused "
+          f"packing at 32x24): K1's reference and raygen entries FD and "
+          f"analytic (the unculled twin FD), K3, K4, K2's five modes and "
+          f"its stencil entry) in "
+          f"{time.perf_counter() - t_phase:.1f} s; largest difference so "
+          f"far " + ", ".join(f"{k} {v:.3g}" for k, v in ERRS.items()))
+
+    # 2. scatter1k and menger4 at the bench footprint
+    fcfg = rt.RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+    R = fcfg.rays_per_image
+    rows = {k: {} for k in ("render_kernel", "surface_kernel",
+                            "march_kernel", "shade_kernel")}
+    for name in CULL_SCENES:
+        scene = rt.load_scene(str(ROOT / "scenes" / f"{name}.txt"))
+        plan, tables = worlds[name]
+        tt = tables_to_torch(tables, dev)
+        out = []
+        for normal in ("fd", "analytic"):
+            c = fcfg.replace(normal_mode=normal)
+            zero_counts()
+            rt.render(scene, c, device=dev)       # warm-up at this shape
+            img, ms = timed(lambda: rt.render(scene, c, device=dev), runs=3)
+            check(counted(f"cull_{name}_{normal}", 4)
+                  == only(render_kernel=4), f"{name} {normal} render()")
+            check(img.shape == (512, 512, 3) and bool(
+                torch.isfinite(img).all()) and img.max().item() > 0,
+                f"{name} image")
+            target = img
+            start = tables._replace(prim_color=np.asarray(
+                tables.prim_color) * np.float32(0.9))
+            zero_counts()
+            rt.fit(plan, start, target, c, device=dev, steps=1,
+                   trainable=TRAINABLE, optimizer=adam)
+            _, step_ms = timed(lambda: rt.fit(
+                plan, start, target, c, device=dev, steps=1,
+                trainable=TRAINABLE, optimizer=adam), runs=3)
+            counted(f"cull_{name}_fit_{normal}", 4)
+            out.append(f"{normal}: render() {ms:.3f} ms, a fit step "
+                       f"{step_ms:.1f} ms")
+        zero_counts()
+        multi, multi_ms = timed(lambda: rt.render(scene, fcfg, backend="multi",
+                                                  device=dev), runs=2)
+        counted(f"cull_{name}_multi", 2)
+        zero_counts()
+        two, two_ms = timed(lambda: rt.render(
+            scene, fcfg.replace(two_phase_k1=48), device=dev), runs=2)
+        counted(f"cull_{name}_two_phase", 2)
+        one = rt.render(scene, fcfg, device=dev)
+        check(torch.equal(two, one), f"{name}: two-phase frame differs")
+        agree = ((multi - one).abs() <= MULTI_ATOL).double().mean().item()
+        check(agree >= AGREE, f"{name}: multi frame agrees on {agree}")
+        print(f"[cull] {name} 512x512 ssaa2 1000 it: " + "; ".join(out)
+              + f"; the multi frame {multi_ms:.3f} ms ({agree:.5f} of "
+              f"pixels within {MULTI_ATOL} of the fused one), the two-phase "
+              f"frame {two_ms:.3f} ms (the fused one bitwise); {card}")
+        # the kernels on the frame's rays (scan order), device times, and
+        # the twins: the culled one on every 8th ray (its count), the
+        # unculled one on every 16th, both bitwise
+        origin, dirs = rays_for(plan, tt, fcfg)
+        sub, sub16 = dirs[::8], dirs[::16]
+        k1_dev = {n: device_ms(lambda: render_rays(
+            plan, fcfg.replace(normal_mode=n), tt, origin, dirs),
+            "render_kernel", 3) for n in ("fd", "analytic")}
+        k1, k1_ms = timed(lambda: render_rays(plan, fcfg, tt, origin, sub))
+        p1, p1_ms, c1 = timed_counted(lambda: render_rays_plain(
+            plan, fcfg, tt, origin, sub))
+        same(f"cull {name} K1 on every 8th ray", k1, p1, "render_kernel")
+        with unculled():
+            same(f"cull {name} K1 on every 16th ray (unculled twin)",
+                 render_rays(plan, fcfg, tt, origin, sub16),
+                 render_rays_plain(plan, fcfg, tt, origin, sub16),
+                 "render_kernel")
+        hit = mk.march_rays(plan, fcfg, tt, origin, dirs)
+        k3_dev = device_ms(lambda: mk.march_rays(plan, fcfg, tt, origin,
+                                                 dirs), "march_kernel", 3)
+        k3 = mk.march_rays(plan, fcfg, tt, origin, sub)
+        p3, p3_ms, c3 = timed_counted(lambda: mk.march_rays_plain(
+            plan, fcfg, tt, origin, sub))
+        same(f"cull {name} K3 on every 8th ray", k3, p3, "march_kernel")
+        with unculled():
+            same(f"cull {name} K3 on every 16th ray (unculled twin)",
+                 mk.march_rays(plan, fcfg, tt, origin, sub16),
+                 mk.march_rays_plain(plan, fcfg, tt, origin, sub16),
+                 "march_kernel")
+        hp, hs = hit.position, hit.sd
+        k4_dev = device_ms(lambda: shk.shade_rays(plan, fcfg, tt, hp, hs,
+                                                  dirs), "shade_kernel", 3)
+        k4 = shk.shade_rays(plan, fcfg, tt, hp[::8], hs[::8], sub)
+        p4, p4_ms, c4 = timed_counted(lambda: shk.shade_rays_plain(
+            plan, fcfg, tt, hp[::8], hs[::8], sub))
+        same(f"cull {name} K4 on every 8th hit", k4, p4, "shade_kernel")
+        with unculled():
+            same(f"cull {name} K4 on every 16th hit (unculled twin)",
+                 shk.shade_rays(plan, fcfg, tt, hp[::16], hs[::16], sub16),
+                 shk.shade_rays_plain(plan, fcfg, tt, hp[::16], hs[::16],
+                                      sub16), "shade_kernel")
+        k2_dev = device_ms(lambda: scene_vjp.stencil_eval(
+            plan, fcfg, tt, hp, center=True), "surface_kernel", 3)
+        k2 = scene_vjp.stencil_eval(plan, fcfg, tt, hp[::8], center=True)
+        p2, p2_ms, c2 = timed_counted(lambda: sk.surface_stencil_plain(
+            plan, tt, hp[::8], fcfg.fd_h, center=True))
+        same(f"cull {name} K2 stencil on every 8th hit", k2, p2,
+             "surface_kernel")
+        with unculled():
+            same(f"cull {name} K2 stencil on every 16th hit (unculled "
+                 f"twin)", scene_vjp.stencil_eval(plan, fcfg, tt, hp[::16],
+                                                  center=True),
+                 sk.surface_stencil_plain(plan, tt, hp[::16], fcfg.fd_h,
+                                          center=True), "surface_kernel")
+        # the bound of the whole frame's launch: the culled twin's count on
+        # every 8th ray, times 8
+        for kname, dev_ms_, plain_ms, count, nbytes in (
+                ("render_kernel", k1_dev["fd"], p1_ms, c1, 12 + 32),
+                ("march_kernel", k3_dev, p3_ms, c3, 12 + 20),
+                ("shade_kernel", k4_dev, p4_ms, c4, 28 + 12),
+                ("surface_kernel", k2_dev, p2_ms, c2, 12 + 7 * 20)):
+            b = bound_ms(count, R * nbytes // 8)
+            b = (b[0] * 8, b[1], b[2] * 8, b[3] * 8, b[4] * 8, b[5] * 8)
+            rows[kname][name] = {"device_ms": dev_ms_,
+                                 "plain_ms_every_8th_ray": plain_ms,
+                                 "bound_ms": b[0], "bound_by": b[1],
+                                 "operations": b[5],
+                                 "leaves_folded": b[2],
+                                 "chunks_tested": count.chunks_tested * 8,
+                                 "chunks_skipped": count.chunks_skipped * 8,
+                                 "cells_tested": count.cells_tested * 8,
+                                 "cells_skipped": count.cells_skipped * 8}
+            if kname == "render_kernel":
+                rows[kname][name]["device_ms_analytic"] = k1_dev["analytic"]
+                rows[kname][name]["ms"] = k1_ms
+            print(f"[cull] {name} {kname} 512x512 ssaa2: {dev_ms_:.3f} ms "
+                  f"on the device; bound {b[0]:.4f} ms by {b[1]} ({b[5]} "
+                  f"operations, {b[2]} leaves folded: the culled twin's "
+                  f"count on every 8th ray, x 8), share "
+                  f"{b[0] / dev_ms_:.1%}; twin {skip_shares(count)}; "
+                  f"bitwise the culled twin on every 8th ray and the "
+                  f"unculled on every 16th; {card}")
+        print(f"[cull] {name}: K1 analytic {k1_dev['analytic']:.3f} ms on "
+              f"the device; {card}")
+        del k1, p1, k3, p3, k4, p4, k2, p2, hit
+
+    # 3. block ray order: the demo's frames in turns, bitwise
+    demo = rt.load_scene(str(DEMO))
+    dplan, dtables = rt.compile_scene(demo)
+    dtt = tables_to_torch(dtables, dev)
+    block_rows = []
+    for serve in (False, True):
+        c = fcfg.replace(serve_raygen=serve)
+        imgs, turns = {}, {"scan": [], "block": []}
+        for order in ("scan", "block", "block", "scan"):
+            co = c.replace(ray_order=order)
+            rt.render(demo, co, device=dev)
+            imgs[order], ms = timed(lambda: rt.render(demo, co, device=dev),
+                                    runs=2)
+            turns[order].append(ms)
+        check(torch.equal(imgs["scan"], imgs["block"]),
+              f"block and scan frames differ (serve_raygen {serve})")
+        zero_counts()
+        rt.render(demo, c.replace(ray_order="block"), device=dev)
+        counted(f"block_order_serve={int(serve)}", 1)
+        block_rows.append(
+            f"{'served' if serve else 'standard'} frame scan "
+            f"{' / '.join(f'{v:.3f}' for v in turns['scan'])} ms, block "
+            f"{' / '.join(f'{v:.3f}' for v in turns['block'])} ms, bitwise")
+    # [warp]'s lane efficiency of K3's primary march in each order; at
+    # SSAA 3 (9 samples a pixel) a warp's 32 rays straddle pixels, and the
+    # two orders give it other pixels
+    bd = block_dims(fcfg.height, fcfg.width, fcfg.samples_per_pixel,
+                    fcfg.tile_sublanes * 128)
+    big = fcfg.replace(width=1024, height=768, ssaa=3)
+    eff = []
+    for name, (plan, tables), c in [
+            ("demo", (dplan, dtables), fcfg),
+            *((n, worlds[n], fcfg) for n in CULL_SCENES),
+            ("demo 1024x768 ssaa3", (dplan, dtables), big)]:
+        tt = tables_to_torch(tables, dev)
+        origin, dirs = rays_for(plan, tt, c)
+        shape = (c.height, c.width, c.samples_per_pixel)
+        bdc = block_dims(*shape, c.tile_sublanes * 128)
+        _, st_scan = mk.march_rays(plan, c, tt, origin, dirs,
+                                   with_steps=True)
+        blocked = to_blocked(dirs, *shape, *bdc)
+        _, st_block = mk.march_rays(plan, c, tt, origin, blocked,
+                                    with_steps=True)
+        check(torch.equal(to_blocked(st_scan, *shape, *bdc), st_block),
+              f"{name}: steps differ between orders")
+        t_scan = device_ms(lambda: mk.march_rays(plan, c, tt, origin,
+                                                 dirs), "march_kernel", 3)
+        t_block = device_ms(lambda: mk.march_rays(plan, c, tt, origin,
+                                                  blocked), "march_kernel", 3)
+        eff.append(f"{name} ({bdc[0]}x{bdc[1]} blocks) "
+                   f"{lane_efficiency(st_scan):.4f} scan / "
+                   f"{lane_efficiency(st_block):.4f} block (K3 "
+                   f"{t_scan:.3f} / {t_block:.3f} ms)")
+        del st_scan, st_block, blocked, dirs
+    # K1's raygen block arm against its twin, both entries
+    small_b = small.replace(tile_sublanes=1)
+    bds = block_dims(small_b.height, small_b.width, 1, 128)
+    Rs = small_b.rays_per_image
+    for c in (small_b, small_b.replace(normal_mode="analytic"),
+              small_b.replace(reflect_strength=0.4, reflect_bounces=1)):
+        same("K1 raygen block arm", flat(render_raygen(
+            dplan, c, dtt, 0, Rs, block=bds)), flat(render_raygen_plain(
+                dplan, c, dtt, 0, Rs, block=bds)),
+            "render_bounce_kernel" if c.reflect_bounces
+            else "render_raygen_kernel")
+    print(f"[cull] block order (pixel blocks {bd[0]}x{bd[1]} at 512x512 "
+          f"ssaa2): " + "; ".join(block_rows) + "; [warp] lane efficiency "
+          f"of K3's primary march: " + "; ".join(eff) + f"; K1's raygen "
+          f"block arm ({bds[0]}x{bds[1]} blocks at 64x48) = its twin "
+          f"bitwise, reference FD and analytic and bounce; {card}")
+    print(f"[cull] {time.perf_counter() - t_phase:.1f} s")
     rows["launches"] = launches
     return rows
 
@@ -2320,9 +2691,12 @@ def kernel_times() -> int:
     CUDA events) and in its FD-gradient mode, of K1, K4 and K2 with
     analytic normals, of K1 and K4 with soft shadows and AO, K1's raygen
     entry, K1 on scenes/mirror.txt (coloured lights), and of K1 with the
-    scene read from device memory, on the demo at 1,000 iterations.  For
-    holding two checkouts against each other on one card: run it from
-    each in one command, in turns (parent, change, change, parent)."""
+    scene read from device memory, on the demo at 1,000 iterations; then
+    K1 and K4 in both normals, K3 and K2's stencil entry on scatter1k.txt
+    and menger4.txt (scan-order rays).  For holding two checkouts against
+    each other on one card: run it from each in one command, in turns
+    (parent, change, change, parent), copying this script into a checkout
+    whose own lacks a row."""
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch import tables as scene_tables
     from raymarching_tpu_torch.ops import march_kernel as mk
@@ -2449,6 +2823,26 @@ def kernel_times() -> int:
         out[f"K1 {b.width}x{b.height} ssaa{b.ssaa}{name}"] = device_ms(
             lambda: render_rays(plan, b, tt, big_org, big_dirs),
             "render_kernel")
+    # the scenes of [cull] (scatter1k's chunks, menger4's sponge) on the
+    # frame's rays in scan order
+    for name in CULL_SCENES:
+        cplan, ctables = rt.compile_scene(rt.load_scene(str(
+            ROOT / "scenes" / f"{name}.txt")))
+        ctt = scene_tables.tables_to_torch(ctables, dev)
+        c_org, c_dirs = rays_for(cplan, ctt, cfg)
+        chit = mk.march_rays(cplan, cfg, ctt, c_org, c_dirs)
+        for label, c in (("", cfg), (" analytic", acfg)):
+            out[f"K1 {name}{label}"] = device_ms(lambda: render_rays(
+                cplan, c, ctt, c_org, c_dirs), "render_kernel")
+            out[f"K4 {name}{label}"] = device_ms(lambda: shk.shade_rays(
+                cplan, c, ctt, chit.position, chit.sd, c_dirs),
+                "shade_kernel")
+        out[f"K3 {name}"] = device_ms(lambda: mk.march_rays(
+            cplan, cfg, ctt, c_org, c_dirs), "march_kernel")
+        out[f"K2 {name} 7-point stencils"] = device_ms(
+            lambda: scene_vjp.stencil_eval(cplan, cfg, ctt, chit.position,
+                                           center=True), "surface_kernel")
+        del c_dirs, chit
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -2597,10 +2991,10 @@ def main() -> int:
         # apart: the others are held to the build before they existed
         report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
                            if not any(v in e for v in ("procedural", "deep",
-                                                       "far taps")))
+                                                       "far taps", "cull")))
         print(f"[ptxas] {kname} by entry (registers, stack frame): "
               + report)
-        for view in ("procedural", "deep", "far taps"):
+        for view in ("procedural", "deep", "far taps", "cull"):
             print(f"[ptxas] {kname} {view} entries: " + "; ".join(
                 f"{e} {r} / {st} B" for e, r, st in entries if view in e))
         if kname in SEVEN_SOURCE_PTXAS:
@@ -2614,8 +3008,10 @@ def main() -> int:
     print(f"[build] {len(KERNELS)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernels vs plain twins at small sizes, and the ref oracle
-    small = rt.RenderConfig(width=64, height=48, ssaa=2, iterations=1000)
+    # 3. kernels vs plain twins at small sizes, and the ref oracle (400
+    # iterations: a twin's march takes a few launches a step until its
+    # slowest ray ends, so the cap bounds this part's time)
+    small = rt.RenderConfig(width=64, height=48, ssaa=2, iterations=400)
     cases = [(s, small) for s in ("demo", "config1", "config2", "config3",
                                   "config4")]
     cases.append(("menger4", small.replace(width=32, height=24, ssaa=1)))
@@ -2650,7 +3046,7 @@ def main() -> int:
               f"and their residuals = plain twins bitwise, and "
               f"K3, K4 = K1's march and shading bitwise, with the lattice "
               f"collapse on and off ({n_cmp} comparisons; collapse flag "
-              f"{int(ops.flag.item())}); K1, K3, K4, K2 on "
+              f"{int(ops.flag[0].item())}); K1, K3, K4, K2 on "
               f"{compare_ragged(plan, cfg, tt, *rays)} rays with per-ray "
               f"origins = the full launch's; scene {nbytes} bytes, read "
               f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
@@ -2732,7 +3128,8 @@ def main() -> int:
     fused = rt.render(demo, small, device=dev)
     ref_err = (fused - ref).abs().max().item()
     check(ref_err <= IMG_ATOL, f"demo vs ref oracle differs by {ref_err}")
-    print(f"[compare] demo vs ref oracle 64x48 ssaa2: image {ref_err:.6g}")
+    print(f"[compare] demo vs ref oracle 64x48 ssaa2 {small.iterations} it: "
+          f"image {ref_err:.6g}")
 
     # 4. K2 vs its plain twin on the stencils of K1's hits, bitwise, and
     # the card's gradients against the CPU's
@@ -4154,13 +4551,6 @@ def main() -> int:
           f"p99 {st['p99']}, max {st['max']}")
 
     # 11. where a thread-per-ray kernel loses its lanes
-    def lane_efficiency(st):
-        """Sum of steps over 32 x the sum of each warp's slowest ray; warps
-        are 32 consecutive rays."""
-        st = torch.nn.functional.pad(st.double(), (0, -st.numel() % 32))
-        w = st.reshape(-1, 32)
-        return (w.sum() / (32 * w.max(dim=1).values.sum())).item()
-
     k1_out = render_rays(plan, tcfg, tt, origin, dirs)
     n_hat = normalize(g)
     black = shk.black_skip_ids(plan, tcfg, tt)
@@ -4582,6 +4972,10 @@ def main() -> int:
     # 18. the demo's rows sharded over a torch.distributed process group
     shard_rows = shard_phase(dev, card, add_counts)
 
+    # 19. the culls of D5 and D4 on scatter1k, menger4 and an iters-5
+    # sponge, and the block ray order
+    cull_rows = cull_phase(dev, card, add_counts)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -4732,6 +5126,15 @@ def main() -> int:
     for r in table["kernels"]:
         if r["name"] in shard_rows:
             r["shard"] = {"launches": shard_rows[r["name"]]}
+    # each kernel's Cull view ([cull]: scatter1k.txt's chunk cull and
+    # menger4.txt's value-bound winner walk at 512x512 ssaa2, the device
+    # times with the culled twins' bounds and counts), and its launches on
+    # the [cull] paths
+    for r in table["kernels"]:
+        k = r["name"]
+        if k in cull_rows:
+            r["cull"] = {"replaces": D5_D4, **cull_rows[k],
+                         "launches": cull_rows["launches"][k]}
     # K2's SD mode on the demo's mesh grid ([cli]), a row of its own
     table["kernels"].append({
         "name": "surface_kernel (SD mode, mesh grid)", "route": "cuda",

@@ -87,6 +87,7 @@ from .scene.compile import ScenePlan, SceneTables, compile_scene
 from .scene.parser import Scene
 
 from .core import camera as cam
+from .core.order import frame_blocks, from_blocked, to_blocked
 from .core.march import dot3
 from .core.render import render_image, shade_chunks
 from .core.shading import TINY
@@ -213,31 +214,42 @@ def _render_rows(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     included; ``serve`` (whole frames only) takes K1's raygen entry.
     ``differentiable``: the fused backward on ``cuda``, the unrolled
     oracle on ``ref``; ``multi`` and ``torch`` differentiate through
-    their hooks whenever grad is enabled."""
+    their hooks whenever grad is enabled.  The rays go to the kernels in
+    block order when ``core.order.resolve_ray_order`` says so (``auto``:
+    on ``cuda``), the colours back in scan order: the same bits."""
     H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
     rows = H if row_range is None else row_range[1]
     oracle = differentiable and backend == "ref"
     hooks = (make_render_hooks(plan, tables, cfg, backend)
              if backend != "cuda" else None)
+    blocks = frame_blocks(cfg, rows, backend)
+
+    def ordered(x):
+        return x if blocks is None else to_blocked(x, rows, W, S, *blocks)
+
     if cfg.aperture > 0.0:
         # thin-lens depth of field (api._render_dof): one bundle of per-ray
         # lens origins, the SSAA mean the lens integral; K1 with per-ray
         # origins on cuda, the hooks (whose marches take per-ray origins)
         # elsewhere
         o, d = cam.generate_rays_dof(tables, cfg, row_range)
-        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        o, d = ordered(o.reshape(-1, 3)), ordered(d.reshape(-1, 3))
         diff = (oracle if hooks is not None else torch.is_grad_enabled()
                 and any(t.requires_grad for t in (o, d, *tables)))
         colors = _colors(plan, tables, cfg, o, d, hooks, differentiable=diff)
-    elif hooks is not None:
+    elif hooks is not None and blocks is None:
         return render_image(plan, tables, cfg, differentiable=oracle,
                             row_range=row_range, **hooks)
     elif serve:
-        colors = _render_serve(plan, tables, cfg)
+        colors = _render_serve(plan, tables, cfg, blocks)
     else:
         origin, dirs = cam.generate_rays(tables, cfg, row_range)
-        colors = _colors(plan, tables, cfg, origin, dirs.reshape(-1, 3),
-                         differentiable=differentiable)
+        colors = _colors(plan, tables, cfg, origin,
+                         ordered(dirs.reshape(-1, 3)), hooks,
+                         differentiable=(differentiable if hooks is None
+                                         else oracle))
+    if blocks is not None:
+        colors = from_blocked(colors, rows, W, S, *blocks)
     return colors.reshape(rows, W, S, 3).mean(dim=2)
 
 
@@ -280,15 +292,17 @@ def render_rays(plan: ScenePlan, tables: SceneTables, origins, dirs,
 
 
 def _render_serve(plan: ScenePlan, tables: SceneTables,
-                  cfg: RenderConfig) -> torch.Tensor:
+                  cfg: RenderConfig, blocks=None) -> torch.Tensor:
     """Colours [R, 3] of the frame's rays in scan order (generate_rays'
-    order: the SSAA mean needs no reorder), one K1 raygen launch per
-    ``cfg.ray_chunk`` rays (api._render_mega_serve)."""
+    order), or with ``blocks`` = (bh, bw) in block order, one K1 raygen
+    launch per ``cfg.ray_chunk`` rays (api._render_mega_serve)."""
     R = cfg.rays_per_image
     chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < R else R
     colors = []
+    order = {} if blocks is None else {"block": blocks}
     for base in range(0, R, chunk):
-        res = render_raygen(plan, cfg, tables, base, min(chunk, R - base))
+        res = render_raygen(plan, cfg, tables, base, min(chunk, R - base),
+                            **order)
         colors.append(ray_colors(cfg, res, tables.prim_color))
     return torch.cat(colors)
 
@@ -318,9 +332,11 @@ def render_tiled(plan: ScenePlan, tables: SceneTables,
     rays included, and each goes the way ``render_tables`` sends the
     frame's: K1 (``cuda``, ``cfg.ray_chunk`` rays a launch; per-ray lens
     origins with an aperture) or the hooks (``multi``, ``ref``,
-    ``torch``); ``multi`` with soft shadows or AO goes to ``cuda``.  The
-    port has no block ray order (ROADMAP Queue 1 item 2) and no in-kernel
-    raygen here: ``cfg.serve_raygen`` is not read.  Forward only."""
+    ``torch``); ``multi`` with soft shadows or AO goes to ``cuda``.  A
+    block's rays take block order over the block's own rows
+    (``core.order``, as ``render_tables``' frame does); there is no
+    in-kernel raygen here: ``cfg.serve_raygen`` is not read.  Forward
+    only."""
     cfg = cfg or RenderConfig()
     backend = route_backend(cfg, backend)
     device = resolve_device(device)

@@ -58,15 +58,18 @@ class RenderConfig:
     # backend by the ``backend=`` argument of ``api.render_tables``.
     backend: str = "auto"
 
-    # Ray-to-tile assignment for the camera-grid kernel paths ("auto" |
-    # "block" | "scan"): "block" reorders samples so a tile covers a
-    # compact pixel block.  Bit-exact: per-ray arithmetic does not depend
-    # on the order.  The port's kernels take rays in scan order so far.
+    # Ray-to-warp assignment for the camera-grid paths ("auto" | "block" |
+    # "scan"; core.order): "block" hands the kernels the samples of compact
+    # pixel blocks, so a warp's 32 rays are near neighbours; "auto" does
+    # so on the fused backend ``cuda``.  Bit-exact: per-ray arithmetic does
+    # not depend on the order, and colours come back in scan order.
     ray_order: str = "auto"
 
-    # Rays per tile of the JAX kernels, (tile_sublanes, 128); in the port
-    # it only sets the two-phase march's least capacity (tile_sublanes *
-    # 128 lanes).  Images do not depend on it.
+    # Rays per tile of the JAX kernels, (tile_sublanes, 128): in the port
+    # the rays a pixel block of block order holds (core.order.block_dims,
+    # so the permutation is the JAX package's), and the two-phase march's
+    # least capacity (tile_sublanes * 128 lanes).  Images do not depend on
+    # it.
     tile_sublanes: int = 32
 
     # Process rays in chunks of this many (0 = whole frame at once) to bound

@@ -104,20 +104,29 @@ def serve_cam_rows(tables: SceneTables, cfg: RenderConfig) -> torch.Tensor:
 
 
 def raygen_dirs(rows: torch.Tensor, cfg: RenderConfig, base: int,
-                n: int) -> torch.Tensor:
+                n: int, block: tuple = (0, 0)) -> torch.Tensor:
     """Directions [n, 3] of rays base .. base + n - 1 of the frame in scan
-    order (pixel-major, SSAA sample minor: ``generate_rays``' order), by
-    the in-kernel raygen's arithmetic (pallas_render._raygen_dirs): sample
-    offsets (i + 1) (1/k), the pixel lerp times 1/W and 1/H (the
-    reciprocals doubles rounded once to float32), normalise with z^2 = 1,
-    rotate; ``rows`` from ``serve_cam_rows``.  The plain twin of K1's
-    raygen entries.  It differs from ``generate_rays`` by roundings."""
+    order (pixel-major, SSAA sample minor: ``generate_rays``' order), or
+    with ``block`` = (bh, bw) in block order (``core.order.to_blocked``'s:
+    bh x bw pixel blocks, block-row major), by the in-kernel raygen's
+    arithmetic (pallas_render._raygen_dirs, both arms): sample offsets
+    (i + 1) (1/k), the pixel lerp times 1/W and 1/H (the reciprocals
+    doubles rounded once to float32), normalise with z^2 = 1, rotate;
+    ``rows`` from ``serve_cam_rows``.  The plain twin of K1's raygen
+    entries.  It differs from ``generate_rays`` by roundings."""
     dev = rows.device
     f32 = dict(dtype=torch.float32, device=dev)
     k, W = cfg.ssaa, cfg.width
     r = torch.arange(base, base + n, dtype=torch.int64, device=dev)
     s, t1 = r % (k * k), r // (k * k)
-    px, py = (t1 % W).to(torch.float32), (t1 // W).to(torch.float32)
+    bh, bw = block
+    if bh:
+        t2, t3 = t1 // bw, t1 // bw // bh
+        pxi = (t3 % (W // bw)) * bw + t1 % bw
+        pyi = (t3 // (W // bw)) * bh + t2 % bh
+    else:
+        pxi, pyi = t1 % W, t1 // W
+    px, py = pxi.to(torch.float32), pyi.to(torch.float32)
     si, sj = (s // k).to(torch.float32), (s % k).to(torch.float32)
     rk, rw, rh = (torch.tensor(v, **f32)
                   for v in (1.0 / k, 1.0 / W, 1.0 / cfg.height))

@@ -24,6 +24,16 @@ plan.  Two folds:
     fused FD backward and the multi-kernel backend's implicit-function
     backward differentiate.
 
+The culls of the kernels' folds (pallas_march's D5, the wide-UNION chunk
+cull, and D4, the deep-sponge subtree walks; ``tables.cull_blocks``) are
+exact: a skipped chunk or cell cannot win a strict-< selection.  So
+``kernel_fold``'s values and winners are the same with and without them,
+and the twin has both forms: with ``cull`` (the default, ``CULL``) it
+takes the kernels' per-lane skip decisions in the kernels' walk order,
+masking what they skip, and ``LeafCount`` counts the chunks and cells
+tested and skipped and the leaves actually folded; without, every leaf
+folds.  A culled kernel is bitwise both.
+
 A procedural fractal leaf (``plan.proc``: Mandelbox, Mandelbulb, Julia) is
 a column of its own in the leaf matrix (``core.proc``'s DEs), and in
 ``kernel_fold``'s gradient form a procedural winner's gradient is its
@@ -254,6 +264,18 @@ OPS_PER_WINNER_SELECT = 1
 # difference; the next pitch).
 OPS_DEATHSTAR_CARVE = 13
 OPS_MENGER_SETUP, OPS_PER_MENGER_LEVEL, OPS_PER_MENGER_FOLD = 5, 12, 19
+# The culls (csrc/fold.cuh): a chunk's test, max over three axis excesses
+# against the running value (3 sub, 3 abs, 3 sub, 2 max, the compare); a
+# Menger cell's, the median of three margin excesses from its centre (3
+# products and sums, 3 sub, 3 abs, 3 sub, the median's 4, the compare);
+# the two-level collapse of one level-1 subtree (its root cross a leaf's
+# 12, 27 level-2 and 81 level-3 axis excesses, 2 + 8 x 5 for level 2's
+# eight columns, 11 + 64 x 5 for level 3's pairs).
+OPS_PER_CHUNK_TEST, OPS_PER_CELL_TEST = 12, 20
+OPS_SUBTREE_COLLAPSE = 12 + 27 + 81 + 42 + 331
+
+# Whether kernel_fold takes the kernels' culls (its ``cull`` default).
+CULL = True
 
 
 def fused_carve_ops(g) -> int:
@@ -292,6 +314,12 @@ class LeafCount:
 
     ``leaves``: leaf evaluations; ``ops``: OPS_PER_LEAF for each of them
     plus the collapsed levels' and the procedural leaves' operations.
+    With the culls (``kernel_fold(cull=True)``) ``leaves`` are the leaves
+    the culled fold actually folds, ``ops`` adds each chunk and cell test
+    and subtree collapse, and ``chunks_tested``, ``chunks_skipped``,
+    ``cells_tested`` and ``cells_skipped`` count D5's chunk tests and D4's
+    cell tests (level-1 margins, the value bound, level-2 margins), each
+    at the points that reach it.
     """
 
     _open: list = []
@@ -299,6 +327,7 @@ class LeafCount:
     def __init__(self):
         self._leaves = []
         self._collapsed = []
+        self._tests = []
         self.points = 0
 
     def __enter__(self):
@@ -317,6 +346,25 @@ class LeafCount:
     def ops(self) -> int:
         return OPS_PER_LEAF * self.leaves + int(
             sum(int(t.item()) for t in self._collapsed))
+
+    def _test_sum(self, k: int) -> int:
+        return int(sum(int(t[k].item()) for t in self._tests))
+
+    @property
+    def chunks_tested(self) -> int:
+        return self._test_sum(0)
+
+    @property
+    def chunks_skipped(self) -> int:
+        return self._test_sum(1)
+
+    @property
+    def cells_tested(self) -> int:
+        return self._test_sum(2)
+
+    @property
+    def cells_skipped(self) -> int:
+        return self._test_sum(3)
 
 
 def _base_leaves(g) -> int:
@@ -444,11 +492,14 @@ class _FoldLayout(NamedTuple):
 
 @functools.lru_cache(maxsize=128)
 def _fold_layout(kp: KernelPlan, collapse: bool,
-                 fused: bool = False) -> _FoldLayout:
+                 fused: bool = False, winner: bool = False) -> _FoldLayout:
     """The leaf fold's layout, or with ``collapse`` the one in which each
     collapsing group keeps its base leaves only; with ``fused`` a
-    generator group keeps its base leaf (the fused packing's)."""
-    from ..tables import GROUP_FUSED, pack_plan
+    generator group keeps its base leaf (the fused packing's).  With
+    ``winner`` (the winner-and-gradient fold) a group whose lattice is too
+    wide for the winner collapse (``tables.lattice_idx_ok``) keeps every
+    leaf, as the kernels' PathWinner fold does."""
+    from ..tables import GROUP_FUSED, lattice_idx_ok, pack_plan
 
     blocks, carves = {}, {}
     packed = pack_plan(kp, fused)
@@ -461,7 +512,8 @@ def _fold_layout(kp: KernelPlan, collapse: bool,
     if collapse:
         lat = packed.lattice.numpy().astype(np.int64)
         blocks = {gi: _decode_block(lat, int(lat[gi]))
-                  for gi in range(len(kp.groups)) if lat[gi] != 0}
+                  for gi in range(len(kp.groups)) if lat[gi] != 0
+                  and (not winner or lattice_idx_ok(kp.groups[gi]))}
     if not blocks and not carves:
         return _FoldLayout(None, tuple(g.start for g in kp.groups),
                            tuple(g.count for g in kp.groups), blocks, carves)
@@ -584,12 +636,267 @@ def _lattice_carve_idx(levels, tables: SceneTables, p: torch.Tensor):
     return best, brow
 
 
+class _Cull(NamedTuple):
+    """What the culled twin reads: the cull blocks by group
+    (``tables.cull_blocks``), the cull rows (``tables.cull_rows``) and
+    their first table row, and whether the subtree collapse's flag
+    holds."""
+
+    blocks: dict
+    rows: torch.Tensor
+    row0: int
+    sub_ok: bool
+
+
+@functools.lru_cache(maxsize=64)
+def _cull_blocks(kp: KernelPlan, fused: bool):
+    """(cull blocks by group, first cull row) of the packing, or None."""
+    from ..tables import cull_blocks, pack_plan
+
+    packed = pack_plan(kp, fused)
+    if not packed.cull:
+        return None
+    return cull_blocks(kp, fused, packed.cull_row), packed.cull_row
+
+
+# The last _cull_context: its key, the tensors it was built from with their
+# versions, and the context (a march asks for the same one at every step).
+_LAST_CULL: list = [None]
+
+
+def _cull_context(kp: KernelPlan, tables: SceneTables, fused: bool,
+                  collapse: bool) -> Optional[_Cull]:
+    """The culled twin's inputs for one ``kernel_fold`` call, from the live
+    tables as ``tables.scene_operands`` builds the kernels'; None when the
+    plan takes no cull.  Kept while the same tensors, unmodified in place,
+    come back."""
+    from ..tables import cull_rows, subtree_collapse_ok
+
+    static = _cull_blocks(kp, fused)
+    if static is None:
+        return None
+    live = (tables.prim_pos, tables.prim_aux, tables.cam_position)
+    key = (kp, fused, bool(collapse))
+    last = _LAST_CULL[0]
+    if (last is not None and last[0] == key
+            and all(a is b and v == b._version
+                    for a, v, b in zip(last[1], last[2], live))):
+        return last[3]
+    blocks, row0 = static
+    rows = cull_rows(kp, tables)
+    sub_ok = bool(collapse) and bool(subtree_collapse_ok(kp, tables))
+    ctx = _Cull(blocks, rows, row0, sub_ok)
+    _LAST_CULL[0] = (key, live, tuple(t._version for t in live), ctx)
+    return ctx
+
+
+def _walk_fold(m, k, lb, init, winner: bool):
+    """The culled fold of a walk's items at every point at once: ``m``
+    [N, I] the items' minima in walk order (``k`` [N, I] the column of
+    each one's first minimal leaf), ``lb`` [N, I] the bound an item is
+    skipped behind (-inf: never), ``init`` the carry before the walk.  An
+    item is skipped where its bound reaches the running value before it;
+    skips are exact, so that running value is the prefix minimum of every
+    earlier item, and the decisions need no sequential loop.  -> (value
+    [N], its column [N] or None, skipped [N, I])."""
+    v0 = init[0] if winner else init
+    prefix = torch.cat([v0[:, None], m[:, :-1]], dim=1).cummin(dim=1).values
+    skip = lb >= prefix
+    masked = torch.where(skip, torch.full_like(m, float("inf")), m)
+    best, at = masked.min(dim=1)
+    if not winner:
+        return torch.minimum(v0, best), None, skip
+    better = best < v0
+    col = k.gather(1, at[:, None])[:, 0]
+    return (torch.where(better, best, v0), torch.where(better, col, init[1]),
+            skip)
+
+
+def _chunk_group(seg, g, blk, cull: _Cull, p, running, ridx, ordered: bool,
+                 winner: bool, tally):
+    """D5 (pallas_march._bvh_group_fold): a chunked group (gsign +1 under
+    a MIN root) folded straight into the root's (running, ridx), its runs
+    in run order; a chunked run's chunks in the order rows' order in the
+    value fold (``ordered``), else in leaf order, each skipped at the
+    points whose lower bound max_a(|p_a - c_a| - h_a) over its live box
+    reaches the running value.  ``tally``: leaves folded, chunks tested
+    and skipped."""
+    n = seg.shape[0]
+    ms, ks, lbs, sizes = [], [], [], []
+    col = 0
+    for ri, run in enumerate(g.runs):
+        brow, nch, clen, uni, obase = blk[5 * ri:5 * ri + 5]
+        count = run[2]
+        if nch == 0:
+            m, k = seg[:, col:col + count].min(dim=1)
+            ms.append(m[:, None])
+            ks.append((k + col)[:, None])
+            lbs.append(torch.full((n, 1), float("-inf"), device=p.device))
+            sizes.append(torch.full((1,), count, device=p.device))
+            col += count
+            continue
+        o = torch.arange(nch, device=p.device)
+        if ordered and obase >= 0:
+            o0 = obase - cull.row0
+            o = torch.cat([cull.rows[o0:o0 + uni, 0].long(), o[uni:]])
+        full = (count // clen) * clen
+        m, k = seg[:, col:col + full].reshape(n, -1, clen).min(dim=2)
+        k = k + col + clen * torch.arange(m.shape[1], device=p.device)
+        if full < count:
+            mt, kt = seg[:, col + full:col + count].min(dim=1)
+            m = torch.cat([m, mt[:, None]], dim=1)
+            k = torch.cat([k, (kt + col + full)[:, None]], dim=1)
+        b = cull.rows[brow - cull.row0:brow - cull.row0 + nch]
+        e = (p[:, None, :] - b[None, :, :3]).abs() - b[None, :, 3:6]
+        lb = torch.maximum(torch.maximum(e[..., 0], e[..., 1]), e[..., 2])
+        ms.append(m[:, o])
+        ks.append(k[:, o])
+        lbs.append(lb[:, o])
+        sizes.append(torch.clamp(count - o * clen, max=clen))
+        col += count
+    m, k, lb = torch.cat(ms, 1), torch.cat(ks, 1), torch.cat(lbs, 1)
+    init = (running, ridx.long() - g.start) if winner else running
+    v, kk, skip = _walk_fold(m, k, lb, init, winner)
+    tested = lb > float("-inf")
+    tally[0] += (~skip * torch.cat(sizes)[None, :]).sum()
+    tally[1] += tested.sum()
+    tally[2] += (skip & tested).sum()
+    if not winner:
+        return v, ridx
+    return v, (kk + g.start).to(torch.int32)
+
+
+def _subtree_route(gi: int, blk, layout: _FoldLayout, has_lattice: bool,
+                   with_idx: bool, with_grad: bool, sub_ok: bool):
+    """Which walk the kernels' fold takes for deep-sponge group ``gi``
+    (pallas_march's routing): None for the leaf fold or the lattice
+    collapse, else "margin" (the margin walk, iters >= 5), "vbound" (the
+    value-bound walk of the winner folds, iters 4 while the subtree flag
+    holds) or "collapsed" (the value folds' per-subtree collapse, iters 4
+    with no lattice while the flag holds)."""
+    from ..tables import SUBTREE_COLLAPSES, SUBTREE_WALK
+
+    flags = blk[0]
+    if gi in layout.blocks or not flags & SUBTREE_WALK:
+        return None
+    value = not (with_idx or with_grad)
+    if value and has_lattice:
+        return None
+    if flags & SUBTREE_COLLAPSES:
+        return ("collapsed" if value else "vbound") if sub_ok else None
+    return "margin"
+
+
+@functools.lru_cache(maxsize=8)
+def _menger_offsets_on(device: torch.device) -> torch.Tensor:
+    """[20, 3] float32 Menger cell offsets on ``device`` (cached, shared)."""
+    from ..scene.generators import _MENGER_OFFSETS
+    return torch.tensor(_MENGER_OFFSETS, dtype=torch.float32, device=device)
+
+
+def _subtree_walk(seg, blk, tables: SceneTables, p, carry, kept, route,
+                  winner: bool, tally):
+    """D4's walks over the carve of a deep-sponge group (the columns of
+    ``seg`` from its root row), from the carry of its base leaves, at the
+    points ``kept`` by the group's base-bound cull
+    (pallas_march._menger_subtree_fold, _menger_level2_walk,
+    _menger_subtree_vbound_fold, _menger_subtree_collapsed): the level-0
+    cross, then the 20 level-1 subtrees, each skipped where the median of
+    its cell's margin excesses reaches the running value; in "vbound" a
+    margin-live subtree is skipped too where its collapsed minimum does (the
+    kernels' collapse is bitwise its leaf minimum while the flag holds); a
+    live subtree folds its root cross, then its 20 child cells behind the
+    margin at their scale.  The walk's items (the level-0 cross, then per
+    subtree its root cross and its cells, or its whole carve without the
+    recursion) fold by ``_walk_fold``.  ``tally``: leaves folded, further
+    operations, cells tested and skipped."""
+    from ..tables import SUBTREE_RECURSES
+
+    flags, root, T, _off_row = blk
+    n = seg.shape[0]
+    f32 = dict(dtype=p.dtype, device=p.device)
+    nk = kept.sum()
+    tally[0] += nk
+    sub = seg[:, 2:2 + 20 * T].reshape(n, 20, T)
+    if route == "collapsed":
+        tally[1] += nk * 20 * OPS_SUBTREE_COLLAPSE
+        m, k = seg[:, 1:2 + 20 * T].min(dim=1)
+        v, kk, _ = _walk_fold(m[:, None], (k + 1)[:, None],
+                              torch.where(kept, float("-inf"),
+                                          float("inf"))[:, None],
+                              carry, winner)
+        return (v, kk) if winner else v
+
+    def bound(centres, margin):
+        """[N, C] medians of the margin excesses of cells at ``centres``
+        [C, 3]."""
+        e = (p[:, None, :] - centres[None]).abs() - margin
+        return med3(e[..., 0], e[..., 1], e[..., 2])
+
+    offs = _menger_offsets_on(p.device)
+    s = tables.prim_aux[root, 0]
+    # float32 products with float32(1/3) and float32(2/9), as the kernels'
+    third = s * (1.0 / 3.0)
+    ninth = third * (1.0 / 3.0)
+    centre1 = tables.prim_pos[root][None] + offs * third          # [20, 3]
+    lb1 = bound(centre1, s * (2.0 / 9.0))                         # [N, 20]
+    never = torch.full((n, 1), float("-inf"), **f32)
+    cols = 2 + T * torch.arange(20, device=p.device)
+    if flags & SUBTREE_RECURSES:
+        sub2 = (T - 1) // 20
+        cm, ck = sub[:, :, 1:].reshape(n, 20, 20, sub2).min(dim=3)
+        centre2 = centre1[:, None] + offs[None] * ninth           # [20, 20, 3]
+        lb2 = bound(centre2.reshape(-1, 3), third * (2.0 / 9.0)).reshape(
+            n, 20, 20)
+        m = torch.cat([sub[:, :, :1], cm], dim=2)                 # [N, 20, 21]
+        k = torch.cat([torch.zeros_like(ck[:, :, :1]),
+                       1 + sub2 * torch.arange(20, device=p.device) + ck],
+                      dim=2) + cols[None, :, None]
+        per = 21
+    else:
+        m, k = sub.min(dim=2)
+        m, k = m[:, :, None], (k + cols[None, :])[:, :, None]
+        per = 1
+    # the items in walk order, and the running value before each one
+    items = torch.cat([seg[:, 1:2], m.reshape(n, -1)], dim=1)
+    v0 = carry[0] if winner else carry
+    prefix = torch.cat([v0[:, None], items[:, :-1]], dim=1).cummin(
+        dim=1).values[:, 1:].reshape(n, 20, per)
+    dead1 = lb1 >= prefix[:, :, 0]                 # level-1 margin
+    live1 = kept[:, None] & ~dead1
+    tally[2] += 20 * nk
+    tally[3] += 20 * nk - live1.sum()
+    if route == "vbound":
+        nl = live1.sum()
+        tally[1] += nl * OPS_SUBTREE_COLLAPSE
+        dead1 = dead1 | (sub.min(dim=2).values >= prefix[:, :, 0])
+        live1 = kept[:, None] & ~dead1
+        tally[2] += nl
+        tally[3] += nl - live1.sum()
+    skip = dead1[:, :, None].expand(n, 20, per).clone()
+    tally[0] += live1.sum() * (1 if per == 21 else T)
+    if per == 21:
+        dead2 = lb2 >= prefix[:, :, 1:]
+        live2 = live1[:, :, None] & ~dead2
+        tally[2] += 20 * live1.sum()
+        tally[3] += 20 * live1.sum() - live2.sum()
+        tally[0] += live2.sum() * sub2
+        skip[:, :, 1:] |= dead2
+    lb = torch.where(skip.reshape(n, -1), float("inf"), float("-inf"))
+    lb = torch.where(kept[:, None], torch.cat([never, lb], dim=1),
+                     float("inf"))
+    v, kk, _ = _walk_fold(items, torch.cat(
+        [torch.ones_like(k[:, :1, 0]), k.reshape(n, -1)], dim=1), lb, carry,
+        winner)
+    return (v, kk) if winner else v
+
+
 def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
-                       with_grad, collapse, fused=False):
-    from ..tables import is_cullable
+                       with_grad, collapse, fused=False, cull=None):
+    from ..tables import collapses, is_cullable
 
     kp: KernelPlan = plan.kernel
-    layout = _fold_layout(kp, collapse, fused)
+    layout = _fold_layout(kp, collapse, fused, winner=with_grad)
     blocks, carves = layout.blocks, layout.carves
     carve_grads = []
     leaf = leaf_sd(plan, tables, p, layout.leaves)
@@ -599,11 +906,42 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
     ridx = torch.full((n,), -1, dtype=torch.int32, device=p.device)
     counted = torch.zeros((), dtype=torch.int64, device=p.device)
     collapsed = torch.zeros((), dtype=torch.int64, device=p.device)
+    # chunks tested and skipped, cells tested and skipped
+    tests = [torch.zeros((), dtype=torch.int64, device=p.device)
+             for _ in range(4)]
+    winner = with_idx or with_grad
     for gi, g in enumerate(kp.groups):
         first, folded = layout.first[gi], layout.folded[gi]
         scales = torch.as_tensor(np.asarray(g.scales[:folded], np.float32),
                                  device=p.device)
         seg = leaf[:, first:first + folded] * scales
+        blk = cull.blocks.get(gi) if cull is not None else None
+        if blk is not None and g.bvh is not None:
+            tally = [counted, tests[0], tests[1]]
+            running, ridx = _chunk_group(seg, g, blk, cull, p, running,
+                                         ridx, not winner, winner, tally)
+            counted, tests[0], tests[1] = tally
+            continue
+        route = None if blk is None else _subtree_route(
+            gi, blk, layout, collapses(kp, g), with_idx, with_grad,
+            cull.sub_ok)
+        if route is not None:
+            nb = _base_leaves(g)
+            base = seg[:, :nb].min(dim=1)
+            carry = tuple(base) if winner else base.values
+            kept = ~(-base.values >= running)
+            tally = [counted + n * nb, collapsed, tests[2], tests[3]]
+            carry = _subtree_walk(seg, blk, tables, p, carry, kept, route,
+                                  winner, tally)
+            counted, collapsed, tests[2], tests[3] = tally
+            gmin, k = carry if winner else (carry, None)
+            v = rsign * (float(g.gsign) * gmin)
+            better = v < running
+            running = torch.where(better, v, running)
+            if winner:
+                ridx = torch.where(better, (k + g.start).to(torch.int32),
+                                   ridx)
+            continue
         if LeafCount._open:
             cullable = is_cullable(kp, g) or gi in carves
             nb = _base_leaves(g) if cullable else g.count
@@ -650,7 +988,7 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
         running = torch.where(better, v, running)
         if with_idx or with_grad:
             ridx = torch.where(better, k.to(torch.int32), ridx)
-    _count(plan, n, counted, collapsed, ridx if with_grad else None)
+    _count(plan, n, counted, collapsed, ridx if with_grad else None, tests)
     if not with_grad:
         return rsign * running, ridx
     g = _winner_gradient(plan, tables, p, ridx)
@@ -660,19 +998,27 @@ def _kernel_fold_block(plan: ScenePlan, tables: SceneTables, p, with_idx,
     return rsign * running, ridx, g
 
 
-def _count(plan: ScenePlan, n: int, counted, collapsed, ridx) -> None:
+def _count(plan: ScenePlan, n: int, counted, collapsed, ridx,
+           tests=None) -> None:
     """Hand one fold's leaf evaluations and further operations to every
     open LeafCount; with the winners ``ridx`` of a gradient fold, a
-    procedural winner's gradient sweep too."""
+    procedural winner's gradient sweep too; ``tests``: the chunks and
+    cells tested and skipped, whose tests add their operations."""
     if not LeafCount._open:
         return
     if ridx is not None:
         for (leaf, kind, _, iters) in plan.proc:
             collapsed = collapsed + (ridx == leaf).sum() * grad_ops(kind,
                                                                    iters)
+    if tests is not None:
+        tests = torch.stack(tests)
+        collapsed = (collapsed + OPS_PER_CHUNK_TEST * tests[0]
+                     + OPS_PER_CELL_TEST * tests[2])
     for c in LeafCount._open:
         c._leaves.append(counted)
         c._collapsed.append(collapsed)
+        if tests is not None:
+            c._tests.append(tests)
         c.points += n
 
 
@@ -778,7 +1124,8 @@ def _deep_fold_block(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
 
 def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
                 with_idx: bool = False, *, with_grad: bool = False,
-                collapse: bool = True, fused: bool = False) -> tuple:
+                collapse: bool = True, fused: bool = False,
+                cull: Optional[bool] = None) -> tuple:
     """The two-level kernel-form fold at p [..., 3] -> (sd [...], winner
     leaf id [...] int32, -1 where nothing won; None unless ``with_idx``),
     or with ``with_grad`` (sd, winner, d scene / dp [..., 3], zero where
@@ -795,7 +1142,8 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     tie between crosses may be another member of the tie class than the
     leaf fold's.  The colour winner (``with_idx``) stays leaf by leaf, as
     the kernels' does.  The collapse and the DIFFERENCE base-bound cull
-    leave every value unchanged, so the twin applies no cull.
+    leave every value unchanged, so the twin applies no base-bound cull
+    (``LeafCount`` counts it).
 
     With ``fused`` the fold is the kernels' fused generator field (the
     fused packing of ``tables.pack_plan``): a generator group is max(base,
@@ -803,12 +1151,24 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
     under the DeathStar's square root, as in the kernels); its colour
     winner is the base leaf, and in the ``with_grad`` fold a carve that
     wins reports the extended winner id P + ordinal
-    (``_scene_sd_idx_grad_tile``) with the carve's gradient, negated."""
+    (``_scene_sd_idx_grad_tile``) with the carve's gradient, negated.
+
+    With ``cull`` (default ``CULL``) the fold takes the kernels' culls
+    of D5 and D4 in their walk order (see the module docstring): the same
+    values and winners, the kernels' skip decisions and counts.  A
+    sponge too wide for the winner collapse (iters 4) takes, in the
+    ``with_idx`` and ``with_grad`` folds, the value-bound subtree walk
+    while ``tables.subtree_collapse_ok`` holds, else the leaf fold: its
+    ``with_grad`` winner is the leaf fold's first-wins winner."""
+    if cull is None:
+        cull = CULL
     if plan.kernel is None:
         out = _blocked(lambda q: _deep_fold_block(plan, tables, q, with_idx,
                                                   with_grad),
                        plan.num_primitives, p)
         return out if with_grad else (out[0], out[1] if with_idx else None)
+    ctx = (_cull_context(plan.kernel, tables, fused, collapse) if cull
+           else None)
     if collapse:
         from ..tables import lattice_ok
 
@@ -817,11 +1177,12 @@ def kernel_fold(plan: ScenePlan, tables: SceneTables, p: torch.Tensor,
         collapse = (with_grad or not with_idx) and bool(flag)
     # the collapsed crosses leave the leaf matrix; a level's columns (its
     # two axis excesses) are the widest tensors then
-    layout = _fold_layout(plan.kernel, collapse, fused)
+    layout = _fold_layout(plan.kernel, collapse, fused, winner=with_grad)
     width = sum(layout.folded) + 2 * max(
         (b.widest for b in layout.blocks.values()), default=0)
     out = _blocked(lambda q: _kernel_fold_block(plan, tables, q, with_idx,
-                                                with_grad, collapse, fused),
+                                                with_grad, collapse, fused,
+                                                ctx),
                    width, p)
     if with_grad:
         return out

@@ -81,6 +81,7 @@
 
 #include <cstring>
 #include <limits>
+#include <type_traits>
 
 #include "proc.cuh"
 
@@ -112,6 +113,7 @@ struct SceneArgs {
 // The scene in device memory, read through the read-only cache.
 struct DeviceScene {
   static constexpr bool kStaged = false;
+  static constexpr bool kCull = false;
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
   static constexpr bool kDeep = false;
@@ -142,6 +144,7 @@ struct DeviceScene {
 // so every read compiles to a shared-memory load.
 struct SharedScene {
   static constexpr bool kStaged = true;   // sizes halved, stream resolved
+  static constexpr bool kCull = false;
   static constexpr bool kFused = false;
   static constexpr bool kProc = false;
   static constexpr bool kDeep = false;
@@ -219,6 +222,22 @@ struct DeepSpill : Deep<S> {
       : Deep<S>(s),
         spill(reinterpret_cast<unsigned*>(const_cast<int*>(buf)) +
               kSpillHeader) {}
+};
+
+// A scene view whose plan takes a cull of D5 or D4 (tables.PackedPlan.cull):
+// the folds take the group's cull block (chunk_fold, menger_walk, below),
+// read the subtree flag from the flag operand's second word, and take
+// procedural runs and kGroupFused groups, in either packing, as Proc<S>
+// does.  Only such plans take it, so every other view compiles as before.
+template <class S>
+struct Cull : S {
+  using Base = S;
+  static constexpr bool kFused = true;
+  static constexpr bool kProc = true;
+  static constexpr bool kCull = true;
+  bool subtree_ok;   // tables.subtree_collapse_ok
+  __device__ __forceinline__ Cull(const S& s, const int* flag)
+      : S(s), subtree_ok(__ldg(flag + 1) != 0) {}
 };
 
 // SceneArgs from a C entry point's leading arguments.
@@ -1000,6 +1019,346 @@ __device__ __forceinline__ W deep_sd_idx_spill(const S& s, float px,
   return acc.get(0, 0);
 }
 
+// The culls of pallas_march's D5 and D4, in the Cull<S> view only: what a
+// group's cull block (tables.cull_blocks; its offset at stream entry
+// n_groups + gi, 0 for none) describes.  Each skip is exact (a skipped
+// chunk or cell cannot win a strict-< selection, so neither the value nor
+// the winner changes) and is taken per lane, as the DIFFERENCE cull is:
+// the warp folds what any of its lanes needs, and the other lanes wait.
+//
+// D5, the wide-UNION chunk cull (_bvh_group_fold).  A chunked group (gsign
+// +1 under a MIN root) folds straight into the root's running value, its
+// runs in run order; a chunked run's 32-leaf chunks each behind its live
+// bounding box (tables.cull_rows), lb = max_a(|p_a - c_a| - h_a) <= every
+// member's distance: skipped when lb reaches the running value.  The value
+// folds walk a run's uniform chunks nearest the camera first (the order
+// rows), so the running value tightens early; the winner folds keep leaf
+// order, for first-wins ties.
+//
+// D4, the deep-sponge culls (_menger_subtree_fold, _menger_level2_walk,
+// _menger_subtree_vbound_fold, _subtree_collapse_eval,
+// _menger_subtree_collapsed), over a cullable sponge's carve: after the
+// level-0 cross, each of the 20 level-1 subtrees behind the median of its
+// cell's margin excesses, med3(|p - o_j| - 2s/9) (the cell's half s/6 plus
+// the largest member's half s/18); a live subtree's root cross, then its 20
+// child cells behind the same bound a scale down.  The value-bound walk of
+// the winner folds (iters 4, while the subtree flag holds) also skips a
+// margin-live subtree whose collapsed minimum reaches the running value.
+// The value folds of an iters-4 sponge with no lattice take each subtree's
+// two-level collapse instead, while the flag holds.  The margin bounds
+// assume tables within JAX's drift envelope (each member row within s/18
+// of its generated cell at level 1, s/54 at level 2; the subtree flag
+// certifies s/72 where it gates): generated tables sit on the lattice to
+// the ulp.
+constexpr int kSubtreeWalk = 1, kSubtreeCollapses = 2, kSubtreeRecurses = 4,
+              kWinnerLeafFold = 8;   // tables.SUBTREE_WALK and its kin
+// float32 of 1/3 and 2/9, as JAX's s * (1.0 / 3.0) rounds them
+constexpr float kThird = static_cast<float>(1.0 / 3.0);
+constexpr float kTwoNinths = static_cast<float>(2.0 / 9.0);
+
+// The offset on axis a of Menger cell j (generators._MENGER_OFFSETS): two
+// bits a cell, the offset + 1.
+__device__ __forceinline__ float menger_offset(int j, int a) {
+  const unsigned long long bits =
+      a == 0 ? 0x8881868186ull : (a == 1 ? 0xa05a805a80ull : 0x55aaaa0000ull);
+  return static_cast<float>(static_cast<int>((bits >> (2 * j)) & 3ull) - 1);
+}
+
+// The running value of a fold's carry: a value, or a winner's.
+__device__ __forceinline__ float carry_sd(float c) { return c; }
+template <class W>
+__device__ __forceinline__ float carry_sd(const W& w) {
+  return w.sd;
+}
+
+// One run folded into a carry: the value fold's min, or the winner fold's
+// strict-< leaf order.
+template <class S, class C>
+__device__ __forceinline__ C fold_carry(const S& s, int4 run, float px,
+                                        float py, float pz, C c) {
+  if constexpr (std::is_same_v<C, float>)
+    return fold_run(s, run, px, py, pz, c);
+  else
+    return fold_run_idx(s, run, px, py, pz, c);
+}
+
+// D5 at one point: the runs of chunked group g, whose cull block is at
+// stream offset `off` (five entries a run: first bound row, chunk count, 0
+// for a run not chunked, chunk length, uniform prefix, first order row or
+// -1), folded into c; kOrdered: the value folds' nearest-first walk.
+template <bool kOrdered, class S, class C>
+__device__ __forceinline__ C chunk_fold(const S& s, int4 g, int off,
+                                        float px, float py, float pz, C c) {
+  for (int k = g.y; k < g.y + g.z; ++k, off += 5) {
+    const int4 run = s.run(k);
+    const int n_chunks = s.stream(off + 1);
+    if (n_chunks == 0) {
+      c = fold_carry(s, run, px, py, pz, c);
+      continue;
+    }
+    const int brow = s.stream(off), len = s.stream(off + 2);
+    const int uni = s.stream(off + 3), obase = s.stream(off + 4);
+    for (int q = 0; q < n_chunks; ++q) {
+      int o = q;
+      if (kOrdered && obase >= 0 && q < uni)
+        o = static_cast<int>(s.coord(8 * (obase + q)));
+      const float4 a = s.row(2 * (brow + o)), b = s.row(2 * (brow + o) + 1);
+      const float lb = fmaxf(fmaxf(fabsf(px - a.x) - a.w, fabsf(py - a.y) - b.x),
+                             fabsf(pz - a.z) - b.y);
+      if (lb >= carry_sd(c)) continue;
+      const int start = run.y + o * len;
+      c = fold_carry(s,
+                     make_int4(run.x, start, min(len, run.y + run.z - start),
+                               run.w),
+                     px, py, pz, c);
+    }
+  }
+  return c;
+}
+
+// D5 at N points: a chunk is skipped when every point may skip it; else all
+// N fold it and a point that could skip keeps its value by a select.
+template <int N, class S>
+__device__ __forceinline__ void chunk_fold_n(const S& s, int4 g, int off,
+                                             const Points<N>& p,
+                                             float (&c)[N]) {
+  for (int k = g.y; k < g.y + g.z; ++k, off += 5) {
+    const int4 run = s.run(k);
+    const int n_chunks = s.stream(off + 1);
+    if (n_chunks == 0) {
+      fold_run_n(s, run, p, c);
+      continue;
+    }
+    const int brow = s.stream(off), len = s.stream(off + 2);
+    const int uni = s.stream(off + 3), obase = s.stream(off + 4);
+    for (int q = 0; q < n_chunks; ++q) {
+      const int o =
+          obase >= 0 && q < uni ? static_cast<int>(s.coord(8 * (obase + q)))
+                                : q;
+      const float4 a = s.row(2 * (brow + o)), b = s.row(2 * (brow + o) + 1);
+      bool keep[N];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float lb =
+            fmaxf(fmaxf(fabsf(p.x[j] - a.x) - a.w, fabsf(p.y[j] - a.y) - b.x),
+                  fabsf(p.z[j] - a.z) - b.y);
+        keep[j] = !(lb >= c[j]);
+        any = any || keep[j];
+      }
+      if (!any) continue;
+      const int start = run.y + o * len;
+      float t[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) t[j] = c[j];
+      fold_run_n(s,
+                 make_int4(run.x, start, min(len, run.y + run.z - start),
+                           run.w),
+                 p, t);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (keep[j]) c[j] = t[j];
+    }
+  }
+}
+
+// The median of a Menger cell's margin excesses: a lower bound of every
+// cross of its subtree.
+__device__ __forceinline__ float cell_bound(float ox, float oy, float oz,
+                                            float margin, float px, float py,
+                                            float pz) {
+  return med3(fabsf(px - ox) - margin, fabsf(py - oy) - margin,
+              fabsf(pz - oz) - margin);
+}
+
+// min(c, every carve cross of the level-1 subtree rooted at row b0) of an
+// iters-4 sponge (_subtree_collapse_eval): its root cross, then levels 2
+// (20 crosses, 8 (y, z) columns) and 3 (400 crosses, 64 pairs of columns)
+// by the lattice collapse's argument, the axis excesses read from
+// representative rows (the first child at each offset: x 2, 1, 0; y 0, 6,
+// 3; z 0, 16, 8 for -1, 0, 1) and the x minima factored over the x-sets E =
+// {-1, 1} and F = {-1, 0, 1}.  Bitwise the leaf fold's minimum while the
+// subtree flag holds.  Not inlined: its ~500 unrolled operations would
+// otherwise be copied into every walk and every point of scene_sd_n.
+template <class S>
+__device__ __noinline__ float subtree_collapse(const S s, int b0, float px,
+                                               float py, float pz,
+                                               float c) {
+  c = fminf(c, leaf_sd<kCross>(s, b0, px, py, pz));
+  const int rep[3][3] = {{2, 1, 0}, {0, 6, 3}, {0, 16, 8}};
+  const float p[3] = {px, py, pz};
+  const float3 h2 = half_size(s, b0 + 1), h3 = half_size(s, b0 + 2);
+  const float hh2[3] = {h2.x, h2.y, h2.z}, hh3[3] = {h3.x, h3.y, h3.z};
+  float b2[3][3], b3[3][3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int r2 = b0 + 1 + rep[a][u] * 21;
+      b2[a][u] = fabsf(p[a] - s.coord(8 * r2 + a)) - hh2[a];
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        b3[a][u][v] = fabsf(p[a] - s.coord(8 * (r2 + 1 + rep[a][v]) + a)) -
+                      hh3[a];
+    }
+  }
+  // the (y, z) columns of the 20 offsets (index offset + 1) and whether
+  // their x-set is F
+  const int cy[8] = {0, 2, 1, 0, 2, 1, 0, 2}, cz[8] = {0, 0, 0, 2, 2, 2, 1, 1};
+  const bool cf[8] = {true, true, false, true, true, false, false, false};
+  const float mE2 = fminf(b2[0][0], b2[0][2]);
+  const float mF2 = fminf(mE2, b2[0][1]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    c = fminf(c, med3(cf[i] ? mF2 : mE2, b2[1][cy[i]], b2[2][cz[i]]));
+  const float(&x3)[3][3] = b3[0];
+  const float mEE = fminf(fminf(x3[0][0], x3[0][2]), fminf(x3[2][0], x3[2][2]));
+  const float mEF = fminf(mEE, fminf(x3[0][1], x3[2][1]));
+  const float m0E = fminf(x3[1][0], x3[1][2]);
+  const float mFE = fminf(mEE, m0E);
+  const float mFF = fminf(mEF, fminf(m0E, x3[1][1]));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float mx = cf[i] ? (cf[k] ? mFF : mFE) : (cf[k] ? mEF : mEE);
+      c = fminf(c, med3(mx, b3[1][cy[i]][cy[k]], b3[2][cz[i]][cz[k]]));
+    }
+  }
+  return c;
+}
+
+// D4 at one point over the carve of the sponge whose cull block is at
+// stream offset `off` (flags, root row, crosses a subtree, first offset
+// row), from carry c after its base leaves: the margin walk, or with
+// kVbound the value-bound walk (iters 4, the winner folds).
+template <bool kVbound, class S, class C>
+__device__ C menger_walk(const S& s, int off, float px, float py, float pz,
+                         C c) {
+  const int flags = s.stream(off), root = s.stream(off + 1);
+  const int T = s.stream(off + 2), off_row = s.stream(off + 3);
+  c = fold_carry(s, make_int4(kCross, root + 1, 1, 1), px, py, pz, c);
+  const float4 a = s.row(2 * root);
+  const float size = base_size(s, a);
+  const float third = size * kThird, margin = size * kTwoNinths;
+  const float ninth = third * kThird, margin2 = third * kTwoNinths;
+  const int sub2 = (T - 1) / 20;
+  for (int j = 0; j < 20; ++j) {
+    const float ox = a.x + menger_offset(j, 0) * third;
+    const float oy = a.y + menger_offset(j, 1) * third;
+    const float oz = a.z + menger_offset(j, 2) * third;
+    if (cell_bound(ox, oy, oz, margin, px, py, pz) >= carry_sd(c)) continue;
+    const int b0 = root + 2 + j * T;
+    if (kVbound &&
+        subtree_collapse(s, b0, px, py, pz, kInf) >= carry_sd(c))
+      continue;
+    if (!(flags & kSubtreeRecurses)) {
+      c = fold_carry(s, make_int4(kCross, b0, T, 1), px, py, pz, c);
+      continue;
+    }
+    c = fold_carry(s, make_int4(kCross, b0, 1, 1), px, py, pz, c);
+    for (int k = 0; k < 20; ++k) {
+      const int r = 8 * (off_row + k);
+      const float ox2 = ox + s.coord(r) * ninth;
+      const float oy2 = oy + s.coord(r + 1) * ninth;
+      const float oz2 = oz + s.coord(r + 2) * ninth;
+      if (cell_bound(ox2, oy2, oz2, margin2, px, py, pz) >= carry_sd(c))
+        continue;
+      c = fold_carry(s, make_int4(kCross, b0 + 1 + k * sub2, sub2, 1), px,
+                     py, pz, c);
+    }
+  }
+  return c;
+}
+
+// The value folds' carve of an iters-4 sponge with no lattice
+// (_menger_subtree_collapsed): the level-0 cross, then every subtree's
+// two-level collapse, no test.
+template <class S>
+__device__ __forceinline__ float subtree_collapsed(const S& s, int off,
+                                                   float px, float py,
+                                                   float pz, float c) {
+  const int root = s.stream(off + 1), T = s.stream(off + 2);
+  c = fminf(c, leaf_sd<kCross>(s, root + 1, px, py, pz));
+  for (int j = 0; j < 20; ++j)
+    c = subtree_collapse(s, root + 2 + j * T, px, py, pz, c);
+  return c;
+}
+
+// menger_walk's margin walk at N points: a cell is skipped when every
+// point may skip it; else all N fold it and a point that could skip keeps
+// its value by a select.
+template <int N, class S>
+__device__ void menger_walk_n(const S& s, int off, const Points<N>& p,
+                              float (&c)[N]) {
+  const int flags = s.stream(off), root = s.stream(off + 1);
+  const int T = s.stream(off + 2), off_row = s.stream(off + 3);
+  fold_span_n<kCross>(s, make_int4(kCross, root + 1, 1, 1), p, c);
+  const float4 a = s.row(2 * root);
+  const float size = base_size(s, a);
+  const float third = size * kThird, margin = size * kTwoNinths;
+  const float ninth = third * kThird, margin2 = third * kTwoNinths;
+  const int sub2 = (T - 1) / 20;
+  for (int j = 0; j < 20; ++j) {
+    const float ox = a.x + menger_offset(j, 0) * third;
+    const float oy = a.y + menger_offset(j, 1) * third;
+    const float oz = a.z + menger_offset(j, 2) * third;
+    bool keep[N];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      keep[i] = !(cell_bound(ox, oy, oz, margin, p.x[i], p.y[i], p.z[i]) >=
+                  c[i]);
+      any = any || keep[i];
+    }
+    if (!any) continue;
+    const int b0 = root + 2 + j * T;
+    float t[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) t[i] = c[i];
+    if (!(flags & kSubtreeRecurses)) {
+      fold_span_n<kCross>(s, make_int4(kCross, b0, T, 1), p, t);
+    } else {
+      fold_span_n<kCross>(s, make_int4(kCross, b0, 1, 1), p, t);
+      for (int k = 0; k < 20; ++k) {
+        const int r = 8 * (off_row + k);
+        const float ox2 = ox + s.coord(r) * ninth;
+        const float oy2 = oy + s.coord(r + 1) * ninth;
+        const float oz2 = oz + s.coord(r + 2) * ninth;
+        bool keep2[N];
+        bool any2 = false;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          keep2[i] = !(cell_bound(ox2, oy2, oz2, margin2, p.x[i], p.y[i],
+                                  p.z[i]) >= t[i]);
+          any2 = any2 || keep2[i];
+        }
+        if (!any2) continue;
+        float u[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) u[i] = t[i];
+        fold_span_n<kCross>(s, make_int4(kCross, b0 + 1 + k * sub2, sub2, 1),
+                            p, u);
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          if (keep2[i]) t[i] = u[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (keep[i]) c[i] = t[i];
+  }
+}
+
+// The cull block of group gi, or 0 (a view without the culls has none).
+template <class S>
+__device__ __forceinline__ int cull_block(const S& s, int gi) {
+  if constexpr (S::kCull)
+    return s.stream(s.n_groups + gi);
+  else
+    return 0;
+}
+
 // Scene SDF: the two-level fold of pallas_march._scene_sd_tile.  A cullable
 // (DIFFERENCE) group first folds its base runs (scale -1, always leading);
 // its value max(base, -carve...) is at least -gmin of the base, so when that
@@ -1022,6 +1381,13 @@ __device__ __noinline__ float scene_sd(const S s, float px, float py,
       const int end = g.y + g.z;
       int k = g.y;
       float gmin = kInf;
+      const int cull = cull_block(s, gi);
+      if constexpr (S::kCull) {
+        if (cull != 0 && g.w == 0) {   // chunked: straight into the root
+          running = chunk_fold<true>(s, g, cull, px, py, pz, running);
+          continue;
+        }
+      }
       if (g.w) {
         for (; k < end; ++k) {
           const int4 run = s.run(k);
@@ -1037,6 +1403,20 @@ __device__ __noinline__ float scene_sd(const S s, float px, float py,
         if (block != 0) {
           gmin = fminf(gmin, lattice_carve(s, block, px, py, pz));
           k = end;
+        } else if constexpr (S::kCull) {
+          // a sponge with no lattice: the margin walk, or iters 4's
+          // subtree collapse while the flag holds
+          const int flags = cull != 0 && s.stream(gi) == 0 ? s.stream(cull)
+                                                            : 0;
+          if (flags & kSubtreeWalk) {
+            if (!(flags & kSubtreeCollapses)) {
+              gmin = menger_walk<false>(s, cull, px, py, pz, gmin);
+              k = end;
+            } else if (s.subtree_ok) {
+              gmin = subtree_collapsed(s, cull, px, py, pz, gmin);
+              k = end;
+            }
+          }
         }
       }
       for (; k < end; ++k) gmin = fold_run(s, s.run(k), px, py, pz, gmin);
@@ -1085,6 +1465,13 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
         gmin[j] = kInf;
         keep[j] = true;
       }
+      const int cull = cull_block(s, gi);
+      if constexpr (S::kCull) {
+        if (cull != 0 && g.w == 0) {   // chunked: straight into the root
+          chunk_fold_n(s, g, cull, p, running);
+          continue;
+        }
+      }
       if (g.w) {
         for (; k < end; ++k) {
           const int4 run = s.run(k);
@@ -1111,6 +1498,21 @@ __device__ __noinline__ Fold<N> scene_sd_n(const S s, const Points<N> p) {
         if (block != 0) {
           lattice_carve_n(s, block, p, gmin);
           k = end;
+        } else if constexpr (S::kCull) {
+          const int flags = cull != 0 && s.stream(gi) == 0 ? s.stream(cull)
+                                                            : 0;
+          if (flags & kSubtreeWalk) {
+            if (!(flags & kSubtreeCollapses)) {
+              menger_walk_n(s, cull, p, gmin);
+              k = end;
+            } else if (s.subtree_ok) {
+#pragma unroll
+              for (int j = 0; j < N; ++j)
+                gmin[j] = subtree_collapsed(s, cull, p.x[j], p.y[j], p.z[j],
+                                            gmin[j]);
+              k = end;
+            }
+          }
         }
       }
       for (; k < end; ++k) fold_run_n(s, s.run(k), p, gmin);
@@ -1149,6 +1551,13 @@ __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
       const int end = g.y + g.z;
       int k = g.y;
       W w = make_winner<W>(kInf, -1, 0);
+      const int cull = cull_block(s, gi);
+      if constexpr (S::kCull) {
+        if (cull != 0 && g.w == 0) {   // chunked: straight into the root
+          root = chunk_fold<false>(s, g, cull, px, py, pz, root);
+          continue;
+        }
+      }
       if (g.w) {
         for (; k < end; ++k) {
           const int4 run = s.run(k);
@@ -1170,11 +1579,27 @@ __device__ __noinline__ W scene_sd_idx(const S s, float px, float py,
             }
           }
         }
-        const int block = W::kPath && s.collapse ? s.stream(gi) : 0;
+        int flags = 0;
+        if constexpr (S::kCull) flags = cull != 0 ? s.stream(cull) : 0;
+        const int block = W::kPath && s.collapse && !(flags & kWinnerLeafFold)
+                              ? s.stream(gi)
+                              : 0;
         if (block != 0) {
           const Winner c = lattice_carve_idx(s, block, px, py, pz);
           if (c.sd < w.sd) w = make_winner<W>(c.sd, c.idx, kCross + 1);
           k = end;
+        } else if constexpr (S::kCull) {
+          // the margin walk, or iters 4's value-bound walk while the flag
+          // holds (else the leaf fold)
+          if (flags & kSubtreeWalk) {
+            if (!(flags & kSubtreeCollapses)) {
+              w = menger_walk<false>(s, cull, px, py, pz, w);
+              k = end;
+            } else if (s.subtree_ok) {
+              w = menger_walk<true>(s, cull, px, py, pz, w);
+              k = end;
+            }
+          }
         }
       }
       for (; k < end; ++k) w = fold_run_idx(s, s.run(k), px, py, pz, w);

@@ -117,10 +117,12 @@ __device__ __forceinline__ SharedScene stage_shared(const SceneArgs& a) {
 // deep program is staged as the group descriptors are; its stream is one
 // 0 an instruction, so nothing of it is resolved) or DeepSpill<> (Deep<>
 // with its stack's spill buffer, the tensor behind a.lat_flag, whose
-// first word, the collapse flag, is 0).
+// first word, the collapse flag, is 0) or Cull<> (the flag's second word
+// the subtree flag; the cull rows are not named by a run, so staging
+// halves none of them).
 template <class S>
 __device__ __forceinline__ S stage_scene(const SceneArgs& a) {
-  if constexpr (S::kSpill)
+  if constexpr (S::kSpill || S::kCull)
     return S(stage_scene<typename S::Base>(a), a.lat_flag);
   else if constexpr (S::kStaged)
     return S(stage_shared(a));
@@ -186,7 +188,9 @@ struct View {
 // exact; bit 1 a plan with procedural leaves, Proc<S>, which takes either
 // packing; bit 2 a plan with no two-level form, Deep<S>, whatever the
 // other bits say; bit 3 with bit 2 such a plan nesting more lists than
-// kDeepLevels, DeepSpill<S>) name; returns what f returns.
+// kDeepLevels, DeepSpill<S>; bit 4 a plan with a cull of D5 or D4,
+// Cull<S>, which takes either packing and procedural leaves) name;
+// returns what f returns.
 template <class F>
 inline int on_view(int shared, int view, const F& f) {
   if (view & 8)
@@ -195,6 +199,9 @@ inline int on_view(int shared, int view, const F& f) {
   if (view & 4)
     return shared ? f(View<Deep<SharedScene>>{})
                   : f(View<Deep<DeviceScene>>{});
+  if (view & 16)
+    return shared ? f(View<Cull<SharedScene>>{})
+                  : f(View<Cull<DeviceScene>>{});
   if (view & 2)
     return shared ? f(View<Proc<SharedScene>>{})
                   : f(View<Proc<DeviceScene>>{});

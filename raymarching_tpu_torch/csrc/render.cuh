@@ -68,20 +68,37 @@ struct FarRenderExt {
 // nor waits for them.
 struct Raygen {
   int W, H, k;
+  int bh, bw;           // block order's pixel block, or 0, 0: scan order
   float rk, rW, rH;
   const float* cam;
   int64_t base;         // the chunk's first ray of the frame
 };
 
-// Direction of ray i of the chunk (pallas_render._raygen_dirs, scan order:
-// the same products with reciprocals, z = -1 so the norm's z^2 is 1).
+// Whether (bh, bw) is scan order (0, 0) or a pixel block that tiles a W x
+// H frame.
+inline bool valid_block(int W, int H, int bh, int bw) {
+  if (bh == 0 && bw == 0) return true;
+  return bh > 0 && bw > 0 && H % bh == 0 && W % bw == 0;
+}
+
+// Direction of ray i of the chunk (pallas_render._raygen_dirs: the same
+// products with reciprocals, z = -1 so the norm's z^2 is 1).  The ray
+// index names a pixel and sample in scan order, or with bh, bw in block
+// order (core.order.to_blocked: bh x bw pixel blocks, block-row major,
+// the JAX kernel's `bh, bw` arm).
 __device__ __forceinline__ float3 raygen_dir(const Raygen& G, unsigned i) {
   const float* c = G.cam;
   const int64_t r = G.base + i;
   const int64_t S = static_cast<int64_t>(G.k) * G.k;
   const int64_t s = r % S, t1 = r / S;
-  const float px = static_cast<float>(t1 % G.W);
-  const float py = static_cast<float>(t1 / G.W);
+  int64_t pxi = t1 % G.W, pyi = t1 / G.W;
+  if (G.bh) {
+    const int64_t gw = G.W / G.bw, t2 = t1 / G.bw, t3 = t2 / G.bh;
+    pxi = (t3 % gw) * G.bw + t1 % G.bw;
+    pyi = (t3 / gw) * G.bh + t2 % G.bh;
+  }
+  const float px = static_cast<float>(pxi);
+  const float py = static_cast<float>(pyi);
   const float si = static_cast<float>(s / G.k);
   const float sj = static_cast<float>(s % G.k);
   const float u = (px + (si + 1.0f) * G.rk) * G.rW;

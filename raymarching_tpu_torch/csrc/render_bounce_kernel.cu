@@ -100,8 +100,8 @@ int occupancy(int analytic, int raygen, unsigned smem, int* per_sm) {
 // Launch K1's bounce entry on `stream` over R rays with `bounces` >= 0
 // mirror bounces: rt_render_rays_ext's arguments up to ao_delta, then the
 // bounce count, then `raygen`: nonzero takes rays base..base + R - 1 of a
-// W x H frame at SSAA k x k with rt_render_raygen's camera arguments (rk,
-// rW, rH, cam) and ignores org, ox, oy, oz and dirs; zero takes those
+// W x H frame at SSAA k x k with rt_render_raygen's camera arguments (bh,
+// bw, rk, rW, rH, cam) and ignores org, ox, oy, oz and dirs; zero takes those
 // (org [3][R] or null for the shared origin (ox, oy, oz), dirs [3][R])
 // and ignores the camera.  Outputs, one set of rows for the primary hit
 // and one a bounce (render.cuh's bounce_ray): out [(1 + bounces)][5][R],
@@ -116,7 +116,7 @@ extern "C" int rt_render_bounce(
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, float soft_k, int colored, float ao_strength, int ao_samples,
     const float* ao_d, double ao_delta, int bounces, int raygen, int W,
-    int H, int k,
+    int H, int k, int bh, int bw,
     float rk, float rW, float rH, const void* cam, int64_t base,
     const void* org, float ox, float oy, float oz, const void* dirs,
     void* out, void* iout, void* light, void* sfac, void* aofac,
@@ -125,7 +125,8 @@ extern "C" int rt_render_bounce(
       ao_samples < 0 || light == nullptr ||
       (soft_k > 0.0f && sfac == nullptr) ||
       (ao_strength > 0.0f && aofac == nullptr) ||
-      (raygen && (W < 1 || H < 1 || k < 1 || base < 0 || cam == nullptr)) ||
+      (raygen && (W < 1 || H < 1 || k < 1 || base < 0 || cam == nullptr ||
+                  !valid_block(W, H, bh, bw))) ||
       (!raygen && dirs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
@@ -143,6 +144,8 @@ extern "C" int rt_render_bounce(
     G.W = W;
     G.H = H;
     G.k = k;
+    G.bh = bh;
+    G.bw = bw;
     G.rk = rk;
     G.rW = rW;
     G.rH = rH;

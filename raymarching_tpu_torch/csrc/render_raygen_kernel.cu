@@ -8,8 +8,11 @@
 // frame in scan order (pixel-major, SSAA sample minor), the layout
 // core.camera.generate_rays gives, and the ray index is an integer (the
 // JAX kernel's float32 index limits a frame to 2^24 rays; this one does
-// not).  The block ray order of the JAX kernel's other branch is not
-// built: the port has no block order.  Forward only, as the JAX path is.
+// not).  With a pixel block (bh, bw) the ray index is in block order
+// instead (core.order.to_blocked, the JAX kernel's `bh, bw` branch, :183-
+// 190): a warp's 32 rays then cover a compact block of pixels, and the
+// wrapper puts the outputs back in scan order.  Forward only, as the JAX
+// path is.
 //
 // Four entries, reference or extended shading times FD or analytic
 // normal, each over the four scene views.  Outputs are render_kernel.cu's
@@ -89,8 +92,9 @@ int occupancy(int analytic, int ext, unsigned smem, int* per_sm) {
 }  // namespace
 
 // Launch K1's raygen entry on `stream` over rays base..base + R - 1 of a
-// W x H frame at SSAA k x k: rt_render_rays' arguments less the origins
-// and the directions, then
+// W x H frame at SSAA k x k, in scan order or, with bh, bw > 0, in block
+// order of bh x bw pixel blocks (core.order.to_blocked; bh | H, bw | W):
+// rt_render_rays' arguments less the origins and the directions, then
 // with `ext` != 0 rt_render_rays_ext's extension switches and outputs
 // (ignored with `ext` == 0: the reference shading, light in out's row 5),
 // then the camera: rk, rW, rH (1/k, 1/W, 1/H as float32) and cam, the
@@ -104,12 +108,12 @@ extern "C" int rt_render_raygen(
     int sat_skip, int iterations, float eps, float off, float saturation,
     float fd_h, int ext, float soft_k, int colored, float ao_strength,
     int ao_samples, const float* ao_d, double ao_delta, int W, int H, int k,
-    float rk,
+    int bh, int bw, float rk,
     float rW, float rH, const void* cam, int64_t base, void* out,
     void* iout, void* wres, void* widx, void* light,
     void* sfac, void* aofac, void* counter, int64_t R, void* stream) {
   if (!valid_launch(R, analytic, wres) || W < 1 || H < 1 || k < 1 ||
-      base < 0 || cam == nullptr ||
+      base < 0 || cam == nullptr || !valid_block(W, H, bh, bw) ||
       (ext && (ao_samples < 0 || light == nullptr ||
                (soft_k > 0.0f && sfac == nullptr) ||
                (ao_strength > 0.0f && aofac == nullptr))))
@@ -128,6 +132,8 @@ extern "C" int rt_render_raygen(
   G.W = W;
   G.H = H;
   G.k = k;
+  G.bh = bh;
+  G.bw = bw;
   G.rk = rk;
   G.rW = rW;
   G.rH = rH;

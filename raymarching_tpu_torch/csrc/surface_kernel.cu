@@ -246,7 +246,8 @@ extern "C" int rt_surface_eval(const void* tbl, const void* groups,
 // [K R], row k of hit i at column k R + i.  `shared` and `counter` as
 // rt_surface_eval takes them; the exact packing only (bit 0 of `view` must
 // be 0: the exact FD backward's entry), with procedural leaves or without,
-// or a deep plan's program (bit 2).
+// a deep plan's program (bit 2), or a plan with a cull of D5 or D4 (bit
+// 4, Cull<S>).
 // Returns a CUDA error code.
 extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
                                   const void* runs, const void* lat,
@@ -279,6 +280,9 @@ extern "C" int rt_surface_stencil(const void* tbl, const void* groups,
   if (view & 4)
     return shared ? launch<kCombined, true, Deep<SharedScene>>(P, st)
                   : launch<kCombined, true, Deep<DeviceScene>>(P, st);
+  if (view & 16)
+    return shared ? launch<kCombined, true, Cull<SharedScene>>(P, st)
+                  : launch<kCombined, true, Cull<DeviceScene>>(P, st);
   if (view & 2)
     return shared ? launch<kCombined, true, Proc<SharedScene>>(P, st)
                   : launch<kCombined, true, Proc<DeviceScene>>(P, st);

@@ -228,11 +228,11 @@ def _library(name: str = "render_kernel") -> ctypes.CDLL:
         fn.argtypes = SHADE_ARGTYPES + EXT_ARGTYPES + rays + [ptr] * 8 + tail
     elif name == "render_bounce_kernel":
         fn = lib.rt_render_bounce
-        fn.argtypes = (SHADE_ARGTYPES + EXT_ARGTYPES + [i32] * 5 + [f32] * 3
+        fn.argtypes = (SHADE_ARGTYPES + EXT_ARGTYPES + [i32] * 7 + [f32] * 3
                        + [ptr, ctypes.c_int64] + rays + [ptr] * 6 + tail)
     else:
         fn = lib.rt_render_raygen
-        fn.argtypes = (SHADE_ARGTYPES + [i32] + EXT_ARGTYPES + [i32] * 3
+        fn.argtypes = (SHADE_ARGTYPES + [i32] + EXT_ARGTYPES + [i32] * 5
                        + [f32] * 3 + [ptr, ctypes.c_int64] + [ptr] * 8
                        + tail)
     fn.restype = i32
@@ -303,7 +303,7 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     rays = (ptr_or_none(org_soa), *o3, dirs_soa.data_ptr())
     if B:
         res = _bounce_launch(plan, cfg, tables, dev, R, collapse, analytic,
-                             B, (0,) * 4 + (0.0,) * 3 + (None, 0), rays)
+                             B, (0,) * 6 + (0.0,) * 3 + (None, 0), rays)
         if R:    # the C entry point launches nothing for zero rays
             render_rays.launches += 1
             render_rays.entry_launches["render_bounce_kernel"] += 1
@@ -406,11 +406,13 @@ def _outputs(cfg, out, iout, light, wres, widx, factors, save_winner,
 def render_raygen_plain(plan: ScenePlan, cfg: RenderConfig,
                         tables: SceneTables, base: int, n: int,
                         collapse: bool = True, save_winner: bool = False,
-                        save_factors: bool = False):
+                        save_factors: bool = False, block: tuple = (0, 0)):
     """K1's raygen entry in plain PyTorch: the directions of rays base ..
-    base + n - 1 of the frame by ``core.camera.raygen_dirs``, then K1's
-    plain twin on them from the camera position."""
-    dirs = cam.raygen_dirs(cam.serve_cam_rows(tables, cfg), cfg, base, n)
+    base + n - 1 of the frame (in block order with ``block``) by
+    ``core.camera.raygen_dirs``, then K1's plain twin on them from the
+    camera position."""
+    dirs = cam.raygen_dirs(cam.serve_cam_rows(tables, cfg), cfg, base, n,
+                           block)
     return render_rays_plain(plan, cfg, tables, tables.cam_position, dirs,
                              collapse, save_winner, save_factors)
 
@@ -418,10 +420,12 @@ def render_raygen_plain(plan: ScenePlan, cfg: RenderConfig,
 @torch.no_grad()
 def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
                   base: int, n: int, collapse: bool = True,
-                  save_winner: bool = False, save_factors: bool = False):
+                  save_winner: bool = False, save_factors: bool = False,
+                  block: tuple = (0, 0)):
     """K1 on rays base .. base + n - 1 of the frame (scan order, the
-    order of ``core.camera.generate_rays``), their directions computed in
-    the kernel from the ray index (``pallas_render.serve_render_chunk``;
+    order of ``core.camera.generate_rays``, or with ``block`` = (bh, bw)
+    block order, ``core.order.to_blocked``'s), their directions computed
+    in the kernel from the ray index (``pallas_render.serve_render_chunk``;
     the serving path of ``api.render_tables``): no direction tensor and
     no camera pass.  Returns what ``render_rays`` returns.  CPU tensors
     take ``render_raygen_plain``; CUDA tensors launch K1's raygen entry
@@ -433,9 +437,15 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     check_supported(plan, cfg)
     analytic = check_normal_mode(cfg, save_winner)
     B = _check_bounces(cfg, save_winner)
+    bh, bw = block
+    if (bh, bw) != (0, 0) and not (bh > 0 and bw > 0
+                                   and cfg.height % bh == 0
+                                   and cfg.width % bw == 0):
+        raise ValueError(f"render_raygen: block {block} does not tile a "
+                         f"{cfg.width}x{cfg.height} frame")
     if dev.type == "cpu":
         return render_raygen_plain(plan, cfg, tables, base, n, collapse,
-                                   save_winner, save_factors)
+                                   save_winner, save_factors, block)
     if dev.type != "cuda":
         raise ValueError(f"render_raygen: unsupported device {dev}")
     if any(t.device != dev or t.dtype != torch.float32 for t in tables):
@@ -449,8 +459,8 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     if B:
         res = _bounce_launch(
             plan, cfg, tables, dev, n, collapse, analytic, B,
-            (1, cfg.width, cfg.height, cfg.ssaa, *recip, rows.data_ptr(),
-             base), (None, 0.0, 0.0, 0.0, None))
+            (1, cfg.width, cfg.height, cfg.ssaa, bh, bw, *recip,
+             rows.data_ptr(), base), (None, 0.0, 0.0, 0.0, None))
         if n:    # the C entry point launches nothing for zero rays
             render_raygen.launches += 1
             render_raygen.entry_launches["render_bounce_kernel"] += 1
@@ -471,7 +481,8 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rt_render_raygen(
             *head, int(ext), *ext_args, cfg.width, cfg.height, cfg.ssaa,
-            *recip, rows.data_ptr(), base, out.data_ptr(), iout.data_ptr(),
+            bh, bw, *recip, rows.data_ptr(), base, out.data_ptr(),
+            iout.data_ptr(),
             ptr_or_none(wres), ptr_or_none(widx),
             light.data_ptr() if ext else None, ptr_or_none(sfac),
             ptr_or_none(aofac), counter.data_ptr(), n, stream)

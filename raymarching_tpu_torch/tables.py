@@ -23,9 +23,18 @@ keeps its base leaf and a carve descriptor, and the kernels evaluate its
 carve from the base row.  A procedural fractal leaf's run has its own
 type (``PROC_TYPES``), and ``scene_operands`` appends one procedural row a
 leaf (its fold scale or Julia constant) that the leaf's row points to
-beside its iteration count (pallas_march's D7).  The JAX table's
-chunk-bound, Menger-offset and order rows feed culls the port does not
-have and are not built.
+beside its iteration count (pallas_march's D7).
+
+The culls of pallas_march's D5 (the wide-UNION chunk cull,
+``_bvh_group_fold``) and D4 (the deep-sponge subtree walks,
+``_menger_subtree_fold`` and its kin) read rows that ``cull_rows``
+computes from the live tables at every call, as the JAX table's
+``_build_table`` does: one live bounding box a chunk, the 20 Menger
+offset rows, and the nearest-camera chunk order.  ``scene_operands``
+appends them to the table, and ``pack_plan`` describes each culled group
+in the collapse stream (see ``PackedPlan``); the kernels then take their
+``Cull<S>`` view.  The flag gains ``subtree_collapse_ok``, the JAX flag
+row's column 1.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .scene.compile import KIND_LIST, MIN, KernelPlan, ScenePlan, SceneTables
+from .scene.compile import (KIND_LIST, MIN, KernelPlan, ScenePlan,
+                            SceneTables, iter_bvh_chunks)
+from .scene.generators import _MENGER_OFFSETS
 
 # DIFFERENCE groups at least this large get the base-bound cull
 # (the rule of pallas_march._scene_sd_tile, _CULL_MIN_GROUP).
@@ -94,6 +105,18 @@ class PackedPlan(NamedTuple):
     PROC_TYPES[kind]), each one's iteration count, and its procedural row:
     the Mandelbox's fold scale, the Mandelbulb's power or the Julia
     constant in the first four columns.
+    ``cull`` is 1 when a group takes a cull of D5 or D4 (``cull_blocks``),
+    and ``cull_row`` is then the first row of ``cull_rows`` in the table
+    the kernels read: P + K, past the leaves and the procedural rows.  The
+    stream then holds, after the G collapse offsets, G cull offsets (0: no
+    cull block) and the cull blocks, and the collapse blocks after them.
+    A chunked group's block is five entries a run of the group, in run
+    order: the run's first bound row, its chunk count (0: the run is not
+    chunked), the chunk length, the uniform prefix (``uniform_prefix``)
+    and its first order row, or -1 when it has none.  A deep-sponge
+    group's block is four: its flags (SUBTREE_WALK, SUBTREE_COLLAPSES,
+    SUBTREE_RECURSES, WINNER_LEAF_FOLD), its root row, the crosses a
+    level-1 subtree holds and the first Menger offset row, or -1.
     """
 
     root_op: int
@@ -104,6 +127,8 @@ class PackedPlan(NamedTuple):
     proc_leaves: torch.Tensor
     proc_iters: torch.Tensor
     proc_params: torch.Tensor
+    cull: int = 0
+    cull_row: int = 0
 
 
 def tables_to_torch(tables, device,
@@ -198,6 +223,297 @@ def collapses(kp: KernelPlan, g) -> bool:
     return g.lattice is not None and is_cullable(kp, g)
 
 
+# D4's routing (pallas_march._use_subtree and its predicates): an exact
+# Menger carve of at least SUBTREE_MIN_COUNT leaves whose lattice is absent
+# or too wide for the winner collapse (a level of more than
+# LATTICE_IDX_MAX_COLS columns) takes the level-1 subtree walk; a subtree
+# recurses into its 20 child cells when each holds at least
+# SUBTREE_RECURSE_MIN crosses.
+SUBTREE_MIN_COUNT = 1024
+SUBTREE_RECURSE_MIN = 21
+LATTICE_IDX_MAX_COLS = 128
+# A deep-sponge group's flags in its cull block (csrc/fold.cuh): it takes
+# the subtree walk; its subtrees hold 421 crosses, the two-level collapse
+# (iters 4); they recurse into their child cells; its winner folds take
+# the leaf fold or the walk, not the lattice winner collapse.
+SUBTREE_WALK, SUBTREE_COLLAPSES, SUBTREE_RECURSES, WINNER_LEAF_FOLD = \
+    1, 2, 4, 8
+
+
+def menger_subtrees(g):
+    """(crosses a level-1 subtree holds, ((offset, first row), ...) of the
+    20 subtrees) of a Menger group's carve, or None
+    (pallas_march._menger_subtrees): menger provenance, iters >= 2, and
+    the rows 1 + 1 + 20 T with unit scales past the base."""
+    if g.fused is None or g.fused[0] != "menger" or g.fused[1] < 2:
+        return None
+    T = sum(20 ** k for k in range(g.fused[1] - 1))
+    if g.count != 2 + 20 * T or any(s != 1 for s in g.scales[1:]):
+        return None
+    return T, tuple((off, g.start + 2 + j * T)
+                    for j, off in enumerate(_MENGER_OFFSETS))
+
+
+def subtree_recurses(g) -> bool:
+    """pallas_march._subtree_recurses: each child cell holds at least
+    SUBTREE_RECURSE_MIN crosses."""
+    sub = menger_subtrees(g)
+    return (sub is not None and (sub[0] - 1) % 20 == 0
+            and (sub[0] - 1) // 20 >= SUBTREE_RECURSE_MIN)
+
+
+def subtree_collapses(g) -> bool:
+    """pallas_march._subtree_collapses: iters 4, a subtree of 421
+    crosses (its root and two collapsible levels)."""
+    sub = menger_subtrees(g)
+    return sub is not None and sub[0] == 421
+
+
+def lattice_idx_ok(g) -> bool:
+    """pallas_march._lattice_idx_ok: a lattice whose every level has at
+    most LATTICE_IDX_MAX_COLS columns (the winner collapse's reach)."""
+    return g.lattice is not None and all(
+        len(level) == 1 or len(level[4]) <= LATTICE_IDX_MAX_COLS
+        for level in g.lattice)
+
+
+def use_subtree(g) -> bool:
+    """pallas_march._use_subtree: the group's carve takes the subtree
+    walk in the winner folds, and in the value folds when it has no
+    lattice."""
+    return ((g.lattice is None or not lattice_idx_ok(g))
+            and g.count >= SUBTREE_MIN_COUNT
+            and menger_subtrees(g) is not None)
+
+
+def needs_menger_offsets(kp) -> bool:
+    """pallas_march._needs_menger_offsets: some group's walk recurses, so
+    the table carries the 20 Menger offset rows."""
+    return any(use_subtree(g) and subtree_recurses(g)
+               for g in getattr(kp, "groups", ()))
+
+
+def uniform_prefix(chunks) -> int:
+    """pallas_march._uniform_prefix: the length of a chunk list's leading
+    span (s0 + k c0, c0), the chunks the ordered walk may reorder."""
+    s0, c0 = chunks[0]
+    uni = 0
+    while uni < len(chunks) and chunks[uni] == (s0 + uni * c0, c0):
+        uni += 1
+    return uni
+
+
+def bvh_order_spans(kp) -> tuple:
+    """pallas_march.iter_bvh_order_spans: ((group, run, uniform length),
+    ...) of the chunk spans that get order rows (three chunks or more)."""
+    out = []
+    for gi, g in enumerate(getattr(kp, "groups", ())):
+        for ri, chunks in (g.bvh or ()):
+            uni = uniform_prefix(chunks)
+            if uni >= 3:
+                out.append((gi, ri, uni))
+    return tuple(out)
+
+
+def has_cull(kp) -> bool:
+    """Whether a two-level plan takes any cull of D5 or D4: a chunked
+    group, or a cullable sponge whose winner folds leave the lattice."""
+    return any(g.bvh is not None for g in kp.groups) or any(
+        is_cullable(kp, g) and (use_subtree(g) or collapses(kp, g)
+                                and not lattice_idx_ok(g))
+        for g in kp.groups)
+
+
+def cull_blocks(kp: KernelPlan, fused: bool, row0: int) -> dict:
+    """group index -> its cull block (see ``PackedPlan``), with the cull
+    rows from table row ``row0``.  In the fused packing a generator group
+    evaluates its carve from the base row and takes no subtree walk."""
+    chunks = iter_bvh_chunks(kp)
+    off_row = row0 + len(chunks)
+    order_row = off_row + (20 if needs_menger_offsets(kp) else 0)
+    spans = {(gi, ri): uni for gi, ri, uni in bvh_order_spans(kp)}
+    blocks, brow = {}, row0
+    for gi, g in enumerate(kp.groups):
+        if g.bvh is not None:
+            by_run = dict(g.bvh)
+            blk = []
+            for ri in range(len(g.runs)):
+                ch = by_run.get(ri)
+                if ch is None:
+                    blk.extend((0, 0, 0, 0, -1))
+                    continue
+                uni = uniform_prefix(ch)
+                order = -1
+                if (gi, ri) in spans:
+                    order = order_row
+                    order_row += spans[(gi, ri)]
+                blk.extend((brow, len(ch), ch[0][1], uni, order))
+                brow += len(ch)
+            blocks[gi] = blk
+            continue
+        if fused and g.fused is not None or not is_cullable(kp, g):
+            continue
+        flags = 0
+        if use_subtree(g):
+            flags |= SUBTREE_WALK
+            if subtree_collapses(g):
+                flags |= SUBTREE_COLLAPSES
+            if subtree_recurses(g):
+                flags |= SUBTREE_RECURSES
+        if collapses(kp, g) and not lattice_idx_ok(g):
+            flags |= WINNER_LEAF_FOLD
+        if flags:
+            sub = menger_subtrees(g)
+            blocks[gi] = [flags, g.start, sub[0] if sub else 0,
+                          off_row if flags & SUBTREE_RECURSES else -1]
+    return blocks
+
+
+def _chunk_spans(kp) -> tuple:
+    """The chunked runs' leaves as spans of equal chunks, in
+    ``iter_bvh_chunks`` order: (prim type, first leaf, chunk count, chunk
+    length), a run's uniform prefix one span and each chunk past it one
+    more."""
+    out = []
+    for g in kp.groups:
+        for ri, chunks in (g.bvh or ()):
+            ptype = g.runs[ri][0]
+            uni = uniform_prefix(chunks)
+            out.append((ptype, chunks[0][0], uni, chunks[0][1]))
+            out.extend((ptype, s, 1, c) for (s, c) in chunks[uni:])
+    return tuple(out)
+
+
+def cull_rows(kp: KernelPlan, tables: SceneTables) -> torch.Tensor:
+    """[B + 20? + O, 8] float32 rows on the tables' device, as JAX's
+    ``_build_table`` appends them after its flag row: per chunk
+    (``iter_bvh_chunks`` order) its live bounding box [cx cy cz hx hy hz 0
+    0] (centre +- radius for a sphere, +- half size for a box); the 20
+    Menger offset rows [ox oy oz 0 ...] when a walk recurses; per
+    ordered span the chunk ordinals nearest the camera first (column 0;
+    a stable sort of the squared distances from the chunks' centres).
+    A run's equal chunks take one reduction."""
+    pos, aux = tables.prim_pos, tables.prim_aux
+    f32 = dict(dtype=pos.dtype, device=pos.device)
+    parts, centres = [], None
+    with torch.no_grad():
+        spans = _chunk_spans(kp)
+        if spans:
+            lo, hi = [], []
+            for (ptype, s, n, c) in spans:
+                p = pos[s:s + n * c].reshape(n, c, 3)
+                e = (aux[s:s + n * c, 0:1].expand(n * c, 3) if ptype == 0
+                     else aux[s:s + n * c] * 0.5).reshape(n, c, 3)
+                lo.append((p - e).min(dim=1).values)
+                hi.append((p + e).max(dim=1).values)
+            lo, hi = torch.cat(lo), torch.cat(hi)
+            centres = (lo + hi) * 0.5
+            parts.append(torch.cat([centres, (hi - lo) * 0.5,
+                                    torch.zeros((lo.shape[0], 2), **f32)],
+                                   dim=1))
+        if needs_menger_offsets(kp):
+            parts.append(_menger_offset_rows(pos.device))
+        order = bvh_order_spans(kp)
+        if order:
+            d = ((centres - tables.cam_position[None, :]) ** 2).sum(dim=1)
+            first, base = {}, 0
+            for gi, g in enumerate(kp.groups):
+                for ri, ch in (g.bvh or ()):
+                    first[(gi, ri)] = base
+                    base += len(ch)
+            for (gi, ri, uni) in order:
+                o = first[(gi, ri)]
+                rows = torch.zeros((uni, 8), **f32)
+                rows[:, 0] = torch.argsort(d[o:o + uni], stable=True).to(
+                    pos.dtype)
+                parts.append(rows)
+        if not parts:
+            return torch.zeros((0, 8), **f32)
+        return torch.cat(parts).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def _menger_offset_rows(device: torch.device) -> torch.Tensor:
+    """The 20 Menger offset rows on ``device`` (cached, shared)."""
+    offs = torch.zeros((20, 8), dtype=torch.float32)
+    offs[:, :3] = torch.tensor(_MENGER_OFFSETS, dtype=torch.float32)
+    return offs.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _subtree_checks(kp, device: torch.device) -> tuple:
+    """Per group that takes the two-level subtree collapse, the index
+    tensors of ``subtree_collapse_ok``'s checks on ``device`` (cached): the
+    root row, the level-1, -2 and -3 rows [20], [20, 20], [20, 20, 20],
+    per axis the level-2 and -3 representative rows, the offsets."""
+    out = []
+    offs = np.asarray(_MENGER_OFFSETS)
+    reps = [{} for _ in range(3)]
+    for j, off in enumerate(_MENGER_OFFSETS):
+        for a in range(3):
+            reps[a].setdefault(off[a], j)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    for g in kp.groups:
+        if not (use_subtree(g) and subtree_collapses(g)):
+            continue
+        T = menger_subtrees(g)[0]
+        b0 = g.start + 2 + np.arange(20) * T
+        r2 = b0[:, None] + 1 + np.arange(20) * 21
+        r3 = r2[:, :, None] + 1 + np.arange(20)
+        rep = []
+        for a in range(3):
+            repj = np.array([reps[a][v] for v in offs[:, a]])
+            rep.append((t(b0[:, None] + 1 + repj[None, :] * 21),
+                        t(b0[:, None, None] + 1 + repj[None, :, None] * 21
+                          + 1 + repj[None, None, :])))
+        out.append((g.start, t(b0), t(r2), t(r3), tuple(rep),
+                    t(offs.astype(np.float32))))
+    return tuple(out)
+
+
+def subtree_collapse_ok(kp, tables: SceneTables) -> torch.Tensor:
+    """One-element int32 tensor on the tables' device: 1 while the live
+    rows of every sponge that takes the two-level subtree collapse
+    (``use_subtree`` and ``subtree_collapses``) still share each
+    subtree's per-level coordinates and sizes, and sit within s / 72 of
+    the generated lattice (pallas_march.subtree_collapse_ok, the JAX flag
+    row's column 1: the skip bounds of the walks derive the cells from
+    the group's root row).  0 without such a group, and for a deep plan.
+    Computed outside the kernels, like ``lattice_ok``."""
+    pos = tables.prim_pos
+    dev = pos.device
+    if getattr(kp, "groups", None) is None:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    checks = _subtree_checks(kp, dev)
+    if not checks:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    aux = tables.prim_aux
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for (start, b0, r2, r3, rep, offs) in checks:
+            for a, (rep2, rep3) in enumerate(rep):
+                ok &= (pos[r2, a] == pos[rep2, a]).all()
+                ok &= (pos[r3, a] == pos[rep3, a]).all()
+            ok &= (aux[r2] == aux[r2[:, :1]]).all()
+            ok &= (aux[r3] == aux[r3[:, :1, :1]]).all()
+            root = pos[start]
+            s = aux[start, 0]
+            third = s * (1.0 / 3.0)
+            ninth = third * (1.0 / 3.0)
+            tw7 = ninth * (1.0 / 3.0)
+            q1 = root[None] + offs * third
+            q2 = q1[:, None] + offs[None] * ninth
+            q3 = q2[:, :, None] + offs[None, None] * tw7
+            tol = s * (1.0 / 72.0)
+            ok &= ((pos[b0] - q1).abs() <= tol).all()
+            ok &= ((pos[r2] - q2).abs() <= tol).all()
+            ok &= ((pos[r3] - q3).abs() <= tol).all()
+            ok &= ((aux[b0] - ninth).abs() <= tol).all()
+            ok &= ((aux[r2] - tw7).abs() <= tol).all()
+            ok &= ((aux[r3] - tw7 * (1.0 / 3.0)).abs() <= tol).all()
+    return ok.to(torch.int32).reshape(1)
+
+
 def _pack_lattice(g, stream: list, members: list) -> None:
     """Append group ``g``'s collapse block and its winner rows to
     ``stream`` and, per cross, its six (own element, representative's
@@ -242,6 +558,17 @@ def pack_plan(kp: KernelPlan, fused: bool = False) -> PackedPlan:
     lattice, members = [0] * max(len(kp.groups), 1), []
     ordinals = ({id(g): k for k, g in enumerate(fused_groups(kp))}
                 if fused else {})
+    cull = kp.groups and has_cull(kp)
+    cull_row = ext_base(kp) + len(kp.proc) if cull else 0
+    blocks = cull_blocks(kp, fused, cull_row) if cull else {}
+    if blocks:
+        # G cull offsets after the G collapse offsets, then the blocks;
+        # the collapse blocks follow
+        G = len(kp.groups)
+        lattice = [0] * (2 * G)
+        for gi, blk in blocks.items():
+            lattice[G + gi] = len(lattice)
+            lattice.extend(blk)
     for gi, g in enumerate(kp.groups):
         ordinal = ordinals.get(id(g))
         if ordinal is not None:
@@ -275,7 +602,8 @@ def pack_plan(kp: KernelPlan, fused: bool = False) -> PackedPlan:
         int(kp.root_op), _as_i32(groups), _as_i32(runs),
         torch.tensor(np.asarray(lattice, np.int32)),
         torch.tensor(np.asarray(members, np.int64).reshape(-1, 2).T.copy()),
-        *_proc_fields(kp.proc))
+        *_proc_fields(kp.proc), int(bool(blocks)),
+        cull_row if blocks else 0)
 
 
 def _as_i32(rows) -> torch.Tensor:
@@ -491,24 +819,27 @@ class SceneOperands(NamedTuple):
     groups: torch.Tensor    # [G, 4] int32
     runs: torch.Tensor      # [N, 4] int32
     lattice: torch.Tensor   # int32 collapse stream
-    flag: torch.Tensor      # [1] int32: the collapse may be taken
+    flag: torch.Tensor      # [1] int32: the collapse may be taken;
+    #                         [2] with a cull: and subtree_collapse_ok
     root_min: int           # 1 when the root folds with MIN
     fused: int = 0          # 1: the fused packing (fused generators)
     proc: int = 0           # 1: the plan has procedural leaves
     deep: int = 0           # 1: pack_deep's program (no two-level form)
     spill: int = 0          # 1: a deep plan past DEEP_LEVELS (DeepSpill)
+    cull: int = 0           # 1: a group takes a cull of D5 or D4 (Cull)
 
     def args(self) -> tuple:
         """The leading arguments of every C entry point: five pointers,
         then the row, group, run and stream counts, root_min and the scene
         view (csrc/persist.cuh's on_view: fused + 2 proc + 4 deep + 8
-        spill)."""
+        spill + 16 cull)."""
         return (self.table.data_ptr(), self.groups.data_ptr(),
                 self.runs.data_ptr(), self.lattice.data_ptr(),
                 self.flag.data_ptr(), self.table.shape[0],
                 self.groups.shape[0], self.runs.shape[0],
                 self.lattice.shape[0], self.root_min,
-                self.fused + 2 * self.proc + 4 * self.deep + 8 * self.spill)
+                self.fused + 2 * self.proc + 4 * self.deep + 8 * self.spill
+                + 16 * self.cull)
 
     def nbytes(self, n_lights: int = 0) -> int:
         """Bytes a block stages when the scene goes to shared memory."""
@@ -528,8 +859,11 @@ def scene_operands(plan, tables: SceneTables, device,
     evaluate such a plan's exact field, fused generators or not), with the
     flag 0; on a CUDA device, a deep plan nesting more than DEEP_LEVELS
     lists has its flag at the head of its stack's spill buffer
-    (``_spill_buffer``), and ``spill`` 1.  The caller keeps the tensors
-    alive across its launch."""
+    (``_spill_buffer``), and ``spill`` 1.  A plan with a cull of D5 or D4
+    (``PackedPlan.cull``) has ``cull_rows`` appended to its table and its
+    flag's second element ``subtree_collapse_ok`` (0 without
+    ``collapse``), and ``cull`` 1.  The caller keeps the tensors alive
+    across its launch."""
     deep = plan.kernel is None
     fused = bool(fused) and not deep
     packed = (_deep_on(plan, torch.device(device)) if deep else
@@ -547,10 +881,19 @@ def scene_operands(plan, tables: SceneTables, device,
             table[packed.proc_leaves, 6] = packed.proc_iters
             table[packed.proc_leaves, 7] = rows
             table = torch.cat([table, packed.proc_params])
+        if packed.cull:
+            if table.shape[0] != packed.cull_row:
+                raise ValueError(
+                    f"scene_operands: {table.shape[0]} table rows, the plan "
+                    f"places its cull rows at {packed.cull_row}")
+            table = torch.cat([table, cull_rows(plan.kernel, tables)])
+            flag = torch.cat([flag, subtree_collapse_ok(plan.kernel, tables)
+                              if collapse else torch.zeros_like(flag)])
         ops = SceneOperands(table, packed.groups, packed.runs,
                             packed.lattice, flag,
                             int(packed.root_op == MIN), int(fused),
-                            int(K > 0), int(deep), int(levels > 0))
+                            int(K > 0), int(deep), int(levels > 0),
+                            packed.cull)
     for name in ("groups", "runs", "lattice", "flag"):
         t = getattr(ops, name)
         if (t.dtype != torch.int32 or not t.is_contiguous()
