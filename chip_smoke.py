@@ -5,16 +5,24 @@
     python3 chip_smoke.py --fused-fd-step   # the fused FD fit step alone
     python3 chip_smoke.py --ptxas    # every entry's registers and stack
 
-Phases, one line each, every failure an uncaught exception:
+Phases, one line each, every failure an uncaught exception; a
+``[seconds]`` line ends each phase, and one before the kernel table gives
+them all with the run's total:
   1. device      — a CUDA device is required; its name and power limit;
   2. build       — nvcc builds the eight sources of csrc/ (K1's reference,
                    extended-shading, raygen and mirror-bounce entries, K2,
                    K3, K4's reference and extended-shading entries;
-                   ops.build.SOURCES), in parallel; each one's ptxas
-                   registers and stack by entry, the procedural, deep
-                   and cull views' entries and the far-tap entries apart;
+                   ops.build.SOURCES), in parallel in the background
+                   while [compare] runs, each of its launches waiting for
+                   its own kernel's library (the bounce comparisons' plain
+                   twins are taken before their kernel's library is
+                   waited for); once all are built, each
+                   one's ptxas registers and stack by entry, the
+                   procedural, deep and cull views' entries and the
+                   far-tap entries apart;
   3. compare     — on demo, config1-4 (64x48 SSAA 2) and menger4 (32x24),
-                   400 iterations: K1 (ops.render_kernel
+                   100 iterations (each case's share of rays that hit by
+                   then and by 1000): K1 (ops.render_kernel
                    .render_rays) against its plain PyTorch twin; K3
                    (ops.march_kernel.march_rays) against its twin on the
                    primary rays, with the step counter, and on shadow rays
@@ -89,8 +97,9 @@ Phases, one line each, every failure an uncaught exception:
                    scenes/mirror.txt (coloured lights, reflect 0); K1's
                    and K4's extended entries against their twins, bitwise
                    on every output (light, factors, residuals), FD and
-                   analytic, exact and fused, each scene in device memory
-                   against shared; K4 and two-phase against K1; device
+                   analytic, exact and fused, on every 16th ray (the demo
+                   soft + AO FD exact on every ray), each scene in device
+                   memory against shared; K4 and two-phase against K1; device
                    times against the reference entries in turns; 5 steps
                    of the fused analytic fit with soft shadows and AO (one
                    K1, no K2 a step); card vs CPU gradients, light_color
@@ -99,8 +108,8 @@ Phases, one line each, every failure an uncaught exception:
                    render() of the demo and mirror.txt with 1 and 2
                    bounces (one K1 bounce launch a frame), the images
                    against backend="multi"; K1's bounce entry against its
-                   twin on every ray, its device time in turns with the
-                   reference entry, the raygen bounce entry; 5 fit steps
+                   twin on every 8th ray, its device time in turns with
+                   the reference entry, the raygen bounce entry; 3 fit steps
                    with one bounce (the anchored replay backward, no K2),
                    their split and peak memory; card vs CPU gradients;
  9f. dof         — thin-lens depth of field (aperture 0.2, focus 8): the
@@ -141,7 +150,7 @@ Phases, one line each, every failure an uncaught exception:
                    mandelbulb.txt, julia.txt; julia.txt with a Menger
                    sponge for the fused packing): every kernel's procedural
                    view (fold.cuh's Proc<S>, csrc/proc.cuh) against its twin
-                   at 64x48 SSAA 1, 50 iterations, bitwise (K1's
+                   at 32x24 SSAA 1, 50 iterations, bitwise (K1's
                    reference, extended, raygen and bounce entries, FD and
                    analytic; K3; K4; K2's five modes and its stencil
                    entry); render() of each at
@@ -158,7 +167,7 @@ Phases, one line each, every failure an uncaught exception:
                    frame, its two K2 modes at its hits against their twins;
  15. deep        — trees deeper than two levels (no two-level form; JAX's
                    generic evaluator, D8): every kernel's deep view
-                   (fold.cuh's Deep<S>) against its twin at 64x48 SSAA 1,
+                   (fold.cuh's Deep<S>) against its twin at 32x24 SSAA 1,
                    bitwise in every entry and mode, on the demo behind a
                    deep list (all its leaves folded: no collapse, no cull;
                    with and without the fused flag) and on julia.txt's
@@ -213,9 +222,10 @@ Phases, one line each, every failure an uncaught exception:
                    against both plain twins, the culled fold and the
                    unculled one, bitwise, at SSAA 1, 200 iterations, on
                    scatter1k.txt
-                   (64x48; also its extended, bounce and fused forms),
-                   menger4.txt (32x24; the value-bound winner walk) and an
-                   iters-5 sponge (16x12; the margin walk); scatter1k and
+                   (32x24; also its extended and bounce forms, and the
+                   fused one at 24x18),
+                   menger4.txt (16x12; the value-bound winner walk) and an
+                   iters-5 sponge (12x9; the margin walk); scatter1k and
                    menger4 at 512x512 SSAA 2, 1000 iterations: render()
                    and a fit step in each normal, the multi and two-phase
                    frames, the device times of K1, K3, K4 and K2's stencil
@@ -225,14 +235,29 @@ Phases, one line each, every failure an uncaught exception:
                    order: the demo's standard and served frames in block
                    and scan order in turns, bitwise equal, K3's lane
                    efficiency in each order (also at 1024x768 SSAA 3),
-                   K1's raygen block arm against its twin.
-Then each kernel's launches in one call of each path, and the kernel table
-as JSON (each kernel's largest difference from its plain twin over every
-output of every comparison above, its time beside its plain twin's and its
-bound: the larger of its bytes over 3.35 TB/s and its operations on this
-run's data, 12 for each leaf evaluation the fold's cull keeps and the
-collapsed carve's as core.sdf.LeafCount states them, over 67 TFLOP/s, the
-H100's published float32 rate) and, last, the device line.
+                   K1's raygen block arm against its twin;
+ 20. native      — the native host runtime (raymarching_tpu_torch.native):
+                   g++ builds native/raymarch_host.cpp into a temporary
+                   directory, loaded for this phase only;
+                   its parse of demo, menger4, julia and mirror.txt against
+                   the port's compile_scene; a 512x384 demo frame through
+                   its PNG writer and io.png, decoded to the same pixels;
+ 21. examples    — raymarching_tpu_torch.examples' four scripts through
+                   their main at their own defaults (fit_scene, both
+                   fit_multiview modes, fit_fractal, the 24-frame
+                   turntable): loss reductions, parameter errors, both
+                   fit_multiview asserts, steady ms a turntable frame, each
+                   run's launches against the expected count; K1 on one
+                   step's rays of each fit (and a turntable frame) against
+                   its twin on every 8th ray, as the step launches it.
+The [fractal] and [deep] 512x512 frames' twins run on every TWIN_STRIDE-th
+(32nd) ray.  Then each kernel's launches in one call of each path, and the
+kernel table as JSON (each kernel's largest difference from its plain twin
+over every output of every comparison above, its time beside its plain
+twin's and its bound: the larger of its bytes over 3.35 TB/s and its
+operations on this run's data, 12 for each leaf evaluation the fold's cull
+keeps and the collapsed carve's as core.sdf.LeafCount states them, over 67
+TFLOP/s, the H100's published float32 rate) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -240,7 +265,9 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -248,11 +275,13 @@ import threading
 import time
 import urllib.request
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 DEMO = ROOT / "scenes" / "demo.txt"
 # kernel vs plain twin: discrete outputs equal on this share of rays, hit
@@ -367,6 +396,12 @@ ERRS = dict.fromkeys(KERNELS, 0.0)
 HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
 # the 1024x768 SSAA 3 frame's plain twin runs on one ray in BIG_STRIDE
 BIG_STRIDE = 8
+# the [fractal] and [deep] 512x512 frames' plain twins, whose fractal DEs
+# and unculled deep folds take seconds a launch, on one ray in TWIN_STRIDE
+TWIN_STRIDE = 32
+# [shading]'s eight scene x normal x field forms against their twins on one
+# ray in SHADE_STRIDE (the rows' configuration on every ray)
+SHADE_STRIDE = 16
 TRAINABLE = ("prim_pos", "prim_aux", "prim_color", "light_pos")
 # Adam rates: colours enter the image linearly; the geometry and light
 # gradients leave out coverage (the implicit-function route moves hit
@@ -386,6 +421,22 @@ def adam(params):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+# each phase's seconds in this run, in the order run (``phase`` fills it)
+PHASE_S = {}
+_RUNNING = []
+
+
+def phase(name=None) -> None:
+    """End the running phase, printing its seconds, and start ``name``."""
+    now = time.perf_counter()
+    if _RUNNING:
+        done, t0 = _RUNNING.pop()
+        PHASE_S[done] = PHASE_S.get(done, 0.0) + now - t0
+        print(f"[seconds] {done} {now - t0:.1f} s")
+    if name is not None:
+        _RUNNING.append((name, now))
 
 
 def timed(fn, runs: int = 1):
@@ -488,6 +539,45 @@ def compare(plan, cfg, tables, origin, dirs):
     ERRS["render_kernel"] = max(ERRS["render_kernel"], worst["image"],
                                 worst["outputs"])
     return worst, ms, plain_ms, count
+
+
+def build_report(built) -> None:
+    """The [build] and [ptxas] lines of the background build, once
+    ``built`` (build.build_all's result) is in: each library's seconds and
+    ptxas report, the views' entries apart, and the seven-source build's
+    registers held to the recorded table."""
+    from raymarching_tpu_torch.ops import build
+
+    for kname, (lib_path, secs) in zip(KERNELS, built):
+        build.load_library(kname)
+        log = lib_path.with_suffix(".log").read_text()
+        print(f"[build] {lib_path.name} in {secs:.1f} s; "
+              + ptxas_summary(log))
+        entries = ptxas_entries(log)
+        check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
+        # the procedural views' entries (Proc<S>), the deep views' (Deep<S>,
+        # DeepSpill<S>) and the extended entries for more than 256 AO taps
+        # apart: the others are held to the build before they existed
+        report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
+                           if not any(v in e for v in ("procedural", "deep",
+                                                       "far taps", "cull")))
+        print(f"[ptxas] {kname} by entry (registers, stack frame): "
+              + report)
+        for view in ("procedural", "deep", "far taps", "cull"):
+            print(f"[ptxas] {kname} {view} entries: " + "; ".join(
+                f"{e} {r} / {st} B" for e, r, st in entries if view in e))
+        if kname in SEVEN_SOURCE_PTXAS:
+            # entry for entry, in any order (new instantiations reorder the
+            # report)
+            same_ = (sorted(report.split("; "))
+                     == sorted(SEVEN_SOURCE_PTXAS[kname].split("; ")))
+            print(f"[ptxas] {kname}: the seven-source build's registers "
+                  f"and stack, entry for entry: "
+                  f"{'the same' if same_ else 'CHANGED'}")
+    print(f"[build] {len(KERNELS)} sources in "
+          f"{max(secs for _, secs in built):.2f} s (all started together), "
+          f"[compare] running meanwhile from its first launch of each "
+          f"kernel")
 
 
 def ptxas_summary(log: str) -> str:
@@ -790,35 +880,60 @@ BOUNCE_CASES = ((1, "fd", False, False), (1, "analytic", True, True),
                 (3, "fd", False, True), (3, "analytic", True, False))
 
 
-def compare_bounce(plan, cfg, tables, origin, dirs):
-    """K1's bounce entries (csrc/render_bounce_kernel.cu) against their
-    plain twins, bitwise over every output of every shade set (the
-    primary hit's and each bounce's colour winner, light, shadow bits,
-    penumbra and AO factors, hit point, SD and convergence): BOUNCE_CASES
-    (the fused field where the scene has generators; the extensions soft
-    shadows k 6 and AO 0.8, coloured lights where the scene has them);
-    the first n rays with per-ray origins for n that is 1, below a warp
-    and no multiple of a warp or a tile, against the full launch; the
-    raygen bounce entry against its twin and against the bounce entry on
-    the twin's directions.  Returns the number of comparisons."""
-    from raymarching_tpu_torch.core import camera as cam
-    from raymarching_tpu_torch.ops.render_kernel import (
-        render_raygen, render_raygen_plain, render_rays, render_rays_plain)
+def bounce_cases(plan, cfg):
+    """(B, config, tag) of each of BOUNCE_CASES on ``plan``: the fused
+    field only where the scene has generators."""
     fused_ok = any(g_.fused is not None for g_ in plan.kernel.groups)
-    n_cmp = 0
-    R = dirs.shape[0]
+    out = []
     for B, normal, fz, ext in BOUNCE_CASES:
         c = cfg.replace(reflect_strength=0.4, reflect_bounces=B,
                         normal_mode=normal, fused_generators=fz and fused_ok,
                         **(dict(soft_shadow_k=6.0, ao_strength=0.8) if ext
                            else {}))
-        tag = (f"B {B} {normal} {'fused' if c.fused_generators else 'exact'}"
-               f"{' soft + AO' if ext else ''}")
+        out.append((B, c, f"B {B} {normal} "
+                    f"{'fused' if c.fused_generators else 'exact'}"
+                    f"{' soft + AO' if ext else ''}"))
+    return out
+
+
+def bounce_twins(plan, cfg, tables, origin, dirs):
+    """The plain twins' outputs that compare_bounce holds K1's bounce
+    entries to: one a case of bounce_cases, then the raygen bounce twin's.
+    They launch no kernel, so [compare] takes them while the bounce
+    entries' source is still building."""
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen_plain,
+                                                         render_rays_plain)
+    twins = [flat(render_rays_plain(plan, c, tables, origin, dirs,
+                                    save_factors=True))
+             for _, c, _ in bounce_cases(plan, cfg)]
+    rc = cfg.replace(reflect_strength=0.4, reflect_bounces=2,
+                     soft_shadow_k=6.0, ao_strength=0.8)
+    twins.append(flat(render_raygen_plain(plan, rc, tables, 0,
+                                          dirs.shape[0], save_factors=True)))
+    return twins
+
+
+def compare_bounce(plan, cfg, tables, origin, dirs, twins):
+    """K1's bounce entries (csrc/render_bounce_kernel.cu) against their
+    plain twins (``twins``, bounce_twins' outputs), bitwise
+    over every output of every shade set (the primary hit's and each
+    bounce's colour winner, light, shadow bits, penumbra and AO factors,
+    hit point, SD and convergence): BOUNCE_CASES (the fused field where
+    the scene has generators; the extensions soft shadows k 6 and AO 0.8,
+    coloured lights where the scene has them); the first n rays with
+    per-ray origins for n that is 1, below a warp and no multiple of a
+    warp or a tile, against the full launch; the raygen bounce entry
+    against its twin and against the bounce entry on the twin's
+    directions.  Returns the number of comparisons."""
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.ops.render_kernel import (render_raygen,
+                                                         render_rays)
+    n_cmp = 0
+    R = dirs.shape[0]
+    for (B, c, tag), twin in zip(bounce_cases(plan, cfg), twins):
         k = flat(render_rays(plan, c, tables, origin, dirs,
                              save_factors=True))
-        same(f"K1 bounce {tag}", k, flat(render_rays_plain(
-            plan, c, tables, origin, dirs, save_factors=True)),
-            "render_bounce_kernel")
+        same(f"K1 bounce {tag}", k, twin, "render_bounce_kernel")
         n_cmp += 1
         if B == 2:
             for n in (n_ for n_ in (1, 31, 1000, R - 37) if 0 < n_ <= R):
@@ -831,9 +946,8 @@ def compare_bounce(plan, cfg, tables, origin, dirs):
     rc = cfg.replace(reflect_strength=0.4, reflect_bounces=2,
                      soft_shadow_k=6.0, ao_strength=0.8)
     rg = flat(render_raygen(plan, rc, tables, 0, R, save_factors=True))
-    same("K1 raygen bounce entry against its twin", rg, flat(
-        render_raygen_plain(plan, rc, tables, 0, R, save_factors=True)),
-        "render_bounce_kernel")
+    same("K1 raygen bounce entry against its twin", rg, twins[-1],
+         "render_bounce_kernel")
     rg_dirs = cam.raygen_dirs(cam.serve_cam_rows(tables, rc), rc, 0, R)
     same("K1 raygen bounce entry against the bounce entry on the twin's "
          "directions", rg, flat(render_rays(
@@ -981,6 +1095,19 @@ def perturbed_demo(tables):
                             light_pos=lp), red, green)
 
 
+def hit_shares(plan, cfg, tables, origin, dirs) -> str:
+    """The shares of rays that hit a surface within ``cfg``'s iterations
+    and within the main path's 1000, by K3's primary march: a ray that
+    misses marches to the cap, so the first share says how many rays
+    reach the shading, shadow and winner branches at this cap."""
+    from raymarching_tpu_torch.ops import march_kernel as mk
+    shares = [mk.march_rays(plan, cfg.replace(iterations=its), tables,
+                            origin, dirs)[2].double().mean().item()
+              for its in (cfg.iterations, 1000)]
+    return (f"hit by {cfg.iterations} iterations {shares[0]:.4f} of rays, "
+            f"by 1000 {shares[1]:.4f}")
+
+
 def rays_for(plan, tables, cfg):
     from raymarching_tpu_torch.core import camera as cam
     origin, dirs = cam.generate_rays(tables, cfg)
@@ -1114,7 +1241,7 @@ def view_compare(plan, tables, cfg, fused: bool, ext: bool,
 def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     """[fractal]: the procedural leaves (scenes/mandelbox.txt,
     mandelbulb.txt, julia.txt) on every path.  Every kernel's procedural
-    view against its twin at 64x48 SSAA 1; render() at 512x512 SSAA 2,
+    view against its twin at 32x24 SSAA 1; render() at 512x512 SSAA 2,
     1000 iterations, FD and analytic normals, with K1's device time in
     turns with the demo's through the same entry, its bound and share;
     K3, K4 and K2 on julia.txt's frame against their twins with their
@@ -1143,7 +1270,7 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     # 1. the kernels against their twins, small (the twins' marches take a
     # few hundred launches a step: 50 iterations keep this part short, and
     # still end 185-1213 rays a scene on its fractal)
-    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    small = rt.RenderConfig(width=32, height=24, ssaa=1, iterations=50)
     n_cmp = 0
     for name in FRACTALS + (FRACTAL_SPONGE,):
         plan, tables = rt.compile_scene(fractal_scene(name))
@@ -1199,16 +1326,16 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
             demo_dev = statistics.mean(turns["demo"])
             _, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
                              runs=3)
-            # the twin on every BIG_STRIDE-th ray (the fractals' DEs make
+            # the twin on every TWIN_STRIDE-th ray (the fractals' DEs make
             # it the phase's longest part), the bound from its count
-            sub = dirs[::BIG_STRIDE]
+            sub = dirs[::TWIN_STRIDE]
             plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
                 plan, c, tt, origin, sub))
-            same(f"{name} K1 {normal} at 512^2 (every {BIG_STRIDE}th ray)",
+            same(f"{name} K1 {normal} at 512^2 (every {TWIN_STRIDE}th ray)",
                  render_rays(plan, c, tt, origin, sub), plain,
                  "render_kernel")
             del plain
-            bound = bound_ms(count, R * (12 + 32), BIG_STRIDE)
+            bound = bound_ms(count, R * (12 + 32), TWIN_STRIDE)
             frame_rows.append(
                 f"{name} {normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms "
                 f"on the device (demo {demo_dev:.3f} in turns: "
@@ -1436,8 +1563,7 @@ def fractal_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
           f"{share:.5f} of pixels within {REFLECT_ATOL}, max "
           f"{diff.max().item():.3g}; "
           f"{card}")
-    print(f"[fractal] phase {time.perf_counter() - t_phase:.1f} s; "
-          f"launches on its paths: " + ", ".join(
+    print("[fractal] launches on its paths: " + ", ".join(
               f"{k} {v}" for k, v in launches.items()))
     rows["launches"] = launches
     return rows
@@ -1480,7 +1606,7 @@ def deep_julia():
 
 def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     """[deep]: plans deeper than two levels on every path.  Every kernel's
-    deep view against its twin at 64x48 SSAA 1 (the demo behind a deep
+    deep view against its twin at 32x24 SSAA 1 (the demo behind a deep
     list, with and without the fused flag; julia.txt's Julia inside an
     intersection); the deep demo (every leaf folded: no collapse, no cull)
     at 512x512 SSAA 2, 1000 iterations: render() with FD and analytic
@@ -1522,7 +1648,7 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
               f"{what}: not the deep view")
 
     # 1. every deep entry against its twin, small
-    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    small = rt.RenderConfig(width=32, height=24, ssaa=1, iterations=50)
     n_cmp = (view_compare(plan, tt, small, False, True, "deep demo")
              + view_compare(plan, tt, small, True, False,
                             "deep demo, fused flag")
@@ -1567,11 +1693,11 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
         demo_dev = statistics.mean(turns["demo"])
         _, k1_ms = timed(lambda: render_rays(plan, c, tt, origin, dirs),
                          runs=3)
-        # the twins on every BIG_STRIDE-th ray, the bound from the count
-        sub = dirs[::BIG_STRIDE]
+        # the twins on every TWIN_STRIDE-th ray, the bound from the count
+        sub = dirs[::TWIN_STRIDE]
         plain, plain_ms, count = timed_counted(lambda: render_rays_plain(
             plan, c, tt, origin, sub))
-        same(f"deep demo K1 {normal} at 512^2 (every {BIG_STRIDE}th ray)",
+        same(f"deep demo K1 {normal} at 512^2 (every {TWIN_STRIDE}th ray)",
              render_rays(plan, c, tt, origin, sub), plain, "render_kernel")
         del plain
         # K1 as the fit step launches it (render_op.FusedRender: no
@@ -1580,13 +1706,13 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
         fc = c.replace(shade_skip_black=False)
         sw = normal == "analytic"
         same(f"deep demo K1 {normal} at 512^2 as the fit step launches it "
-             f"(every {BIG_STRIDE}th ray)",
+             f"(every {TWIN_STRIDE}th ray)",
              flat(render_rays(plan, fc, tt, origin, sub, save_winner=sw,
                               save_factors=True)),
              flat(render_rays_plain(plan, fc, tt, origin, sub,
                                     save_winner=sw, save_factors=True)),
              "render_kernel")
-        bound = bound_ms(count, R * (12 + 32), BIG_STRIDE)
+        bound = bound_ms(count, R * (12 + 32), TWIN_STRIDE)
         frame_rows.append(
             f"{normal}: render() {ms:.3f} ms, K1 {k1_dev:.3f} ms on the "
             f"device (the two-level demo {demo_dev:.3f} in turns: "
@@ -1749,17 +1875,18 @@ def deep_phase(dev, card: str, add_counts, demo_plan, demo_tt) -> dict:
     jo, jd = rays_for(jplan, jtt, fcfg)
     jk1 = device_ms(lambda: render_rays(jplan, fcfg, jtt, jo, jd),
                     "render_kernel")
-    jsub = slice(0, R, BIG_STRIDE)
+    jsub = slice(0, R, TWIN_STRIDE)
     jk = render_rays(jplan, fcfg, jtt, jo, jd[jsub])
     jp_, _, jcount = timed_counted(lambda: render_rays_plain(
         jplan, fcfg, jtt, jo, jd[jsub]))
-    same("deep julia K1 at 512^2 (every 8th ray)", jk, jp_, "render_kernel")
+    same(f"deep julia K1 at 512^2 (every {TWIN_STRIDE}th ray)", jk, jp_,
+         "render_kernel")
     print(f"[deep] julia.txt's Julia in an intersection, 512x512 ssaa2 1000 "
           f"it, FD: render() {jms:.3f} ms, K1 {jk1:.3f} ms on the device; "
-          f"K1 = its twin on every {BIG_STRIDE}th ray bitwise ("
+          f"K1 = its twin on every {TWIN_STRIDE}th ray bitwise ("
           f"{jcount.ops} operations there); {card}")
-    print(f"[deep] phase {time.perf_counter() - t_phase:.1f} s; launches on "
-          f"its paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    print("[deep] launches on its paths: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
     rows["launches"] = launches
     return rows
 
@@ -1853,18 +1980,18 @@ def cull_phase(dev, card: str, add_counts) -> dict:
         return counts
 
     # 1. every kernel's Cull view against both twins, small
-    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=200)
+    small = rt.RenderConfig(width=32, height=24, ssaa=1, iterations=200)
     worlds = {name: rt.compile_scene(rt.load_scene(
         str(ROOT / "scenes" / f"{name}.txt"))) for name in CULL_SCENES}
     worlds["iters 5"] = sponge5()
     # the twins fold [rays, leaves] at every step, and take a few launches
     # a step until their slowest ray ends: each world takes the frame its
-    # twin can fold in seconds, scatter1k's 1,002 leaves at 64x48, menger4's
-    # 8,424 at 32x24, the iters-5 sponge's 168,422 at 16x12, at most 200
+    # twin can fold in seconds, scatter1k's 1,002 leaves at 32x24, menger4's
+    # 8,424 at 16x12, the iters-5 sponge's 168,422 at 12x9, at most 200
     # steps (150 on the sponge)
-    sizes = {"scatter1k": small, "menger4": small.replace(width=32,
-                                                          height=24),
-             "iters 5": small.replace(width=16, height=12, iterations=150)}
+    sizes = {"scatter1k": small, "menger4": small.replace(width=16,
+                                                          height=12),
+             "iters 5": small.replace(width=12, height=9, iterations=150)}
     n_cmp, took = 0, []
     for name, (plan, tables) in worlds.items():
         t_w = time.perf_counter()
@@ -1883,13 +2010,13 @@ def cull_phase(dev, card: str, add_counts) -> dict:
     # scatter1k's chunks in the fused packing (test_bvh_cull.py:218)
     plan, tables = worlds["scatter1k"]
     n_cmp += view_compare(plan, tables_to_torch(tables, dev),
-                          small.replace(width=32, height=24), True, False,
+                          small.replace(width=24, height=18), True, False,
                           "cull scatter1k fused")
     print(f"[cull] every kernel's Cull view = both plain twins (the culled "
           f"and the unculled fold) bitwise ({n_cmp} comparisons, ssaa1: "
           + "; ".join(took) + " (scatter1k also with the extended and "
           f"bounce entries against the culled twin, and in the fused "
-          f"packing at 32x24): K1's reference and raygen entries FD and "
+          f"packing at 24x18): K1's reference and raygen entries FD and "
           f"analytic (the unculled twin FD), K3, K4, K2's five modes and "
           f"its stencil entry) in "
           f"{time.perf_counter() - t_phase:.1f} s; largest difference so "
@@ -2099,7 +2226,6 @@ def cull_phase(dev, card: str, add_counts) -> dict:
           f"of K3's primary march: " + "; ".join(eff) + f"; K1's raygen "
           f"block arm ({bds[0]}x{bds[1]} blocks at 64x48) = its twin "
           f"bitwise, reference FD and analytic and bounce; {card}")
-    print(f"[cull] {time.perf_counter() - t_phase:.1f} s")
     rows["launches"] = launches
     return rows
 
@@ -2162,7 +2288,6 @@ def cli_phase(dev, card: str, add_counts) -> dict:
     from raymarching_tpu_torch.tables import (scene_operands, spill_levels,
                                               tables_to_torch)
 
-    t_phase = time.perf_counter()
     demo = rt.load_scene(str(DEMO))
     plan, tables = rt.compile_scene(demo)
     tt = tables_to_torch(tables, dev)
@@ -2334,7 +2459,7 @@ def cli_phase(dev, card: str, add_counts) -> dict:
     check(counts == only(render_kernel=4), f"--selfcheck launched {counts}")
 
     # 6. the deep fold past its stack, and 300 AO taps ([deep]'s shape)
-    small = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=50)
+    small = rt.RenderConfig(width=32, height=24, ssaa=1, iterations=50)
     n_cmp = 0
     for levels in (17, 40):
         cplan, ctables = chain_world(levels)
@@ -2350,8 +2475,7 @@ def cli_phase(dev, card: str, add_counts) -> dict:
           f"oracle, the frame); chains of 17 and 40 nested lists (the "
           f"DeepSpill view, 1 and 24 levels past the stack) and the demo "
           f"with 300 AO taps: every entry = its twin bitwise ({n_cmp} "
-          f"comparisons at 64x48); phase {time.perf_counter() - t_phase:.1f}"
-          f" s; {card}")
+          f"comparisons at {small.width}x{small.height}); {card}")
     return {"ms": sd_ms, "device_ms": sd_dev, "plain_ms": plain_ms,
             "bound": sd_bound, "points": N}
 
@@ -2406,7 +2530,6 @@ def oracle_phase(dev, card: str) -> None:
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.api import render_tables
     from raymarching_tpu_torch.tables import tables_to_torch
-    t0 = time.perf_counter()
     plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
     fields = type(tables)._fields
     cfg = rt.RenderConfig(**ORACLE_CFG)
@@ -2443,7 +2566,7 @@ def oracle_phase(dev, card: str) -> None:
           f"{GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x scale); forward + "
           f"backward ms on the card: ref {ms['ref']:.1f}, torch "
           f"{ms['torch']:.1f}, cuda {ms['cuda']:.1f}; ref on the CPU "
-          f"{cpu_s:.1f} s; phase {time.perf_counter() - t0:.1f} s; {card}")
+          f"{cpu_s:.1f} s; {card}")
 
 
 def shard_world(world: int, dev) -> dict:
@@ -2582,8 +2705,6 @@ def shard_rank(rank: int, world: int, init: str, out_dir: str) -> None:
     """One spawned rank of the [shard] phase's gloo world: joins the group
     on the one card and writes ``shard_world``'s results; any failure is
     an uncaught exception and a non-zero exit."""
-    import os
-
     import torch.distributed as dist
 
     from raymarching_tpu_torch.parallel import distributed as D
@@ -2611,7 +2732,6 @@ def shard_phase(dev, card: str, add_counts) -> dict:
     import torch.distributed as dist
 
     from raymarching_tpu_torch.parallel import distributed as D
-    t0 = time.perf_counter()
     report = {}
     with tempfile.TemporaryDirectory() as tmp:
         D.initialize(f"file://{tmp}/rendezvous-1", 1, 0, backend="nccl",
@@ -2674,13 +2794,246 @@ def shard_phase(dev, card: str, add_counts) -> dict:
           f"both worlds; 3 fit(mesh=) Adam steps: ranks' tables bitwise "
           f"equal (world 1: = fit()'s); render_tiled_multihost 1024x768 "
           f"ssaa3 = render_tiled; render_rays_sharded on {w1['rays']} rays "
-          f"of three posed views = render_rays, bitwise; phase "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"of three posed views = render_rays, bitwise")
     for k in ("render_kernel", "surface_kernel"):
         report[k] = {f"world_{world}_{res['backend']}_rank_{res['rank']}": {
             path: c[k] for path, (_, c) in res["paths"].items()}
             for world, ranks in ((1, [w1]), (2, w2)) for res in ranks}
     return report
+
+
+# [examples]: each example of raymarching_tpu_torch.examples, its main at
+# its own defaults: (label, module name, arguments)
+EXAMPLE_RUNS = (("fit_scene", "fit_scene", ()),
+                ("fit_multiview", "fit_multiview", ()),
+                ("fit_multiview --fit-poses", "fit_multiview",
+                 ("--fit-poses",)),
+                ("fit_fractal", "fit_fractal", ()),
+                ("turntable", "turntable", ()))
+# the scenes [native] parses: the demo, the deep sponge, a fractal leaf and
+# coloured lights
+NATIVE_SCENES = ("demo", "menger4", "julia", "mirror")
+
+
+def native_phase(card: str) -> None:
+    """[native]: the native host runtime (raymarching_tpu_torch.native):
+    g++ builds native/raymarch_host.cpp into a temporary directory, which
+    is loaded for this phase only, so the checkout's build/native/ and
+    save_image's writer stay as they were; its parser and flattener on
+    NATIVE_SCENES against the port's compile_scene (the tables, procedural
+    entries and groups), with both parse times; one demo frame written
+    through its PNG writer and through io.png, both decoded to the same
+    pixels, with both writers' times."""
+    import tempfile
+
+    from raymarching_tpu_torch import native
+
+    saved = native._LIB
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            native_checks(card, native, Path(tmp))
+    finally:
+        native._LIB = saved
+
+
+def native_checks(card: str, native, out: Path) -> None:
+    import raymarching_tpu_torch as rt
+    from raymarching_tpu_torch.io import png
+    from raymarching_tpu_torch.io.image import to_uint8
+    from raymarching_tpu_torch.scene.parser import parse_scene
+
+    t0 = time.perf_counter()
+    path = native.build(out)
+    build_s = time.perf_counter() - t0
+    check(native.load_library(path) is not None, f"{path} did not load")
+    rows = []
+    for name in NATIVE_SCENES:
+        text = (ROOT / "scenes" / f"{name}.txt").read_text()
+        c0 = time.perf_counter()
+        res = native.native_parse_scene(text)
+        c1 = time.perf_counter()
+        scene = parse_scene(text)
+        plan, tables = rt.compile_scene(scene)
+        c2 = time.perf_counter()
+        n_l = len(scene.lights)
+        check(np.array_equal(res["prim_type"], np.asarray(plan.prim_type))
+              and np.allclose(res["prim_pos"], tables.prim_pos, rtol=2e-6,
+                              atol=1e-5)
+              and np.allclose(res["prim_aux"], tables.prim_aux, rtol=2e-6,
+                              atol=0)
+              and np.array_equal(res["prim_color"], tables.prim_color)
+              and np.array_equal(res["lights"], tables.light_pos[:n_l])
+              and np.array_equal(res["light_colors"],
+                                 tables.light_color[:n_l])
+              and np.array_equal(res["camera"], np.concatenate([
+                  tables.cam_position, tables.cam_direction, tables.cam_up,
+                  [tables.cam_fov]]).astype(np.float32))
+              and res["proc"] == plan.proc,
+              f"{name}: the native tables differ from compile_scene's")
+        kp = plan.kernel
+        check(kp is not None and [tuple(m) for m in res["group_meta"]] == [
+            (g.gsign, g.count) for g in kp.groups] and np.array_equal(
+            res["prim_scale"], np.concatenate(
+                [np.asarray(g.scales, np.float32) for g in kp.groups])),
+            f"{name}: the native groups differ from the kernel plan's")
+        rows.append(f"{name} {res['prim_type'].shape[0]} leaves "
+                    f"{(c1 - c0) * 1e3:.2f} ms (Python {(c2 - c1) * 1e3:.1f} "
+                    f"ms)")
+    dev = torch.device("cuda")
+    img = to_uint8(rt.render(rt.load_scene(str(DEMO)), rt.RenderConfig(
+        width=512, height=384, ssaa=2, iterations=1000),
+        device=dev).cpu().numpy())
+    w0 = time.perf_counter()
+    check(native.native_write_png(str(out / "frame_native.png"), img),
+          "the native PNG writer failed")
+    w1 = time.perf_counter()
+    png.write_png(str(out / "frame_python.png"), img)
+    w2 = time.perf_counter()
+    a, b = (png.read_png(str(out / f"frame_{w}.png"))
+            for w in ("native", "python"))
+    check(np.array_equal(a, b) and np.array_equal(a[..., :3], img),
+          "the two PNG writers' pixels differ")
+    print(f"[native] {path.name} built into a temporary directory by "
+          f"{shutil.which(native.CXX)} in {build_s:.1f} s (CXX in the "
+          f"environment: {os.environ.get('CXX')!r}); parse + flatten = "
+          f"compile_scene's tables, procedural entries and groups: "
+          + "; ".join(rows) + f"; a 512x384 demo frame "
+          f"through the native PNG writer {(w1 - w0) * 1e3:.1f} ms "
+          f"({(out / 'frame_native.png').stat().st_size} bytes) and "
+          f"io.png {(w2 - w1) * 1e3:.1f} ms "
+          f"({(out / 'frame_python.png').stat().st_size} bytes), both "
+          f"decoded to the same pixels; {card}")
+
+
+def examples_phase(dev, card: str, add_counts) -> dict:
+    """[examples]: each example of raymarching_tpu_torch.examples through
+    its main at its own defaults (full width, full step counts) on the
+    card, into a temporary directory, its printed lines echoed: the fits'
+    loss reductions and parameter errors (fit_scene's from its checkpoint),
+    both fit_multiview modes passing their own asserts, the turntable's 24
+    frames and steady time a frame; each run's launches (a step: K1 1, K2
+    0, or in fit_fractal's analytic fractal backward 1 a slice of rays; a
+    turntable frame: K1 1); then K1 on one step's rays of each fit
+    example (and one turntable frame) against its plain twin on every
+    BIG_STRIDE-th ray, as the step launches it, bitwise.  Returns each
+    example's launches by kernel."""
+    import contextlib
+    import importlib
+    import tempfile
+
+    from raymarching_tpu_torch.io.checkpoint import load_checkpoint
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops.render_kernel import (render_rays,
+                                                         render_rays_plain)
+    from raymarching_tpu_torch.tables import tables_to_torch
+
+    mods = {name: importlib.import_module(
+        f"raymarching_tpu_torch.examples.{name}")
+        for _, name, _ in EXAMPLE_RUNS}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, name, argv in EXAMPLE_RUNS:
+            mod = mods[name]
+            plan, tables_true, tables0, cfg = mod.setup()
+            out_dir = f"{tmp}/{name}"
+            args = [*argv] + (["--out", out_dir] if name != "fit_multiview"
+                              else [])
+            buf = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args)
+            secs = time.perf_counter() - t0
+            counts = add_counts(f"example {label}", 1)
+            launches[label] = counts
+            check(rc == 0, f"{label} exited {rc}")
+            text = buf.getvalue()
+            lines = text.strip().splitlines()
+            if name == "turntable":
+                frames = len(list(Path(out_dir).glob("frame_*.png")))
+                check(frames == 24, f"the turntable wrote {frames} frames")
+                want = only(render_kernel=24)
+                steady = float(re.search(r"steady ([0-9.]+)s/frame",
+                                         text).group(1))
+                what = (f"24 frames, steady {steady * 1e3:.1f} ms a frame; "
+                        f"launches a frame K1 {counts['render_kernel'] // 24}")
+            else:
+                steps = 120 if name == "fit_multiview" else 150
+                renders = 1 if name == "fit_multiview" else 3
+                R = cfg.rays_per_image * (4 if name == "fit_multiview"
+                                          else 1)
+                slices = -(-R // scene_vjp.REPLAY_RAYS)
+                want = only(render_kernel=steps + renders,
+                            surface_kernel=(steps * slices
+                                            if plan.proc else 0))
+                what = (f"{steps} steps, launches a step K1 1, K2 "
+                        f"{counts['surface_kernel'] // steps} (and K1 "
+                        f"{renders} a frame outside the steps)")
+            check(counts == want, f"{label} launched {counts}, not {want}")
+            if name in ("fit_scene", "fit_fractal"):
+                m = re.search(r"^loss ([0-9.e+-]+) -> ([0-9.e+-]+)", text,
+                              re.M)
+                first, last = float(m.group(1)), float(m.group(2))
+                check(last < first, f"{label}: loss {first} -> {last}")
+            if name == "fit_multiview":
+                # its own assert, and the same bound read from its line
+                m = re.search(r"error ([0-9.]+) -> ([0-9.]+)", text)
+                check(lines[-1] == "ok" and float(m.group(2))
+                      < 0.5 * float(m.group(1)),
+                      f"{label} did not pass its assert")
+            if name == "fit_scene":
+                # its parameters' errors, from the checkpoint it wrote
+                fitted, step, _ = load_checkpoint(f"{out_dir}/ckpt.npz")
+                check(step == steps, f"{label}: checkpoint step {step}")
+                errs = []
+                for f, rows_ in (("prim_pos", [2, 3]), ("prim_aux", [2, 3]),
+                                 ("prim_color", [4]), ("light_pos", [0])):
+                    truth = np.asarray(getattr(tables_true, f))[rows_]
+                    e0 = np.abs(np.asarray(getattr(tables0, f))[rows_]
+                                - truth).max()
+                    e1 = np.abs(np.asarray(getattr(fitted, f))[rows_]
+                                - truth).max()
+                    errs.append(f"{f}{rows_} {e0:.4f} -> {e1:.4f}")
+                lines.append("largest parameter errors (checkpoint): "
+                             + ", ".join(errs))
+            shown = [ln for ln in lines if not ln.startswith("step ")]
+            print(f"[examples] {label}: {secs:.1f} s; {what}; "
+                  + " | ".join(shown) + f"; {card}")
+            # K1 as a step launches it on every BIG_STRIDE-th ray of the
+            # step's rays (the turntable: its first frame's), bitwise
+            sw = (cfg.normal_mode == "analytic" and not plan.proc
+                  and name != "turntable")
+            fc = (cfg if name == "turntable"
+                  else cfg.replace(shade_skip_black=False))
+            tt = tables_to_torch(tables0, dev)
+            if name == "fit_multiview":
+                views = mod.view_positions(4)
+                if argv:
+                    tt = tables_to_torch(tables_true, dev)
+                    views = mod.perturbed_poses(views)
+                    o, d = mod.bundle(tt, cfg, torch.as_tensor(
+                        mod.CENTER, device=dev), torch.as_tensor(
+                        views, device=dev))
+                else:
+                    rays = [mod.camera_rays(tt, cfg, p, mod.CENTER)
+                            for p in views]
+                    o = torch.cat([r[0] for r in rays])
+                    d = torch.cat([r[1] for r in rays])
+                o, d = o[::BIG_STRIDE], d[::BIG_STRIDE]
+            else:
+                o, d = rays_for(plan, tt, cfg)
+                d = d[::BIG_STRIDE]
+            extra = {} if name == "turntable" else dict(save_winner=sw,
+                                                        save_factors=True)
+            same(f"{label}: K1 on a step's rays (every {BIG_STRIDE}th)",
+                 flat(render_rays(plan, fc, tt, o, d, **extra)),
+                 flat(render_rays_plain(plan, fc, tt, o, d, **extra)),
+                 "render_kernel")
+    print(f"[examples] K1 on one step's rays of each fit example and on a "
+          f"turntable frame (every {BIG_STRIDE}th ray, as the step launches "
+          f"it: the factors and, without fractals, the winner residuals) = "
+          f"its plain twin bitwise; {card}")
+    return launches
 
 
 def kernel_times() -> int:
@@ -2693,7 +3046,10 @@ def kernel_times() -> int:
     entry, K1 on scenes/mirror.txt (coloured lights), and of K1 with the
     scene read from device memory, on the demo at 1,000 iterations; then
     K1 and K4 in both normals, K3 and K2's stencil entry on scatter1k.txt
-    and menger4.txt (scan-order rays).  For holding two checkouts against
+    and menger4.txt (scan-order rays); then K1 and K2's stencil entry on a
+    [shard] rank's band of 256 rows, K1 in render_frames (8 turntable
+    poses) and K1's raygen entry in block order, a ``[times-bounds]`` line
+    with their bounds and shares.  For holding two checkouts against
     each other on one card: run it from each in one command, in turns
     (parent, change, change, parent), copying this script into a checkout
     whose own lacks a row."""
@@ -2843,9 +3199,62 @@ def kernel_times() -> int:
             lambda: scene_vjp.stencil_eval(cplan, cfg, ctt, chit.position,
                                            center=True), "surface_kernel")
         del c_dirs, chit
+    # the paths whose kernels had no device time alone: K1 and K2's stencil
+    # entry on a [shard] rank's band (world 2: the first 256 of 512 rows),
+    # K1 in render_frames (8 turntable poses, an origin a ray) and K1's
+    # raygen entry in block order (the served frame); each with its bound,
+    # from the plain twin's count on every stride-th ray or hit
+    from raymarching_tpu_torch.api import render_frames, turntable_poses
+    from raymarching_tpu_torch.core import camera as cam
+    from raymarching_tpu_torch.core.order import frame_blocks
+    from raymarching_tpu_torch.ops.render_kernel import render_rays_plain
+    bounds = {}
+    band = cfg.height // 2
+    b_org, b_dirs = cam.generate_rays(tt, cfg, (0, band))
+    b_dirs = b_dirs.reshape(-1, 3)
+    label = f"K1 [shard] world 2 band ({band} rows)"
+    out[label] = device_ms(lambda: render_rays(plan, cfg, tt, b_org, b_dirs),
+                           "render_kernel")
+    bounds[label] = bound_ms(timed_counted(lambda: render_rays_plain(
+        plan, cfg, tt, b_org, b_dirs[::8]))[2], b_dirs.shape[0] * (12 + 32),
+        8)
+    b_hit = render_rays(plan, cfg.replace(shade_skip_black=False), tt, b_org,
+                        b_dirs).p
+    label = f"K2 stencil entry [shard] band's {b_hit.shape[0]} hits"
+    out[label] = device_ms(lambda: scene_vjp.stencil_eval(
+        plan, cfg, tt, b_hit, center=True), "surface_kernel")
+    bounds[label] = bound_ms(timed_counted(lambda: sk.surface_eval_plain(
+        plan, tt, sk.stencil_points(b_hit, cfg.fd_h, center=True).reshape(
+            -1, 3)))[2], b_hit.shape[0] * (12 + 7 * 20))
+    del b_dirs, b_hit
+    ps, ds = (np.stack(v) for v in zip(*turntable_poses(tables, 24)[:8]))
+    label = "K1 in render_frames (8 poses)"
+    out[label] = device_ms(lambda: render_frames(plan, tt, cfg, ps, ds,
+                                                 device=dev), "render_kernel")
+    f_org, f_dirs = [], []
+    for p_, d_ in zip(ps, ds):
+        o_, dd = cam.generate_rays(tt._replace(
+            cam_position=torch.as_tensor(p_, device=dev),
+            cam_direction=torch.as_tensor(d_, device=dev)), cfg)
+        f_org.append(o_.expand(dd.numel() // 3, 3)[::64])
+        f_dirs.append(dd.reshape(-1, 3)[::64])
+    bounds[label] = bound_ms(timed_counted(lambda: render_rays_plain(
+        plan, cfg, tt, torch.cat(f_org), torch.cat(f_dirs)))[2],
+        8 * dirs.shape[0] * (24 + 32), 64)
+    del f_org, f_dirs
+    bds = frame_blocks(cfg, cfg.height, "cuda")
+    label = f"K1 512x512 ssaa2 raygen, block order {bds}"
+    out[label] = device_ms(lambda: render_raygen(
+        plan, cfg, tt, 0, dirs.shape[0], block=bds), "render_kernel")
+    bounds[label] = bound_ms(timed_counted(lambda: render_rays_plain(
+        plan, cfg, tt, origin, dirs[::8]))[2], dirs.shape[0] * 32, 8)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    print(f"[times-bounds] " + "; ".join(
+        f"{k}: bound {b[0]:.4f} ms by {b[1]} ({b[5]} operations), share "
+        f"{b[0] / out[k]:.1%}" for k, b in bounds.items())
+        + f"; {smi.splitlines()[0]}")
     print(f"[times] {ROOT}: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in out.items())
           + f"; {smi.splitlines()[0]}")
@@ -2945,6 +3354,7 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; expected none, "
               "--times, --fused-fd-step or --ptxas", file=sys.stderr)
         return 2
+    phase("device")
     import raymarching_tpu_torch as rt
     from raymarching_tpu_torch.api import render_tables
     from raymarching_tpu_torch.core.shading import normalize
@@ -2975,46 +3385,26 @@ def main() -> int:
           f"{torch.version.cuda}")
     print(card)
 
-    # 2. build: one nvcc per source, all started together
-    t0 = time.perf_counter()
+    phase("build")
+    # 2. build: one nvcc per source, all started together in the
+    # background; [compare] runs meanwhile, its first launch of a kernel
+    # waiting for that kernel's own library (ops.build.build)
     check(set(KERNELS) == set(build.SOURCES),
           f"the package's sources {build.SOURCES}, this script's {KERNELS}")
-    for kname, (lib_path, secs) in zip(KERNELS, build.build_all(KERNELS)):
-        build.load_library(kname)
-        log = lib_path.with_suffix(".log").read_text()
-        print(f"[build] {lib_path.name} in {secs:.1f} s; "
-              + ptxas_summary(log))
-        entries = ptxas_entries(log)
-        check(bool(entries), f"no kernel entry in {kname}'s ptxas report")
-        # the procedural views' entries (Proc<S>), the deep views' (Deep<S>,
-        # DeepSpill<S>) and the extended entries for more than 256 AO taps
-        # apart: the others are held to the build before they existed
-        report = "; ".join(f"{e} {r} / {st} B" for e, r, st in entries
-                           if not any(v in e for v in ("procedural", "deep",
-                                                       "far taps", "cull")))
-        print(f"[ptxas] {kname} by entry (registers, stack frame): "
-              + report)
-        for view in ("procedural", "deep", "far taps", "cull"):
-            print(f"[ptxas] {kname} {view} entries: " + "; ".join(
-                f"{e} {r} / {st} B" for e, r, st in entries if view in e))
-        if kname in SEVEN_SOURCE_PTXAS:
-            # entry for entry, in any order (new instantiations reorder the
-            # report)
-            same_ = (sorted(report.split("; "))
-                     == sorted(SEVEN_SOURCE_PTXAS[kname].split("; ")))
-            print(f"[ptxas] {kname}: the seven-source build's registers "
-                  f"and stack, entry for entry: "
-                  f"{'the same' if same_ else 'CHANGED'}")
-    print(f"[build] {len(KERNELS)} sources in "
-          f"{time.perf_counter() - t0:.2f} s")
+    nvcc_pool = ThreadPoolExecutor(1)
+    building = nvcc_pool.submit(build.build_all, KERNELS)
+    t_build = time.perf_counter()
 
-    # 3. kernels vs plain twins at small sizes, and the ref oracle (400
-    # iterations: a twin's march takes a few launches a step until its
-    # slowest ray ends, so the cap bounds this part's time)
-    small = rt.RenderConfig(width=64, height=48, ssaa=2, iterations=400)
+    phase("compare")
+    # 3. kernels vs plain twins at small sizes, and the ref oracle (100
+    # iterations: a twin marches a missing ray to the cap, a few launches
+    # a step, so the cap bounds this part's time; each case prints the
+    # share of rays that hit by it and by the main path's 1000)
+    small = rt.RenderConfig(width=64, height=48, ssaa=2, iterations=100)
     cases = [(s, small) for s in ("demo", "config1", "config2", "config3",
                                   "config4")]
     cases.append(("menger4", small.replace(width=32, height=24, ssaa=1)))
+    later = []   # K1's bounce entries, whose library builds last
     for scene, cfg in cases:
         plan, tables = rt.compile_scene(
             rt.load_scene(str(ROOT / "scenes" / f"{scene}.txt")))
@@ -3022,7 +3412,8 @@ def main() -> int:
         rays = rays_for(plan, tt, cfg)
         worst = compare(plan, cfg, tt, *rays)[0]
         print(f"[compare] {scene} {cfg.width}x{cfg.height} ssaa{cfg.ssaa}: "
-              + ", ".join(f"{k} {v:.6g}" for k, v in worst.items()))
+              + ", ".join(f"{k} {v:.6g}" for k, v in worst.items())
+              + "; " + hit_shares(plan, cfg, tt, *rays))
         n_cmp = (compare_new(plan, cfg, tt, *rays)
                  + compare_new(plan, cfg, tt, *rays, collapse=False))
         ops = scene_operands(plan, tt, dev)
@@ -3052,60 +3443,79 @@ def main() -> int:
               f"from {'shared' if nbytes <= SHARED_SCENE_BYTES else 'device'}"
               " memory")
         if scene != "config1" and scene != "config2":
-            b_cmp = compare_bounce(plan, cfg, tt, *rays)
-            print(f"[compare] {scene}: K1's bounce entries = plain twins "
-                  f"bitwise on every output of every shade set ({b_cmp} "
-                  f"comparisons: B 1-3, FD and analytic, "
-                  f"{'exact and fused' if any(g_.fused is not None for g_ in plan.kernel.groups) else 'exact'}, "
-                  f"extensions off and soft + AO; 1, 31, 1000 and "
-                  f"{rays[1].shape[0] - 37} rays with per-ray origins = "
-                  f"the full launch's; the raygen bounce entry = its twin "
-                  f"and the bounce entry on its directions)")
+            later.append((scene, plan, cfg, tt, rays,
+                          bounce_twins(plan, cfg, tt, *rays)))
         if scene == "demo":
-            # 16 bytes cover the staged copy's alignment padding; K1 and K4
-            # take a third argument, the normal (0 FD, 1 analytic)
-            per_sm = {}
-            f_bytes = scene_operands(plan, tt, dev, True, True).nbytes(
-                plan.num_lights)
-            for k in KERNELS:
-                lib = build.load_library(k)
-                # K1 and K4 (each source): (normal, fused); K1's raygen
-                # entries (normal, fused, extended); K3: (fused); K2's
-                # stencil entry: exact only
-                nf = {"FD": (0, 0), "analytic": (1, 0), "fused FD": (0, 1),
-                      "fused analytic": (1, 1)}
-                variants = {
-                    "render_kernel": nf, "render_ext_kernel": nf,
-                    "shade_kernel": nf, "shade_ext_kernel": nf,
-                    "render_raygen_kernel": {
-                        "FD": (0, 0, 0), "analytic": (1, 0, 0),
-                        "extended FD": (0, 0, 1),
-                        "extended analytic": (1, 0, 1)},
-                    "render_bounce_kernel": {
-                        "FD": (0, 0, 0), "analytic": (1, 0, 0),
-                        "fused analytic": (1, 1, 0), "raygen FD": (0, 0, 1),
-                        "raygen analytic": (1, 0, 1)},
-                    "march_kernel": {"": (0,), "fused": (1,)},
-                    "surface_kernel": {"": ()}}[k]
-                for label, extra in variants.items():
-                    fz = extra[1] if len(extra) > 1 else sum(extra)
-                    staged = (f_bytes if fz else nbytes) + 16
-                    per_sm[f"{k} {label}".strip()] = (
-                        lib.rt_blocks_per_sm(1, staged, *extra),
-                        lib.rt_blocks_per_sm(0, 0, *extra))
-            check(all(min(v) > 0 for v in per_sm.values()),
-                  f"resident blocks an SM: {per_sm}")
-            print("[occupancy] resident blocks an SM (128 threads each), "
-                  f"the demo's {nbytes} bytes ({f_bytes} fused) staged in "
-                  "shared memory / the scene in device memory: "
-                  + "; ".join(f"{k} {a} / {b}"
-                              for k, (a, b) in per_sm.items()))
-    # K1's bounce entries on scenes/mirror.txt (coloured lights), and the
-    # demo's scene read from device memory against staged
+            demo_ops = (plan, tt, nbytes)
+    # the plain twins of the bounce comparisons on scenes/mirror.txt
+    # (coloured lights) and the ref oracle's demo frame, while the bounce
+    # entries' source builds
     mplan, mtables = rt.compile_scene(rt.load_scene(str(ROOT / "scenes" /
                                                         "mirror.txt")))
     mtt = tables_to_torch(mtables, dev)
-    b_cmp = compare_bounce(mplan, small, mtt, *rays_for(mplan, mtt, small))
+    mrays = rays_for(mplan, mtt, small)
+    mtwins = bounce_twins(mplan, small, mtt, *mrays)
+    demo = rt.load_scene(str(DEMO))
+    ref = rt.render_ref(demo, small, device=dev)
+    t_wait = time.perf_counter()
+    built = building.result()
+    nvcc_pool.shutdown()
+    print(f"[compare] before the build ended: {t_wait - t_build:.1f} s of "
+          f"comparisons and twins; then {time.perf_counter() - t_wait:.1f} "
+          f"s waiting for the last library")
+    build_report(built)
+    for scene, plan, cfg, tt, rays, twins in later:
+        b_cmp = compare_bounce(plan, cfg, tt, *rays, twins)
+        print(f"[compare] {scene}: K1's bounce entries = plain twins "
+              f"bitwise on every output of every shade set ({b_cmp} "
+              f"comparisons: B 1-3, FD and analytic, "
+              f"{'exact and fused' if any(g_.fused is not None for g_ in plan.kernel.groups) else 'exact'}, "
+              f"extensions off and soft + AO; 1, 31, 1000 and "
+              f"{rays[1].shape[0] - 37} rays with per-ray origins = "
+              f"the full launch's; the raygen bounce entry = its twin "
+              f"and the bounce entry on its directions)")
+    plan, tt, nbytes = demo_ops
+    # 16 bytes cover the staged copy's alignment padding; K1 and K4
+    # take a third argument, the normal (0 FD, 1 analytic)
+    per_sm = {}
+    f_bytes = scene_operands(plan, tt, dev, True, True).nbytes(
+        plan.num_lights)
+    for k in KERNELS:
+        lib = build.load_library(k)
+        # K1 and K4 (each source): (normal, fused); K1's raygen
+        # entries (normal, fused, extended); K3: (fused); K2's
+        # stencil entry: exact only
+        nf = {"FD": (0, 0), "analytic": (1, 0), "fused FD": (0, 1),
+              "fused analytic": (1, 1)}
+        variants = {
+            "render_kernel": nf, "render_ext_kernel": nf,
+            "shade_kernel": nf, "shade_ext_kernel": nf,
+            "render_raygen_kernel": {
+                "FD": (0, 0, 0), "analytic": (1, 0, 0),
+                "extended FD": (0, 0, 1),
+                "extended analytic": (1, 0, 1)},
+            "render_bounce_kernel": {
+                "FD": (0, 0, 0), "analytic": (1, 0, 0),
+                "fused analytic": (1, 1, 0), "raygen FD": (0, 0, 1),
+                "raygen analytic": (1, 0, 1)},
+            "march_kernel": {"": (0,), "fused": (1,)},
+            "surface_kernel": {"": ()}}[k]
+        for label, extra in variants.items():
+            fz = extra[1] if len(extra) > 1 else sum(extra)
+            staged = (f_bytes if fz else nbytes) + 16
+            per_sm[f"{k} {label}".strip()] = (
+                lib.rt_blocks_per_sm(1, staged, *extra),
+                lib.rt_blocks_per_sm(0, 0, *extra))
+    check(all(min(v) > 0 for v in per_sm.values()),
+          f"resident blocks an SM: {per_sm}")
+    print("[occupancy] resident blocks an SM (128 threads each), "
+          f"the demo's {nbytes} bytes ({f_bytes} fused) staged in "
+          "shared memory / the scene in device memory: "
+          + "; ".join(f"{k} {a} / {b}"
+                      for k, (a, b) in per_sm.items()))
+    # K1's bounce entries on scenes/mirror.txt (coloured lights), and the
+    # demo's scene read from device memory against staged
+    b_cmp = compare_bounce(mplan, small, mtt, *mrays, mtwins)
     plan, tables = rt.compile_scene(rt.load_scene(str(DEMO)))
     tt = tables_to_torch(tables, dev)
     rays = rays_for(plan, tt, small)
@@ -3123,14 +3533,14 @@ def main() -> int:
     print(f"[compare] mirror.txt (coloured lights): K1's bounce entries = "
           f"plain twins bitwise ({b_cmp} comparisons, as above); demo B 2 "
           f"analytic soft + AO, scene in device memory = staged")
-    demo = rt.load_scene(str(DEMO))
-    ref = rt.render_ref(demo, small, device=dev)
     fused = rt.render(demo, small, device=dev)
     ref_err = (fused - ref).abs().max().item()
     check(ref_err <= IMG_ATOL, f"demo vs ref oracle differs by {ref_err}")
-    print(f"[compare] demo vs ref oracle 64x48 ssaa2 {small.iterations} it: "
+    print(f"[compare] demo vs ref oracle {small.width}x{small.height} "
+          f"ssaa{small.ssaa} {small.iterations} it: "
           f"image {ref_err:.6g}")
 
+    phase("compare-bwd")
     # 4. K2 vs its plain twin on the stencils of K1's hits, bitwise, and
     # the card's gradients against the CPU's
     for scene, cfg in cases:
@@ -3156,6 +3566,7 @@ def main() -> int:
           f"{worst_grad[0]:.3g} ({worst_grad[1]}; tolerance rtol "
           f"{GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x scale)")
 
+    phase("main")
     # 5. the main path: render() at the bench footprint and the reference's
     main_cfgs = [rt.RenderConfig(width=512, height=512, ssaa=2,
                                  iterations=1000), rt.RenderConfig()]
@@ -3229,6 +3640,7 @@ def main() -> int:
         lambda: render_rays_plain(plan, tcfg, tt, origin, dirs,
                                   collapse=False))[2], R * (12 + 32))}
 
+    phase("train")
     # 6. training: fit the perturbed demo back to the true one
     rays = tcfg.rays_per_image
     target = rt.render_tables(plan, tables, tcfg, device=dev)
@@ -3346,6 +3758,7 @@ def main() -> int:
           f"rows): {scatter_ms:.2f} ms; {card}")
     del sd7, widx7, g7, u
 
+    phase("multi")
     # 7. the multi-kernel backend at the same frame
     tt = tables_to_torch(tables, dev)
     origin, dirs = rays_for(plan, tt, tcfg)
@@ -3448,6 +3861,7 @@ def main() -> int:
               f"ms on the device alone, plain {sh_plain_ms:.3f} ms; "
               f"bitwise equal; {card}")
 
+    phase("two-phase")
     # 8. the two-phase march of the fused backend
     cfg2 = tcfg.replace(two_phase_k1=48)
     zero_counts()
@@ -3540,6 +3954,7 @@ def main() -> int:
           f"(K2: winner {phase_ms['K2 winner']:.3f}, FD gradient with the "
           f"centre {phase_ms['K2 FD gradient']:.3f}); {card}")
 
+    phase("train-multi")
     # 9. training through the multi-kernel backend
     stamps.clear()
     step_grads.clear()
@@ -3586,6 +4001,7 @@ def main() -> int:
           f"({worst_mg[1]}; tolerance rtol {GRAD_RTOL}, atol "
           f"{GRAD_ATOL_SCALE} x scale)")
 
+    phase("analytic")
     # 9b. the analytic-normal regime on the same footprint
     acfg, abig = (c.replace(normal_mode="analytic") for c in main_cfgs)
     zero_counts()
@@ -3831,6 +4247,7 @@ def main() -> int:
           f"frame K3 {1 + L}, K2 2 (winner, analytic), a step K3 {1 + L}, "
           f"K2 4; {card}")
 
+    phase("fused")
     # 9c. fused generators (the JAX bench's headline regime) on the same
     # footprint: render() fused with analytic normals, the gate against
     # the exact FD image, every kernel against its twin, device times
@@ -4116,6 +4533,7 @@ def main() -> int:
           f"frame; {card}")
     del k1f, w1f, k1ffd, hf, stf
 
+    phase("shading")
     # 9d. the shading extensions at the same footprint: soft shadows (k 6)
     # with AO (0.8) on the demo, coloured lights on scenes/mirror.txt
     # (reflect 0: its mirror bounces are not ported); K1's and K4's
@@ -4191,13 +4609,14 @@ def main() -> int:
                 same(f"K4 extended = K1 extended, {tag}", flat(k4),
                      (k1[0].cidx, k1[0].light, k1[0].smask,
                       *flat(tuple(k1[1:]))))
-                sub = slice(None, None, BIG_STRIDE)
-                same(f"K1 extended {tag} on every {BIG_STRIDE}th ray",
-                     every(flat(k1)), flat(k1_plain(pl, c, stt, o_, d_[sub],
-                                                    **kw)),
+                sub = slice(None, None, SHADE_STRIDE)
+                same(f"K1 extended {tag} on every {SHADE_STRIDE}th ray",
+                     every(flat(k1), SHADE_STRIDE), flat(k1_plain(
+                         pl, c, stt, o_, d_[sub], **kw)),
                      "render_ext_kernel")
-                same(f"K4 extended {tag} on every {BIG_STRIDE}th ray",
-                     every(flat(k4)), flat(shk.shade_rays_plain(
+                same(f"K4 extended {tag} on every {SHADE_STRIDE}th ray",
+                     every(flat(k4), SHADE_STRIDE),
+                     flat(shk.shade_rays_plain(
                          pl, c, stt, k1[0].p[sub], k1[0].sd[sub], d_[sub],
                          **kw)), "shade_ext_kernel")
                 n_cmp += 6
@@ -4271,7 +4690,7 @@ def main() -> int:
           f"every output (light, colour winner, shadow bits, penumbra and "
           f"AO factors, winner residuals): demo soft + AO and mirror.txt "
           f"coloured, FD and analytic, exact and fused, on every "
-          f"{BIG_STRIDE}th ray; each scene in device memory = shared, K4 = "
+          f"{SHADE_STRIDE}th ray; each scene in device memory = shared, K4 = "
           f"K1 on every ray ({n_cmp} comparisons); demo soft + AO FD exact "
           f"on every ray: K1 {k1s_ms:.3f} ms with its wrapper, plain "
           f"{k1s_plain_ms:.3f} ms, bound {k1s_bound[0]:.4f} ms by "
@@ -4330,6 +4749,7 @@ def main() -> int:
               f"gradient max {gs_card[lc].abs().max().item():.3g}; launches "
               f"K1 1, K2 {launched[1]}")
 
+    phase("reflect")
     # 9e. mirror bounces at the same footprint: render() of the demo and
     # scenes/mirror.txt with reflect 0.4 and 1 or 2 bounces (one K1 bounce
     # launch a frame); K1's bounce entry against its twin on every ray and
@@ -4386,12 +4806,13 @@ def main() -> int:
     (kb, kbf, kbb), kb_ms = timed(lambda: render_rays(
         plan, rc1, tt, origin, dirs, save_factors=True), runs=5)
     pb, kb_plain_ms, kb_count = timed_counted(lambda: k1_plain(
-        plan, rc1, tt, origin, dirs, save_factors=True))
-    same("K1 bounce, demo B 1 at 512^2, every ray", flat((kb, kbf, kbb)),
+        plan, rc1, tt, origin, dirs[::BIG_STRIDE], save_factors=True))
+    same(f"K1 bounce, demo B 1 at 512^2, every {BIG_STRIDE}th ray",
+         rows_of(flat((kb, kbf, kbb)), slice(None, None, BIG_STRIDE)),
          flat(pb), "render_bounce_kernel")
     del pb, kb, kbf, kbb
     # reads the directions, writes 5 floats, 2 ints and the light a set
-    kb_bound = bound_ms(kb_count, R * (12 + 2 * 32))
+    kb_bound = bound_ms(kb_count, R * (12 + 2 * 32), BIG_STRIDE)
     b_turns = {
         f"K1 demo reference / B {B}": in_turns(
             lambda: render_rays(plan, tcfg, tt, origin, dirs),
@@ -4414,8 +4835,9 @@ def main() -> int:
     del rg_dirs
     dev_ms["render_bounce_kernel"] = b_turns["K1 demo reference / B 1"][1]
     print(f"[reflect] K1's bounce entry, demo B 1 at {tcfg.width}x"
-          f"{tcfg.height} ssaa{tcfg.ssaa}: = its twin on every ray (every "
-          f"output of both shade sets); {kb_ms:.3f} ms with its wrapper, "
+          f"{tcfg.height} ssaa{tcfg.ssaa}: = its twin on every "
+          f"{BIG_STRIDE}th ray (every output of both shade sets); "
+          f"{kb_ms:.3f} ms with its wrapper, "
           f"plain {kb_plain_ms:.3f} ms, bound {kb_bound[0]:.4f} ms by "
           f"{kb_bound[1]} ({kb_bound[5]} operations); the raygen bounce "
           f"entry = the bounce entry on its directions, {rgb_ms:.3f} ms with "
@@ -4423,7 +4845,7 @@ def main() -> int:
           f"a; each the median of 3 launches): "
           + "; ".join(f"{k} {a:.3f} / {b:.3f} ms"
                       for k, (a, b) in b_turns.items()) + f"; {card}")
-    # 5 fit steps with one bounce: one K1 bounce launch a step, no K2 (the
+    # 3 fit steps with one bounce: one K1 bounce launch a step, no K2 (the
     # backward replays the chain in plain PyTorch, REPLAY_RAYS at a time)
     r_target = rt.render_tables(plan, tables, rc1, device=dev)
     stamps.clear()
@@ -4431,11 +4853,11 @@ def main() -> int:
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rres = rt.fit(plan, start, r_target, rc1, device=dev, steps=5,
+    rres = rt.fit(plan, start, r_target, rc1, device=dev, steps=3,
                   trainable=TRAINABLE, optimizer=adam, callback=on_step)
-    counts = add_counts("train_reflect", 5)
-    check(counts == only(render_bounce_kernel=5),
-          f"5 fit steps with a bounce launched {counts}")
+    counts = add_counts("train_reflect", 3)
+    check(counts == only(render_bounce_kernel=3),
+          f"3 fit steps with a bounce launched {counts}")
     check_step_grads()
     check(rres.losses[-1] < rres.losses[0], f"loss did not fall: "
           f"{rres.losses}")
@@ -4443,31 +4865,27 @@ def main() -> int:
     rstep = statistics.median(np.diff([t0] + stamps))
     rtt = tables_to_torch(rres.tables, dev, requires_grad=TRAINABLE)
     opt = adam([getattr(rtt, f) for f in TRAINABLE])
-    splits = []
-    for _ in range(2):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        opt.zero_grad(set_to_none=True)
-        ev[0].record()
-        img = rt.render_tables(plan, rtt, rc1, differentiable=True,
-                               device=dev)
-        loss = torch.mean((img - r_target) ** 2)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    r_split = [statistics.mean(c) for c in zip(*splits)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    img = rt.render_tables(plan, rtt, rc1, differentiable=True, device=dev)
+    loss = torch.mean((img - r_target) ** 2)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    r_split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
     del rtt, opt, img, loss
     print(f"[reflect] fit, demo {tcfg.width}x{tcfg.height} ssaa{tcfg.ssaa} "
-          f"{tcfg.iterations} it, reflect 0.4, 1 bounce, FD normals, 5 Adam "
+          f"{tcfg.iterations} it, reflect 0.4, 1 bounce, FD normals, 3 Adam "
           f"steps: loss {' '.join(f'{v:.6g}' for v in rres.losses)}; step "
-          f"median {rstep * 1e3:.1f} ms; split (mean of 2 more, CUDA "
+          f"median {rstep * 1e3:.1f} ms; split (one more step, CUDA "
           f"events): forward {r_split[0]:.1f} ms, backward (the replay, "
           f"{scene_vjp.REPLAY_RAYS} rays a slice) {r_split[1]:.1f} ms, "
           f"optimizer {r_split[2]:.2f} ms; peak device memory "
-          f"{r_peak:.2f} GiB (torch.cuda.max_memory_allocated over the 5 "
+          f"{r_peak:.2f} GiB (torch.cuda.max_memory_allocated over the 3 "
           f"steps); launches a step K1's bounce entry 1, K2 0; {card}")
     # card vs CPU gradients at 32x24 on the same rays
     for sname, pl, tb, ch in (
@@ -4489,6 +4907,7 @@ def main() -> int:
               f"scale {worst_rg[0]:.3g} ({worst_rg[1]}); launches K1 1 "
               f"(bounce), K2 0")
 
+    phase("dof")
     # 9f. thin-lens depth of field at the same footprint: aperture 0.2,
     # focus 8 (K1 with per-ray origins, one launch a frame), then with a
     # mirror bounce (K1's bounce entry); the images against multi; card vs
@@ -4539,6 +4958,7 @@ def main() -> int:
           f"CPU on the same lens rays, every field and the rays: max |diff| "
           f"/ field scale {worst_dg[0]:.3g} ({worst_dg[1]}); {card}")
 
+    phase("profile")
     # 10. K3's step counter through profile_march
     prof = profile_march(plan, tables, tcfg, device=dev)
     st = prof["steps"]
@@ -4550,6 +4970,7 @@ def main() -> int:
           f"steps mean {st['mean']:.3f}, p50 {st['p50']}, p90 {st['p90']}, "
           f"p99 {st['p99']}, max {st['max']}")
 
+    phase("warp")
     # 11. where a thread-per-ray kernel loses its lanes
     k1_out = render_rays(plan, tcfg, tt, origin, dirs)
     n_hat = normalize(g)
@@ -4625,6 +5046,7 @@ def main() -> int:
           f"{all_skipped:.4f} of rays in warps that skip on every lane")
     del q7, folded, by_warp, k1_out
 
+    phase("collapse")
     # 12. the lattice collapse on against off, in turns, in this run
     def on_off(fn, needle, runs=5):
         """(median device ms on, off) of the ``needle`` kernel in
@@ -4771,6 +5193,7 @@ def main() -> int:
           f"{small.height} and {tcfg.width}x{tcfg.height}, all bitwise")
     del m_dirs
 
+    phase("serve")
     # 13. the serving path: K1's raygen entry against K1 on its twin's
     # directions and against its twin, the image against the standard
     # path's, render() and /render with raygen on and off in turns
@@ -4954,27 +5377,46 @@ def main() -> int:
         srv.server_close()
         thread.join(timeout=60)
 
+    phase("fractal")
     # 14. the procedural leaves on every path
     dplan, dtables = rt.compile_scene(demo)
     proc_rows = fractal_phase(dev, card, add_counts, dplan,
                               tables_to_torch(dtables, dev))
 
+    phase("deep")
     # 15. deep trees (no two-level form) on every path
     deep_rows = deep_phase(dev, card, add_counts, dplan,
                            tables_to_torch(dtables, dev))
 
+    phase("cli")
     # 16. the CLI's and the server's paths past one render
     sd_row = cli_phase(dev, card, add_counts)
 
+    phase("oracle")
     # 17. the port's plain gradient oracles on the card
     oracle_phase(dev, card)
 
+    phase("shard")
     # 18. the demo's rows sharded over a torch.distributed process group
     shard_rows = shard_phase(dev, card, add_counts)
 
+    phase("cull")
     # 19. the culls of D5 and D4 on scatter1k, menger4 and an iters-5
     # sponge, and the block ray order
     cull_rows = cull_phase(dev, card, add_counts)
+
+    # 20. the native host runtime: build, parse, the PNG writers
+    phase("native")
+    native_phase(card)
+
+    # 21. the examples at their own defaults
+    phase("examples")
+    example_rows = examples_phase(dev, card, add_counts)
+    phase(None)
+    print("[seconds] every phase: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items())
+        + f"; total {time.perf_counter() - T_START:.1f} s from the "
+        f"interpreter's start; {card}")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "raymarching_tpu"))
@@ -5135,6 +5577,11 @@ def main() -> int:
         if k in cull_rows:
             r["cull"] = {"replaces": D5_D4, **cull_rows[k],
                          "launches": cull_rows["launches"][k]}
+    # each kernel's launches in each example's run ([examples]: its main
+    # at its own defaults, the counts zeroed before it and read after it)
+    for r in table["kernels"]:
+        r["examples"] = {"launches": {
+            label: c[r["name"]] for label, c in example_rows.items()}}
     # K2's SD mode on the demo's mesh grid ([cli]), a row of its own
     table["kernels"].append({
         "name": "surface_kernel (SD mode, mesh grid)", "route": "cuda",

@@ -5,9 +5,10 @@ main.cpp:53; stb jpg quality 100, main.cpp:80): clamp to [0, 1], apply
 1/gamma, quantize to uint8 (round-half-away like the reference's
 ``uint8(v * 255 + 0.5)`` convention), append alpha=1 for RGBA outputs.
 
-Every format goes through the pure Python encoders (``io.png``,
-``io.jpeg``); the JAX package's optional native C++ PNG writer is not
-ported.
+PNGs go through the native host runtime's writer when its library is
+built and loaded (``raymarching_tpu_torch.native``), else through the pure
+Python encoder (``io.png``); both write the same pixels.  JPEGs always
+take ``io.jpeg``.
 
 The port's own copy of ``raymarching_tpu.io.image`` (same names, same behaviour; a test
 holds the two equal), so the port imports nothing of the JAX package.
@@ -100,4 +101,8 @@ def save_image(path: str, img: np.ndarray, gamma: float = 1.0) -> None:
     if ext not in (".png", ""):
         raise ValueError(f"unsupported image format: {ext} "
                          "(png, ppm, jpg, pfm are supported)")
+    from ..native import native_write_png
+
+    if native_write_png(path, data):
+        return
     _png.write_png(path, data)

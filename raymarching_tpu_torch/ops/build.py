@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FLAGS_TAG = "// nvcc-flags:"
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict = {}
 
 # Every kernel source of the package, csrc/<name>.cu, one library each:
 # K1's reference, extended-shading, raygen and mirror-bounce entries, K2,
@@ -83,7 +84,16 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile kernel ``name`` unless its library exists; returns its path.
     The compiler's report (ptxas registers, spills) goes to a ``.log``
-    file beside it."""
+    file beside it.  A second thread asking for the same kernel waits for
+    the first one's ``nvcc``, so ``load_library`` may be called while
+    ``build_all`` runs in the background."""
+    with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name)
+
+
+def _build(name: str) -> Path:
     path = library_path(name)
     if path.exists():
         return path
@@ -125,8 +135,9 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build kernel ``name`` on first use, then load it once per process.
     Every library exports ``rt_error_string``; the caller declares its
     entry point's signature."""
+    path = str(build(name))
     with _LOCK:
-        return _load(str(build(name)))
+        return _load(path)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -115,8 +115,9 @@ def _image(seed=0, h=13, w=17):
 
 
 @pytest.mark.parametrize("gamma", [1.0, 2.2])
-def test_png_and_jpeg_bytes_equal_jax_package(gamma, tmp_path):
+def test_png_and_jpeg_bytes_equal_jax_package(gamma, tmp_path, monkeypatch):
     from raymarching_tpu.io import image as jimage
+    from raymarching_tpu_torch import native as tnative
     img = _image()
     data = timage.to_uint8(img, gamma)
     np.testing.assert_array_equal(data, jimage.to_uint8(img, gamma))
@@ -125,7 +126,10 @@ def test_png_and_jpeg_bytes_equal_jax_package(gamma, tmp_path):
     np.testing.assert_array_equal(tpng.decode_png(png)[..., :3], data)
     assert tjpeg.encode_jpeg(data, 100) == jjpeg.encode_jpeg(data, 100)
     assert tjpeg.encode_jpeg(data, 60) == jjpeg.encode_jpeg(data, 60)
-    # save_image: the port always takes the pure-Python PNG encoder
+    # save_image without the native library (its loader stubbed to None):
+    # the pure-Python PNG encoder (tests/test_torch_native.py holds the
+    # native writer's pixels)
+    monkeypatch.setattr(tnative, "load_library", lambda *a, **k: None)
     for ext in ("png", "ppm", "jpg", "pfm"):
         timage.save_image(str(tmp_path / f"t.{ext}"), img, gamma)
     assert (tmp_path / "t.png").read_bytes() == png
