@@ -101,6 +101,7 @@ from .ops.scene_vjp import gather_rows
 from .ops.shade_kernel import bounce_count
 from .ops.surface_kernel import WINNER, surface_eval
 from .tables import tables_to_torch
+from .utils.timing import span
 
 BACKENDS = ("cuda", "multi", "ref", "torch")
 
@@ -187,20 +188,22 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
     With ``differentiable`` the image carries the autograd graph back to
     the fields of ``tables`` that are tensors requiring grad (see
     ``tables.tables_to_torch``); otherwise nothing is recorded."""
-    cfg = cfg or RenderConfig()
-    backend = route_backend(cfg, backend)
-    device = resolve_device(device)
-    check_supported(plan, cfg, backend)
-    serve = serves_in_kernel(cfg, backend)
-    if serve and differentiable:
-        raise ValueError(
-            "serve_raygen renders forward only (its directions come from the "
-            "kernel and have no backward, as in the JAX package): render "
-            "with serve_raygen=False to differentiate")
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        tables = tables_to_torch(tables, device)
-        return _render_rows(plan, tables, cfg, backend,
-                            differentiable=differentiable, serve=serve)
+    with span("rt.render"):
+        cfg = cfg or RenderConfig()
+        backend = route_backend(cfg, backend)
+        device = resolve_device(device)
+        check_supported(plan, cfg, backend)
+        serve = serves_in_kernel(cfg, backend)
+        if serve and differentiable:
+            raise ValueError(
+                "serve_raygen renders forward only (its directions come from "
+                "the kernel and have no backward, as in the JAX package): "
+                "render with serve_raygen=False to differentiate")
+        with torch.set_grad_enabled(differentiable
+                                    and torch.is_grad_enabled()):
+            tables = tables_to_torch(tables, device)
+            return _render_rows(plan, tables, cfg, backend,
+                                differentiable=differentiable, serve=serve)
 
 
 def _render_rows(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
@@ -232,8 +235,9 @@ def _render_rows(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
         # lens origins, the SSAA mean the lens integral; K1 with per-ray
         # origins on cuda, the hooks (whose marches take per-ray origins)
         # elsewhere
-        o, d = cam.generate_rays_dof(tables, cfg, row_range)
-        o, d = ordered(o.reshape(-1, 3)), ordered(d.reshape(-1, 3))
+        with span("rt.camera"):
+            o, d = cam.generate_rays_dof(tables, cfg, row_range)
+            o, d = ordered(o.reshape(-1, 3)), ordered(d.reshape(-1, 3))
         diff = (oracle if hooks is not None else torch.is_grad_enabled()
                 and any(t.requires_grad for t in (o, d, *tables)))
         colors = _colors(plan, tables, cfg, o, d, hooks, differentiable=diff)
@@ -243,14 +247,16 @@ def _render_rows(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     elif serve:
         colors = _render_serve(plan, tables, cfg, blocks)
     else:
-        origin, dirs = cam.generate_rays(tables, cfg, row_range)
-        colors = _colors(plan, tables, cfg, origin,
-                         ordered(dirs.reshape(-1, 3)), hooks,
+        with span("rt.camera"):
+            origin, dirs = cam.generate_rays(tables, cfg, row_range)
+            dirs = ordered(dirs.reshape(-1, 3))
+        colors = _colors(plan, tables, cfg, origin, dirs, hooks,
                          differentiable=(differentiable if hooks is None
                                          else oracle))
-    if blocks is not None:
-        colors = from_blocked(colors, rows, W, S, *blocks)
-    return colors.reshape(rows, W, S, 3).mean(dim=2)
+    with span("rt.camera"):
+        if blocks is not None:
+            colors = from_blocked(colors, rows, W, S, *blocks)
+        return colors.reshape(rows, W, S, 3).mean(dim=2)
 
 
 def serves_in_kernel(cfg: RenderConfig, backend: str) -> bool:

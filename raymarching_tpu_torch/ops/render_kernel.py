@@ -52,6 +52,7 @@ from ..core.sdf import kernel_fold
 from ..scene.compile import ScenePlan, SceneTables
 from .. import tables as scene_tables
 from ..tables import fused_groups
+from ..utils.timing import span
 from . import build
 from .march_kernel import march_rays
 from .scene_vjp import gather_rows
@@ -272,73 +273,74 @@ def render_rays(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     differentiates it).  ``collapse``: the scene fold may take the exact
     Menger lattice collapse (the same bits as the leaf fold, which
     ``collapse=False`` keeps)."""
-    dev = dirs.device
-    check_supported(plan, cfg)
-    analytic = check_normal_mode(cfg, save_winner)
-    B = _check_bounces(cfg, save_winner)
-    if 0 < cfg.two_phase_k1 < cfg.iterations and not B:
-        hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
-        return _ray_outputs(hit, shade_rays(
-            plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
-            save_winner, save_factors))
-    if dev.type == "cpu":
-        return render_rays_plain(plan, cfg, tables, origin, dirs, collapse,
-                                 save_winner, save_factors)
-    if dev.type != "cuda":
-        raise ValueError(f"render_rays: unsupported device {dev}")
-    tensors = [origin, dirs, *tables]
-    if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
-        raise ValueError("render_rays: every tensor must be float32 on "
-                         f"{dev}")
-    R = dirs.shape[0]
-    if dirs.shape != (R, 3) or origin.shape not in ((3,), (R, 3)):
-        raise ValueError(f"render_rays: dirs {tuple(dirs.shape)}, origin "
-                         f"{tuple(origin.shape)}")
+    with span("rt.k1"):
+        dev = dirs.device
+        check_supported(plan, cfg)
+        analytic = check_normal_mode(cfg, save_winner)
+        B = _check_bounces(cfg, save_winner)
+        if 0 < cfg.two_phase_k1 < cfg.iterations and not B:
+            hit = two_phase_march(plan, cfg, tables, origin, dirs, collapse)
+            return _ray_outputs(hit, shade_rays(
+                plan, cfg, tables, hit.position, hit.sd, dirs, collapse,
+                save_winner, save_factors))
+        if dev.type == "cpu":
+            return render_rays_plain(plan, cfg, tables, origin, dirs, collapse,
+                                     save_winner, save_factors)
+        if dev.type != "cuda":
+            raise ValueError(f"render_rays: unsupported device {dev}")
+        tensors = [origin, dirs, *tables]
+        if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
+            raise ValueError("render_rays: every tensor must be float32 on "
+                             f"{dev}")
+        R = dirs.shape[0]
+        if dirs.shape != (R, 3) or origin.shape not in ((3,), (R, 3)):
+            raise ValueError(f"render_rays: dirs {tuple(dirs.shape)}, origin "
+                             f"{tuple(origin.shape)}")
 
-    dirs_soa = dirs.t().contiguous()
-    if origin.dim() == 2:
-        org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
-    else:
-        org_soa, o3 = None, tuple(float(v) for v in origin.tolist())
-    rays = (ptr_or_none(org_soa), *o3, dirs_soa.data_ptr())
-    if B:
-        res = _bounce_launch(plan, cfg, tables, dev, R, collapse, analytic,
-                             B, (0,) * 6 + (0.0,) * 3 + (None, 0), rays)
-        if R:    # the C entry point launches nothing for zero rays
-            render_rays.launches += 1
-            render_rays.entry_launches["render_bounce_kernel"] += 1
-        return _bounce_outputs(res, save_factors)
-    ext = extended(plan, cfg)
-    name = "render_ext_kernel" if ext else "render_kernel"
-    lib = _library(name)
-    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    out = torch.empty((6, R), dtype=torch.float32, device=dev)
-    iout = torch.empty((2, R), dtype=torch.int32, device=dev)
-    wres, widx = winner_buffers(R, dev, save_winner)
-    outs = (out.data_ptr(), iout.data_ptr(), ptr_or_none(wres),
-            ptr_or_none(widx))
-    sfac = aofac = None
-    light = out[5]
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if ext:
-            ext_args, light, sfac, aofac = ext_operands(plan, cfg, R, dev)
-            code = lib.rt_render_rays_ext(
-                *head, *ext_args, *rays, *outs, light.data_ptr(),
-                ptr_or_none(sfac), ptr_or_none(aofac), counter.data_ptr(), R,
-                stream)
-            light = light_of(light)
+        dirs_soa = dirs.t().contiguous()
+        if origin.dim() == 2:
+            org_soa, o3 = origin.t().contiguous(), (0.0, 0.0, 0.0)
         else:
-            code = lib.rt_render_rays(*head, *rays, *outs,
-                                      counter.data_ptr(), R, stream)
-    build.check(lib, code, "render kernel launch")
-    if R:    # the C entry points launch nothing for zero rays
-        render_rays.launches += 1
-        render_rays.entry_launches[name] += 1
-    return _outputs(cfg, out, iout, light, wres, widx, Factors(sfac, aofac),
-                    save_winner, save_factors)
+            org_soa, o3 = None, tuple(float(v) for v in origin.tolist())
+        rays = (ptr_or_none(org_soa), *o3, dirs_soa.data_ptr())
+        if B:
+            res = _bounce_launch(plan, cfg, tables, dev, R, collapse, analytic,
+                                 B, (0,) * 6 + (0.0,) * 3 + (None, 0), rays)
+            if R:    # the C entry point launches nothing for zero rays
+                render_rays.launches += 1
+                render_rays.entry_launches["render_bounce_kernel"] += 1
+            return _bounce_outputs(res, save_factors)
+        ext = extended(plan, cfg)
+        name = "render_ext_kernel" if ext else "render_kernel"
+        lib = _library(name)
+        head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = torch.empty((6, R), dtype=torch.float32, device=dev)
+        iout = torch.empty((2, R), dtype=torch.int32, device=dev)
+        wres, widx = winner_buffers(R, dev, save_winner)
+        outs = (out.data_ptr(), iout.data_ptr(), ptr_or_none(wres),
+                ptr_or_none(widx))
+        sfac = aofac = None
+        light = out[5]
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if ext:
+                ext_args, light, sfac, aofac = ext_operands(plan, cfg, R, dev)
+                code = lib.rt_render_rays_ext(
+                    *head, *ext_args, *rays, *outs, light.data_ptr(),
+                    ptr_or_none(sfac), ptr_or_none(aofac), counter.data_ptr(),
+                    R, stream)
+                light = light_of(light)
+            else:
+                code = lib.rt_render_rays(*head, *rays, *outs,
+                                          counter.data_ptr(), R, stream)
+        build.check(lib, code, "render kernel launch")
+        if R:    # the C entry points launch nothing for zero rays
+            render_rays.launches += 1
+            render_rays.entry_launches[name] += 1
+        return _outputs(cfg, out, iout, light, wres, widx,
+                        Factors(sfac, aofac), save_winner, save_factors)
 
 
 # K1's launches, and by source (the reference, the extended and the bounce
@@ -433,65 +435,66 @@ def render_raygen(plan: ScenePlan, cfg: RenderConfig, tables: SceneTables,
     bounces the raygen form of the bounce entry), always one kernel
     (``cfg.two_phase_k1`` is not taken, as in the JAX path).  Forward
     only."""
-    dev = tables.cam_position.device
-    check_supported(plan, cfg)
-    analytic = check_normal_mode(cfg, save_winner)
-    B = _check_bounces(cfg, save_winner)
-    bh, bw = block
-    if (bh, bw) != (0, 0) and not (bh > 0 and bw > 0
-                                   and cfg.height % bh == 0
-                                   and cfg.width % bw == 0):
-        raise ValueError(f"render_raygen: block {block} does not tile a "
-                         f"{cfg.width}x{cfg.height} frame")
-    if dev.type == "cpu":
-        return render_raygen_plain(plan, cfg, tables, base, n, collapse,
-                                   save_winner, save_factors, block)
-    if dev.type != "cuda":
-        raise ValueError(f"render_raygen: unsupported device {dev}")
-    if any(t.device != dev or t.dtype != torch.float32 for t in tables):
-        raise ValueError("render_raygen: every tensor must be float32 on "
-                         f"{dev}")
-    if base < 0 or n < 0:
-        raise ValueError(f"render_raygen: rays {base} + {n}")
-    # the kernel reads the camera rows on the device: no host copy, no wait
-    rows = cam.serve_cam_rows(tables, cfg).contiguous()
-    recip = [1.0 / cfg.ssaa, 1.0 / cfg.width, 1.0 / cfg.height]
-    if B:
-        res = _bounce_launch(
-            plan, cfg, tables, dev, n, collapse, analytic, B,
-            (1, cfg.width, cfg.height, cfg.ssaa, bh, bw, *recip,
-             rows.data_ptr(), base), (None, 0.0, 0.0, 0.0, None))
+    with span("rt.k1"):
+        dev = tables.cam_position.device
+        check_supported(plan, cfg)
+        analytic = check_normal_mode(cfg, save_winner)
+        B = _check_bounces(cfg, save_winner)
+        bh, bw = block
+        if (bh, bw) != (0, 0) and not (bh > 0 and bw > 0
+                                       and cfg.height % bh == 0
+                                       and cfg.width % bw == 0):
+            raise ValueError(f"render_raygen: block {block} does not tile a "
+                             f"{cfg.width}x{cfg.height} frame")
+        if dev.type == "cpu":
+            return render_raygen_plain(plan, cfg, tables, base, n, collapse,
+                                       save_winner, save_factors, block)
+        if dev.type != "cuda":
+            raise ValueError(f"render_raygen: unsupported device {dev}")
+        if any(t.device != dev or t.dtype != torch.float32 for t in tables):
+            raise ValueError("render_raygen: every tensor must be float32 on "
+                             f"{dev}")
+        if base < 0 or n < 0:
+            raise ValueError(f"render_raygen: rays {base} + {n}")
+        # the kernel reads the camera rows on the device: no host copy, no wait
+        rows = cam.serve_cam_rows(tables, cfg).contiguous()
+        recip = [1.0 / cfg.ssaa, 1.0 / cfg.width, 1.0 / cfg.height]
+        if B:
+            res = _bounce_launch(
+                plan, cfg, tables, dev, n, collapse, analytic, B,
+                (1, cfg.width, cfg.height, cfg.ssaa, bh, bw, *recip,
+                 rows.data_ptr(), base), (None, 0.0, 0.0, 0.0, None))
+            if n:    # the C entry point launches nothing for zero rays
+                render_raygen.launches += 1
+                render_raygen.entry_launches["render_bounce_kernel"] += 1
+            return _bounce_outputs(res, save_factors)
+        ext = extended(plan, cfg)
+        lib = _library("render_raygen_kernel")
+        head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = torch.empty((6, n), dtype=torch.float32, device=dev)
+        iout = torch.empty((2, n), dtype=torch.int32, device=dev)
+        wres, widx = winner_buffers(n, dev, save_winner)
+        if ext:
+            ext_args, light, sfac, aofac = ext_operands(plan, cfg, n, dev)
+        else:
+            ext_args = (0.0, 0, 0.0, 0, (ctypes.c_float * 1)(), 0.0)
+            light, sfac, aofac = out[5:6], None, None
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.rt_render_raygen(
+                *head, int(ext), *ext_args, cfg.width, cfg.height, cfg.ssaa,
+                bh, bw, *recip, rows.data_ptr(), base, out.data_ptr(),
+                iout.data_ptr(),
+                ptr_or_none(wres), ptr_or_none(widx),
+                light.data_ptr() if ext else None, ptr_or_none(sfac),
+                ptr_or_none(aofac), counter.data_ptr(), n, stream)
+        build.check(lib, code, "render kernel raygen launch")
         if n:    # the C entry point launches nothing for zero rays
             render_raygen.launches += 1
-            render_raygen.entry_launches["render_bounce_kernel"] += 1
-        return _bounce_outputs(res, save_factors)
-    ext = extended(plan, cfg)
-    lib = _library("render_raygen_kernel")
-    head, _keep = _launch_head(plan, cfg, tables, dev, collapse, analytic)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    out = torch.empty((6, n), dtype=torch.float32, device=dev)
-    iout = torch.empty((2, n), dtype=torch.int32, device=dev)
-    wres, widx = winner_buffers(n, dev, save_winner)
-    if ext:
-        ext_args, light, sfac, aofac = ext_operands(plan, cfg, n, dev)
-    else:
-        ext_args = (0.0, 0, 0.0, 0, (ctypes.c_float * 1)(), 0.0)
-        light, sfac, aofac = out[5:6], None, None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.rt_render_raygen(
-            *head, int(ext), *ext_args, cfg.width, cfg.height, cfg.ssaa,
-            bh, bw, *recip, rows.data_ptr(), base, out.data_ptr(),
-            iout.data_ptr(),
-            ptr_or_none(wres), ptr_or_none(widx),
-            light.data_ptr() if ext else None, ptr_or_none(sfac),
-            ptr_or_none(aofac), counter.data_ptr(), n, stream)
-    build.check(lib, code, "render kernel raygen launch")
-    if n:    # the C entry point launches nothing for zero rays
-        render_raygen.launches += 1
-        render_raygen.entry_launches["render_raygen_kernel"] += 1
-    return _outputs(cfg, out, iout, light_of(light), wres, widx,
-                    Factors(sfac, aofac), save_winner, save_factors)
+            render_raygen.entry_launches["render_raygen_kernel"] += 1
+        return _outputs(cfg, out, iout, light_of(light), wres, widx,
+                        Factors(sfac, aofac), save_winner, save_factors)
 
 
 # the raygen entries' launches, and by source (render_raygen_kernel, and

@@ -82,6 +82,7 @@ from ..core.march import dot3
 from ..core.sdf import require_kernel_form, scene_sd, scene_sd_fused
 from ..core.shading import (lambert_replay, normal_analytic, normal_fd,
                             normalize)
+from ..utils.timing import span
 from .march_op import fused_ift
 from .render_kernel import blend, render_rays
 from .shade_kernel import bounce_count
@@ -144,97 +145,104 @@ class FusedRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        plan, cfg = ctx.plan, ctx.cfg
-        if cfg.fused_generators:
-            require_kernel_form(plan)   # a deep plan's fused backward
-        p, conv, cidx, smask, t, dirs, *rest = ctx.saved_tensors
-        winner, rest = rest[:ctx.n_winner], rest[ctx.n_winner:]
-        soft, ao = ctx.factors
-        sfac = rest.pop(0) if soft else None
-        aofac = rest.pop(0) if ao else None
-        shadow = Shadow(smask, sfac, aofac)
-        if bounce_count(cfg):
-            origin = rest.pop(0)
-            anchors = [Anchor(p, conv, cidx, shadow)]
-            for _ in range(bounce_count(cfg)):
-                p_b, conv_b, cidx_b, smask_b = rest[:4]
-                del rest[:4]
-                anchors.append(Anchor(p_b, conv_b, cidx_b, Shadow(
-                    smask_b, rest.pop(0) if soft else None,
-                    rest.pop(0) if ao else None)))
-            o_bar, d_bar, grads = reflect_bwd(plan, cfg, SceneTables(*rest),
-                                              origin, dirs, anchors, g_out)
-            return (None, None, o_bar, d_bar, *grads)
-        tables = SceneTables(*rest)
-        P = tables.prim_color.shape[0]
-        fused = cfg.fused_generators
-        analytic = cfg.normal_mode == "analytic"
-        if (fused and not analytic) or (analytic and plan.proc):
-            gp, grads = _replay_bwd(plan, cfg, tables, p, conv, cidx, shadow,
-                                    dirs, g_out)
+        with span("rt.bwd"):
+            plan, cfg = ctx.plan, ctx.cfg
+            if cfg.fused_generators:
+                require_kernel_form(plan)   # a deep plan's fused backward
+            p, conv, cidx, smask, t, dirs, *rest = ctx.saved_tensors
+            winner, rest = rest[:ctx.n_winner], rest[ctx.n_winner:]
+            soft, ao = ctx.factors
+            sfac = rest.pop(0) if soft else None
+            aofac = rest.pop(0) if ao else None
+            shadow = Shadow(smask, sfac, aofac)
+            if bounce_count(cfg):
+                origin = rest.pop(0)
+                anchors = [Anchor(p, conv, cidx, shadow)]
+                for _ in range(bounce_count(cfg)):
+                    p_b, conv_b, cidx_b, smask_b = rest[:4]
+                    del rest[:4]
+                    anchors.append(Anchor(p_b, conv_b, cidx_b, Shadow(
+                        smask_b, rest.pop(0) if soft else None,
+                        rest.pop(0) if ao else None)))
+                o_bar, d_bar, grads = reflect_bwd(
+                    plan, cfg, SceneTables(*rest), origin, dirs, anchors,
+                    g_out)
+                return (None, None, o_bar, d_bar, *grads)
+            tables = SceneTables(*rest)
+            P = tables.prim_color.shape[0]
+            fused = cfg.fused_generators
+            analytic = cfg.normal_mode == "analytic"
+            if (fused and not analytic) or (analytic and plan.proc):
+                with span("rt.bwd.replay"):
+                    gp, grads = _replay_bwd(plan, cfg, tables, p, conv, cidx,
+                                            shadow, dirs, g_out)
+                o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
+                return (None, None, o_bar, t[:, None] * gp, *grads)
+            if cfg.normal_mode == "analytic":
+                # the forward's residuals, else one K2 launch at the hits
+                sd0, widx0, g0 = winner or (fused_winner_eval if fused else
+                                            winner_eval)(plan, tables, p)
+                g = g0
+            else:
+                sd7, widx7, g7 = stencil_eval(plan, cfg, tables, p,
+                                              center=True)
+                inv = 1.0 / (2.0 * cfg.fd_h)
+                g = torch.stack([(sd7[1 + a] - sd7[4 + a]) * inv
+                                 for a in range(3)], dim=-1)
+                g0 = g7[0]
+
+            # 1. shading replay from the normal's primal
+            with span("rt.bwd.replay"):
+                p_bar, g_bar, pc_bar, light_bar, lc_bar = _replay(
+                    plan, cfg, tables, p, g, cidx, shadow, g_out)
+
+            if cfg.normal_mode == "analytic" and fused:
+                # 2. the chain on the fused field, reduced onto base rows
+                hess_p_bar, hess_pos, hess_aux = fused_winner_hessian_chain(
+                    plan, tables, widx0, g0, g_bar, sd0)
+                p_bar = p_bar + hess_p_bar
+            elif cfg.normal_mode == "analytic":
+                # 2. the analytic normal's chain: the winner's Hessian
+                hess_p_bar, rows, hidx = winner_hessian_chain(
+                    plan, tables, widx0, g0, g_bar, sd0)
+                p_bar = p_bar + hess_p_bar
+            else:
+                # 2. FD chain: the stencil rows' cotangents reach p through g
+                u_fd = fd_stencil_cotangents(cfg, g_bar)             # [6, R]
+                p_bar = p_bar + (u_fd[..., None] * g7[1:]).sum(dim=0)
+
+            # 3. implicit-function route at the hit
+            t_bar = torch.where(conv, dot3(p_bar, dirs),
+                                torch.zeros((), device=p.device))
+            w = ift_ray_weights(t_bar, dot3(g0, dirs), cfg.ift_damping)
+            gp = p_bar + w[:, None] * g0
+
+            # 4. the parameter scatters: FD, one over all 7 stencil rows;
+            # analytic, one over the winner rows and one of the Hessian rows
+            with span("rt.bwd.scatter"):
+                if cfg.normal_mode == "analytic" and fused:
+                    pos_bar, aux_bar = fused_theta_cotangents(
+                        plan, tables, widx0, g0, w, sd0, p)
+                    pos_bar, aux_bar = pos_bar + hess_pos, aux_bar + hess_aux
+                elif cfg.normal_mode == "analytic":
+                    pos_bar, aux_bar = theta_cotangents(plan, tables, widx0,
+                                                        g0, w)
+                    pos_bar = pos_bar + segment_add(hidx, rows, P)
+                else:
+                    # a fractal leaf's size cotangent needs the stencil SDs
+                    # and points (scene_vjp.theta_cotangents)
+                    pos_bar, aux_bar = theta_cotangents(
+                        plan, tables, widx7, g7, torch.cat([w[None], u_fd]),
+                        *((sd7, stencil_points(p, cfg.fd_h, center=True))
+                          if plan.proc else ()))
+
             o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
-            return (None, None, o_bar, t[:, None] * gp, *grads)
-        if cfg.normal_mode == "analytic":
-            # the forward's residuals, else one K2 launch at the hits
-            sd0, widx0, g0 = winner or (fused_winner_eval if fused else
-                                        winner_eval)(plan, tables, p)
-            g = g0
-        else:
-            sd7, widx7, g7 = stencil_eval(plan, cfg, tables, p, center=True)
-            inv = 1.0 / (2.0 * cfg.fd_h)
-            g = torch.stack([(sd7[1 + a] - sd7[4 + a]) * inv
-                             for a in range(3)], dim=-1)
-            g0 = g7[0]
-
-        # 1. shading replay from the normal's primal
-        p_bar, g_bar, pc_bar, light_bar, lc_bar = _replay(
-            plan, cfg, tables, p, g, cidx, shadow, g_out)
-
-        if cfg.normal_mode == "analytic" and fused:
-            # 2. the chain on the fused field, reduced onto base rows
-            hess_p_bar, hess_pos, hess_aux = fused_winner_hessian_chain(
-                plan, tables, widx0, g0, g_bar, sd0)
-            p_bar = p_bar + hess_p_bar
-        elif cfg.normal_mode == "analytic":
-            # 2. the analytic normal's chain: the winner's Hessian
-            hess_p_bar, rows, hidx = winner_hessian_chain(
-                plan, tables, widx0, g0, g_bar, sd0)
-            p_bar = p_bar + hess_p_bar
-        else:
-            # 2. FD chain: the stencil rows' cotangents reach p through g
-            u_fd = fd_stencil_cotangents(cfg, g_bar)             # [6, R]
-            p_bar = p_bar + (u_fd[..., None] * g7[1:]).sum(dim=0)
-
-        # 3. implicit-function route at the hit
-        t_bar = torch.where(conv, dot3(p_bar, dirs),
-                            torch.zeros((), device=p.device))
-        w = ift_ray_weights(t_bar, dot3(g0, dirs), cfg.ift_damping)
-        gp = p_bar + w[:, None] * g0
-
-        # 4. the parameter scatters: FD, one over all 7 stencil rows;
-        # analytic, one over the winner rows and one of the Hessian rows
-        if cfg.normal_mode == "analytic" and fused:
-            pos_bar, aux_bar = fused_theta_cotangents(plan, tables, widx0,
-                                                      g0, w, sd0, p)
-            pos_bar, aux_bar = pos_bar + hess_pos, aux_bar + hess_aux
-        elif cfg.normal_mode == "analytic":
-            pos_bar, aux_bar = theta_cotangents(plan, tables, widx0, g0, w)
-            pos_bar = pos_bar + segment_add(hidx, rows, P)
-        else:
-            # a fractal leaf's size cotangent needs the stencil SDs and
-            # points (scene_vjp.theta_cotangents)
-            pos_bar, aux_bar = theta_cotangents(
-                plan, tables, widx7, g7, torch.cat([w[None], u_fd]),
-                *((sd7, stencil_points(p, cfg.fd_h, center=True))
-                  if plan.proc else ()))
-
-        o_bar = gp if ctx.origin_dim == 2 else gp.sum(dim=0)
-        d_bar = t[:, None] * gp
-        grads = SceneTables(
-            prim_pos=pos_bar, prim_aux=aux_bar, prim_color=pc_bar,
-            light_pos=light_bar, light_color=lc_bar, cam_position=None,
-            cam_direction=None, cam_up=None, cam_fov=None)
-        return (None, None, o_bar, d_bar, *grads)
+            d_bar = t[:, None] * gp
+            grads = SceneTables(
+                prim_pos=pos_bar, prim_aux=aux_bar, prim_color=pc_bar,
+                light_pos=light_bar, light_color=lc_bar, cam_position=None,
+                cam_direction=None, cam_up=None, cam_fov=None)
+            return (None, None, o_bar, d_bar, *grads)
 
 
 

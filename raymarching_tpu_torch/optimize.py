@@ -24,6 +24,7 @@ from .config import RenderConfig
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .scene.compile import ScenePlan, SceneTables
 from .utils.structlog import emit
+from .utils.timing import span
 
 from .api import render_tables, resolve_device
 from .tables import tables_to_numpy, tables_to_torch
@@ -103,13 +104,16 @@ def fit(plan: ScenePlan, tables: SceneTables, target, cfg: RenderConfig, *,
 
     losses = []
     for step in range(start_step, steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn()
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
-        if primary:
-            emit("fit_step", step=step, loss=losses[-1])
+        with span("rt.fit.step"):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn()
+            with span("rt.fit.backward"):
+                loss.backward()
+            with span("rt.fit.optimizer"):
+                opt.step()
+            losses.append(loss.item())
+            if primary:
+                emit("fit_step", step=step, loss=losses[-1])
         if callback is not None:
             callback(step, losses[-1], tables)
         if primary and checkpoint_path and (step + 1) % checkpoint_every == 0:

@@ -48,6 +48,7 @@ import torch
 from .scene.compile import (KIND_LIST, MIN, KernelPlan, ScenePlan,
                             SceneTables, iter_bvh_chunks)
 from .scene.generators import _MENGER_OFFSETS
+from .utils.timing import span
 
 # DIFFERENCE groups at least this large get the base-bound cull
 # (the rule of pallas_march._scene_sd_tile, _CULL_MIN_GROUP).
@@ -864,40 +865,43 @@ def scene_operands(plan, tables: SceneTables, device,
     flag's second element ``subtree_collapse_ok`` (0 without
     ``collapse``), and ``cull`` 1.  The caller keeps the tensors alive
     across its launch."""
-    deep = plan.kernel is None
-    fused = bool(fused) and not deep
-    packed = (_deep_on(plan, torch.device(device)) if deep else
-              _packed_on(plan.kernel, torch.device(device), fused))
-    with torch.no_grad():
-        table = build_table(tables)
-        levels = spill_levels(plan) if table.device.type == "cuda" else 0
-        flag = (_table_flag(plan.kernel, table, fused) if collapse and not deep
-                else _spill_buffer(levels, table.device) if levels
-                else torch.zeros(1, dtype=torch.int32, device=device))
-        K = packed.proc_leaves.shape[0]
-        if K:
-            rows = table.shape[0] + torch.arange(K, dtype=torch.float32,
-                                                 device=table.device)
-            table[packed.proc_leaves, 6] = packed.proc_iters
-            table[packed.proc_leaves, 7] = rows
-            table = torch.cat([table, packed.proc_params])
-        if packed.cull:
-            if table.shape[0] != packed.cull_row:
-                raise ValueError(
-                    f"scene_operands: {table.shape[0]} table rows, the plan "
-                    f"places its cull rows at {packed.cull_row}")
-            table = torch.cat([table, cull_rows(plan.kernel, tables)])
-            flag = torch.cat([flag, subtree_collapse_ok(plan.kernel, tables)
-                              if collapse else torch.zeros_like(flag)])
-        ops = SceneOperands(table, packed.groups, packed.runs,
-                            packed.lattice, flag,
-                            int(packed.root_op == MIN), int(fused),
-                            int(K > 0), int(deep), int(levels > 0),
-                            packed.cull)
-    for name in ("groups", "runs", "lattice", "flag"):
-        t = getattr(ops, name)
-        if (t.dtype != torch.int32 or not t.is_contiguous()
-                or t.device != ops.table.device):
-            raise ValueError(f"scene_operands: {name} must be contiguous "
-                             f"int32 on {ops.table.device}")
-    return ops
+    with span("rt.scene_operands"):
+        deep = plan.kernel is None
+        fused = bool(fused) and not deep
+        packed = (_deep_on(plan, torch.device(device)) if deep else
+                  _packed_on(plan.kernel, torch.device(device), fused))
+        with torch.no_grad():
+            table = build_table(tables)
+            levels = spill_levels(plan) if table.device.type == "cuda" else 0
+            flag = (_table_flag(plan.kernel, table, fused)
+                    if collapse and not deep
+                    else _spill_buffer(levels, table.device) if levels
+                    else torch.zeros(1, dtype=torch.int32, device=device))
+            K = packed.proc_leaves.shape[0]
+            if K:
+                rows = table.shape[0] + torch.arange(K, dtype=torch.float32,
+                                                     device=table.device)
+                table[packed.proc_leaves, 6] = packed.proc_iters
+                table[packed.proc_leaves, 7] = rows
+                table = torch.cat([table, packed.proc_params])
+            if packed.cull:
+                if table.shape[0] != packed.cull_row:
+                    raise ValueError(
+                        f"scene_operands: {table.shape[0]} table rows, the "
+                        f"plan places its cull rows at {packed.cull_row}")
+                table = torch.cat([table, cull_rows(plan.kernel, tables)])
+                flag = torch.cat([flag,
+                                  subtree_collapse_ok(plan.kernel, tables)
+                                  if collapse else torch.zeros_like(flag)])
+            ops = SceneOperands(table, packed.groups, packed.runs,
+                                packed.lattice, flag,
+                                int(packed.root_op == MIN), int(fused),
+                                int(K > 0), int(deep), int(levels > 0),
+                                packed.cull)
+        for name in ("groups", "runs", "lattice", "flag"):
+            t = getattr(ops, name)
+            if (t.dtype != torch.int32 or not t.is_contiguous()
+                    or t.device != ops.table.device):
+                raise ValueError(f"scene_operands: {name} must be contiguous "
+                                 f"int32 on {ops.table.device}")
+        return ops

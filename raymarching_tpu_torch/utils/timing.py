@@ -1,7 +1,9 @@
-"""Phase timers, profiler traces and march statistics.
+"""Phase timers, profiler spans and traces, and march statistics.
 
 Counterpart of ``raymarching_tpu.utils.timing``: ``Phase`` (a wall-clock
-span per phase, with Mrays/s when it is given the rays), ``profiler_trace``
+span per phase, with Mrays/s when it is given the rays), ``span`` (a
+named span in a ``torch.profiler`` trace, free when no profiler
+records), ``profiler_trace``
 (a ``torch.profiler`` Chrome trace in place of the ``jax.profiler`` one),
 ``march_iteration_stats`` and ``profile_march``.  The step counts come from
 K3's per-ray counter on a CUDA device (``backend="kernel"``) or from the
@@ -20,6 +22,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+# what ``span`` gives when no profiler records: one shared null context
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span ``name`` of the ``torch.profiler`` trace: ``with
+    span("rt.k1"): ...``.  While a profiler records on this thread (the
+    autograd engine's threads inherit it) the span is a record function,
+    which the Chrome trace writes as a ``cpu_op`` event on the profiler's
+    clock, as it writes aten ops, so a reader of the host's ops reads the
+    spans beside them; otherwise it is one shared null context, which
+    costs a check of the profiler's state and nothing else."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 def _to_host(value):
@@ -44,7 +64,8 @@ class Phase:
     ph.sync(render(...))``.  On exit it prints ``[name] seconds`` and,
     with ``rays``, the Mrays/s; ``seconds`` keeps the time.  ``sync``
     waits for the device and brings the result to the host, so the span
-    covers the device's work and not only its enqueueing."""
+    covers the device's work and not only its enqueueing.  Under a
+    profiler (``profiler_trace``) the phase is also ``span(name)``."""
 
     def __init__(self, name: str, rays: Optional[int] = None,
                  verbose: bool = True):
@@ -54,6 +75,8 @@ class Phase:
         self.seconds = None
 
     def __enter__(self):
+        self._span = span(self.name)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -65,6 +88,7 @@ class Phase:
 
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self._t0
+        self._span.__exit__(*exc)
         if self.verbose and exc[0] is None:
             msg = f"[{self.name}] {self.seconds:.3f} s"
             if self.rays:

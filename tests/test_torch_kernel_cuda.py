@@ -18,6 +18,7 @@ is installed:
 """
 
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -1526,3 +1527,47 @@ def test_deep_gradients_on_card_match_cpu(cuda_device, scene, normal,
         scale = max(b.abs().max().item(), 1e-8)
         torch.testing.assert_close(a, b, rtol=0.02, atol=0.005 * scale,
                                    msg=name)
+
+
+@pytest.mark.cuda
+def test_fit_step_spans_on_card(cuda_device, tmp_path):
+    """A profiled fit step on the card: ``rt.scene_operands`` inside
+    ``rt.k1`` on the main thread, and the fused backward's
+    ``rt.bwd.replay`` and ``rt.bwd.scatter`` inside ``rt.bwd`` on
+    autograd's device thread, within ``rt.fit.backward``'s time: the
+    profiler's state reaches that thread, so ``timing.span`` records
+    there."""
+    from torch.profiler import ProfilerActivity, profile
+    plan, tables = compile_scene(load_scene(str(SCENES / "demo.txt")))
+    target = torch.zeros((CFG.height, CFG.width, 3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.fit(plan, tables, target, CFG, device=cuda_device, steps=1)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    by = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name", "").startswith("rt."):
+            by.setdefault(e["name"], []).append(e)
+
+    def inside(a, b):
+        return (b["ts"] <= a["ts"]
+                and a["ts"] + a["dur"] <= b["ts"] + b["dur"])
+
+    def within(a, outer, same_thread=True):
+        return any(inside(a, b) and (a["tid"] == b["tid"]) == same_thread
+                   for b in by[outer])
+
+    seen = {n: [(e["tid"], e["ts"], e["dur"]) for e in v]
+            for n, v in by.items()}
+    (step,) = by["rt.fit.step"]
+    (k1,) = by["rt.k1"]
+    # the forward's operands; K2's, in the backward, lie inside rt.bwd
+    assert any(within(e, "rt.k1") for e in by["rt.scene_operands"]), seen
+    assert k1["tid"] == step["tid"], seen
+    (bwd,) = by["rt.bwd"]
+    assert within(bwd, "rt.fit.backward", same_thread=False), seen
+    for name in ("rt.bwd.replay", "rt.bwd.scatter"):
+        (e,) = by[name]
+        assert within(e, "rt.bwd") and e["tid"] != step["tid"], seen
+
