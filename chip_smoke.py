@@ -9,11 +9,11 @@ Phases, one line each, every failure an uncaught exception; a
 ``[seconds]`` line ends each phase, and one before the kernel table gives
 them all with the run's total:
   1. device      — a CUDA device is required; its name and power limit;
-  2. build       — nvcc builds the eight sources of csrc/ (K1's reference,
+  2. build       — nvcc builds the nine sources of csrc/ (K1's reference,
                    extended-shading, raygen and mirror-bounce entries, K2,
-                   K3, K4's reference and extended-shading entries;
-                   ops.build.SOURCES), in parallel in the background
-                   while [compare] runs, each of its launches waiting for
+                   K3, K4's reference and extended-shading entries, the
+                   parameter scatter's segment kernel; ops.build.SOURCES),
+                   in parallel in the background while [compare] runs, each of its launches waiting for
                    its own kernel's library (the bounce comparisons' plain
                    twins are taken before their kernel's library is
                    waited for); once all are built, each
@@ -59,7 +59,10 @@ them all with the run's total:
                    512x512 SSAA 2, 1000 iterations, 5 Adam steps, counting
                    launches (one K1 and one K2 a step); then one step split
                    into forward, K2, the rest of the backward and the
-                   optimizer, the parameter scatter alone, and K2's stencil
+                   optimizer, the parameter scatter alone (and its segment
+                   kernel on the rows of a step in the fit's ray order,
+                   the stencil and the colour rows, against index_add_,
+                   with the rows it merges an add), and K2's stencil
                    entry (median of five launches) against its plain twin
                    on a step's 7,340,032 stencil points, on the tables the
                    fit starts from (the collapse on) and on the fitted
@@ -308,12 +311,16 @@ GATE_ATOL, GATE_SHARE = 5e-3, 0.995
 # image tolerance (tests/test_reflections.py:79), on a share AGREE of the
 # pixels (an ulp in a normal may turn a grazing bounce)
 REFLECT_ATOL = 2e-3
-# each CUDA source, one library each: K1's reference, extended-shading,
-# raygen and mirror-bounce entries, K2, K3, K4's reference and
-# extended-shading entries
+# the scene kernels, one CUDA source and library each: K1's reference,
+# extended-shading, raygen and mirror-bounce entries, K2, K3, K4's
+# reference and extended-shading entries
 KERNELS = ("render_kernel", "render_ext_kernel", "render_raygen_kernel",
            "render_bounce_kernel", "surface_kernel", "march_kernel",
            "shade_kernel", "shade_ext_kernel")
+# every source: the scene kernels and the parameter scatter's segmented
+# sum (its launches stay out of the scene kernels' counts; [train]
+# reports it)
+SOURCES = KERNELS + ("segment_kernel",)
 # ptxas's registers and stack frame by entry of the sources the mirror-bounce
 # entries were added beside (the seven-source tree's build, NVIDIA H100
 # 80GB HBM3 machine, nvcc of CUDA 12): [build] says whether they held
@@ -548,7 +555,7 @@ def build_report(built) -> None:
     registers held to the recorded table."""
     from raymarching_tpu_torch.ops import build
 
-    for kname, (lib_path, secs) in zip(KERNELS, built):
+    for kname, (lib_path, secs) in zip(SOURCES, built):
         build.load_library(kname)
         log = lib_path.with_suffix(".log").read_text()
         print(f"[build] {lib_path.name} in {secs:.1f} s; "
@@ -574,7 +581,7 @@ def build_report(built) -> None:
             print(f"[ptxas] {kname}: the seven-source build's registers "
                   f"and stack, entry for entry: "
                   f"{'the same' if same_ else 'CHANGED'}")
-    print(f"[build] {len(KERNELS)} sources in "
+    print(f"[build] {len(SOURCES)} sources in "
           f"{max(secs for _, secs in built):.2f} s (all started together), "
           f"[compare] running meanwhile from its first launch of each "
           f"kernel")
@@ -1112,6 +1119,62 @@ def rays_for(plan, tables, cfg):
     from raymarching_tpu_torch.core import camera as cam
     origin, dirs = cam.generate_rays(tables, cfg)
     return origin, dirs.reshape(-1, 3)
+
+
+def segment_report(plan, tables, cfg, dev, card: str) -> None:
+    """[train]'s segment kernel lines: the parameter scatter alone on the
+    rows of a fit step, its rays in the fit's block order
+    (api._render_rows): the stencil rows (the theta entry, 7 columns) and
+    the colour rows (the generic entry, 3), each against index_add_ (the
+    plain twin, CUDA events around it) on the same rows, float64 sums
+    within 1e-12 of their terms' magnitudes; the rows a warp merges into
+    an add (scene_vjp.merge_factor); the bound, the bytes a row must be
+    read (id, g, u: 20; id and a colour cotangent: 16) at HBM_BYTES_S."""
+    from raymarching_tpu_torch.core.order import frame_blocks, to_blocked
+    from raymarching_tpu_torch.ops import scene_vjp
+    from raymarching_tpu_torch.ops import segment_kernel as seg
+    from raymarching_tpu_torch.ops.render_kernel import render_rays
+    H, W, S = cfg.height, cfg.width, cfg.samples_per_pixel
+    origin, dirs = rays_for(plan, tables, cfg)
+    dirs = to_blocked(dirs, H, W, S, *frame_blocks(cfg, H, "cuda"))
+    hit = render_rays(plan, cfg.replace(shade_skip_black=False), tables,
+                      origin, dirs)
+    _, widx, g = scene_vjp.stencil_eval(plan, cfg, tables, hit.p,
+                                        center=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    u = torch.randn(widx.shape, generator=gen, device=dev)
+    cbar = torch.randn((hit.cidx.shape[0], 3), generator=gen, device=dev)
+    P = tables.prim_pos.shape[0]
+    cases = {
+        "stencil": (widx, 20, lambda: seg.theta_sum(widx, g, u, P),
+                    lambda: seg.theta_sum_plain(widx, g, u, P),
+                    lambda: seg.theta_terms(g.reshape(-1, 3), u.reshape(-1))),
+        "colour": (hit.cidx, 16, lambda: seg.segment_sum(hit.cidx, cbar, P),
+                   lambda: seg.segment_sum_plain(hit.cidx, cbar, P),
+                   lambda: cbar)}
+    total = 0.0
+    for what, (ids, row_bytes, kernel, plain, terms) in cases.items():
+        want, plain_ms = timed(plain, runs=3)
+        got, ms = timed(kernel, runs=5)
+        scale = seg.segment_sum_plain(ids.reshape(-1), terms().abs(), P)
+        err = float(((got - want).abs() / scale.clamp_min(1e-300)).max())
+        check(err <= 1e-12, f"segment kernel, {what} rows: a float64 sum "
+              f"{err:.3g} of its terms' magnitudes off index_add_'s")
+        dev_t = device_ms(kernel, "segment_sum")
+        bound = ids.numel() * row_bytes / HBM_BYTES_S * 1e3
+        total += bound
+        C = got.shape[1]
+        print(f"[train] segment kernel on the fit's {what} rows "
+              f"({ids.numel()} rows x {C} columns onto {P} leaf rows, "
+              f"{scene_vjp.merge_factor(ids):.2f} rows an add): {ms:.3f} ms "
+              f"with its wrapper, {dev_t:.4f} ms on the device alone, "
+              f"index_add_ {plain_ms:.2f} ms; bound {bound:.4f} ms by bytes "
+              f"({row_bytes} B a row), share {100 * bound / dev_t:.1f}%; "
+              f"float64 sums within {err:.2g} of their terms' magnitudes of "
+              f"index_add_'s; {card}")
+    print(f"[train] segment kernel bound a fit step, both scatters: "
+          f"{total:.4f} ms; {card}")
 
 
 def has_demo_objects(img: torch.Tensor) -> bool:
@@ -3267,7 +3330,7 @@ def ptxas_table() -> int:
     bytes), for holding two checkouts' builds against each other entry for
     entry."""
     from raymarching_tpu_torch.ops import build
-    for kname, (lib_path, _) in zip(KERNELS, build.build_all(KERNELS)):
+    for kname, (lib_path, _) in zip(SOURCES, build.build_all(SOURCES)):
         log = lib_path.with_suffix(".log").read_text()
         for e, r, st in ptxas_entries(log):
             print(f"{kname}\t{e}\t{r}\t{st}")
@@ -3389,10 +3452,10 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together in the
     # background; [compare] runs meanwhile, its first launch of a kernel
     # waiting for that kernel's own library (ops.build.build)
-    check(set(KERNELS) == set(build.SOURCES),
-          f"the package's sources {build.SOURCES}, this script's {KERNELS}")
+    check(set(SOURCES) == set(build.SOURCES),
+          f"the package's sources {build.SOURCES}, this script's {SOURCES}")
     nvcc_pool = ThreadPoolExecutor(1)
-    building = nvcc_pool.submit(build.build_all, KERNELS)
+    building = nvcc_pool.submit(build.build_all, SOURCES)
     t_build = time.perf_counter()
 
     phase("compare")
@@ -3757,6 +3820,7 @@ def main() -> int:
           f"{sd7.numel()} rows x 7 columns onto {plan.num_primitives} leaf "
           f"rows): {scatter_ms:.2f} ms; {card}")
     del sd7, widx7, g7, u
+    segment_report(plan, tt, tcfg, dev, card)
 
     phase("multi")
     # 7. the multi-kernel backend at the same frame

@@ -36,10 +36,10 @@ _NAME_LOCKS: dict = {}
 
 # Every kernel source of the package, csrc/<name>.cu, one library each:
 # K1's reference, extended-shading, raygen and mirror-bounce entries, K2,
-# K3, K4's reference and extended-shading entries.
+# K3, K4's reference and extended-shading entries, the parameter scatter.
 SOURCES = ("render_kernel", "render_ext_kernel", "render_raygen_kernel",
            "render_bounce_kernel", "surface_kernel", "march_kernel",
-           "shade_kernel", "shade_ext_kernel")
+           "shade_kernel", "shade_ext_kernel", "segment_kernel")
 
 
 def nvcc_path() -> str:

@@ -23,7 +23,7 @@ FD backward, one K2 launch in all:
      primal from the stencil SDs, and every d scene / dp and winner row.
   2. Autograd through the Lambert replay of ``normalize(gfd)`` times the
      winner colour, with the saved shadow bits; the colour cotangent goes
-     onto the colour rows with ``index_add_``.
+     onto the colour rows with ``scene_vjp.segment_add``.
   3. The FD chain: p_bar += sum of the stencil rows' u_fd * g.
   4. The implicit-function weight w on the hit row, one
      ``theta_cotangents`` scatter over all 7 rows, and the origin and

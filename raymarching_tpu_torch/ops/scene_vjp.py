@@ -19,9 +19,11 @@ have identical fields, so sums over a tie class agree.
 The JAX package reduces with blocked one-hot matmuls (``_segment_add``,
 ``_gather_rows``, and for the fused field ``_segment_add_rows`` over the
 static candidate rows of ``_fused_candidates``), a workaround for the
-TPU's slow scatter; here the reduction is ``index_add_`` (float atomics on
-the card, so the order of the sum changes from run to run) and the gather
-``index_select``, both by id, so no candidate set is needed.
+TPU's slow scatter; here the reduction is ``ops.segment_kernel`` (on the
+card a kernel that merges a warp's rows by leaf in float64 and adds them
+with float atomics, so the order of the sum changes from run to run; on
+the CPU ``index_add_``) and the gather ``index_select``, both by id, so no
+candidate set is needed.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..scene.csg import PrimType
 
 from ..core.sdf import leaf_signs, require_kernel_form
 from ..tables import ext_base, fused_groups
+from .segment_kernel import segment_sum, theta_sum
 from .surface_kernel import COMBINED, surface_eval, surface_stencil
 
 # |grad f . d| can vanish at grazing incidence: the sign-preserving floor
@@ -122,8 +125,9 @@ def ift_ray_weights(t_bar: torch.Tensor, denom: torch.Tensor,
 def segment_add(idx: torch.Tensor, vals: torch.Tensor, P: int
                 ) -> torch.Tensor:
     """[P, C] sums of the rows of vals [R, C] by idx [R] (negative:
-    dropped), scene_vjp._segment_add: misses land on a spare row P that is
-    cut off, so no host sync filters them.
+    dropped), scene_vjp._segment_add: ``segment_kernel.segment_sum``, the
+    segment kernel on the card (vals float32) and ``index_add_`` on the
+    CPU, so no host sync filters the misses.
 
     The sums are taken in float64 and rounded once to vals' dtype.  A
     leaf's stencil rows carry cotangents of +-1 / 2 fd_h that cancel to a
@@ -131,10 +135,24 @@ def segment_add(idx: torch.Tensor, vals: torch.Tensor, P: int
     and the card's atomics reorder it from run to run: in float32 the
     card's and the CPU's gradients of one render differed by more than
     tests/test_mega.py's tolerance."""
-    rows = torch.where(idx >= 0, idx, P).long()
-    out = torch.zeros((P + 1, vals.shape[1]), dtype=torch.float64,
-                      device=vals.device)
-    return out.index_add_(0, rows, vals.double())[:P].to(vals.dtype)
+    return segment_sum(idx, vals, P).to(vals.dtype)
+
+
+def merge_factor(idx: torch.Tensor) -> float:
+    """How many rows the segment kernel sums into each of its adds, on
+    average: the rows of idx [...] with an id >= 0 over the sum, across
+    idx's 32-row chunks (a warp's rows), of the distinct ids >= 0 in each
+    chunk; 0.0 where no row has one.  Computed with torch ops on idx's
+    device, for measurements: no path of the backwards calls it."""
+    ids = idx.reshape(-1).long()
+    valid = int((ids >= 0).sum())
+    if not valid:
+        return 0.0
+    pad = ids.new_full(((-ids.numel()) % 32,), -1)
+    chunks = torch.cat([ids, pad]).reshape(-1, 32).sort(dim=1).values
+    first = torch.ones_like(chunks, dtype=torch.bool)
+    first[:, 1:] = chunks[:, 1:] != chunks[:, :-1]
+    return valid / int((first & (chunks >= 0)).sum())
 
 
 def gather_rows(idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -161,7 +179,10 @@ def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
     [-u g, -u, -u |g| / 2] to its winner's row; sign_eff and the
     sphere/box split are applied per leaf after the sum (they are shared
     by every point that lands on a leaf, and +-1 factors commute exactly
-    with the sum).
+    with the sum).  The columns are float32 and their sums float64
+    (``segment_add``): on the card the segment kernel's theta entry makes
+    the columns in registers from widx, g and u
+    (``segment_kernel.theta_sum``), on the CPU ``index_add_`` sums them.
 
     A plan with procedural leaves also needs the scene SD sd [...] and the
     points p [..., 3] (the winner pass has both): a fractal's DE is
@@ -175,14 +196,7 @@ def theta_cotangents(plan: ScenePlan, tables: SceneTables, widx: torch.Tensor,
     if has_proc and (sd is None or p is None):
         raise ValueError("a plan with procedural leaves needs sd and p for "
                          "theta_cotangents")
-    widx = widx.reshape(-1)
-    g = g.reshape(-1, 3)
-    mu = -u.reshape(-1, 1)
-    cols = [mu * g, mu, 0.5 * mu * g.abs()]
-    if has_proc:
-        cols += [mu * sd.reshape(-1, 1),
-                 mu * (g * p.reshape(-1, 3)).sum(dim=1, keepdim=True)]
-    red = segment_add(widx, torch.cat(cols, dim=1).double(), P)
+    red = theta_sum(widx, g, u, P, *((sd, p) if has_proc else ()))
     se = torch.as_tensor(sign_eff[:P], device=red.device)[:, None]
     sph = torch.as_tensor(is_sphere[:P], device=red.device)[:, None]
     aux_sphere = torch.cat([red[:, 3:4], torch.zeros_like(red[:, :2])], dim=1)
@@ -332,13 +346,7 @@ def fused_theta_cotangents(plan: ScenePlan, tables: SceneTables,
     derived centre (d gval / dr = 1 - 1.5 g_x: -sum -u + 1.5 sum -u g_x).
     -> (prim_pos cotangent [P, 3], prim_aux cotangent [P, 3])."""
     kind, sigma, base_row, P, F = fused_statics(plan)
-    widx = widx.reshape(-1)
-    g = g.reshape(-1, 3)
-    mu = -u.reshape(-1, 1)
-    vals = torch.cat([mu * g, mu, 0.5 * mu * g.abs(), mu * sd.reshape(-1, 1),
-                      mu * (g * p.reshape(-1, 3)).sum(dim=1, keepdim=True)],
-                     dim=1)
-    red = segment_add(widx, vals.double(), P + F)            # [P + F, 9]
+    red = theta_sum(widx, g, u, P + F, sd, p)                # [P + F, 9]
     kind_t = _on(kind, red)[:, None]
     sig = _on(sigma, red).double()[:, None]
     rows = _on(base_row, red)
@@ -393,9 +401,8 @@ def fused_winner_hessian_chain(plan: ScenePlan, tables: SceneTables,
     p_bar = torch.where(curved[:, None], sg[:, None] * hg, zero)
     pos_rows = -p_bar
     aux0 = torch.where(dsc, 1.5 * pos_rows[:, 0], zero)
-    red = segment_add(torch.where(curved, widx, -1),
-                      torch.cat([pos_rows, aux0[:, None]], dim=1).double(),
-                      P + F)
+    red = segment_sum(torch.where(curved, widx, -1),
+                      torch.cat([pos_rows, aux0[:, None]], dim=1), P + F)
     out = torch.zeros((P, 4), dtype=red.dtype, device=dev)
     out.index_add_(0, rows, red)
     out = out.to(g.dtype)

@@ -9,7 +9,9 @@ mirror-bounce entries against their twins, the reflect backward's
 gradients, and depth of field; the procedural views of all four kernels
 (fractal scenes) in every entry and mode, with their gradients; the deep
 views (trees deeper than two levels, a fractal inside) in every entry
-and mode, with their gradients.  Skips without a card.
+and mode, with their gradients; the parameter scatter's segment kernel
+against index_add_, alone and in every backward that ends in it.  Skips
+without a card.
 
 Imports nothing of JAX or the JAX package, so it also runs where neither
 is installed:
@@ -46,6 +48,8 @@ from raymarching_tpu_torch.scene.parser import (load_scene,  # noqa: E402
                                                 parse_scene)
 from raymarching_tpu_torch.ops.render_op import FusedRender  # noqa: E402
 from raymarching_tpu_torch.ops import scene_vjp  # noqa: E402
+from raymarching_tpu_torch.ops import (  # noqa: E402
+    segment_kernel as seg)
 from raymarching_tpu_torch.ops import surface_kernel as sk  # noqa: E402
 from raymarching_tpu_torch.tables import tables_to_torch  # noqa: E402
 
@@ -1570,4 +1574,198 @@ def test_fit_step_spans_on_card(cuda_device, tmp_path):
     for name in ("rt.bwd.replay", "rt.bwd.scatter"):
         (e,) = by[name]
         assert within(e, "rt.bwd") and e["tid"] != step["tid"], seen
+
+
+# the parameter scatter (csrc/segment_kernel.cu): the generic entry at the
+# colour and Hessian rows' 3 columns and at 7 and 9, the theta entry at 7
+# and with procedural leaves 9
+SEGMENT_CASES = [("generic", 3), ("generic", 7), ("generic", 9),
+                 ("theta", 7), ("theta", 9)]
+FIT_CFG = RenderConfig(width=512, height=512, ssaa=2, iterations=1000)
+
+
+@pytest.fixture(scope="module")
+def demo_step_rows():
+    """The rows of the demo's fit step on the card (512x512 SSAA 2, 1000
+    iterations, rays in the fit's block order): K2's stencil (sd7, widx7,
+    g7) at K1's hits, the stencil points and the colour winners."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from raymarching_tpu_torch.core.order import frame_blocks, to_blocked
+    dev = torch.device("cuda")
+    plan, tables = compile_scene(load_scene(str(SCENES / "demo.txt")))
+    tt = tables_to_torch(tables, dev)
+    origin, dirs = cam.generate_rays(tt, FIT_CFG)
+    H, W, S = FIT_CFG.height, FIT_CFG.width, FIT_CFG.samples_per_pixel
+    dirs = to_blocked(dirs.reshape(-1, 3), H, W, S,
+                      *frame_blocks(FIT_CFG, H, "cuda"))
+    out = rk.render_rays(plan, FIT_CFG.replace(shade_skip_black=False), tt,
+                         origin, dirs)
+    sd7, widx7, g7 = scene_vjp.stencil_eval(plan, FIT_CFG, tt, out.p,
+                                            center=True)
+    q7 = sk.stencil_points(out.p, FIT_CFG.fd_h, center=True)
+    return out.cidx, sd7, widx7, g7, q7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", ["random", "coherent", "negative", "empty"])
+@pytest.mark.parametrize("P", [429, 12000])
+@pytest.mark.parametrize("entry, C", SEGMENT_CASES)
+def test_segment_kernel_matches_index_add_on_card(demo_step_rows, entry, C,
+                                                  P, ids):
+    """The segment kernel against float64 index_add_ (its plain twin) on
+    the same float32 terms: P 429 keeps a block's sums in shared memory,
+    P 12,000 (beyond 227 KB of them) adds the warps' sums straight to the
+    output; ids random over [-1, P), the demo's stencil winners of a fit
+    step (7,340,032 rows; the theta entry on K2's own g, sd and stencil
+    points, g read through its strides), all negative, none.  Every
+    float64 sum within 1e-12 of the sum of its terms' magnitudes: both
+    sides' atomics add in their own order.  The demo's stencil rows merge
+    more than 4 rows an add."""
+    cidx, sd7, widx7, g7, q7 = demo_step_rows
+    dev = widx7.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C * P + len(ids))
+    if ids == "coherent":
+        idx = widx7.reshape(-1)
+        assert 0 <= int(idx.max()) < 429
+    else:
+        R = 0 if ids == "empty" else 1 << 20
+        lo, hi = (-3, 0) if ids == "negative" else (-1, P)
+        idx = torch.randint(lo, hi, (R,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    R = idx.shape[0]
+    before = seg.segment_sum.launches
+    if entry == "theta":
+        if ids == "coherent":
+            g, sd, q = g7.reshape(-1, 3), sd7.reshape(-1), q7.reshape(-1, 3)
+            assert g.stride() == (1, R)      # K2's structure of arrays
+        else:
+            g, sd, q = (torch.randn(s, generator=gen, device=dev)
+                        for s in ((R, 3), (R,), (R, 3)))
+        u = torch.randn(R, generator=gen, device=dev)
+        extra = (sd, q) if C == 9 else ()
+        got = seg.theta_sum(idx, g, u, P, *extra)
+        terms = seg.theta_terms(g, u, *extra)
+    else:
+        terms = torch.randn((R, C), generator=gen, device=dev)
+        got = seg.segment_sum(idx, terms, P)
+    torch.cuda.synchronize()
+    assert seg.segment_sum.launches == before + (1 if R else 0)
+    want = seg.segment_sum_plain(idx, terms, P)
+    scale = seg.segment_sum_plain(idx, terms.abs(), P)
+    assert got.dtype == torch.float64 and got.shape == (P, C)
+    assert bool(((got - want).abs() <= 1e-12 * scale).all())
+    if ids in ("negative", "empty"):
+        assert not bool(got.any())
+    if ids == "coherent":
+        assert scene_vjp.merge_factor(idx) > 4
+        assert scene_vjp.merge_factor(cidx) > 4
+
+
+# backwards that end in the parameter scatter: (scene, configuration, the
+# replay's rays a slice or None, segment kernel launches a backward)
+SCATTER_PATHS = {
+    # theta_cotangents over the 7 stencil rows; the colour rows
+    "exact fd": ("demo", {}, None, 2),
+    # theta_cotangents over the winner rows, the Hessian rows (3
+    # columns); the colour rows
+    "exact analytic": ("demo", {"normal_mode": "analytic"}, None, 3),
+    # fused_theta_cotangents (9 columns), the fused Hessian rows; colours
+    "fused analytic": ("demo", {"normal_mode": "analytic",
+                                "fused_generators": True}, None, 3),
+    # the stencil rows with the procedural columns (9); colours
+    "fractal fd": ("julia", {}, None, 2),
+    # _replay_bwd: theta_cotangents (9 columns) on each of 3 slices of 256
+    # rays; the colour rows once
+    "fractal analytic": ("julia", {"normal_mode": "analytic"}, 256, 4),
+}
+
+
+def _plain_scatter(monkeypatch):
+    """Route scene_vjp's scatters to index_add_ on the card."""
+    monkeypatch.setattr(scene_vjp, "segment_sum", seg.segment_sum_plain)
+    monkeypatch.setattr(scene_vjp, "theta_sum", seg.theta_sum_plain)
+
+
+def _same_scatter(got, want, names):
+    for name, a, b in zip(names, got, want):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(b.abs().max().item(), 1e-8)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(SCATTER_PATHS))
+def test_backwards_scatter_through_segment_kernel_on_card(cuda_device,
+                                                          monkeypatch, path):
+    """Each backward that ends in the parameter scatter launches the
+    segment kernel for each of its scatters, and its gradients are those
+    of the same backward with index_add_ on the card (the same rays and
+    kernels; only the order of the float64 sums differs)."""
+    scene, changes, replay, launches = SCATTER_PATHS[path]
+    plan, tables = (_fractal(scene, "cpu")[:2] if scene == "julia" else
+                    compile_scene(load_scene(str(SCENES / "demo.txt"))))
+    cfg = CFG.replace(**changes)
+    if replay:
+        monkeypatch.setattr(scene_vjp, "REPLAY_RAYS", replay)
+    origin, dirs = cam.generate_rays(tables_to_torch(tables, cuda_device),
+                                     cfg)
+
+    def grads():
+        tt = tables_to_torch(tables, cuda_device,
+                             requires_grad=SceneTables._fields)
+        o = origin.clone().requires_grad_()
+        d = dirs.reshape(-1, 3).clone().requires_grad_()
+        colors = FusedRender.apply(plan, cfg, o, d, *tt)
+        return torch.autograd.grad(torch.mean((colors - 0.25) ** 2),
+                                   [*tt, o, d], allow_unused=True,
+                                   materialize_grads=True)
+
+    before = seg.segment_sum.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert seg.segment_sum.launches - before == launches
+    with monkeypatch.context() as m:
+        _plain_scatter(m)
+        before = seg.segment_sum.launches
+        want = grads()
+        assert seg.segment_sum.launches == before
+    _same_scatter(got, want, SceneTables._fields + ("origin", "dirs"))
+    assert got[0].abs().max() > 0 and got[2].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_sharded_step_scatters_through_segment_kernel_on_card(
+        cuda_device, monkeypatch, tmp_path):
+    """parallel/sharded's loss and gradients on a rank (world 1 over NCCL
+    in this process, the whole frame its band): the rank's backward
+    launches the segment kernel for its stencil and colour rows before
+    the all-reduce, and the reduced gradients are those of the same step
+    with index_add_."""
+    import torch.distributed as dist
+    from raymarching_tpu_torch.parallel import distributed as D
+    from raymarching_tpu_torch.parallel import sharded
+    plan, tables = compile_scene(load_scene(str(SCENES / "demo.txt")))
+    target = torch.full((CFG.height, CFG.width, 3), 0.25)
+    D.initialize(f"file://{tmp_path}/rendezvous", 1, 0, backend="nccl",
+                 device="cuda")
+    try:
+        mesh = sharded.make_mesh()
+
+        def grads():
+            return sharded.loss_and_grads(plan, tables, target, CFG, mesh,
+                                          backend="cuda")[1]
+
+        before = seg.segment_sum.launches
+        got = grads()
+        torch.cuda.synchronize()
+        assert seg.segment_sum.launches - before == 2
+        with monkeypatch.context() as m:
+            _plain_scatter(m)
+            want = grads()
+    finally:
+        dist.destroy_process_group()
+    _same_scatter(got, want, SceneTables._fields)
 

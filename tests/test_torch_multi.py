@@ -343,8 +343,8 @@ def test_ops_skip_the_scatter_when_no_geometry_field_asks(op, monkeypatch):
 
     full = run(GEOMETRY)
     scatters = []
-    real = tvjp.segment_add
-    monkeypatch.setattr(tvjp, "segment_add",
+    real = tvjp.theta_sum     # theta_cotangents' scatter
+    monkeypatch.setattr(tvjp, "theta_sum",
                         lambda *a: scatters.append(1) or real(*a))
     assert torch.equal(run(("prim_color",)), full) and not scatters
     assert torch.equal(run(GEOMETRY), full) and scatters

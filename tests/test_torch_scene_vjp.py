@@ -139,3 +139,80 @@ def test_segment_add_keeps_what_cancelling_terms_leave():
     out = tvjp.segment_add(idx, vals, 1)
     assert out.dtype == torch.float32
     np.testing.assert_array_equal(out.numpy(), [[1.0]])
+
+
+# the scatter's shapes: the generic entry's column counts (colour and
+# Hessian rows 3, the stencil's 7, with procedural leaves 9) and the theta
+# entry's; the demo's 429 rows and one that takes the kernel's global path
+SCATTER_ENTRIES = [("generic", 3), ("generic", 7), ("generic", 9),
+                   ("theta", 7), ("theta", 9)]
+
+
+def _scatter_rows(ids: str, R: int, P: int, rng) -> np.ndarray:
+    if ids == "empty":
+        return np.zeros(0, np.int32)
+    if ids == "negative":
+        return -rng.integers(1, 4, R).astype(np.int32)
+    if ids == "runs":          # a ray order's runs of one leaf
+        return np.repeat(rng.integers(-1, P, R // 8 + 1), 8)[:R].astype(
+            np.int32)
+    return rng.integers(-1, P, R).astype(np.int32)
+
+
+@pytest.mark.parametrize("ids", ["random", "runs", "negative", "empty"])
+@pytest.mark.parametrize("P", [429, 12000])
+@pytest.mark.parametrize("entry, C", SCATTER_ENTRIES)
+def test_scatter_cpu_path_matches_numpy_add_at(entry, C, P, ids):
+    """The CPU path of the parameter scatter (``segment_add`` and the
+    columns ``theta_cotangents`` sums) against np.add.at in float64 on the
+    float32 terms: the same sums, rounded once."""
+    from raymarching_tpu_torch.ops import segment_kernel as seg
+    rng = np.random.default_rng(C * P + len(ids))
+    R = 1000
+    idx = _scatter_rows(ids, R, P, rng)
+    R = idx.shape[0]
+    if entry == "theta":
+        g = rng.normal(size=(R, 3)).astype(np.float32)
+        u = rng.normal(size=R).astype(np.float32)
+        sd = rng.normal(size=R).astype(np.float32)
+        q = rng.normal(size=(R, 3)).astype(np.float32)
+        mu = -u[:, None]
+        cols = [mu * g, mu, np.float32(0.5) * mu * np.abs(g)]
+        if C == 9:
+            gq = (g[:, 0] * q[:, 0] + g[:, 1] * q[:, 1]) + g[:, 2] * q[:, 2]
+            cols += [mu * sd[:, None], mu * gq[:, None]]
+        terms = np.concatenate(cols, axis=1)
+        extra = (torch.as_tensor(sd), torch.as_tensor(q)) if C == 9 else ()
+        got = seg.theta_sum(torch.as_tensor(idx), torch.as_tensor(g),
+                            torch.as_tensor(u), P, *extra)
+    else:
+        terms = rng.normal(size=(R, C)).astype(np.float32)
+        got = tvjp.segment_add(torch.as_tensor(idx),
+                               torch.as_tensor(terms).double(), P)
+    want = np.zeros((P, C))
+    keep = idx >= 0
+    np.add.at(want, idx[keep], terms[keep].astype(np.float64))
+    assert got.dtype == torch.float64 and got.shape == (P, C)
+    scale = np.zeros((P, C))
+    np.add.at(scale, idx[keep], np.abs(terms[keep]).astype(np.float64))
+    assert (np.abs(got.numpy() - want) <= 1e-12 * scale).all()
+    if ids in ("negative", "empty"):
+        assert not got.numpy().any()
+    if entry == "generic":
+        rounded = tvjp.segment_add(torch.as_tensor(idx),
+                                   torch.as_tensor(terms), P)
+        assert rounded.dtype == torch.float32
+        np.testing.assert_array_equal(rounded.numpy(),
+                                      want.astype(np.float32))
+
+
+@pytest.mark.parametrize("ids, factor", [
+    ([3] * 64, 32.0),                          # one leaf: 32 rows an add
+    (list(range(32)) * 2, 1.0),                # every row its own leaf
+    ([0, 1] * 16 + [-1] * 32, 16.0),           # interleaved, a chunk of misses
+    ([5] * 40, 20.0),                          # a ragged last chunk
+    ([-1] * 10, 0.0),                          # nothing to add
+])
+def test_merge_factor_counts_a_warps_distinct_leaves(ids, factor):
+    """Rows with a leaf over the distinct leaves of each 32-row chunk."""
+    assert tvjp.merge_factor(torch.tensor(ids, dtype=torch.int32)) == factor
